@@ -10,16 +10,27 @@ Phases, each of which fails the run on any error:
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes (Q=64, B=128; single and batched),
               with its time, the plain version's, a library call's where
-              one exists, and the bound
+              one exists, and the bound: min-plus and masked matmul, the
+              frontier (bitwise) and the push round (masked-matmul
+              tolerance), and one fused-visit launch against its plain
+              version on copies of a mid-run state of the main path
+              (minplus dense, sparse and strict bitwise, push at the
+              tolerance), timed over a CUDA graph of one K=64 chunk
   4. parity   the engine on the card against the engine on the CPU
               (grid2d(32, 32), B=32, Q=16): sssp and bfs bitwise in values,
               edges, stats and visit order; ppr at the masked-matmul
-              tolerance
+              tolerance; then the fused engine on the card against the
+              unfused one on the card (bitwise, ppr too) and against the
+              fused engine on the CPU
   5. path     ``FPPSession(grid2d(SIDE, SIDE), device="cuda")
               .plan(num_queries=64)`` runs sssp, bfs and ppr on 64 seeded
               sources; sssp/bfs are checked against scipy's Dijkstra, ppr
               against mass conservation and the residual bound; each kind
-              must launch its kernel; then one K=64 chunk per algebra is
+              must launch its kernel.  Then ``plan(fused=True)`` runs
+              sssp, bfs, ppr and sssp with the sparse frontier: sssp/bfs
+              bitwise equal to the unfused runs, one fused launch per loop
+              iteration and no contraction launch, one device read per
+              chunk.  Then one K=64 chunk per algebra and dispatch is
               timed and traced for the card's busy share
   6. report   the kernel table as one JSON line, then the result line
 
@@ -105,6 +116,34 @@ def device_ms(torch, fn, iters: int = 200) -> float:
     return a.elapsed_time(b) / iters
 
 
+def replay_ms(torch, fn, reset, count, reps: int = 3):
+    """(total card ms, total count) of ``reps`` replays of ``fn`` captured
+    once in a CUDA graph, each replay after ``reset()`` and between CUDA
+    events; ``count()`` reads what one replay did (e.g. visits)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reset()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    total_ms, total = 0.0, 0
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        total_ms += a.elapsed_time(b)
+        total += count()
+    return total_ms, total
+
+
 def phase_kernels(torch, ops, rng) -> dict:
     """Phase 3: both kernels against their plain versions at Q=64, B=128."""
     Q, B, nblk = 64, 128, 16
@@ -176,6 +215,236 @@ def phase_kernels(torch, ops, rng) -> dict:
     return rows
 
 
+def phase_tiles(torch, rng) -> dict:
+    """Phase 3b: the frontier and the push round against their plain
+    versions at Q=64, B=128."""
+    from repro_torch.kernels.frontier import ops as fops
+    from repro_torch.kernels.frontier.ref import frontier_ref
+    from repro_torch.kernels.ppr_push import ops as pops
+    from repro_torch.kernels.ppr_push.ref import push_ref
+
+    Q, B, dev = 64, 128, torch.device("cuda")
+    qb = Q * B
+
+    def put(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    rows = {}
+    # a visit's start: a few buffered ops over a half-settled distance row
+    buf = put(np.where(rng.random((Q, B)) < 0.1,
+                       rng.uniform(0.0, 50.0, (Q, B)), np.inf))
+    dist = put(np.where(rng.random((Q, B)) < 0.5,
+                        rng.uniform(0.0, 50.0, (Q, B)), np.inf))
+    delta = 4.0
+    got = fops.frontier(buf, dist, delta=delta)
+    d1, srcs, alpha, _, _ = frontier_ref(buf, dist, delta=delta)
+    torch.cuda.synchronize()
+    for g, w in zip(got, (d1, srcs, alpha[:, 0])):
+        if not torch.equal(g, w):
+            raise AssertionError("frontier is not bitwise equal to its "
+                                 "plain version")
+    # each input read once, each output written once; ~5 f32 instructions
+    # per cell (two compares, two mins, the window add)
+    nbytes = 4.0 * (2 * qb + 2 * qb + Q)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 5.0 * qb / PEAK_F32_INSTR_PER_S
+    rows["frontier"] = {
+        "max_abs_err": 0.0,
+        "ms": device_ms(torch, lambda: fops.frontier(buf, dist,
+                                                     delta=delta)),
+        "plain_ms": device_ms(torch, lambda: frontier_ref(buf, dist,
+                                                          delta=delta)),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    log("kernel frontier: " + json.dumps(rows["frontier"]))
+
+    # one push round: a third of the residuals above eps*deg, road-like
+    # block density
+    deg = put(rng.integers(0, 6, B), torch.int32)
+    p = put(rng.uniform(0.0, 1e-2, (Q, B)))
+    r = put(np.where(rng.random((Q, B)) < 0.3,
+                     rng.uniform(0.0, 2e-3, (Q, B)), 0.0))
+    acc = put(rng.uniform(0.0, 1e-3, (Q, B)))
+    w = put(np.where(rng.random((B, B)) < 4.0 / B,
+                     rng.uniform(1.0, 11.0, (B, B)), np.inf))
+    got = pops.ppr_push(p, r, acc, w, deg, alpha=0.15, eps=PPR_EPS)
+    want = push_ref(p, r, acc, w, deg.float(), alpha=0.15, eps=PPR_EPS)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, wt in zip(got, want[:3]):
+        torch.testing.assert_close(g, wt, rtol=MM_RTOL, atol=MM_ATOL)
+        err = max(err, float((g - wt).abs().max()))
+    # the spread's FMAs per (q, u, v) with an active source and a finite
+    # w[u, v], plus ~10 elementwise f32 instructions per cell
+    pairs = float((want[3].float() @ torch.isfinite(w).float()).sum())
+    nbytes = 4.0 * (3 * qb + B * B + B + 3 * qb)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = (pairs + 10.0 * qb) / PEAK_F32_INSTR_PER_S
+    rows["ppr_push"] = {
+        "max_abs_err": err,
+        "ms": device_ms(torch, lambda: pops.ppr_push(
+            p, r, acc, w, deg, alpha=0.15, eps=PPR_EPS)),
+        "plain_ms": device_ms(torch, lambda: push_ref(
+            p, r, acc, w, deg.float(), alpha=0.15, eps=PPR_EPS)),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    log("kernel ppr_push: " + json.dumps(rows["ppr_push"]))
+    return rows
+
+
+def _clone_state(state):
+    from repro_torch.core.visit import VisitState
+    return VisitState(tuple(x.clone() for x in state.planes),
+                      state.buf.clone(), state.prio.clone(),
+                      state.ops_count.clone(), state.stamp.clone())
+
+
+def _copy_state(dst, src) -> None:
+    for a, b in zip((*dst.planes, dst.buf, dst.prio, dst.ops_count,
+                     dst.stamp),
+                    (*src.planes, src.buf, src.prio, src.ops_count,
+                     src.stamp)):
+        a.copy_(b)
+
+
+def _state_tensors(state, stats):
+    return (*state.planes, state.buf, state.prio, state.ops_count,
+            state.stamp, stats)
+
+
+def phase_fused_kernel(torch) -> dict:
+    """Phase 3c: the fused visit on the main path's graph.  One K=64 chunk
+    takes the path to a mid-run state; one launch there is held against its
+    plain version on a copy of the same state, then one K=64 chunk of
+    launches is captured in a CUDA graph and replayed on copies of that
+    state between CUDA events (card ms per visit)."""
+    from repro_torch.core.engine import FPPEngine
+    from repro_torch.core.visit import minplus_algebra
+    from repro_torch.fpp import FPPSession, planner
+    from repro_torch.graphs.generators import grid2d
+    from repro_torch.kernels.fused_visit.ops import (kernel_smem_bytes,
+                                                     make_fused_visit)
+    from repro_torch.kernels.fused_visit.ref import fused_step_ref
+
+    g = grid2d(SIDE, SIDE, seed=0)
+    Q, K = 64, 64
+    sess = FPPSession(g, device="cuda").plan(num_queries=Q, fused=True)
+    B = sess.current_plan.block_size
+    for alg, n in (("minplus", 1), ("push", 2)):
+        want = sess.mem.fused_working_set(B, Q, n)
+        if kernel_smem_bytes(alg, Q, B) != want:
+            raise AssertionError(f"{alg}: the kernel's shared-memory layout "
+                                 f"and the planner's model disagree")
+    srcs = np.random.default_rng(0).choice(g.n, Q, replace=False)
+    bg, perm = sess.prepared()
+    rows = {}
+    for kind, mode in (("sssp", "minplus"), ("ppr", "push")):
+        eng = FPPEngine(bg, mode=mode, num_queries=Q, eps=PPR_EPS,
+                        yield_config=planner.default_yield_config(kind, bg),
+                        fused=True, device="cuda")
+        state, _ = eng._megastep(eng.init_state(perm[srcs]), 0, K)
+        counter, dg = K, eng.dg
+        variants = [("dense", eng.algebra, "dense")]
+        if mode == "minplus":
+            window = eng.algebra.param("window")
+            variants += [("sparse", eng.algebra, "sparse"),
+                         ("strict", minplus_algebra(window, strict=True),
+                          "dense")]
+        err = 0.0
+        for label, alg, fmode in variants:
+            fv = make_fused_visit(dg, alg, eng.max_rounds, K=K,
+                                  frontier_mode=fmode)
+            a, b = _clone_state(state), _clone_state(state)
+            sa, sb = fv.new_stats(a), fv.new_stats(b)
+            fv.step(a, sa, counter)
+            fv.ref(b, sb, counter)
+            torch.cuda.synchronize()
+            if int(sa[0]) != 1:
+                raise AssertionError(f"fused {kind} {label}: the launch ran "
+                                     f"no visit")
+            for x, y in zip(_state_tensors(a, sa), _state_tensors(b, sb)):
+                if mode == "minplus" or not x.is_floating_point():
+                    if not torch.equal(x, y):
+                        raise AssertionError(
+                            f"fused {kind} {label}: one launch differs from "
+                            f"its plain version")
+                else:
+                    torch.testing.assert_close(x, y, rtol=MM_RTOL,
+                                               atol=MM_ATOL)
+                    fin = torch.isfinite(y)
+                    if fin.any():
+                        err = max(err, float((x[fin] - y[fin]).abs().max()))
+            log(f"kernel fused_visit {kind} {label}: one launch matches its "
+                f"plain version")
+
+        # card ms per visit: one chunk's launches in a CUDA graph
+        fv = make_fused_visit(dg, eng.algebra, eng.max_rounds, K=K)
+        steady = _clone_state(state)
+        static = _clone_state(state)
+        stats, fresh = fv.new_stats(static), fv.new_stats(static)
+
+        def reset():
+            _copy_state(static, steady)
+            stats.copy_(fresh)
+
+        total_ms, visits = replay_ms(
+            torch, lambda: fv.chunk(static, counter, K, stats=stats), reset,
+            lambda: int(stats[0]))
+        ms = total_ms / visits
+
+        # the plain version over the same chunk, host clock
+        reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(K):
+            fv.ref(static, stats, counter)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t) / max(int(stats[0]), 1)
+
+        # the chunk's work, counted on its plain version: live (q, u, v)
+        # pairs of every contraction (two f32 instructions each for
+        # min-plus, one FMA for push) and the bytes each visit must move
+        pairs = [0.0]
+
+        def count(x, idx):
+            real = idx[idx >= 0]
+            if real.numel():
+                lhs = (torch.isfinite(x) if mode == "minplus"
+                       else x != 0).float()
+                wf = torch.isfinite(dg.blocks.index_select(0, real)).float()
+                pairs[0] += float((lhs @ wf).sum())
+
+        reset()
+        for _ in range(K):
+            fused_step_ref(dg, fv.spec, static, stats, counter,
+                           on_contract=count)
+        nv = int(stats[0])
+        order = stats[-K:][:nv].long()
+        nslots = (dg.nbr_blk.index_select(0, order) >= 0).sum().item()
+        qb4 = Q * B * 4.0
+        nplanes = len(state.planes)
+        nbytes = (nv * (2 * (nplanes + 1) * qb4 + B * B * 4.0 + 12.0 * B
+                        + 4.0 * dg.num_parts + 16.0 * Q)
+                  + nslots * (B * B * 4.0 + 3 * qb4 + 4.0 * B))
+        ninstr = pairs[0] * (2.0 if mode == "minplus" else 1.0)
+        t_bytes = nbytes / PEAK_BYTES_PER_S / nv
+        t_ops = ninstr / PEAK_F32_INSTR_PER_S / nv
+        row = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "visits_timed": visits,
+            "chunk_visits": nv, "bytes_per_visit": nbytes / nv,
+            "pairs_per_visit": pairs[0] / nv,
+        }
+        log(f"kernel fused_visit {kind}: " + json.dumps(row))
+        rows[kind] = row
+    return rows
+
+
 def phase_parity() -> None:
     """Phase 4: the engine on the card against the engine on the CPU."""
     from repro_torch.core.engine import FPPEngine
@@ -193,32 +462,55 @@ def phase_parity() -> None:
                                                              "natural"))
         yc = planner.default_yield_config(kind, bg)
         res = {}
-        for dev in ("cuda", "cpu"):
+        for dev, fused in (("cuda", False), ("cpu", False), ("cuda", True),
+                           ("cpu", True)):
             eng = FPPEngine(bg, mode=mode, num_queries=Q, yield_config=yc,
-                            eps=PPR_EPS, device=dev)
-            res[dev] = eng.run(perm[srcs], record_order=True)
-        a, b = res["cuda"], res["cpu"]
-        if kind == "ppr":
-            np.testing.assert_allclose(a.values, b.values, rtol=MM_RTOL,
-                                       atol=MM_ATOL, err_msg="ppr values")
-            np.testing.assert_allclose(a.residual, b.residual, rtol=MM_RTOL,
-                                       atol=MM_ATOL, err_msg="ppr residual")
-            log(f"parity ppr: max diff "
-                f"{np.abs(a.values - b.values).max():.3e} (rtol {MM_RTOL}, "
-                f"atol {MM_ATOL}), visits {a.stats.visits} vs "
-                f"{b.stats.visits}")
-            continue
+                            eps=PPR_EPS, fused=fused, device=dev)
+            res[dev, fused] = eng.run(perm[srcs], record_order=True)
+        for label, a, b in (
+                ("card vs CPU", res["cuda", False], res["cpu", False]),
+                ("fused card vs fused CPU", res["cuda", True],
+                 res["cpu", True])):
+            if kind == "ppr":
+                np.testing.assert_allclose(a.values, b.values, rtol=MM_RTOL,
+                                           atol=MM_ATOL,
+                                           err_msg=f"ppr values, {label}")
+                np.testing.assert_allclose(a.residual, b.residual,
+                                           rtol=MM_RTOL, atol=MM_ATOL,
+                                           err_msg=f"ppr residual, {label}")
+                log(f"parity ppr {label}: max diff "
+                    f"{np.abs(a.values - b.values).max():.3e} (rtol "
+                    f"{MM_RTOL}, atol {MM_ATOL}), visits {a.stats.visits} "
+                    f"vs {b.stats.visits}")
+                continue
+            same = (np.array_equal(a.values, b.values)
+                    and np.array_equal(a.edges_processed, b.edges_processed)
+                    and a.stats == b.stats
+                    and a.visit_order == b.visit_order)
+            if not same:
+                raise AssertionError(f"{kind} {label}: runs differ "
+                                     f"({a.stats} vs {b.stats})")
+            log(f"parity {kind} {label}: bitwise equal, {a.stats}")
+        # the fused kernel against the unfused megastep, both on the card:
+        # bitwise for every kind (ppr's spread sums in one order on both)
+        a, b = res["cuda", True], res["cuda", False]
         same = (np.array_equal(a.values, b.values)
+                and (kind != "ppr" or np.array_equal(a.residual, b.residual))
                 and np.array_equal(a.edges_processed, b.edges_processed)
-                and a.stats == b.stats and a.visit_order == b.visit_order)
+                and a.visit_order == b.visit_order
+                and (a.stats.visits, a.stats.rounds) == (b.stats.visits,
+                                                         b.stats.rounds)
+                and a.stats.device_syncs == a.stats.host_syncs)
         if not same:
-            raise AssertionError(f"{kind}: card run differs from CPU run "
-                                 f"({a.stats} vs {b.stats})")
-        log(f"parity {kind}: bitwise equal, {a.stats}")
+            raise AssertionError(f"{kind}: fused card run differs from the "
+                                 f"unfused card run ({a.stats} vs "
+                                 f"{b.stats})")
+        log(f"parity {kind} fused card vs unfused card: bitwise equal, "
+            f"{a.stats}")
 
 
-def phase_path(torch, ops) -> dict:
-    """Phase 5: the main path at 64 queries."""
+def phase_path(torch, counters) -> dict:
+    """Phase 5: the main path at 64 queries, unfused, then fused."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import dijkstra
 
@@ -229,28 +521,36 @@ def phase_path(torch, ops) -> dict:
     Q = 64
     t0 = time.perf_counter()
     sess = FPPSession(g, device="cuda").plan(num_queries=Q)
+    fsess = FPPSession(g, device="cuda").plan(num_queries=Q, fused=True)
     srcs = np.random.default_rng(0).choice(g.n, Q, replace=False)
     plan = sess.current_plan
+    if fsess.current_plan.block_size != plan.block_size:
+        raise AssertionError("the fused plan picked another block size")
     csr = sp.csr_matrix((g.weights.astype(np.float64), g.indices, g.indptr),
                         shape=(g.n, g.n))
     deg = np.maximum(g.out_degree(), 1)
-    launches = {}
-    for kind in ("sssp", "bfs", "ppr"):
-        bg, _ = sess.prepared(weights={"bfs": "unit"}.get(kind, "natural"))
-        ops.reset_launches()
+    launches = {}      # per kernel, summed over the path's runs
+    unfused = {}
+    runs = [(kind, sess, "dense") for kind in ("sssp", "bfs", "ppr")]
+    runs += [(kind, fsess, "dense") for kind in ("sssp", "bfs", "ppr")]
+    runs += [("sssp", fsess, "sparse")]
+    for kind, ss, fmode in runs:
+        fused = ss is fsess
+        bg, _ = ss.prepared(weights={"bfs": "unit"}.get(kind, "natural"))
+        counters.reset()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = sess.run(kind, srcs, eps=PPR_EPS)
+        res = ss.run(kind, srcs, eps=PPR_EPS, frontier_mode=fmode)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = dict(ops.LAUNCHES)
+        counts = counters.read()
+        st = res.stats
         if kind == "ppr":
             mass = res.values.sum(1) + res.residual.sum(1)
             if np.abs(mass - 1.0).max() > 1e-3:
                 raise AssertionError(f"ppr mass {mass}")
             if not (res.residual <= PPR_EPS * deg + 1e-6).all():
                 raise AssertionError("ppr residual above eps*deg")
-            need = "masked_matmul"
         else:
             want = dijkstra(csr, indices=srcs, unweighted=(kind == "bfs"))
             got = res.values.astype(np.float64)
@@ -262,13 +562,41 @@ def phase_path(torch, ops) -> dict:
                                       want[np.isfinite(want)], rtol=1e-5))
             if not (ok and np.isfinite(got).all()):
                 raise AssertionError(f"{kind} disagrees with dijkstra")
-            need = "minplus"
-        if counts[need] <= 0:
-            raise AssertionError(f"{kind} launched no {need} kernel")
+        if not fused:
+            unfused[kind] = res
+            need = "masked_matmul" if kind == "ppr" else "minplus"
+            if counts[need] <= 0:
+                raise AssertionError(f"{kind} launched no {need} kernel")
+        else:
+            if counts["fused_visit"] < st["visits"]:
+                raise AssertionError(f"fused {kind}: fewer fused launches "
+                                     f"than visits")
+            if counts["minplus"] or counts["masked_matmul"]:
+                raise AssertionError(f"fused {kind} launched a contraction "
+                                     f"kernel")
+            if st["device_syncs"] != st["host_syncs"]:
+                raise AssertionError(f"fused {kind}: device_syncs "
+                                     f"{st['device_syncs']} != host_syncs "
+                                     f"{st['host_syncs']}")
+            if kind != "ppr":
+                ref = unfused[kind]
+                if not (np.array_equal(res.values, ref.values)
+                        and np.array_equal(res.edges_processed,
+                                           ref.edges_processed)
+                        and (st["visits"], st["rounds"])
+                        == (ref.stats["visits"], ref.stats["rounds"])):
+                    raise AssertionError(f"fused {kind} ({fmode}) is not "
+                                         f"bitwise equal to the unfused run")
+            # the frontier tile runs in every minplus launch, the push
+            # round in every push launch
+            tile = "ppr_push" if kind == "ppr" else "frontier"
+            launches[tile + "_in_fused"] = (
+                launches.get(tile + "_in_fused", 0) + counts["fused_visit"])
         for name, c in counts.items():
             launches[name] = launches.get(name, 0) + c
-        st = res.stats
-        log(f"path {kind}: " + json.dumps({
+        label = ("fused " if fused else "") + kind + (
+            "-sparse" if fmode == "sparse" else "")
+        log(f"path {label}: " + json.dumps({
             "n": g.n, "m": g.m, "P": bg.num_parts, "B": bg.block_size,
             "Q": Q, "dmax": int(bg.nbr_blk.shape[1]),
             "visits": st["visits"], "rounds": st["rounds"],
@@ -284,8 +612,9 @@ def phase_path(torch, ops) -> dict:
 
 def phase_profile(torch, bg, srcs) -> None:
     """Phase 5b: where a visit's time goes, over one steady K=64 chunk of
-    the main path per algebra.  The chunk is timed on the host clock
-    without the profiler, then a following chunk is traced with
+    the main path per algebra and dispatch (unfused, fused).  The chunk is
+    timed on the host clock without the profiler, then the same chunk,
+    from a copy of the same start state, is traced with
     ``torch.profiler`` for the card's kernel time; the ratio is the card's
     busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -294,19 +623,24 @@ def phase_profile(torch, bg, srcs) -> None:
     from repro_torch.core.visit import make_megastep
     from repro_torch.fpp import planner
 
-    for kind, mode in (("sssp", "minplus"), ("ppr", "push")):
+    for kind, mode, fused in (("sssp", "minplus", False),
+                              ("ppr", "push", False),
+                              ("sssp", "minplus", True),
+                              ("ppr", "push", True)):
         eng = FPPEngine(bg, mode=mode, num_queries=64, eps=PPR_EPS,
                         yield_config=planner.default_yield_config(kind, bg),
                         device="cuda")
-        mega = make_megastep(eng.dg, eng.algebra, eng.max_rounds, K=64)
+        mega = make_megastep(eng.dg, eng.algebra, eng.max_rounds, K=64,
+                             fused=fused)
         state, _ = mega(eng.init_state(srcs), 0, 64)          # warm-up
+        start = _clone_state(state)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, timed = mega(state, 64, 64)
+        _, timed = mega(state, 64, 64)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            state, traced = mega(state, 128, 64)
+            _, traced = mega(start, 64, 64)
             torch.cuda.synchronize()
         rows = sorted(((getattr(e, "self_device_time_total", None)
                         or getattr(e, "self_cuda_time_total", 0.0), e.key,
@@ -314,7 +648,7 @@ def phase_profile(torch, bg, srcs) -> None:
         dev_ms = sum(r[0] for r in rows) / 1e3
         per_visit_wall = wall_ms / max(timed.visits, 1)
         per_visit_dev = dev_ms / max(traced.visits, 1)
-        log(f"profile {kind}: " + json.dumps({
+        log(f"profile {'fused ' if fused else ''}{kind}: " + json.dumps({
             "visits": [timed.visits, traced.visits],
             "rounds": [timed.rounds, traced.rounds],
             "device_syncs": [timed.device_syncs, traced.device_syncs],
@@ -324,6 +658,24 @@ def phase_profile(torch, bg, srcs) -> None:
                                   if dev_ms else None),
             "top_kernels_us": [[k[:60], round(us, 1), n]
                                for us, k, n in rows[:6]]}))
+
+
+class Counters:
+    """Every kernel wrapper's launch count, reset and read together."""
+
+    def __init__(self):
+        from repro_torch.kernels.frontier import ops as fops
+        from repro_torch.kernels.fused_visit import ops as fvops
+        from repro_torch.kernels.minplus import ops as mops
+        from repro_torch.kernels.ppr_push import ops as pops
+        self.mods = (mops, fops, pops, fvops)
+
+    def reset(self) -> None:
+        for m in self.mods:
+            m.reset_launches()
+
+    def read(self) -> dict:
+        return {k: v for m in self.mods for k, v in m.LAUNCHES.items()}
 
 
 def main() -> int:
@@ -359,23 +711,51 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     rng = np.random.default_rng(0)
-    krows = phase_kernels(torch, ops, rng)
+    krows = {name: row["single"]
+             for name, row in phase_kernels(torch, ops, rng).items()}
+    krows.update(phase_tiles(torch, rng))
+    t = time.perf_counter()
+    fused_rows = phase_fused_kernel(torch)
+    krows["fused_visit"] = {**fused_rows["sssp"], "push": fused_rows["ppr"]}
+    log(f"fused kernel phase: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_parity()
     log(f"parity: {time.perf_counter() - t:.1f} s")
-    launches = phase_path(torch, ops)
+    launches = phase_path(torch, Counters())
 
-    replaces = {
-        "minplus": "src/repro/kernels/minplus/minplus.py:105",
-        "masked_matmul": "src/repro/kernels/minplus/minplus.py:135",
+    csrc = "src/repro_torch/kernels/csrc/"
+    kernels = {
+        "minplus": ("minplus.cu", "src/repro/kernels/minplus/minplus.py:105",
+                    "minplus"),
+        "masked_matmul": ("minplus.cu",
+                          "src/repro/kernels/minplus/minplus.py:135",
+                          "masked_matmul"),
+        "frontier": ("frontier.cu",
+                     "src/repro/kernels/frontier/frontier.py:69",
+                     "frontier_in_fused"),
+        "ppr_push": ("ppr_push.cu", "src/repro/kernels/ppr_push/push.py:79",
+                     "ppr_push_in_fused"),
+        "fused_visit": ("fused_visit.cu",
+                        "src/repro/kernels/fused_visit/fused.py:465",
+                        "fused_visit"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    table = [{"name": name, "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/minplus.cu",
-              "replaces": replaces[name], "launches": launches[name],
-              **{k: krows[name]["single"][k] for k in keys}}
-             for name in ("minplus", "masked_matmul")]
+    table = []
+    for name, (src, replaces, count) in kernels.items():
+        row = {"name": name, "route": "cuda", "source": csrc + src,
+               "replaces": replaces, "launches": launches[count],
+               **{k: krows[name][k] for k in keys}}
+        if row["library_ms"] is None:
+            row["library_note"] = "no one-call PyTorch equivalent"
+        if count != name:
+            # the tile runs inside every fused launch of its algebra; its
+            # own entry is not launched on the path
+            row["launches_of"] = "fused_visit"
+        if name == "fused_visit":
+            row["ms_is"] = "card ms per visit (K=64 chunk, CUDA graph)"
+            row["push"] = {k: krows[name]["push"][k] for k in keys}
+        table.append(row)
     log(json.dumps({"kernels": table}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

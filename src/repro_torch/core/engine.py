@@ -7,6 +7,8 @@ the device, so the host harvests stats once per K visits
 (``host_loop=True`` keeps the per-visit loop with the host scheduler as the
 oracle).  On a CUDA device the visit's contractions run the hand-written
 kernels of ``kernels/minplus``; on the CPU their plain versions.
+``fused=True`` runs each visit as one launch of the fused visit kernel
+(``kernels/fused_visit``), with no read back to the host inside a chunk.
 """
 from __future__ import annotations
 
@@ -133,7 +135,8 @@ class FPPEngine:
                  yield_config: YieldConfig = YieldConfig(),
                  schedule: str = "priority", num_queries: int = 1,
                  alpha: float = 0.15, eps: float = 1e-4,
-                 k_visits: int = 64, device=None):
+                 k_visits: int = 64, fused: bool = False,
+                 frontier_mode: str = "dense", device=None):
         if mode in ("cc", "kreach"):
             raise NotImplementedError(
                 f"engine mode {mode!r} is not ported yet (ROADMAP A6)")
@@ -145,6 +148,8 @@ class FPPEngine:
         self.mode = mode
         self.num_queries = num_queries
         self.k_visits = int(k_visits)
+        self.fused = bool(fused)
+        self.frontier_mode = frontier_mode
         self.dg = DeviceGraph.build(bg, yield_config, num_queries, device)
         self.device = self.dg.device
         self.scheduler = PartitionScheduler(schedule, bg.num_parts)
@@ -155,10 +160,13 @@ class FPPEngine:
             self.algebra: VisitAlgebra = push_algebra(alpha, eps)
         else:
             self.algebra = minplus_algebra(yield_config.window())
+        # the host loop keeps the unfused visit: it is the oracle of both
+        # megastep arms
         self._visit = _visit.make_visit(self.dg, self.algebra, max_rounds)
         self._megastep = _visit.make_megastep(
             self.dg, self.algebra, max_rounds, policy=schedule,
-            K=self.k_visits)
+            K=self.k_visits, fused=self.fused,
+            frontier_mode=self.frontier_mode)
         # modeled traffic per visit: diagonal block + touched out-blocks +
         # two state tiles
         B = bg.block_size

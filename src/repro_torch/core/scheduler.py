@@ -9,16 +9,18 @@ selects which partition to visit next:
   random     arbitrary non-empty buffer
   max_ops    most pending ops first
 
-In the hot path selection is on the device (``core/visit.device_select``,
-inside the K-visit megastep); this host implementation is the *oracle* the
-device policies are held against and what ``FPPEngine.run(host_loop=True)``
-calls.
+In the hot path selection is on the device (:func:`device_select`, inside
+the K-visit megastep and the fused visit's plain version); the host
+implementation is the *oracle* the device policies are held against and
+what ``FPPEngine.run(host_loop=True)`` calls.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 POLICIES = ("priority", "fifo", "random", "max_ops")
+_INT32_MAX = np.iinfo(np.int32).max
 
 
 class PartitionScheduler:
@@ -37,7 +39,7 @@ class PartitionScheduler:
         ops_count: [P] pending op count.  Returns the partition id, or None
         when every buffer is drained (run complete).
 
-        Deterministic policies here and in ``core/visit.device_select``
+        Deterministic policies here and in :func:`device_select`
         must agree bit-for-bit, first-index ties included."""
         nonempty = np.isfinite(prio)
         if not nonempty.any():
@@ -53,3 +55,25 @@ class PartitionScheduler:
         # random
         choices = np.flatnonzero(nonempty)
         return int(self._rng.choice(choices))
+
+
+def device_select(policy: str, prio: torch.Tensor, stamp: torch.Tensor,
+                  ops_count: torch.Tensor) -> torch.Tensor:
+    """On-device mirror of ``PartitionScheduler.select`` (the host oracle).
+
+    Takes the ``[P]`` metadata (no trash slot) and returns the selected
+    partition as a ``[1]`` int64 tensor.  The caller guarantees at least one
+    finite-priority partition.  The deterministic policies reproduce the
+    host argmin/argmax bit for bit, first-index tie-breaking included.
+    """
+    if policy == "priority":
+        return torch.argmin(prio).view(1)
+    nonempty = torch.isfinite(prio)
+    if policy == "fifo":
+        return torch.argmin(torch.where(nonempty, stamp, _INT32_MAX)).view(1)
+    if policy == "max_ops":
+        return torch.argmax(torch.where(nonempty, ops_count, -1)).view(1)
+    if policy == "random":
+        raise NotImplementedError(
+            "the random policy needs the threefry port (ROADMAP A8)")
+    raise ValueError(f"unknown scheduling policy {policy!r}")

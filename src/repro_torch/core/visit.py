@@ -49,12 +49,13 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.scheduler import POLICIES
+from repro_torch.core.scheduler import POLICIES, device_select
+from repro_torch.kernels.fused_visit.ops import make_fused_visit
+from repro_torch.kernels.fused_visit.ref import split_stats
 from repro_torch.kernels.minplus import ops as minplus_ops
 
 INF = float("inf")
 _BIG_STAMP = np.iinfo(np.int32).max - 1
-_INT32_MAX = np.iinfo(np.int32).max
 
 #: edge counters carry (hi, lo) int32 lanes; lo spills into hi in units of
 #: 2**EDGE_SHIFT so totals stay exact up to ~2^51 edges per query.
@@ -103,6 +104,13 @@ class VisitAlgebra:
     prio_of: Callable                # (buf, planes, deg) -> ([...] f32
     #                                  priority, [...] i32 op count)
     finish: Callable                 # (carry, deg_row) -> (planes_row', keep)
+    #: the scalars the operators close over (``window``/``strict`` or
+    #: ``alpha``/``eps``), as (name, value) pairs: what the fused kernel
+    #: is handed instead of the closures
+    params: Tuple[Tuple[str, float], ...] = ()
+
+    def param(self, name: str) -> float:
+        return dict(self.params)[name]
 
 
 def _sum2(x: torch.Tensor) -> torch.Tensor:
@@ -158,7 +166,8 @@ def minplus_algebra(window: float, strict: bool = False) -> VisitAlgebra:
         combine=torch.minimum, begin=begin, active=active, step=step,
         emit_payload=lambda carry: torch.where(carry.emit, carry.d, INF),
         emit_mask=lambda carry: carry.emit,
-        contrib=relax, pending=pending, prio_of=prio_of, finish=finish)
+        contrib=relax, pending=pending, prio_of=prio_of, finish=finish,
+        params=(("window", float(window)), ("strict", float(strict))))
 
 
 def push_algebra(alpha: float, eps: float) -> VisitAlgebra:
@@ -209,7 +218,8 @@ def push_algebra(alpha: float, eps: float) -> VisitAlgebra:
         combine=torch.add, begin=begin, active=active, step=step,
         emit_payload=lambda carry: carry.acc,
         emit_mask=lambda carry: carry.acc > 0,
-        contrib=spread, pending=pending, prio_of=prio_of, finish=finish)
+        contrib=spread, pending=pending, prio_of=prio_of, finish=finish,
+        params=(("alpha", float(alpha)), ("eps", float(eps))))
 
 
 # ---------------------------------------------------------------------------
@@ -354,28 +364,6 @@ def make_visit(dg, algebra: VisitAlgebra, max_rounds: int) -> Callable:
 # device-resident scheduling: the K-visit megastep
 
 
-def device_select(policy: str, prio: torch.Tensor, stamp: torch.Tensor,
-                  ops_count: torch.Tensor) -> torch.Tensor:
-    """On-device mirror of ``PartitionScheduler.select`` (the host oracle).
-
-    Takes the ``[P]`` metadata (no trash slot) and returns the selected
-    partition as a ``[1]`` int64 tensor.  The caller guarantees at least one
-    finite-priority partition.  The deterministic policies reproduce the
-    host argmin/argmax bit for bit, first-index tie-breaking included.
-    """
-    if policy == "priority":
-        return torch.argmin(prio).view(1)
-    nonempty = torch.isfinite(prio)
-    if policy == "fifo":
-        return torch.argmin(torch.where(nonempty, stamp, _INT32_MAX)).view(1)
-    if policy == "max_ops":
-        return torch.argmax(torch.where(nonempty, ops_count, -1)).view(1)
-    if policy == "random":
-        raise NotImplementedError(
-            "the random policy needs the threefry port (ROADMAP A8)")
-    raise ValueError(f"unknown scheduling policy {policy!r}")
-
-
 class MegastepStats(NamedTuple):
     """Per-chunk accumulators, harvested once per host dispatch."""
     visits: int                 # visits executed this chunk (<= K)
@@ -388,7 +376,8 @@ class MegastepStats(NamedTuple):
 
 
 def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
-                  policy: str = "priority", K: int = 64) -> Callable:
+                  policy: str = "priority", K: int = 64, fused: bool = False,
+                  frontier_mode: str = "dense") -> Callable:
     """Scheduling loop: up to K visits per host dispatch, the scheduler's
     choice made on the device from the ``[P]`` prio/stamp/ops planes.
 
@@ -398,6 +387,16 @@ def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
     partition holds a pending op — ``stats.visits < limit`` is the host's
     termination signal.  Edge counters carry an exact ``(hi, lo)`` int32
     pair per query.
+
+    ``fused=True`` runs each iteration of the loop as one launch of the
+    fused visit kernel (``kernels/fused_visit``): selection, the whole
+    visit and the stats stay on the device, the chunk's ``min(limit, K)``
+    launches go out back to back, and the host reads the stats once per
+    chunk (``device_syncs`` is 1).  On the CPU each launch is the kernel's
+    plain version.  Bit-identical to the unfused loop for minplus, and for
+    push on the same device (the spread sums in one order on each).
+    ``frontier_mode="sparse"`` (minplus only) lets the kernel skip all-+inf
+    source columns: identical bits, less work on thin frontiers.
     """
     if policy not in POLICIES:
         raise ValueError(f"unknown scheduling policy {policy!r}; "
@@ -408,6 +407,13 @@ def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
     if K < 1:
         raise ValueError(f"megastep chunk size K must be >= 1, got {K}")
     P = dg.num_parts
+    if fused:
+        return _make_fused_megastep(dg, algebra, max_rounds, policy, K,
+                                    frontier_mode)
+    if frontier_mode != "dense":
+        raise ValueError(
+            "frontier_mode is a fused-kernel switch; the unfused megastep "
+            "always runs the dense frontier math")
     visit = make_visit(dg, algebra, max_rounds)
 
     def megastep(state: VisitState, counter: int, limit: int):
@@ -438,6 +444,26 @@ def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
         return state, MegastepStats(visits=k, rounds=rounds, eq_hi=hi,
                                     eq_lo=lo, visit_counts=counts,
                                     order=order, device_syncs=syncs)
+
+    return megastep
+
+
+def _make_fused_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
+                         policy: str, K: int,
+                         frontier_mode: str) -> Callable:
+    """The fused arm of :func:`make_megastep`: one kernel launch per loop
+    iteration, one stats read per chunk."""
+    P = dg.num_parts
+    fv = make_fused_visit(dg, algebra, max_rounds, policy=policy,
+                          frontier_mode=frontier_mode, K=K)
+
+    def megastep(state: VisitState, counter: int, limit: int):
+        Q = state.buf.shape[1]
+        stats = fv.chunk(state, counter, min(int(limit), K)).cpu()
+        hi, lo, counts, order = split_stats(stats, Q, P)
+        return state, MegastepStats(
+            visits=int(stats[0]), rounds=int(stats[1]), eq_hi=hi, eq_lo=lo,
+            visit_counts=counts, order=order, device_syncs=1)
 
     return megastep
 

@@ -66,15 +66,24 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
               yield_config: Optional[YieldConfig] = None,
               alpha: float = 0.15, eps: float = 1e-4,
               max_visits: Optional[int] = None,
+              fused: bool = False, frontier_mode: str = "dense",
               device=None) -> BackendResult:
     """Run one query batch (sources in reordered ids) on one backend.
     bfs expects ``bg`` built from the unit-weight variant (the session's
-    ``prepared`` does this)."""
+    ``prepared`` does this).  ``fused=True`` (engine backend only) runs
+    each visit as one launch of the fused visit kernel;
+    ``frontier_mode="sparse"`` (minplus kinds) lets it skip all-+inf source
+    columns."""
+    if fused and backend != "engine":
+        raise ValueError(
+            f"fused=True is an engine-backend flag; backend={backend!r} "
+            f"runs its own visit bodies")
     check_supported(backend, kind)
     sources = np.asarray(sources)
     eng = FPPEngine(bg, mode=_ENGINE_MODE[kind], num_queries=len(sources),
                     yield_config=yield_config or YieldConfig(),
-                    schedule=schedule, alpha=alpha, eps=eps, device=device)
+                    schedule=schedule, alpha=alpha, eps=eps, fused=fused,
+                    frontier_mode=frontier_mode, device=device)
     res = eng.run(sources, max_visits=max_visits)
     return _normalize(res.values, res.residual, res.edges_processed, {
         "visits": res.stats.visits, "rounds": res.stats.rounds,

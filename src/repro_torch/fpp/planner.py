@@ -11,8 +11,11 @@ that keeps hot blocks warm across visits; the state planes must fit HBM:
     argmax B  s.t.  working_set(B, Q) <= smem_bytes
 
 At Q = 64 that gives B = 128 (2·128²·4 + 2·64·128·4 = 196,608 bytes of
-232,448); B = 256 does not fit.  Measuring the candidates (the reference's
-``tune=True``) waits for a later slice.
+232,448); B = 256 does not fit.  A fused plan must also fit the fused visit
+kernel's shared-memory layout (:meth:`MemoryModel.fused_working_set`, the
+bytes the kernel asks for at launch); at Q = 64 that still gives B = 128.
+Measuring the candidates (the reference's ``tune=True``) waits for a later
+slice.
 """
 from __future__ import annotations
 
@@ -23,23 +26,33 @@ import numpy as np
 
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.yielding import YieldConfig, default_delta
+from repro_torch.kernels.fused_visit.ops import smem_bytes
 
 #: block-size candidates, smallest to largest
 CANDIDATE_BLOCK_SIZES = (64, 128, 256, 512, 1024, 2048, 4096)
 
+#: neighbour-slot budget of ``auto_fused``: past it the auto-select keeps
+#: the unfused megastep (the reference's guard; here the fused visit
+#: streams neighbour blocks one at a time, so dmax costs time, not memory)
+FUSED_DMAX_BUDGET = 8
+
 #: measured dispatch yardsticks (visits/s) keyed (kind, dispatch, K), read
-#: by :func:`auto_fused`.  Empty until the port has a fused visit and a
-#: benchmark measured on the card; the reference's rows are not carried over.
+#: by :func:`auto_fused`.  Empty until a benchmark measures both dispatches
+#: on the card; the reference's rows are not carried over.
 DISPATCH_YARDSTICKS: dict = {}
 
 #: bfs runs the same minplus kernels as sssp, so it shares sssp's rows
 _YARDSTICK_KIND = {"bfs": "sssp", "cc": "sssp", "kreach": "sssp"}
 
 
-def auto_fused(kind: str, k_visits: int = 64) -> bool:
+def auto_fused(kind: str, k_visits: int = 64,
+               dmax: Optional[int] = None) -> bool:
     """True iff the committed yardsticks show a fused visit faster than the
-    unfused megastep for ``kind`` at the nearest chunk size.  With no rows,
-    False for every kind."""
+    unfused megastep for ``kind`` at the nearest chunk size, and ``dmax``
+    (the partitioning's neighbour slots, when known) is within
+    :data:`FUSED_DMAX_BUDGET`.  With no rows, False for every kind."""
+    if dmax is not None and int(dmax) > FUSED_DMAX_BUDGET:
+        return False
     yk = _YARDSTICK_KIND.get(kind, kind)
     ks = sorted({k for (kk, _, k) in DISPATCH_YARDSTICKS if kk == yk})
     if not ks:
@@ -61,7 +74,9 @@ class MemoryModel:
       buffer tile       Q*B*dtype
     ``l2_bytes`` bounds one visit's hub neighbourhood; HBM holds the
     block-sparse graph plus the [P, Q, B] state planes, and ``hbm_bytes``
-    caps the state so Q and B cannot silently overflow the card.
+    caps the state so Q and B cannot silently overflow the card.  A fused
+    visit holds its rows, masks and one block in shared memory for the whole
+    visit: :meth:`fused_working_set`.
     """
     smem_bytes: int = 232_448            # per thread block (227 KB)
     l2_bytes: int = 50 * 1000 ** 2       # 50 MB
@@ -74,6 +89,16 @@ class MemoryModel:
         return (mult * block_size * block_size * self.dtype_bytes
                 + 2 * num_queries * block_size * self.dtype_bytes)
 
+    def fused_working_set(self, block_size: int, num_queries: int,
+                          num_planes: int = 2) -> int:
+        """Dynamic shared-memory bytes one fused visit asks for at launch:
+        the kernel's layout for ``num_planes`` value planes (1: minplus,
+        2: push) — the ``[Q, B]`` planes and masks of the visited rows,
+        one adjacency block (minplus: f32; push: its finite mask as bits)
+        and the per-row and per-column scratch.  Neighbour blocks stream
+        through that one block slot, so ``dmax`` does not enter."""
+        return smem_bytes(num_planes, num_queries, block_size)
+
     def state_bytes(self, n_vertices: int, num_queries: int,
                     block_size: int) -> int:
         """HBM-resident state planes (dist + buf + one spare), padded."""
@@ -81,8 +106,14 @@ class MemoryModel:
         return 3 * n_pad * num_queries * self.dtype_bytes
 
     def fits(self, block_size: int, num_queries: int,
-             n_vertices: Optional[int] = None) -> bool:
+             n_vertices: Optional[int] = None, *,
+             fused: bool = False) -> bool:
+        """``fused=True`` also requires the fused kernel's launch to fit,
+        for either algebra (a plan serves every kind)."""
         if self.working_set(block_size, num_queries) > self.smem_bytes:
+            return False
+        if fused and max(self.fused_working_set(block_size, num_queries, n)
+                         for n in (1, 2)) > self.smem_bytes:
             return False
         if n_vertices is not None and self.state_bytes(
                 n_vertices, num_queries, block_size) > self.hbm_bytes:
@@ -100,16 +131,25 @@ class Plan:
     num_queries: int
     mem: MemoryModel
     yield_config: Optional[YieldConfig] = None   # None => per-kind default
-    #: visit-body dispatch: False = unfused megastep, "auto" = per kind
-    #: from the yardsticks (:func:`auto_fused`); the fused visit itself is
-    #: not ported yet (ROADMAP B5)
+    #: visit-body dispatch: False = unfused megastep, True = the fused
+    #: visit kernel, "auto" = per kind from the yardsticks
+    #: (:func:`auto_fused`)
     fused: object = False
 
-    def resolve_fused(self, kind: str, k_visits: int = 64) -> bool:
+    def resolve_fused(self, kind: str, k_visits: int = 64,
+                      dmax: Optional[int] = None) -> bool:
         """The concrete visit body for one kind under this plan."""
         if self.fused == "auto":
-            return auto_fused(kind, k_visits)
+            return auto_fused(kind, k_visits, dmax=dmax)
         return bool(self.fused)
+
+    def working_set_bytes(self) -> int:
+        """Shared memory one visit of this plan holds: the fused kernel's
+        launch size (the larger algebra's) or the unfused working set."""
+        if self.fused:
+            return max(self.mem.fused_working_set(
+                self.block_size, self.num_queries, n) for n in (1, 2))
+        return self.mem.working_set(self.block_size, self.num_queries)
 
 
 def default_method(g: CSRGraph) -> str:
@@ -142,7 +182,7 @@ def est_dmax(g: CSRGraph, block_size: int) -> int:
 
 def model_block_size(g: CSRGraph, num_queries: int, mem: MemoryModel,
                      candidates: Sequence[int] = CANDIDATE_BLOCK_SIZES,
-                     min_parts: int = 8) -> int:
+                     min_parts: int = 8, fused: bool = False) -> int:
     """Largest candidate whose visit working set fits the memory model.
 
     Also keeps at least ``min_parts`` partitions alive (clamped to what the
@@ -150,7 +190,8 @@ def model_block_size(g: CSRGraph, num_queries: int, mem: MemoryModel,
 
     A skew guard for hub-heavy graphs: one visit's neighbourhood — the
     diagonal block plus :func:`est_dmax` boundary blocks — must stay
-    inside the L2 cache.
+    inside the L2 cache.  ``fused=True`` also requires the fused visit
+    kernel's shared memory to fit.
     """
     best = None
     for b in candidates:
@@ -159,7 +200,7 @@ def model_block_size(g: CSRGraph, num_queries: int, mem: MemoryModel,
         hood = (1 + est_dmax(g, b)) * b * b * mem.dtype_bytes
         if hood > mem.l2_bytes:
             continue   # hub neighbourhoods outgrow L2 at this B
-        if mem.fits(b, num_queries, g.n):
+        if mem.fits(b, num_queries, g.n, fused=fused):
             best = b
     if best is None:
         raise ValueError(
@@ -180,13 +221,12 @@ def make_plan(g: CSRGraph, num_queries: int, *,
               fused: object = False) -> Plan:
     """Resolve a plan without measuring (the model-only path)."""
     mem = mem or MemoryModel()
-    if fused is True:
-        raise NotImplementedError(
-            "the fused visit is not ported yet (ROADMAP B5)")
-    if fused not in (False, "auto"):
-        raise ValueError(f"fused must be False or 'auto', got {fused!r}")
+    if fused not in (False, True, "auto"):
+        raise ValueError(f"fused must be True, False or 'auto', got "
+                         f"{fused!r}")
     if block_size is None:
-        block_size = model_block_size(g, num_queries, mem)
+        block_size = model_block_size(g, num_queries, mem,
+                                      fused=fused is True)
     method = method or default_method(g)
     return Plan(block_size=int(block_size), method=method, schedule=schedule,
                 backend=backend, num_queries=int(num_queries), mem=mem,

@@ -5,6 +5,7 @@ The port of the JAX package's ``repro.fpp.session`` for this slice:
     sess = FPPSession(g)                       # host CSR, original vertex ids
     sess.plan(num_queries=64)                  # Hopper memory-model plan
     res = sess.run("sssp", sources)            # original ids in AND out
+    sess.plan(num_queries=64, fused=True)      # one kernel launch per visit
 
 The session runs on CUDA unless it is given ``device="cpu"``; with no card
 and no explicit CPU device it raises.  Everything downstream (engine,
@@ -64,7 +65,11 @@ class FPPSession:
              backend: str = "engine",
              yield_config: Optional[YieldConfig] = None,
              fused: object = False) -> "FPPSession":
-        """Resolve the execution plan from the memory model; chainable."""
+        """Resolve the execution plan from the memory model; chainable.
+
+        ``fused`` may be True/False (a blanket visit-body choice) or
+        ``"auto"``: each run then picks the body per kind from the
+        committed dispatch yardsticks (``planner.auto_fused``)."""
         self._plan = _planner.make_plan(
             self.graph, num_queries, mem=self.mem, block_size=block_size,
             method=method, schedule=schedule, backend=backend,
@@ -107,29 +112,33 @@ class FPPSession:
             method: Optional[str] = None,
             alpha: float = 0.15, eps: float = 1e-4,
             max_visits: Optional[int] = None,
-            fused: Optional[bool] = None) -> SessionResult:
+            fused: Optional[bool] = None,
+            frontier_mode: str = "dense") -> SessionResult:
         """Execute one query batch.  Sources and values use original ids.
 
-        ``fused`` defaults to the plan's setting, which resolves to the
-        unfused megastep for every kind until the fused visit is ported
-        (ROADMAP B5); ``fused=True`` raises.
+        ``fused`` defaults to the plan's setting (``plan(fused=True)``);
+        pass it explicitly to override per run.  ``frontier_mode="sparse"``
+        lets the fused kernel skip all-+inf source columns (minplus kinds
+        only).
         """
         sources = np.asarray(sources)
         p = self.current_plan
         bk = backend or p.backend
         _backends.check_supported(bk, kind)
-        if fused is None:
-            fused = p.resolve_fused(kind)
-        if fused:
-            raise NotImplementedError(
-                "the fused visit is not ported yet (ROADMAP B5)")
         bg, perm = self.prepared(block_size=block_size, method=method,
                                  weights=WEIGHT_VARIANTS.get(kind, "natural"))
+        if fused is None:
+            # the plan's default applies only where it can: other backends
+            # run their own visit bodies (an explicit fused=True raises);
+            # "auto" keeps the unfused megastep past the dmax budget
+            fused = bk == "engine" and p.resolve_fused(
+                kind, dmax=bg.nbr_blk.shape[1])
         yc = (yield_config if yield_config is not None else
               (p.yield_config or _planner.default_yield_config(kind, bg)))
         out = _backends.run_query(
             bk, kind, bg, perm[sources], schedule=schedule or p.schedule,
             yield_config=yc, alpha=alpha, eps=eps, max_visits=max_visits,
+            fused=bool(fused), frontier_mode=frontier_mode,
             device=self.device)
         residual = None if out.residual is None else out.residual[:, perm]
         return SessionResult(kind=kind, backend=bk,

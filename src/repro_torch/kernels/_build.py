@@ -3,12 +3,16 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch/`` at
 the repository root and loaded with ``ctypes``.  The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-a stale library is never loaded.  All sources that need a build are
-compiled in parallel, one ``nvcc`` each.
+carries a hash of its source, of every header (``*.cuh``) beside it and of
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  All sources that need a build are compiled in parallel, one
+``nvcc`` each.
 
 No ``--use_fast_math``: it flushes denormals and relaxes inf/NaN handling,
 and the min-plus kernel's bitwise claim rests on exact IEEE adds of +inf.
+``-fmad=false``: a product is never contracted into a following add, so
+every expression rounds where the plain PyTorch version rounds (explicit
+``fmaf`` calls stay fused).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -42,7 +47,13 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
+    """The library path for ``src``: its name hashes the source, every
+    ``*.cuh`` in the source's directory (the headers a source may include)
+    and the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,0 +1,186 @@
+// Device code shared by the visit kernels: the frontier tile, the push round
+// and the 4x4 contraction tile.  frontier.cu, ppr_push.cu and fused_visit.cu
+// include it, so each standalone entry and the fused visit run the same
+// instructions, as the reference's standalone Pallas calls and its fused
+// kernel share frontier_tile and push_tile.
+//
+// Numerics: every expression is evaluated in the order of the port's plain
+// PyTorch versions (kernels/frontier/ref.py, kernels/ppr_push/ref.py and
+// core/visit.py's algebras) with explicitly rounded f32 operations
+// (__fadd_rn, __fmul_rn, __fdiv_rn), and the sources build with
+// -fmad=false, so no product is contracted into a following add.  The push
+// spread sums u = 0..B-1 in order with one fmaf per term starting from 0,
+// exactly as fg_masked_matmul (minplus.cu) does, so the fused and the
+// unfused ppr on the card are bitwise equal.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace fg {
+
+__device__ __forceinline__ float warp_min(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The frontier tile (reference kernels/frontier/frontier.py frontier_tile)
+// over one query row of B values, run by one whole warp:
+//   pending = isfinite(buf) & (strict ? buf < dist : buf <= dist)
+//   d1      = min(dist, pending ? buf : +inf)
+//   alpha   = min over the row of (pending ? d1 : +inf)      (returned)
+//   srcs    = (pending & d1 <= alpha + delta) ? d1 : +inf   (if srcs)
+// `pend` and `srcs` may be null.  Pointers may be global or shared.
+__device__ inline float frontier_row(const float* buf, const float* dist,
+                                     float* d1, uint8_t* pend, float* srcs,
+                                     int B, float delta, bool strict,
+                                     int lane) {
+  float best = INFINITY;
+  for (int v = lane; v < B; v += 32) {
+    const float b = buf[v], d = dist[v];
+    const bool pe = isfinite(b) && (strict ? b < d : b <= d);
+    const float x = fminf(d, pe ? b : INFINITY);
+    d1[v] = x;
+    if (pend) pend[v] = pe;
+    if (pe) best = fminf(best, x);
+  }
+  const float alpha = warp_min(best);
+  if (srcs) {
+    const float thr = __fadd_rn(alpha, delta);
+    for (int v = lane; v < B; v += 32) {
+      const float b = buf[v], d = dist[v];
+      const bool pe = isfinite(b) && (strict ? b < d : b <= d);
+      const float x = fminf(d, pe ? b : INFINITY);
+      srcs[v] = (pe && x <= thr) ? x : INFINITY;
+    }
+  }
+  return alpha;
+}
+
+// W[u][v] = blk[u][v] for u, v < B, +inf in the pad columns [B, ldw).
+__device__ inline void load_weights(float* W, const float* blk, int B,
+                                    int ldw, int tid, int nt) {
+  for (int i = tid; i < B * ldw; i += nt) {
+    const int u = i / ldw, v = i % ldw;
+    W[i] = v < B ? blk[static_cast<int64_t>(u) * B + v] : INFINITY;
+  }
+}
+
+// bits[u][w] bit b = isfinite(blk[u][32 w + b]) (0 past B); one warp per
+// word, each lane reading one column, so the reads are coalesced.
+__device__ inline void load_mask_bits(uint32_t* bits, const float* blk,
+                                      int B, int bw, int warp, int nwarps,
+                                      int lane) {
+  for (int i = warp; i < B * bw; i += nwarps) {
+    const int u = i / bw, v = (i % bw) * 32 + lane;
+    const bool f = v < B && isfinite(blk[static_cast<int64_t>(u) * B + v]);
+    const uint32_t word = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) bits[i] = word;
+  }
+}
+
+// One 4x4 output tile of a visit's contraction: rows q0..q0+3 of X
+// [.., ldx] against block columns v0..v0+3 (v0 a multiple of 4), over the
+// source rows u = us[0..nu) (u = 0..nu-1, ascending, when us is null):
+//   min-plus  acc = min(acc, x[q, u] + W[u, v])          W    [.., ldw] f32
+//   push      acc = fmaf(x[q, u], finite(W[u, v]), acc)  bits [.., ldw] u32
+// A skipped u (sparse list) whose sources are all +inf adds only +inf to
+// an exact min, so the list changes the work and not the bits.
+template <bool kMinPlus>
+__device__ __forceinline__ void contract_tile(float (&acc)[4][4],
+                                              const float* X, int ldx,
+                                              int q0, const float* W,
+                                              const uint32_t* bits, int ldw,
+                                              int v0, const int* us,
+                                              int nu) {
+  for (int i = 0; i < nu; ++i) {
+    const int u = us ? us[i] : i;
+    float x[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = X[(q0 + r) * ldx + u];
+    if (kMinPlus) {
+      const float4 w4 = *reinterpret_cast<const float4*>(W + u * ldw + v0);
+      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] = fminf(acc[r][c], __fadd_rn(x[r], w[c]));
+    } else {
+      const uint32_t nib = bits[u * ldw + (v0 >> 5)] >> (v0 & 31);
+      float m[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) m[c] = ((nib >> c) & 1u) ? 1.0f : 0.0f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r], m[c], acc[r][c]);
+    }
+  }
+}
+
+// The push-mode active test of one cell (push_algebra.active without the
+// budget lane): r >= eps * max(deg, 1) on a vertex with out-edges.
+__device__ __forceinline__ bool push_active(float r, float thresh,
+                                            bool has_edges) {
+  return r >= thresh && has_edges;
+}
+
+// One ACL push round (reference kernels/ppr_push/push.py push_tile, in
+// push_algebra.step's expression order) over rows [0, rows) of the
+// [rows_pad, ld] shared tiles p, r, acc, with the active set `act` given:
+//   af = act;  p += alpha*r*af;  x = (1-alpha)*r*af/degc;  acc += x
+//   r  = r*(1-af) + x @ finite(W)           (W as mask bits [B, bw])
+// `c1` is the f32 value of 1 - alpha.  x is scratch; its rows in
+// [rows, rows_pad) must hold 0.  Every thread of the block calls it; it
+// ends with a barrier.
+__device__ inline void push_round(float* p, float* r, float* acc, float* x,
+                                  const uint8_t* act, const float* degc,
+                                  const uint32_t* bits, int bw, int rows,
+                                  int rows_pad, int B, int ld, float alpha,
+                                  float c1, int tid, int nt) {
+  for (int i = tid; i < rows * B; i += nt) {
+    const int q = i / B, v = i % B, o = q * ld + v;
+    const float af = act[o] ? 1.0f : 0.0f;
+    const float rv = r[o];
+    p[o] = __fadd_rn(p[o], __fmul_rn(__fmul_rn(alpha, rv), af));
+    const float pushed =
+        __fdiv_rn(__fmul_rn(__fmul_rn(c1, rv), af), degc[v]);
+    x[o] = pushed;
+    r[o] = __fmul_rn(rv, __fsub_rn(1.0f, af));
+    acc[o] = __fadd_rn(acc[o], pushed);
+  }
+  __syncthreads();
+  const int nvt = ld / 4, ntiles = (rows_pad / 4) * nvt;
+  for (int t = tid; t < ntiles; t += nt) {
+    const int q0 = (t / nvt) * 4, v0 = (t % nvt) * 4;
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
+    contract_tile<false>(s, x, ld, q0, nullptr, bits, bw, v0, nullptr, B);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int q = q0 + a, v = v0 + c;
+        if (q < rows && v < B) r[q * ld + v] = __fadd_rn(r[q * ld + v],
+                                                         s[a][c]);
+      }
+  }
+  __syncthreads();
+}
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+}  // namespace fg

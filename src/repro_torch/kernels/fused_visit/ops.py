@@ -1,0 +1,240 @@
+"""The fused visit: one kernel launch per visit, one stats read per chunk.
+
+``make_fused_visit(dg, algebra, max_rounds, policy=..., frontier_mode=...)``
+returns a :class:`FusedVisit`, whose :meth:`FusedVisit.chunk` is the chunk
+launcher of ``core/visit.make_megastep(fused=True)``: it launches
+``fg_fused_visit`` (``csrc/fused_visit.cu``) ``n`` times back to back on the
+current stream, each launch one iteration of the K-visit loop (select,
+visit, stats; nothing once no partition holds a pending op), and returns
+the chunk's stats vector on the device for the caller to read once.  The
+ctypes argument block is built once per chunk.
+
+On a CUDA tensor every launch is the kernel, counted in :data:`LAUNCHES`;
+on a CPU tensor every launch is ``ref.fused_step_ref``.  There is no
+fallback from one to the other: a failed build or launch raises.
+
+The kernel asks for :func:`smem_bytes` of dynamic shared memory, the number
+``fpp/planner.MemoryModel.fused_working_set`` reports; the C side refuses a
+launch given less than its layout needs.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused_visit.ref import (POLICIES, FusedSpec,
+                                                 fused_step_ref, new_stats)
+
+#: kernel launches since the last :func:`reset_launches`
+LAUNCHES = {"fused_visit": 0}
+
+#: dynamic shared memory one Hopper thread block may use
+MAX_SMEM_BYTES = 232_448
+#: warps of the kernel's block (kThreads / 32 in fused_visit.cu)
+_WARPS = 16
+_ALGEBRAS = {"minplus": 0, "push": 1}
+
+_fns: dict = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES["fused_visit"] = 0
+
+
+def smem_bytes(num_planes: int, num_queries: int, block_size: int) -> int:
+    """Dynamic shared-memory bytes of one launch: the kernel's layout
+    (``layout`` in ``csrc/fused_visit.cu``) for the min-plus
+    (``num_planes=1``) or the push (``num_planes=2``) algebra."""
+    qp, bp = -(-num_queries // 4) * 4, -(-block_size // 4) * 4
+    qb = qp * bp
+    red = 4 * _WARPS + 4
+    if num_planes == 1:
+        words = 2 * qb + bp * bp + 3 * bp + 2 * qp + red
+        nbytes = 4 * words + 2 * qb + bp
+    elif num_planes == 2:
+        words = 4 * qb + bp * (-(-bp // 32)) + 5 * bp + qp + red
+        nbytes = 4 * words + qb
+    else:
+        raise ValueError(f"num_planes must be 1 (min-plus) or 2 (push), "
+                         f"got {num_planes}")
+    return -(-nbytes // 16) * 16
+
+
+class _Args(ctypes.Structure):
+    """``FusedArgs`` of ``csrc/fused_visit.cu``, field by field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "plane0", "plane1", "buf", "prio", "ops", "stamp", "stats",
+        "blocks", "row_nnz", "nbr_blk", "nbr_dst", "nbr_nnz", "diag_blk",
+        "deg", "budget")]
+        + [("nblk", ctypes.c_longlong)]
+        + [(n, ctypes.c_int) for n in (
+            "P", "Q", "B", "dmax", "K", "max_rounds", "counter", "strict")]
+        + [(n, ctypes.c_float) for n in ("window", "alpha", "c1", "eps")]
+        + [("smem_bytes", ctypes.c_int)])
+
+
+def _library():
+    if not _fns:
+        lib = _build.library("fused_visit")
+        fn = lib.fg_fused_visit
+        i = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(_Args), i, i, i, ctypes.c_void_p]
+        fn.restype = i
+        need = lib.fg_fused_visit_smem
+        need.argtypes = [i, i, i]
+        need.restype = ctypes.c_longlong
+        _fns.update(launch=fn, smem=need)
+    return _fns
+
+
+def kernel_smem_bytes(algebra: str, num_queries: int,
+                      block_size: int) -> int:
+    """The C side's own count of :func:`smem_bytes` (needs the built
+    library): the two must agree."""
+    return int(_library()["smem"](_ALGEBRAS[algebra], num_queries,
+                                  block_size))
+
+
+def _validate_neighbor_lists(dg) -> None:
+    """The read-modify-write emission needs every neighbour row written at
+    most once per visit, and never the visited row itself.
+    ``BlockGraph.from_csr`` builds unique, off-diagonal neighbour lists; a
+    graph built some other way must satisfy it too."""
+    P = dg.num_parts
+    valid = dg.nbr_blk.cpu().numpy() >= 0
+    nbr = np.where(valid, dg.nbr_dst.cpu().numpy(), -1)
+    if (nbr == np.arange(P)[:, None]).any():
+        raise ValueError("fused visit: the neighbour lists contain "
+                         "self-edges; the visited row would be written "
+                         "twice")
+    s = np.sort(nbr, axis=1)
+    if ((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any():
+        raise ValueError("fused visit: the neighbour lists contain "
+                         "duplicate entries; the per-row read-modify-write "
+                         "would apply them twice")
+
+
+class FusedVisit:
+    """One device graph + algebra + policy, compiled into launches."""
+
+    def __init__(self, dg, spec: FusedSpec):
+        self.dg = dg
+        self.spec = spec
+
+    @property
+    def num_planes(self) -> int:
+        return 1 if self.spec.algebra.name == "minplus" else 2
+
+    def new_stats(self, state) -> torch.Tensor:
+        return new_stats(state.buf.shape[1], self.dg.num_parts, self.spec.K,
+                         state.buf.device)
+
+    def ref(self, state, stats: torch.Tensor, counter: int) -> None:
+        """One launch's plain version, on any device."""
+        fused_step_ref(self.dg, self.spec, state, stats, counter)
+
+    def step(self, state, stats: torch.Tensor, counter: int) -> None:
+        """One launch: the kernel on a CUDA tensor, the plain version on a
+        CPU tensor."""
+        self.chunk(state, counter, 1, stats=stats)
+
+    def _args(self, state, stats: torch.Tensor, counter: int) -> _Args:
+        dg, sp = self.dg, self.spec
+        P, (Q, B) = dg.num_parts, state.buf.shape[1:]
+        tensors = (*state.planes, state.buf, state.prio, state.ops_count,
+                   state.stamp, stats)
+        if not all(t.is_contiguous() and t.device == dg.device
+                   for t in tensors):
+            raise ValueError("fused visit: the state and stats tensors must "
+                             f"be contiguous and on {dg.device}")
+        if (state.buf.shape != (P + 1, Q, B) or state.prio.shape != (P + 1,)
+                or any(x.shape != (P, Q, B) for x in state.planes)):
+            raise ValueError("fused visit: the state does not match the "
+                             "device graph's partitions")
+        nbytes = smem_bytes(self.num_planes, Q, B)
+        if nbytes > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"fused visit: Q={Q}, B={B} needs {nbytes} B of shared "
+                f"memory, one block has {MAX_SMEM_BYTES}; plan a smaller "
+                f"block size or fewer queries")
+        planes = state.planes
+        params = dict(sp.algebra.params)
+        alpha = params.get("alpha", 0.0)
+        return _Args(
+            plane0=planes[0].data_ptr(), plane1=planes[-1].data_ptr(),
+            buf=state.buf.data_ptr(), prio=state.prio.data_ptr(),
+            ops=state.ops_count.data_ptr(), stamp=state.stamp.data_ptr(),
+            stats=stats.data_ptr(), blocks=dg.blocks.data_ptr(),
+            row_nnz=dg.row_nnz.data_ptr(), nbr_blk=dg.nbr_blk.data_ptr(),
+            nbr_dst=dg.nbr_dst.data_ptr(), nbr_nnz=dg.nbr_nnz.data_ptr(),
+            diag_blk=dg.diag_blk.data_ptr(), deg=dg.deg.data_ptr(),
+            budget=dg.edge_budget.data_ptr(), nblk=dg.blocks.shape[0],
+            P=P, Q=Q, B=B, dmax=dg.nbr_blk.shape[1], K=sp.K,
+            max_rounds=sp.max_rounds, counter=int(counter),
+            strict=int(params.get("strict", 0.0)),
+            window=params.get("window", 0.0), alpha=alpha,
+            c1=1.0 - alpha, eps=params.get("eps", 0.0), smem_bytes=nbytes)
+
+    def chunk(self, state, counter: int, launches: int,
+              stats: torch.Tensor | None = None) -> torch.Tensor:
+        """``launches`` launches back to back; returns the chunk's stats
+        (``ref.split_stats`` reads them).  Nothing is read back here."""
+        if stats is None:
+            stats = self.new_stats(state)
+        if state.buf.device.type == "cpu":
+            for _ in range(launches):
+                k = int(stats[0])
+                self.ref(state, stats, counter)
+                if int(stats[0]) == k:    # no pending op: the rest are
+                    break                 # no-ops too
+            return stats
+        if state.buf.device.type != "cuda":
+            raise ValueError(f"fused visit: no kernel for device "
+                             f"{state.buf.device}")
+        fn = _library()["launch"]
+        block = self._args(state, stats, counter)
+        args = ctypes.byref(block)
+        codes = (_ALGEBRAS[self.spec.algebra.name],
+                 POLICIES.index(self.spec.policy), int(self.spec.sparse))
+        stream = torch.cuda.current_stream(state.buf.device).cuda_stream
+        for _ in range(launches):
+            rc = fn(args, *codes, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    "fused visit launch refused: shared memory below the "
+                    "layout's need" if rc == -1 else
+                    f"fused visit launch failed with CUDA error {rc}")
+            LAUNCHES["fused_visit"] += 1
+        return stats
+
+
+def make_fused_visit(dg, algebra, max_rounds: int, *,
+                     policy: str = "priority", frontier_mode: str = "dense",
+                     K: int = 64) -> FusedVisit:
+    """The fused visit for one device graph and ``core.visit`` algebra.
+
+    ``frontier_mode="sparse"`` (min-plus only) lets each contraction skip
+    the source columns that are +inf in every query row: the same bits,
+    less work on thin frontiers.
+    """
+    name = algebra.name
+    if name not in _ALGEBRAS:
+        raise ValueError(f"fused visit: unknown algebra {name!r}")
+    if frontier_mode not in ("dense", "sparse"):
+        raise ValueError(f"unknown frontier_mode {frontier_mode!r}; one of "
+                         f"('dense', 'sparse')")
+    if frontier_mode == "sparse" and name != "minplus":
+        raise ValueError(
+            "sparse frontier mode skips all-inf source columns of an exact "
+            "min; only the minplus algebra has that identity, push-mode ppr "
+            "runs dense")
+    if policy not in POLICIES:
+        raise ValueError(f"fused visit: unsupported policy {policy!r}; one "
+                         f"of {POLICIES}")
+    _validate_neighbor_lists(dg)
+    return FusedVisit(dg, FusedSpec(
+        algebra=algebra, policy=policy, max_rounds=int(max_rounds),
+        sparse=frontier_mode == "sparse", K=int(K)))

@@ -63,3 +63,101 @@ def test_engine_on_card_bitwise_equals_cpu(card, weighted):
     np.testing.assert_array_equal(a.values, b.values)
     np.testing.assert_array_equal(a.edges_processed, b.edges_processed)
     assert a.stats == b.stats and a.visit_order == b.visit_order
+
+
+def _frontier_inputs(rng, q, b):
+    buf = np.where(rng.random((q, b)) < 0.5, np.inf,
+                   rng.uniform(0, 20, (q, b)))
+    dist = np.where(rng.random((q, b)) < 0.3, np.inf,
+                    rng.uniform(0, 20, (q, b)))
+    return (torch.tensor(a, dtype=torch.float32) for a in (buf, dist))
+
+
+@pytest.mark.parametrize("q,b", [(64, 128), (7, 32), (130, 16), (5, 30)])
+def test_frontier_and_push_kernels_match_plain_versions(card, q, b):
+    """fg_frontier is bitwise equal to its plain version; fg_ppr_push
+    agrees with its float32-matmul plain version at the masked-matmul
+    tolerance.  Each counts one launch."""
+    from repro_torch.kernels.frontier import ops as fops
+    from repro_torch.kernels.ppr_push import ops as pops
+    rng = np.random.default_rng(q * 7 + b)
+    buf, dist = _frontier_inputs(rng, q, b)
+    fops.reset_launches()
+    pops.reset_launches()
+    got = fops.frontier(buf.to(card), dist.to(card), delta=3.0)
+    want = fops.frontier(buf, dist, delta=3.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    p, r, acc = (torch.tensor(rng.uniform(0, 1e-2, (q, b)) * (rng.random(
+        (q, b)) < 0.5), dtype=torch.float32) for _ in range(3))
+    w = torch.tensor(np.where(rng.random((b, b)) < 0.8, np.inf,
+                              rng.uniform(1, 5, (b, b))), dtype=torch.float32)
+    deg = torch.tensor(rng.integers(0, 6, b), dtype=torch.int32)
+    got = pops.ppr_push(*(x.to(card) for x in (p, r, acc, w, deg)),
+                        alpha=0.15, eps=1e-4)
+    want = pops.ppr_push(p, r, acc, w, deg, alpha=0.15, eps=1e-4)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w_, **MM_TOL)
+    assert fops.LAUNCHES == {"frontier": 1}
+    assert pops.LAUNCHES == {"ppr_push": 1}
+
+
+def _fused_setup(kind, ragged=False):
+    """grid2d(16, 16), B=32 and 4 sources; ``ragged``: B=30 and 7 sources,
+    so neither the query rows nor the block's columns fill the kernel's
+    4x4 tiles."""
+    g = grid2d(16, 16, seed=2, weighted=(kind == "sssp"))
+    bg, perm = partition(g, 30 if ragged else 32)
+    picks = [0, 17, 130, 255, 40, 99, 201] if ragged else [0, 17, 130, 255]
+    return bg, perm[np.array(picks)], planner.default_yield_config(kind, bg)
+
+
+def _run(bg, srcs, yc, kind, dev, **kw):
+    mode = "push" if kind == "ppr" else "minplus"
+    return FPPEngine(bg, mode=mode, num_queries=len(srcs), yield_config=yc,
+                     k_visits=8, eps=1e-3, device=dev, **kw).run(
+                         srcs, record_order=True)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("kind", ["sssp", "bfs", "ppr"])
+def test_fused_on_card_bitwise_equals_unfused_on_card(card, kind, ragged):
+    """One launch of fg_fused_visit per visit gives the unfused card run's
+    bits: values (and ppr residuals), edges, visits, rounds, order; the
+    fused run reads the device once per chunk."""
+    from repro_torch.kernels.fused_visit import ops as fvops
+    bg, srcs, yc = _fused_setup(kind, ragged)
+    want = _run(bg, srcs, yc, kind, card)
+    fvops.reset_launches()
+    got = _run(bg, srcs, yc, kind, card, fused=True)
+    np.testing.assert_array_equal(got.values, want.values)
+    if kind == "ppr":
+        np.testing.assert_array_equal(got.residual, want.residual)
+    np.testing.assert_array_equal(got.edges_processed, want.edges_processed)
+    assert got.visit_order == want.visit_order
+    assert (got.stats.visits, got.stats.rounds) == (want.stats.visits,
+                                                    want.stats.rounds)
+    assert got.stats.device_syncs == got.stats.host_syncs
+    assert fvops.LAUNCHES["fused_visit"] >= got.stats.visits
+    if kind != "ppr":
+        sparse = _run(bg, srcs, yc, kind, card, fused=True,
+                      frontier_mode="sparse")
+        np.testing.assert_array_equal(sparse.values, want.values)
+        assert sparse.visit_order == want.visit_order
+
+
+@pytest.mark.parametrize("kind", ["sssp", "bfs", "ppr"])
+def test_fused_on_card_equals_fused_on_cpu(card, kind):
+    """sssp and bfs bitwise; ppr at the masked-matmul tolerance (the CPU's
+    spread is a float32 matmul in another order)."""
+    bg, srcs, yc = _fused_setup(kind)
+    got = _run(bg, srcs, yc, kind, card, fused=True)
+    want = _run(bg, srcs, yc, kind, "cpu", fused=True)
+    if kind == "ppr":
+        np.testing.assert_allclose(got.values, want.values, **MM_TOL)
+        np.testing.assert_allclose(got.residual, want.residual, **MM_TOL)
+        return
+    np.testing.assert_array_equal(got.values, want.values)
+    np.testing.assert_array_equal(got.edges_processed, want.edges_processed)
+    assert got.visit_order == want.visit_order
+    assert got.stats == want.stats

@@ -189,7 +189,6 @@ def test_convert_mid_run_state_one_megastep_chunk():
     (lambda s: s.run("sssp", SRCS, backend="baselines"), "A5"),
     (lambda s: s.run("sssp", SRCS, backend="distributed"), "A10"),
     (lambda s: s.run("sssp", SRCS, schedule="random"), "A8"),
-    (lambda s: s.run("sssp", SRCS, fused=True), "B5"),
 ])
 def test_unported_paths_raise_naming_their_roadmap_item(call, roadmap):
     _, g = _graphs("grid")

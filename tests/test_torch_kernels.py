@@ -1,22 +1,34 @@
-"""The port's contraction kernels against the JAX package's Pallas kernels.
+"""The port's kernels' plain versions against the JAX package's Pallas
+kernels: the contractions, the frontier and the push round.
 
 On the CPU the port's wrappers run their plain versions; the JAX side runs
 the Pallas kernels in interpret mode, as the JAX package's own tests do.
 Inputs are made with numpy from a seed and handed to both.
 
-Tolerances: min-plus is bitwise (every candidate is the same f32 add and
-min is order-free).  The masked matmul is a float32 sum in another order,
-held at ``rtol=1e-5, atol=2e-6``: the reference's own two paths differ by up
-to 1.9e-6 (ROADMAP C2).
+Tolerances: min-plus and the frontier are bitwise (every candidate is the
+same f32 add, and min and compare are exact).  The masked matmul, and the
+push round that spreads through it, are float32 sums in another order, held
+at ``rtol=1e-5, atol=2e-6``: the reference's own two paths differ by up to
+1.9e-6 (ROADMAP C2).
 """
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.frontier import ops as jfops  # noqa: E402
+from repro.kernels.frontier.frontier import frontier_tile  # noqa: E402
 from repro.kernels.minplus import ops as jops  # noqa: E402
+from repro.kernels.ppr_push import ops as jpops  # noqa: E402
+from repro.kernels.ppr_push.push import push_tile  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.frontier import ops as fops  # noqa: E402
+from repro_torch.kernels.frontier.ref import frontier_ref  # noqa: E402
 from repro_torch.kernels.minplus import ops, ref  # noqa: E402
+from repro_torch.kernels.ppr_push import ops as pops  # noqa: E402
+from repro_torch.kernels.ppr_push.ref import push_ref  # noqa: E402
 
 MM_TOL = dict(rtol=1e-5, atol=2e-6)
 
@@ -96,3 +108,115 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
         ops.minplus(dt.t().contiguous().t(), wt, idx)
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.masked_matmul(dt.to("meta"), wt.to("meta"), idx.to("meta"))
+
+
+def _frontier_inputs(seed, q, b):
+    """Buffered ops over a half-settled distance row, with ties buf == dist
+    (where strict and non-strict pending differ)."""
+    rng = np.random.default_rng(seed)
+    dist = np.where(rng.random((q, b)) < 0.4, np.inf,
+                    rng.integers(0, 12, (q, b))).astype(np.float32)
+    buf = np.where(rng.random((q, b)) < 0.5, np.inf,
+                   rng.integers(0, 12, (q, b))).astype(np.float32)
+    tie = rng.random((q, b)) < 0.1
+    buf[tie] = dist[tie]
+    return buf, dist
+
+
+@pytest.mark.parametrize("q,b", SHAPES)
+def test_frontier_ref_bitwise_equals_pallas(q, b):
+    buf, dist = _frontier_inputs(q * 13 + b, q, b)
+    want = jfops.frontier_pallas(buf, dist, delta=3.0)
+    d1, srcs, alpha, _, _ = frontier_ref(torch.from_numpy(buf),
+                                         torch.from_numpy(dist), delta=3.0)
+    for got, w in zip((d1, srcs, alpha[:, 0]), want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_frontier_ref_bitwise_equals_frontier_tile(strict):
+    buf, dist = _frontier_inputs(11, 9, 32)
+    want = frontier_tile(jnp.asarray(buf), jnp.asarray(dist), delta=2.0,
+                         strict=strict)
+    got = frontier_ref(torch.from_numpy(buf), torch.from_numpy(dist),
+                       delta=2.0, strict=strict)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _push_inputs(seed, q, b):
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0, 1e-2, (q, b)).astype(np.float32)
+    r = np.where(rng.random((q, b)) < 0.5, 0.0,
+                 rng.uniform(0, 2e-3, (q, b))).astype(np.float32)
+    acc = rng.uniform(0, 1e-3, (q, b)).astype(np.float32)
+    w = np.where(rng.random((b, b)) < 0.8, np.inf,
+                 rng.uniform(1, 5, (b, b))).astype(np.float32)
+    deg = rng.integers(0, 6, b).astype(np.int32)
+    return p, r, acc, w, deg
+
+
+@pytest.mark.parametrize("q,b", SHAPES)
+def test_push_ref_matches_pallas(q, b):
+    p, r, acc, w, deg = _push_inputs(q * 5 + b, q, b)
+    want = jpops.ppr_push_pallas(p, r, acc, w, deg.astype(np.float32),
+                                 alpha=0.15, eps=1e-4)
+    got = push_ref(*(torch.from_numpy(x) for x in (p, r, acc, w, deg)),
+                   alpha=0.15, eps=1e-4)
+    for g, w_ in zip(got[:3], want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), **MM_TOL)
+
+
+def test_push_ref_lane_mask_matches_push_tile():
+    p, r, acc, w, deg = _push_inputs(3, 8, 32)
+    lane = np.random.default_rng(4).random((8, 1)) < 0.5
+    want = push_tile(*(jnp.asarray(x) for x in (p, r, acc, w, deg)),
+                     alpha=0.15, eps=1e-4, lane_mask=jnp.asarray(lane))
+    got = push_ref(*(torch.from_numpy(x) for x in (p, r, acc, w, deg)),
+                   alpha=0.15, eps=1e-4, lane_mask=torch.from_numpy(lane))
+    for g, w_ in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), **MM_TOL)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert not got[3][~torch.from_numpy(lane)[:, 0]].any()
+
+
+def test_tile_wrappers_on_cpu_take_the_plain_version():
+    """On a CPU tensor the frontier and push wrappers run their plain
+    versions, count no launch, and return the standalone kernels'
+    outputs."""
+    buf, dist = (torch.from_numpy(x) for x in _frontier_inputs(2, 5, 16))
+    fops.reset_launches()
+    pops.reset_launches()
+    d1, srcs, prio = fops.frontier(buf, dist, delta=1.0)
+    want = frontier_ref(buf, dist, delta=1.0)
+    assert torch.equal(d1, want[0]) and torch.equal(srcs, want[1])
+    assert torch.equal(prio, want[2][:, 0])
+    p, r, acc, w, deg = (torch.from_numpy(x)
+                         for x in _push_inputs(6, 5, 16))
+    out = pops.ppr_push(p, r, acc, w, deg[None], alpha=0.15, eps=1e-4)
+    want = push_ref(p, r, acc, w, deg.float(), alpha=0.15, eps=1e-4)
+    assert len(out) == 3
+    for g, w_ in zip(out, want[:3]):
+        assert torch.equal(g, w_)
+    assert fops.LAUNCHES == {"frontier": 0}
+    assert pops.LAUNCHES == {"ppr_push": 0}
+    with pytest.raises(ValueError, match="float32"):
+        fops.frontier(buf.double(), dist.double(), delta=1.0)
+    with pytest.raises(ValueError, match=r"w must be \[16, 16\]"):
+        pops.ppr_push(p, r, acc, w[:8], deg, alpha=0.15, eps=1e-4)
+
+
+@pytest.mark.parametrize("same_header", [True, False])
+def test_build_target_hashes_the_headers(tmp_path, same_header):
+    """An edited header gives the library another name, so it is rebuilt;
+    no compiler is run."""
+    names = []
+    for i in range(2):
+        d = tmp_path / f"csrc{i}"
+        d.mkdir()
+        (d / "k.cu").write_text('#include "t.cuh"\nint f() { return X; }\n')
+        (d / "t.cuh").write_text(
+            "#define X 1\n" if same_header or i == 0 else "#define X 2\n")
+        names.append(_build._target(d / "k.cu").name)
+    assert (names[0] == names[1]) == same_header
+    assert names[0].startswith("libk-")
