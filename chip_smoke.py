@@ -32,7 +32,22 @@ Phases, each of which fails the run on any error:
               iteration and no contraction launch, one device read per
               chunk.  Then one K=64 chunk per algebra and dispatch is
               timed and traced for the card's busy share
-  6. report   the kernel table as one JSON line, then the result line
+  6. flash    the flash-attention kernel against its plain version on the
+              card at the LM path's shapes (starcoder2-7b: H=36, Hkv=4,
+              hd=128; (Sq, Skv, q_offset) = (512, 512, 0), (3000, 3000, 0),
+              (4096, 4096, 0), (4096, 8192, 4096); bf16 and f32; one
+              windowed case), timed at (4096, 4096, 0) over a CUDA graph
+              beside its plain version and PyTorch's SDPA as a yardstick
+  7. lm       the LM serving path: ``build_model(starcoder2-7b)`` at full
+              width and depth, ``Model.init`` from a seeded generator on the
+              card, six prompts (512 to 8192 tokens) through
+              ``ContinuousBatcher`` at batch 4, 32 new tokens each; every
+              prefill attention call must launch the flash kernel.  Then the
+              512-token prefill with the kernel against the same prefill
+              with the plain attention, the reduced config served on the
+              card against the CPU (float32 compute, same tokens), and each
+              prompt's prefill traced for the flash kernel's share
+  8. report   the kernel table as one JSON line, then the result line
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
 result line when there is no CUDA device or the port is not beside it.
@@ -61,12 +76,43 @@ PEAK_F32_INSTR_PER_S = PEAK_F32_OPS_PER_S / 2
 #: see PERF.md section 4)
 SIDE = 192
 
+#: the LM serving path (PERF.md section 4): full width and depth, random
+#: weights from a seeded generator on the card
+LM_ARCH = "starcoder2-7b"
+LM_PROMPTS = (512, 1000, 2048, 3000, 4096, 8192)
+LM_BATCH, LM_NEW, LM_MAX_LEN = 4, 32, 8224
+#: (Sq, Skv, q_offset, window) of the checks of the flash kernel: the path's
+#: whole prefills and the 8192-token prompt's second chunk, plus one
+#: windowed case (the hybrid family's mask; not on the dense path)
+FLASH_CASES = ((512, 512, 0, None), (3000, 3000, 0, None),
+               (4096, 4096, 0, None), (4096, 8192, 4096, None),
+               (4096, 4096, 0, 1024))
+#: flash kernel against its plain version on the same inputs on the card.
+#: bf16: one bf16 ulp of the unit-scale output (both round a float32 result
+#: once, and the float32 results differ in the last bits, so a value next to
+#: a rounding boundary may land one ulp away).  float32: the same products
+#: summed in another order (2e-6 on outputs below ~3)
+FLASH_TOL = {"bfloat16": dict(rtol=8e-3, atol=8e-3),
+             "float32": dict(rtol=0.0, atol=2e-6)}
+#: H100 SXM bf16 tensor-core peak (data sheet, dense, 700 W): the least time
+#: for attention's products on this card
+PEAK_BF16_FLOPS_PER_S = 989e12
+
 #: ppr's eps on every path of this script
 PPR_EPS = 1e-4
 #: masked-matmul tolerance against float32 matmul: sums reassociate.  The
 #: card-vs-CPU ppr comparison uses it too: both sides run the port's code,
 #: and only the spread's summation order differs between them
 MM_RTOL, MM_ATOL = 1e-5, 2e-6
+#: LM check c: card against CPU in float32 compute (the same products and
+#: sums in another order: cuBLAS and the kernel against the CPU's)
+LM_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+#: LM check b: the full-width bf16 prefill's logits with the flash kernel
+#: against the plain attention, as a share of the largest logit.  The two
+#: attention outputs differ by at most one bf16 ulp, in a few elements per
+#: layer; over 32 bf16 layers those flips move the logits by a small
+#: fraction of their range
+LM_LOGIT_RTOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -660,15 +706,365 @@ def phase_profile(torch, bg, srcs) -> None:
                                for us, k, n in rows[:6]]}))
 
 
+def phase_flash(torch) -> dict:
+    """Phase 6: the flash kernel against its plain version at the LM path's
+    shapes, then its time at (4096, 4096, 0) in bf16 beside its plain
+    version's and SDPA's."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_gqa_ref
+
+    cfg = get_config(LM_ARCH)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(sq, skv, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((1, sq, H, hd), (1, skv, Hkv, hd),
+                                   (1, skv, Hkv, hd)))
+
+    errs, by_shape = {}, []
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        for sq, skv, off, window in FLASH_CASES:
+            if window is not None and dtype != torch.bfloat16:
+                continue
+            q, k, v = inputs(sq, skv, dtype)
+            got = faops.flash_attention(q, k, v, q_offset=off, window=window)
+            want = flash_attention_gqa_ref(q, k, v, q_offset=off,
+                                           window=window)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **FLASH_TOL[dname])
+            err = float((got.float() - want.float()).abs().max())
+            errs[dname] = max(errs.get(dname, 0.0), err)
+            # card ms per launch at this shape: CUDA events around 3
+            # back-to-back launches (each far longer than its enqueue)
+            ms = eager_ms(torch, lambda: faops.flash_attention(
+                q, k, v, q_offset=off, window=window), iters=3, warmup=1)
+            by_shape.append({"dtype": dname, "Sq": sq, "Skv": skv,
+                             "q_offset": off, "window": window, "ms": ms})
+            log(f"kernel flash_attention {dname} Sq={sq} Skv={skv} "
+                f"q_offset={off} window={window}: max |err| {err:.3e} "
+                f"(tol {FLASH_TOL[dname]}), {ms:.4f} ms")
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+
+    S = 4096
+    q, k, v = inputs(S, S, torch.bfloat16)
+    ms = device_ms(torch, lambda: faops.flash_attention(q, k, v), iters=20)
+    plain_ms = device_ms(torch, lambda: flash_attention_gqa_ref(q, k, v),
+                         iters=3)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), iters=20)
+    # causal: S(S+1)/2 (query, key) pairs, each 2*hd FMAs per head (q.k and
+    # p.v), two operations per FMA; bytes: q, k, v read once, out written
+    flops = 4.0 * H * hd * S * (S + 1) / 2
+    nbytes = 2.0 * (2 * S * H * hd + 2 * S * Hkv * hd)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS_PER_S, nbytes / PEAK_BYTES_PER_S
+    row = {"max_abs_err": errs["bfloat16"], "max_abs_err_f32": errs["float32"],
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library_ms,
+           "fp32_core_bound_ms": 1e3 * flops / PEAK_F32_OPS_PER_S,
+           "timed_at": {"Sq": S, "Skv": S, "q_offset": 0, "H": H, "Hkv": Hkv,
+                        "hd": hd, "dtype": "bfloat16", "causal": True},
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "ms_by_shape": by_shape}
+    log("kernel flash_attention: " + json.dumps(row))
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return row
+
+
+def _tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v)
+        else:
+            yield v
+
+
+def _prefill_launches(T: int, cfg) -> int:
+    """Flash launches of one prompt's prefill: one per layer and chunk."""
+    from repro_torch.models.transformer import PREFILL_CHUNK
+    chunked = T > PREFILL_CHUNK and T % PREFILL_CHUNK == 0
+    return cfg.n_layers * (T // PREFILL_CHUNK if chunked else 1)
+
+
+def phase_lm(torch, counters) -> dict:
+    """Phase 7: the LM serving path at full width, then its checks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.engine import (ContinuousBatcher, Request,
+                                          make_prefill_step)
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    leaves = list(_tree_leaves(params))
+    kv_bytes = (2 * cfg.n_layers * LM_BATCH * LM_MAX_LEN * cfg.n_kv_heads
+                * cfg.head_dim_ * torch.tensor([], dtype=cfg.cdtype)
+                .element_size())
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "num_params": cfg.num_params(),
+            "param_elements": sum(x.numel() for x in leaves),
+            "weight_bytes": sum(x.numel() * x.element_size() for x in leaves),
+            "kv_cache_bytes": kv_bytes, "batch": LM_BATCH,
+            "max_len": LM_MAX_LEN, "max_new_tokens": LM_NEW,
+            "init_s": init_s}
+    log("lm config: " + json.dumps(info))
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, T).astype(np.int32)
+               for T in LM_PROMPTS]
+    step = make_prefill_step(model, max_len=LM_MAX_LEN)
+    prefills, t_run = [], [0.0]
+
+    def timed_prefill(p, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(p, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefills.append({"tokens": int(batch["tokens"].shape[1]),
+                         "prefill_s": t1 - t0, "ttft_s": t1 - t_run[0]})
+        return out
+
+    batcher = ContinuousBatcher(model, params, LM_BATCH, LM_MAX_LEN,
+                                device=dev, prefill_fn=timed_prefill)
+    for rid, p in enumerate(prompts):
+        batcher.submit(Request(rid=rid, prompt=p, max_new_tokens=LM_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    torch.cuda.synchronize()
+    t_run[0] = time.perf_counter()
+    out = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run[0]
+    counts = counters.read()
+
+    # the path went through the kernel: one launch per layer and chunk
+    want = sum(_prefill_launches(T, cfg) for T in LM_PROMPTS)
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"lm: {counts['flash_attention']} flash launches, "
+                             f"want {want}")
+    others = {k: c for k, c in counts.items() if k != "flash_attention" and c}
+    if others:
+        raise AssertionError(f"lm launched graph kernels {others}")
+    # d. completion: every request generated exactly LM_NEW in-vocab tokens
+    for rid in range(len(prompts)):
+        toks = out[rid]
+        if len(toks) != LM_NEW or not all(0 <= x < cfg.vocab for x in toks):
+            raise AssertionError(f"lm request {rid}: {len(toks)} tokens "
+                                 f"{toks[:8]}...")
+    prefill_s = sum(p["prefill_s"] for p in prefills)
+    decode_tokens = batcher.tokens_out - len(prompts)
+    for p in prefills:
+        p["prefill_tok_per_s"] = p["tokens"] / p["prefill_s"]
+        log("lm prefill: " + json.dumps(p))
+    run = {"requests": len(prompts), "tokens_out": batcher.tokens_out,
+           "decode_steps": batcher.steps, "decode_tokens": decode_tokens,
+           "prefill_s": prefill_s, "decode_s": wall - prefill_s,
+           "decode_tok_per_s": decode_tokens / (wall - prefill_s),
+           "prefill_tok_per_s": sum(LM_PROMPTS) / prefill_s,
+           "wall_s": wall, "launches": counts,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    log("lm run: " + json.dumps(run))
+
+    decode = lm_decode_profile(torch, model, params, batcher.state)
+    # b. the whole model with the kernel against the whole model with the
+    # plain attention on the card, on the 512-token request's prefill
+    check_b = lm_kernel_vs_plain(torch, model, params, prompts[0], out[0][0])
+    # the flash kernel's share of each prefill (traced, after the counts)
+    shares = lm_flash_share(torch, model, params, prompts)
+    del params, batcher
+    torch.cuda.empty_cache()
+    # c. the reduced config on the card against the CPU
+    check_c = lm_card_vs_cpu(torch)
+    return {"info": info, "prefills": prefills, "run": run,
+            "launches": counts["flash_attention"], "decode": decode,
+            "check_b": check_b,
+            "check_c": check_c, "flash_share": shares}
+
+
+def lm_decode_profile(torch, model, params, state, steps: int = 4) -> dict:
+    """Where a decode step's time goes: ``steps`` steps at batch 4 over the
+    full 8,224-slot cache, each ending in a host read of the sampled
+    tokens as in ``ContinuousBatcher``, timed on the host clock; then one
+    more step under torch.profiler for the card's kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import make_decode_step
+
+    step = make_decode_step(model)
+    tokens = torch.zeros((LM_BATCH, 1), dtype=torch.long, device="cuda")
+
+    def one(state):
+        nxt, _, state = step(params, tokens, state)
+        tokens.copy_(torch.as_tensor(nxt.cpu().numpy().astype(np.int64)))
+        return state
+
+    state = one(state)                                       # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        state = one(state)
+    wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state = one(state)
+        torch.cuda.synchronize()
+    rows = sorted(((getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0.0), e.key,
+                    e.count) for e in prof.key_averages()), reverse=True)
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    res = {"wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+           "device_busy_share": dev_ms / wall_ms,
+           "kernels_per_step": sum(n for us, _, n in rows if us > 0),
+           "top_kernels_us": [[k[:60], round(us, 1), n]
+                              for us, k, n in rows[:6]]}
+    log("lm decode profile: " + json.dumps(res))
+    return res
+
+
+def lm_kernel_vs_plain(torch, model, params, prompt, first_token) -> dict:
+    """Check b: the prefill logits with the flash kernel and with its plain
+    version in every layer (same weights, same prompt)."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_gqa_ref
+    from repro_torch.models import attention
+
+    tok = torch.as_tensor(prompt[None].astype(np.int64), device="cuda")
+    kernel, _ = model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+    kernel_attend = attention.attend
+
+    def plain_attend(q, k, v, q_offset=0, *, causal=True, window=None,
+                     kv_len=None):
+        return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, kv_len=kv_len)
+
+    attention.attend = plain_attend
+    try:
+        plain, _ = model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+    finally:
+        attention.attend = kernel_attend
+    torch.cuda.synchronize()
+    diff = float((kernel - plain).abs().max())
+    scale = float(plain.abs().max())
+    res = {"tokens": int(tok.shape[1]), "max_abs_diff": diff,
+           "max_abs_logit": scale, "rel": diff / scale,
+           "tol_rel": LM_LOGIT_RTOL,
+           "argmax_kernel": int(kernel.argmax(-1)[0]),
+           "argmax_plain": int(plain.argmax(-1)[0]),
+           "served_first_token": int(first_token)}
+    log("lm check b (kernel vs plain attention, 512-token prefill): "
+        + json.dumps(res))
+    if diff > LM_LOGIT_RTOL * scale:
+        raise AssertionError("lm: kernel and plain-attention logits differ "
+                             "beyond the tolerance")
+    if not (res["argmax_kernel"] == res["argmax_plain"]
+            == res["served_first_token"]):
+        raise AssertionError("lm: kernel and plain attention pick different "
+                             "first tokens")
+    return res
+
+
+def lm_flash_share(torch, model, params, prompts) -> list:
+    """Each prompt's prefill once more under torch.profiler: the flash
+    kernel's card time against the prefill's card time and wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    for p in prompts:
+        tok = torch.as_tensor(p[None].astype(np.int64), device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t)
+        flash_us = dev_us = 0.0
+        for e in prof.key_averages():
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0))
+            dev_us += us
+            if "flash_kernel" in e.key:
+                flash_us += us
+        row = {"tokens": len(p), "wall_ms": wall_ms,
+               "device_ms": dev_us / 1e3, "flash_ms": flash_us / 1e3,
+               "flash_share_of_device": flash_us / dev_us if dev_us else None,
+               "flash_share_of_wall": flash_us / 1e3 / wall_ms}
+        log("lm prefill trace: " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def lm_card_vs_cpu(torch) -> dict:
+    """Check c: the reduced config, float32 compute, served on the card and
+    on the CPU from the same weights: the same tokens, and prefill logits
+    within the float32 tolerance."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import lm_params_from_arrays
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(1), "cpu")
+
+    def arrays(tree):
+        return {k: arrays(v) if isinstance(v, dict) else v.float().numpy()
+                for k, v in tree.items()}
+
+    tree = arrays(cpu)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, T).astype(np.int32)
+               for T in (40, 100, 64)]
+    tokens, logits = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = lm_params_from_arrays(tree, cfg, dev)
+        b = ContinuousBatcher(model, p, 2, 128, device=dev)
+        for rid, pr in enumerate(prompts):
+            b.submit(Request(rid=rid, prompt=pr, max_new_tokens=8))
+        tokens[dev] = b.run()
+        tok = torch.as_tensor(prompts[1][None].astype(np.int64), device=dev)
+        logits[dev] = model.prefill(p, {"tokens": tok}, max_len=128)[0].cpu()
+    diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+    res = {"arch": cfg.name + " reduced, float32", "tokens_equal":
+           tokens["cuda"] == tokens["cpu"], "prefill_logit_max_diff": diff,
+           "tol": LM_F32_TOL}
+    log("lm check c (card vs CPU): " + json.dumps(res))
+    if not res["tokens_equal"]:
+        raise AssertionError(f"lm: card and CPU generate different tokens: "
+                             f"{tokens}")
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], **LM_F32_TOL)
+    return res
+
+
 class Counters:
     """Every kernel wrapper's launch count, reset and read together."""
 
     def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as faops
         from repro_torch.kernels.frontier import ops as fops
         from repro_torch.kernels.fused_visit import ops as fvops
         from repro_torch.kernels.minplus import ops as mops
         from repro_torch.kernels.ppr_push import ops as pops
-        self.mods = (mops, fops, pops, fvops)
+        self.mods = (mops, fops, pops, fvops, faops)
 
     def reset(self) -> None:
         for m in self.mods:
@@ -722,6 +1118,14 @@ def main() -> int:
     phase_parity()
     log(f"parity: {time.perf_counter() - t:.1f} s")
     launches = phase_path(torch, Counters())
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    krows["flash_attention"] = phase_flash(torch)
+    log(f"flash kernel phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    lm = phase_lm(torch, Counters())
+    launches["flash_attention"] = lm["launches"]
+    log(f"lm phase: {time.perf_counter() - t:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = {
@@ -738,6 +1142,9 @@ def main() -> int:
         "fused_visit": ("fused_visit.cu",
                         "src/repro/kernels/fused_visit/fused.py:465",
                         "fused_visit"),
+        "flash_attention": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention/flash.py:75",
+                            "flash_attention"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -755,6 +1162,12 @@ def main() -> int:
         if name == "fused_visit":
             row["ms_is"] = "card ms per visit (K=64 chunk, CUDA graph)"
             row["push"] = {k: krows[name]["push"][k] for k in keys}
+        if name == "flash_attention":
+            row["ms_is"] = ("card ms per launch at (Sq, Skv, q_offset) = "
+                            "(4096, 4096, 0), bf16, CUDA graph")
+            row["launches_of"] = "the LM path's prefills"
+            for k in ("fp32_core_bound_ms", "max_abs_err_f32", "timed_at"):
+                row[k] = krows[name][k]
         table.append(row)
     log(json.dumps({"kernels": table}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

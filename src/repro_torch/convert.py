@@ -1,15 +1,17 @@
-"""Carry the JAX package's graph and state across into the port.
+"""Carry the JAX package's graph, state and LM weights across into the port.
 
-Both take numpy arrays (``np.asarray`` of the reference's jax arrays), so
-this module imports neither JAX nor the reference.  The tests use them to
-start both packages from identical inputs: the graph blocks and the state
-planes play the part that weights play in a model port.
+Every function takes numpy arrays (``np.asarray`` of the reference's jax
+arrays), so this module imports neither JAX nor the reference.  The tests
+use them to start both packages from identical inputs: the graph blocks and
+the state planes play the part that weights play in a model port, and
+``lm_params_from_arrays`` carries the weights themselves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.graph import BlockGraph
 from repro_torch.core.visit import VisitState
@@ -59,3 +61,22 @@ def state_from_arrays(planes, buf, prio, ops_count, stamp,
         prio=put(np.append(prio, np.inf), np.float32),
         ops_count=put(np.append(ops_count, 0), np.int32),
         stamp=put(np.append(stamp, empty_stamp), np.int32))
+
+
+def lm_params_from_arrays(tree: dict, cfg: ArchConfig, device=None) -> dict:
+    """The reference's LM params (``jax.tree.map(np.asarray, params)`` of
+    ``Model.init``: nested dicts, the ``stack`` leaves ``[L, ...]``) as the
+    port's, on ``device``, each leaf in its storage dtype
+    (``models.transformer.storage_dtype``)."""
+    from repro_torch.models.transformer import check_family, storage_dtype
+
+    check_family(cfg)
+    dev = resolve_device(device)
+
+    def put(node, path):
+        if isinstance(node, dict):
+            return {k: put(v, path + (k,)) for k, v in node.items()}
+        t = torch.from_numpy(np.array(node, dtype=np.float32))
+        return t.to(device=dev, dtype=storage_dtype(path, cfg))
+
+    return put(tree, ())

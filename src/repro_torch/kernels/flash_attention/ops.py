@@ -1,0 +1,127 @@
+"""Wrapper of the flash-attention kernel: GQA, masks and CPU/CUDA dispatch.
+
+``flash_attention(q, k, v, causal=, window=, q_offset=, kv_len=)`` takes
+q ``[B, Sq, H, hd]`` and k, v ``[B, Skv, Hkv, hd]`` (the JAX package's
+layouts) and returns ``[B, Sq, H, hd]``.  Query ``i`` sits at position
+``q_offset + i`` and key ``j`` at position ``j``; keys ``j >= kv_len`` are
+padding.  GQA is handled in the kernel: one launch per call, the block of
+query head ``h`` reading key/value head ``h // (H // Hkv)``.
+
+On a CUDA tensor the wrapper launches the hand-written kernel
+(``csrc/flash_attention.cu``) on the current stream and adds one to its
+count in :data:`LAUNCHES`; on a CPU tensor it runs the plain version in
+``ref`` and counts nothing.  There is no fallback from one to the other: a
+build or launch failure raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_gqa_ref
+
+#: kernel launches since the last :func:`reset_launches`
+LAUNCHES = {"flash_attention": 0}
+
+#: head dims the kernel is instantiated for (``csrc/flash_attention.cu``)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+#: dtype codes of the C entry
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_fn = None
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.library("flash_attention").fg_flash_attention
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, ll, i, i,
+                       i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"want q [B,Sq,H,hd] and k, v [B,Skv,Hkv,hd]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, _, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"{H} query heads are not a multiple of "
+                         f"{k.shape[2]} key/value heads")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v must share a device; got {q.device}, "
+                         f"{k.device}, {v.device}")
+
+
+def _rows(x, name):
+    """(batch stride, sequence stride) of ``x [B, S, heads, hd]``, whose
+    last two dims must be contiguous."""
+    if x.stride(3) != 1 or x.stride(2) != x.shape[3]:
+        raise ValueError(f"{name}: the (heads, hd) dims must be contiguous; "
+                         f"strides {x.stride()}")
+    return x.stride(0), x.stride(1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, kv_len: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Blocked online-softmax attention, float32 math, output in the input
+    dtype.  k and v may be strided views (a prefix of a KV cache) as long as
+    their (heads, hd) dims are contiguous and their strides agree."""
+    _check(q, k, v)
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive; got {window}")
+    if q.device.type == "cpu":
+        return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"flash_attention: tensors on {q.device} but the "
+                         f"current device is cuda:"
+                         f"{torch.cuda.current_device()}")
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: no kernel for {q.dtype}; it takes "
+                         f"{sorted(str(d) for d in _DTYPES)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: no kernel for head_dim {hd}; it "
+                         f"is built for {HEAD_DIMS}")
+    q_bs, q_ss = _rows(q, "q")
+    kv_strides = _rows(k, "k")
+    if _rows(v, "v") != kv_strides:
+        raise ValueError(f"k and v strides differ: {k.stride()} vs "
+                         f"{v.stride()}")
+    kv_len = Skv if kv_len is None else max(0, min(int(kv_len), Skv))
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, hd, q_bs, q_ss,
+                   *kv_strides, int(q_offset), kv_len, int(bool(causal)),
+                   0 if window is None else int(window), 1.0 / (hd ** 0.5),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
+                           f"error {rc}")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,173 @@
+"""Attention for the LM stack.
+
+The port of the JAX package's ``repro.models.attention`` (its dense,
+single-device paths):
+
+* ``attend``              — prefill attention over a whole prompt or a
+  chunk of one.  On a CUDA tensor it runs the hand-written flash-attention
+  kernel (``kernels/flash_attention``, one launch per call, GQA in the
+  kernel); on a CPU tensor the kernel's plain version.  There is no
+  fallback between them.
+* ``decode_attend_local`` — one new token against an unsharded KV cache,
+  plain PyTorch (the JAX package keeps it in plain XLA too).
+
+``decode_attend_partitioned`` and ``combine_partials`` (the KV cache
+sharded over a mesh) wait for the distributed slice (ROADMAP A10).
+
+GQA throughout: Hkv kv-heads are broadcast over group = H // Hkv query heads
+(query head ``h`` reads kv-head ``h // group``).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.layers import _normal, apply_rope
+
+NEG = -1e9  # mask value: large-negative (never -inf: exp() stays NaN-free)
+
+
+# ---------------------------------------------------------------------------
+# params
+
+
+def init_attention(gen, d, n_heads, n_kv, head_dim, dtype, qkv_bias=False,
+                   device=None):
+    s = 1.0 / math.sqrt(d)
+    so = 1.0 / math.sqrt(n_heads * head_dim)
+    p = {"wq": _normal(gen, (d, n_heads, head_dim), dtype, s, device),
+         "wk": _normal(gen, (d, n_kv, head_dim), dtype, s, device),
+         "wv": _normal(gen, (d, n_kv, head_dim), dtype, s, device),
+         "wo": _normal(gen, (n_heads, head_dim, d), dtype, so, device)}
+    if qkv_bias:
+        p.update(bq=torch.zeros((n_heads, head_dim), dtype=dtype,
+                                device=device),
+                 bk=torch.zeros((n_kv, head_dim), dtype=dtype, device=device),
+                 bv=torch.zeros((n_kv, head_dim), dtype=dtype, device=device))
+    return p
+
+
+def _proj(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+    d, h, k = w.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(
+        -1, (h, k))
+
+
+def qkv_proj(p, x, positions, rope_theta):
+    """x: [B,S,D] -> q [B,S,H,hd], k/v [B,S,Hkv,hd].  The bias is added
+    after the projection and before RoPE."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if rope_theta:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def out_proj(p, o):
+    """``einsum("bshk,hkd->bsd", o, wo)``."""
+    h, k, d = p["wo"].shape
+    return torch.matmul(o.flatten(-2), p["wo"].to(o.dtype).reshape(h * k, d))
+
+
+# ---------------------------------------------------------------------------
+# prefill attention
+
+
+def attend(q, k, v, q_offset: int = 0, *, causal=True,
+           window: Optional[int] = None,
+           kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: [B,Sq,H,hd]; k,v: [B,Skv,Hkv,hd] -> [B,Sq,H,hd].
+
+    The JAX package's ``attend(q, k, v, q_pos, kv_pos, causal=, window=)``
+    for the positions the dense path passes: ``q_pos = q_offset +
+    arange(Sq)`` and ``kv_pos = arange(Skv)``; keys ``>= kv_len`` are
+    padding.  float32 math, masked scores at -1e9, output in q's dtype.
+    k and v may be strided views of a KV cache."""
+    return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=kv_len)
+
+
+# ---------------------------------------------------------------------------
+# decode (one new token against a cache)
+
+
+def _decode_partial(q, k, v, kv_pos, length, window):
+    """Partial attention over one KV partition.
+
+    q: [B,H,hd]; k,v: [B,C,Hkv,hd]; kv_pos: [C] absolute slot positions;
+    length: [B] cache fill.  Returns (m, l, acc): [B,H], [B,H], [B,H,hd].
+    """
+    B, H, hd = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, Hkv, group, hd).float()
+    kf = k.float()
+    vf = v.float()
+    s = torch.einsum("bhgd,bchd->bhgc", qf, kf) * scale    # [B,Hkv,g,C]
+    valid = kv_pos[None, :] < length[:, None]              # [B,C]
+    if window is not None:
+        valid = valid & (kv_pos[None, :] >= length[:, None] - window)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, NEG)
+    m = torch.amax(s, dim=-1)
+    p = torch.where(vmask, torch.exp(s - m[..., None]), 0.0)
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bhgc,bchd->bhgd", p, vf)
+    return m.reshape(B, H), l.reshape(B, H), acc.reshape(B, H, hd)
+
+
+def decode_attend_local(q, k, v, kv_pos, length, window=None):
+    """Unsharded decode attention.  q: [B,H,hd] -> [B,H,hd]."""
+    m, l, acc = _decode_partial(q, k, v, kv_pos, length, window)
+    return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+
+
+class KVCache(NamedTuple):
+    """Per-layer-stacked cache.  k,v: [L, B, S, Hkv, hd]; length: [B]."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    @staticmethod
+    def init(n_layers, batch, max_len, n_kv, head_dim, dtype, device=None,
+             length: Optional[torch.Tensor] = None):
+        shape = (n_layers, batch, max_len, n_kv, head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            length=(length if length is not None
+                    else torch.zeros((batch,), dtype=torch.int32,
+                                     device=device)))
+
+
+def cache_update_local(k_cache, v_cache, k_new, v_new, length):
+    """Write one token at position ``length`` (per sequence) — unsharded.
+
+    k_cache: [B,S,Hkv,hd]; k_new: [B,1,Hkv,hd]; length: [B].  Updates the
+    caches in place (the JAX package rebuilds them with a one-hot blend,
+    ``cache * (1 - onehot) + new * onehot``, which equals this wherever the
+    cache is finite) and returns them.  A sequence whose ``length`` is past
+    the cache's end writes nothing, as the blend's all-zero one-hot row.
+    """
+    B, S = k_cache.shape[:2]
+    rows = torch.arange(B, device=k_cache.device)
+    slot = torch.clamp(length.long(), max=S - 1)
+    inside = (length < S)[:, None, None]
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        keep = cache[rows, slot]
+        cache.index_put_((rows, slot),
+                         torch.where(inside, new[:, 0].to(cache.dtype), keep))
+    return k_cache, v_cache

@@ -1,0 +1,156 @@
+"""Serving engine: prefill/decode steps + continuous batching.
+
+The port of the JAX package's ``repro.serve.engine``.  ``ContinuousBatcher``
+keeps the decode batch full: a finished sequence's slot is refilled by
+running prefill for the next queued request at batch=1 and *inserting* the
+resulting cache into the slot (per-sequence lengths make the insert exact).
+Decode runs over every slot each step, as in the reference.  The decode
+state lives on one device and is updated in place.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import resolve_device
+from repro_torch.models.factory import Model
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the vocab as int32; the first index wins a tie."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_prefill_step(model: Model, *, max_len: int):
+    def prefill_step(params, batch):
+        logits, state = model.prefill(params, batch, max_len=max_len)
+        return greedy_sample(logits), state
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    def decode_step(params, tokens, state):
+        logits, state = model.decode(params, tokens, state)
+        return greedy_sample(logits)[:, None], logits, state
+    return decode_step
+
+
+def insert_slot(state, pstate, slot: int):
+    """Write a batch=1 prefill state into batch slot ``slot``, in place
+    (KVCache k/v ``[L,B,S,...]`` on axis 1, length ``[B]`` on axis 0), and
+    return ``state``."""
+    kv, pkv = state.kv, pstate.kv
+    kv.k[:, slot].copy_(pkv.k[:, 0])
+    kv.v[:, slot].copy_(pkv.v[:, 0])
+    kv.length[slot] = pkv.length[0]
+    return state
+
+
+# ---------------------------------------------------------------------------
+# continuous batching
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # [T] int32
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    extras: Optional[dict] = None  # vlm image_embeds / encdec frames (A14)
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+@dataclasses.dataclass
+class SlotInfo:
+    rid: int = -1
+    remaining: int = 0
+
+
+class ContinuousBatcher:
+    """Serves submitted requests ``batch_size`` at a time on ``device``
+    (the card unless the caller asks for the CPU; ``params`` must already
+    be there)."""
+
+    def __init__(self, model: Model, params, batch_size: int, max_len: int,
+                 *, device=None, decode_fn=None, prefill_fn=None):
+        self.device = resolve_device(device)
+        emb = params["embed"]["embedding"]
+        if emb.device != self.device:
+            raise ValueError(f"params are on {emb.device}, the batcher on "
+                             f"{self.device}")
+        self.model = model
+        self.params = params
+        self.B = batch_size
+        self.max_len = max_len
+        self.state = model.decode_state_init(batch_size, max_len,
+                                             device=self.device)
+        self.slots: List[SlotInfo] = [SlotInfo() for _ in range(batch_size)]
+        self.queue: collections.deque = collections.deque()
+        self.requests: Dict[int, Request] = {}
+        self.tokens = np.zeros((batch_size, 1), np.int32)
+        self._decode = decode_fn or make_decode_step(model)
+        self._prefill = prefill_fn or make_prefill_step(model,
+                                                        max_len=max_len)
+        self.steps = 0
+        self.tokens_out = 0
+
+    def submit(self, req: Request):
+        if req.extras:
+            raise NotImplementedError("request extras (vlm image embeds, "
+                                      "encdec frames) wait for ROADMAP A14")
+        self.requests[req.rid] = req
+        self.queue.append(req.rid)
+
+    def _admit(self):
+        for slot in range(self.B):
+            if self.slots[slot].rid == -1 and self.queue:
+                rid = self.queue.popleft()
+                req = self.requests[rid]
+                batch = {"tokens": torch.as_tensor(
+                    np.asarray(req.prompt, np.int64)[None, :],
+                    device=self.device)}
+                first, pstate = self._prefill(self.params, batch)
+                self.state = insert_slot(self.state, pstate, slot)
+                tok = int(first[0])
+                req.generated.append(tok)
+                self.tokens_out += 1
+                self.tokens[slot, 0] = tok
+                self.slots[slot] = SlotInfo(
+                    rid=rid, remaining=req.max_new_tokens - 1)
+
+    def step(self) -> bool:
+        self._admit()
+        if not any(s.rid != -1 for s in self.slots):
+            return False
+        nxt, logits, self.state = self._decode(
+            self.params, torch.as_tensor(self.tokens.astype(np.int64),
+                                         device=self.device), self.state)
+        nxt = nxt.cpu().numpy()
+        self.steps += 1
+        for slot, info in enumerate(self.slots):
+            if info.rid == -1:
+                continue
+            req = self.requests[info.rid]
+            tok = int(nxt[slot, 0])
+            req.generated.append(tok)
+            self.tokens_out += 1
+            info.remaining -= 1
+            if info.remaining <= 0 or (req.eos_id is not None
+                                       and tok == req.eos_id):
+                req.done = True
+                self.slots[slot] = SlotInfo()
+            else:
+                self.tokens[slot, 0] = tok
+        return True
+
+    def run(self, max_steps: int = 10_000):
+        while (any(s.rid != -1 for s in self.slots) or self.queue) \
+                and self.steps < max_steps:
+            if not self.step():
+                break
+        return {r.rid: r.generated for r in self.requests.values()}

@@ -161,3 +161,42 @@ def test_fused_on_card_equals_fused_on_cpu(card, kind):
     np.testing.assert_array_equal(got.edges_processed, want.edges_processed)
     assert got.visit_order == want.visit_order
     assert got.stats == want.stats
+
+
+#: flash attention on the card against its plain version on the card: one
+#: bf16 ulp of the unit-scale output (the float32 results differ in the last
+#: bits, and a value near a rounding boundary can round either way); float32
+#: sums in another order
+FLASH_TOL = {torch.bfloat16: dict(rtol=8e-3, atol=8e-3),
+             torch.float32: dict(rtol=0, atol=2e-6)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,hd,q_offset,causal,window,kv_len", [
+    (1, 200, 200, 36, 4, 128, 0, True, None, None),    # GQA 9, ragged tiles
+    (2, 64, 192, 8, 2, 128, 128, True, None, None),    # chunk with offset
+    (1, 100, 100, 4, 1, 64, 0, True, 32, None),        # window
+    (2, 33, 90, 4, 4, 16, 0, False, None, 70),         # kv_len padding
+    (1, 40, 40, 2, 2, 160, 0, True, None, None),       # head_dim 160
+])
+def test_flash_kernel_matches_plain_version(card, dtype, B, Sq, Skv, H, Hkv,
+                                            hd, q_offset, causal, window,
+                                            kv_len):
+    """One launch per call, GQA in the kernel, masks by absolute position;
+    a strided cache prefix as k and v gives the same bits as a copy."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_gqa_ref
+    gen = torch.Generator(device=card).manual_seed(Sq + Skv)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=card).to(dtype)
+    cache = torch.randn((2, B, Skv + 16, Hkv, hd), generator=gen,
+                        device=card).to(dtype)
+    k, v = cache[0, :, :Skv], cache[1, :, :Skv]
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    faops.reset_launches()
+    got = faops.flash_attention(q, k, v, **kw)
+    assert faops.LAUNCHES == {"flash_attention": 1}
+    want = flash_attention_gqa_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+    again = faops.flash_attention(q, k.contiguous(), v.contiguous(), **kw)
+    assert torch.equal(got, again)

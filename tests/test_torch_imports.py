@@ -72,3 +72,27 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FPPEngine(bg)
     assert FPPSession(g, device="cpu").device == torch.device("cpu")
+
+
+def test_lm_entry_points_raise_without_cuda_unless_asked_for_cpu(
+        monkeypatch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve import ContinuousBatcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_config("starcoder2-7b").reduced())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(device="cuda")
+    params = model.init(device="cpu")
+    assert params["embed"]["embedding"].device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousBatcher(model, params, batch_size=2, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "starcoder2-7b", "--requests", "1"])
+    b = ContinuousBatcher(model, params, batch_size=2, max_len=16,
+                          device="cpu")
+    assert b.state.kv.k.device == torch.device("cpu")
