@@ -32,12 +32,14 @@ Phases, each of which fails the run on any error:
               iteration and no contraction launch, one device read per
               chunk.  Then one K=64 chunk per algebra and dispatch is
               timed and traced for the card's busy share
-  6. flash    the flash-attention kernel against its plain version on the
-              card at the LM path's shapes (starcoder2-7b: H=36, Hkv=4,
+  6. flash    the flash-attention kernels against their plain version on
+              the card at the LM path's shapes (starcoder2-7b: H=36, Hkv=4,
               hd=128; (Sq, Skv, q_offset) = (512, 512, 0), (3000, 3000, 0),
-              (4096, 4096, 0), (4096, 8192, 4096); bf16 and f32; one
-              windowed case), timed at (4096, 4096, 0) over a CUDA graph
-              beside its plain version and PyTorch's SDPA as a yardstick
+              (4096, 4096, 0), (4096, 8192, 4096); bf16 on the tensor-core
+              kernel and f32 on the FP32-core one; one windowed case), each
+              shape timed over a CUDA graph beside PyTorch's SDPA as a
+              yardstick (causal, GQA; none for the windowed case), the plain
+              version timed at (4096, 4096, 0)
   7. lm       the LM serving path: ``build_model(starcoder2-7b)`` at full
               width and depth, ``Model.init`` from a seeded generator on the
               card, six prompts (512 to 8192 tokens) through
@@ -46,7 +48,8 @@ Phases, each of which fails the run on any error:
               512-token prefill with the kernel against the same prefill
               with the plain attention, the reduced config served on the
               card against the CPU (float32 compute, same tokens), and each
-              prompt's prefill traced for the flash kernel's share
+              prompt's prefill traced for the flash kernel's share: every
+              attention kernel there must be the tensor-core one
   8. report   the kernel table as one JSON line, then the result line
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -88,10 +91,13 @@ FLASH_CASES = ((512, 512, 0, None), (3000, 3000, 0, None),
                (4096, 4096, 0, None), (4096, 8192, 4096, None),
                (4096, 4096, 0, 1024))
 #: flash kernel against its plain version on the same inputs on the card.
-#: bf16: one bf16 ulp of the unit-scale output (both round a float32 result
-#: once, and the float32 results differ in the last bits, so a value next to
-#: a rounding boundary may land one ulp away).  float32: the same products
-#: summed in another order (2e-6 on outputs below ~3)
+#: bf16: the tensor-core kernel rounds p to bf16 as the operand of p.v,
+#: which moves an output by at most 2^-9 * sum(p |v|) / l <= 2^-9 max|v|
+#: (and far less in practice: the roundings take both signs), and both
+#: sides round a float32 result to bf16 once, so a value next to a rounding
+#: boundary may land one ulp (2^-8 relative) away: rtol = atol = 8e-3
+#: covers both at unit-scale outputs.  float32: the FP32-core kernel, the
+#: same products summed in another order (2e-6 on outputs below ~3)
 FLASH_TOL = {"bfloat16": dict(rtol=8e-3, atol=8e-3),
              "float32": dict(rtol=0.0, atol=2e-6)}
 #: H100 SXM bf16 tensor-core peak (data sheet, dense, 700 W): the least time
@@ -109,10 +115,31 @@ MM_RTOL, MM_ATOL = 1e-5, 2e-6
 LM_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 #: LM check b: the full-width bf16 prefill's logits with the flash kernel
 #: against the plain attention, as a share of the largest logit.  The two
-#: attention outputs differ by at most one bf16 ulp, in a few elements per
-#: layer; over 32 bf16 layers those flips move the logits by a small
-#: fraction of their range
+#: attention outputs differ by p's bf16 rounding and at most one bf16 ulp
+#: (FLASH_TOL); over 32 bf16 layers those differences move the logits by a
+#: small fraction of their range
 LM_LOGIT_RTOL = 0.05
+
+
+def _kernel_name(mangled: str) -> str:
+    """``ns::name<N>`` from an Itanium-mangled kernel name as ptxas prints
+    it (nested names and one integer template argument; else as given)."""
+    i, parts = 2, []
+    if mangled[i:i + 1] == "N":
+        i += 1
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        parts.append(mangled[j:j + n])
+        i = j + n
+    if not parts:
+        return mangled
+    name = parts[-1]
+    if mangled.startswith("ILi", i):
+        name += "<" + mangled[i + 3:mangled.index("E", i)] + ">"
+    return name
 
 
 def log(msg: str) -> None:
@@ -707,10 +734,11 @@ def phase_profile(torch, bg, srcs) -> None:
 
 
 def phase_flash(torch) -> dict:
-    """Phase 6: the flash kernel against its plain version at the LM path's
-    shapes, then its time at (4096, 4096, 0) in bf16 beside its plain
-    version's and SDPA's."""
+    """Phase 6: the flash kernels against their plain version at the LM
+    path's shapes, each timed beside PyTorch's SDPA (the yardstick, never
+    called by the port); the plain version timed at (4096, 4096, 0)."""
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as faops
@@ -727,6 +755,32 @@ def phase_flash(torch) -> dict:
                      for shape in ((1, sq, H, hd), (1, skv, Hkv, hd),
                                    (1, skv, Hkv, hd)))
 
+    def library_ms(q, k, v, off, window):
+        """SDPA on the same inputs in its [B, H, S, hd] layout: causal
+        (bottom-right aligned when the queries sit at the end of the keys,
+        as the chunked prefill's do), GQA.  None for the windowed case: no
+        one SDPA call takes a sliding window."""
+        if window is not None:
+            return None
+        sq, skv = q.shape[1], k.shape[1]
+        if off != skv - sq:
+            raise AssertionError(f"no SDPA yardstick for q_offset {off} at "
+                                 f"({sq}, {skv})")
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        # at sq == skv this is SDPA's plain is_causal=True call
+        return device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=causal_lower_right(sq, skv),
+            enable_gqa=True), iters=20)
+
+    def flops_bytes(sq, skv, off, dtype):
+        # (query, key) pairs each query sees (causal, no window), each 2*hd
+        # FMAs per head (q.k and p.v), two operations per FMA; bytes: q, k,
+        # v read once, out written once
+        pairs = sum(min(skv, off + i + 1) for i in range(sq))
+        size = torch.tensor([], dtype=dtype).element_size()
+        return (4.0 * H * hd * pairs,
+                size * (2 * sq * H * hd + 2 * skv * Hkv * hd))
+
     errs, by_shape = {}, []
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
@@ -741,44 +795,51 @@ def phase_flash(torch) -> dict:
             torch.testing.assert_close(got, want, **FLASH_TOL[dname])
             err = float((got.float() - want.float()).abs().max())
             errs[dname] = max(errs.get(dname, 0.0), err)
-            # card ms per launch at this shape: CUDA events around 3
-            # back-to-back launches (each far longer than its enqueue)
-            ms = eager_ms(torch, lambda: faops.flash_attention(
-                q, k, v, q_offset=off, window=window), iters=3, warmup=1)
-            by_shape.append({"dtype": dname, "Sq": sq, "Skv": skv,
-                             "q_offset": off, "window": window, "ms": ms})
+            ms = device_ms(torch, lambda: faops.flash_attention(
+                q, k, v, q_offset=off, window=window), iters=20)
+            lib = library_ms(q, k, v, off, window)
+            shape = {"dtype": dname, "Sq": sq, "Skv": skv, "q_offset": off,
+                     "window": window, "max_abs_err": err, "ms": ms,
+                     "library_ms": lib}
+            if window is None:
+                flops, nbytes = flops_bytes(sq, skv, off, dtype)
+                shape["tflop_per_s"] = flops / ms / 1e9
+            by_shape.append(shape)
             log(f"kernel flash_attention {dname} Sq={sq} Skv={skv} "
                 f"q_offset={off} window={window}: max |err| {err:.3e} "
-                f"(tol {FLASH_TOL[dname]}), {ms:.4f} ms")
+                f"(tol {FLASH_TOL[dname]}), {ms:.4f} ms, SDPA "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
             del q, k, v, got, want
             torch.cuda.empty_cache()
 
     S = 4096
-    q, k, v = inputs(S, S, torch.bfloat16)
-    ms = device_ms(torch, lambda: faops.flash_attention(q, k, v), iters=20)
-    plain_ms = device_ms(torch, lambda: flash_attention_gqa_ref(q, k, v),
-                         iters=3)
-    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), iters=20)
-    # causal: S(S+1)/2 (query, key) pairs, each 2*hd FMAs per head (q.k and
-    # p.v), two operations per FMA; bytes: q, k, v read once, out written
-    flops = 4.0 * H * hd * S * (S + 1) / 2
-    nbytes = 2.0 * (2 * S * H * hd + 2 * S * Hkv * hd)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS_PER_S, nbytes / PEAK_BYTES_PER_S
-    row = {"max_abs_err": errs["bfloat16"], "max_abs_err_f32": errs["float32"],
-           "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": 1e3 * max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": library_ms,
-           "fp32_core_bound_ms": 1e3 * flops / PEAK_F32_OPS_PER_S,
-           "timed_at": {"Sq": S, "Skv": S, "q_offset": 0, "H": H, "Hkv": Hkv,
-                        "hd": hd, "dtype": "bfloat16", "causal": True},
-           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+    rows = {}
+    for dname, dtype, peak in (("bfloat16", torch.bfloat16,
+                                PEAK_BF16_FLOPS_PER_S),
+                               ("float32", torch.float32,
+                                PEAK_F32_OPS_PER_S)):
+        q, k, v = inputs(S, S, dtype)
+        plain_ms = device_ms(torch, lambda: flash_attention_gqa_ref(q, k, v),
+                             iters=3)
+        at = next(x for x in by_shape if x["dtype"] == dname
+                  and (x["Sq"], x["Skv"], x["q_offset"], x["window"])
+                  == (S, S, 0, None))
+        flops, nbytes = flops_bytes(S, S, 0, dtype)
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+        rows[dname] = {
+            "max_abs_err": errs[dname], "ms": at["ms"], "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": at["library_ms"],
+            "timed_at": {"Sq": S, "Skv": S, "q_offset": 0, "H": H,
+                         "Hkv": Hkv, "hd": hd, "dtype": dname,
+                         "causal": True},
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        del q, k, v
+        torch.cuda.empty_cache()
+    row = {**rows["bfloat16"], "f32": rows["float32"],
            "ms_by_shape": by_shape}
     log("kernel flash_attention: " + json.dumps(row))
-    del q, k, v, qs, ks, vs
-    torch.cuda.empty_cache()
     return row
 
 
@@ -888,7 +949,7 @@ def phase_lm(torch, counters) -> dict:
     # plain attention on the card, on the 512-token request's prefill
     check_b = lm_kernel_vs_plain(torch, model, params, prompts[0], out[0][0])
     # the flash kernel's share of each prefill (traced, after the counts)
-    shares = lm_flash_share(torch, model, params, prompts)
+    shares = lm_flash_share(torch, model, params, prompts, cfg)
     del params, batcher
     torch.cuda.empty_cache()
     # c. the reduced config on the card against the CPU
@@ -980,29 +1041,53 @@ def lm_kernel_vs_plain(torch, model, params, prompt, first_token) -> dict:
     return res
 
 
-def lm_flash_share(torch, model, params, prompts) -> list:
+#: the flash kernels' names in a profiler trace: the tensor-core kernel
+#: (bf16, the LM path's) and the FP32-core one (float32 only)
+FLASH_TC_NAME, FLASH_FP32_NAME = "flash_tc_kernel", "flash_fp32_kernel"
+
+
+def lm_flash_share(torch, model, params, prompts, cfg) -> list:
     """Each prompt's prefill once more under torch.profiler: the flash
-    kernel's card time against the prefill's card time and wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel's card time against the prefill's card time and wall time.
+    Every attention launch of the bf16 path must be the tensor-core kernel,
+    one per layer and chunk, and the FP32-core kernel must not appear."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     rows = []
     for p in prompts:
         tok = torch.as_tensor(p[None].astype(np.int64), device="cuda")
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t)
+        # one traced warm-up step first (its events dropped): a trace that
+        # starts with the tracer can lose kernel events
+        traced = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda pr: traced.append(
+                         pr.key_averages())) as prof:
+            for _ in range(2):
+                t = time.perf_counter()
+                model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t)
+                prof.step()
         flash_us = dev_us = 0.0
-        for e in prof.key_averages():
+        n_tc = n_fp32 = 0
+        for e in traced[-1]:
             us = (getattr(e, "self_device_time_total", None)
                   or getattr(e, "self_cuda_time_total", 0.0))
             dev_us += us
-            if "flash_kernel" in e.key:
+            if FLASH_TC_NAME in e.key:
                 flash_us += us
+                n_tc += e.count
+            n_fp32 += e.count if FLASH_FP32_NAME in e.key else 0
+        want = _prefill_launches(len(p), cfg)
+        if n_tc != want or n_fp32:
+            raise AssertionError(f"lm: the {len(p)}-token prefill ran "
+                                 f"{n_tc} {FLASH_TC_NAME} (want {want}) "
+                                 f"and {n_fp32} {FLASH_FP32_NAME} (want 0)")
         row = {"tokens": len(p), "wall_ms": wall_ms,
                "device_ms": dev_us / 1e3, "flash_ms": flash_us / 1e3,
+               "flash_tc_launches": n_tc,
                "flash_share_of_device": flash_us / dev_us if dev_us else None,
                "flash_share_of_wall": flash_us / 1e3 / wall_ms}
         log("lm prefill trace: " + json.dumps(row))
@@ -1095,7 +1180,9 @@ def main() -> int:
         {k: round(v["seconds"], 2) for k, v in built.items()}))
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                log(f"  {name}: {_kernel_name(line.split(chr(39))[1])}")
+            elif "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     card = subprocess.run(
@@ -1165,9 +1252,13 @@ def main() -> int:
         if name == "flash_attention":
             row["ms_is"] = ("card ms per launch at (Sq, Skv, q_offset) = "
                             "(4096, 4096, 0), bf16, CUDA graph")
-            row["launches_of"] = "the LM path's prefills"
-            for k in ("fp32_core_bound_ms", "max_abs_err_f32", "timed_at"):
-                row[k] = krows[name][k]
+            row["launches_of"] = ("the LM path's prefills, all of them "
+                                  "flash_tc_kernel (bf16, tensor cores)")
+            row["timed_at"] = krows[name]["timed_at"]
+            # the FP32-core kernel (float32 inputs): not on the main path,
+            # which is bf16; check c drives it in the reduced config
+            row["f32"] = {"kernel": "flash_fp32_kernel", "launches": 0,
+                          **{k: krows[name]["f32"][k] for k in keys}}
         table.append(row)
     log(json.dumps({"kernels": table}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

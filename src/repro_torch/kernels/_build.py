@@ -6,7 +6,8 @@ the repository root and loaded with ``ctypes``.  The library's file name
 carries a hash of its source, of every header (``*.cuh``) beside it and of
 the flags, so an edited source or header is rebuilt and a stale library is
 never loaded.  All sources that need a build are compiled in parallel, one
-``nvcc`` each.
+``nvcc`` each.  A source may add flags of its own (:data:`EXTRA_FLAGS`);
+they go into its library's hash too.
 
 No ``--use_fast_math``: it flushes denormals and relaxes inf/NaN handling,
 and the min-plus kernel's bitwise claim rests on exact IEEE adds of +inf.
@@ -31,6 +32,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
+#: flags of one source beside :data:`NVCC_FLAGS`: the flash kernel's
+#: tensor-core path must not spill, so ptxas warns if it does
+EXTRA_FLAGS = {"flash_attention": ("-Xptxas=-warn-spills",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -46,15 +50,19 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(src: pathlib.Path) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(src.stem, ())
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
     """The library path for ``src``: its name hashes the source, every
     ``*.cuh`` in the source's directory (the headers a source may include)
-    and the flags."""
+    and the source's flags."""
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(src.parent.glob("*.cuh")):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(src)).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -75,7 +83,7 @@ def build_all() -> Dict[str, dict]:
                 out[src.stem] = {"seconds": 0.0, "log": ""}
                 continue
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [_nvcc(), *_flags(src), "-o", str(tmp), str(src)]
             jobs[src.stem] = (lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))

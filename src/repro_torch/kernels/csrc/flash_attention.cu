@@ -1,4 +1,4 @@
-// Hopper (sm_90a) kernel for the LM prefill's attention.
+// Hopper (sm_90a) kernels for the LM prefill's attention.
 //
 //   fg_flash_attention  out[b, i, h, :] = softmax_j(q_i . k_j / sqrt(hd)) v_j
 //                       over the keys j that query i may see, with
@@ -10,44 +10,87 @@
 //                       the host-side padding of its wrapper
 //                       (flash_attention/ops.py, flash_attention and _run).
 //
-// Masks, by absolute position: query i sits at q_offset + i, key j at j.
-// Key j is seen when j < kv_len, and j <= q_pos when causal, and
-// j > q_pos - window when window > 0.  Masked scores are -1e9 (never -inf,
-// so exp() stays NaN-free) and take no probability mass.  The TPU kernel
-// fixes q_offset = 0; the chunked prefill reaches the same attention with a
-// q_offset (its second chunk attends against the cache filled so far), so
-// the offset is an argument here.
+// The dtype picks the kernel, by a fixed rule: bf16 inputs run
+// flash_tc_kernel on the tensor cores, float32 inputs flash_fp32_kernel on
+// the FP32 cores (wgmma would take float32 as TF32).  A bf16 call the
+// tensor-core kernel cannot take returns an error; nothing falls back.
 //
-// Layout: one block of 256 threads per (q-tile of 64 rows, query head,
-// batch), all of GQA in one launch.  The block keeps its q tile (as f32,
-// pre-scaled by 1/sqrt(hd) like flash.py's kernel, transposed) and its
-// accumulator resident, and streams the keys and values through shared
-// memory 64 rows at a time with the (m, l, acc) online-softmax carry.  Each
-// thread owns 4 query rows by 4 keys of a score tile and 4 rows by hd/16
-// columns of the accumulator.  The ragged Sq and Skv edges are masked in
-// the kernel (zero-filled rows, no host padding); k and v may be strided
-// views (a prefix of a KV cache).  Chunks that lie wholly above the causal
-// diagonal, below the window or past kv_len are skipped: for a query row a
-// fully masked chunk leaves m, l and acc bit-unchanged (r = exp(0) = 1,
-// p = 0), so skipping is exact.  The q tiles are issued heaviest first
-// (causal work grows with the tile index), so the last wave is light.
-//
-// Numerics: float32 math on inputs of any dtype (f32 or bf16 here); expf,
-// not __expf; no fast-math and -fmad=false from the build, so the products
-// and sums round where written, except the dot products and the P.V sum,
-// which are explicit fmaf.  Output acc / max(l, 1e-30) in the input dtype
-// (round to nearest even for bf16).  It agrees with the plain PyTorch
-// version to rounding: the sums run in another order.
+// Masks, by absolute position (both kernels): query i sits at q_offset + i,
+// key j at j.  Key j is seen when j < kv_len, and j <= q_pos when causal,
+// and j > q_pos - window when window > 0.  Masked keys take exactly zero
+// probability and a query that sees no key writes 0.  The TPU kernel fixes
+// q_offset = 0; the chunked prefill attends its second chunk against the
+// cache filled so far, so the offset is an argument here.  k and v may be
+// strided views (a prefix of a KV cache); the ragged Sq and Skv edges need
+// no host padding.  Chunks that lie wholly above the causal diagonal, below
+// the window or past kv_len are skipped: for a query row a fully masked
+// chunk leaves m, l and acc bit-unchanged (r = 1 exactly, p = 0), so
+// skipping is exact.  q tiles are issued heaviest first (causal work grows
+// with the tile index), so the last wave is light.  One launch per call,
+// all of GQA in it; no split over the keys and no atomics, so a call's
+// bits do not depend on scheduling or on the strides of k and v.
 //
 // Bound, at the serving path's shapes (starcoder2-7b prefill: H = 36,
 // Hkv = 4, hd = 128, S = 4096, bf16): causal attention needs
 // 4 * H * hd * S(S+1)/2 = 154.7 GFLOP against ~84 MB moved (q, k, v read
-// once, out written once), ~1,840 FLOP per byte, so it is compute-bound.
-// On an H100 SXM (data sheet, 700 W) the bf16 tensor cores would need
-// >= 0.156 ms; this design runs on the FP32 cores (67 TFLOP/s counting an
-// FMA as two), so it cannot beat ~2.3 ms.  Tensor cores (wgmma on bf16
-// tiles), TMA loads and warp specialisation are later work; rounding q and
-// p to bf16 for the MMA would also change the numbers.
+// once, out written once), ~1,840 FLOP per byte: operation-bound.  On an
+// H100 SXM (data sheet, 700 W) the bf16 tensor cores need >= 0.156 ms; the
+// FP32 cores (67 TFLOP/s counting an FMA as two) >= 2.3 ms.
+//
+// flash_tc_kernel (bf16), shaped after FlashAttention-3 for this card:
+//   - Persistent blocks of 384 threads, one per SM (the shared memory
+//     allows no more), each walking the work tiles blockIdx.x + i *
+//     gridDim.x; a tile is 128 query rows of one head and batch, and tiles
+//     are numbered heaviest first.  Warpgroup 0 is the producer: after
+//     setmaxnreg lowers its registers, one thread issues TMA loads
+//     (cp.async.bulk.tensor, 4-D maps over (hd, heads, S, B) with the
+//     tensors' own strides, encoded on the host per call): each tile's q
+//     once, into a slot with its own full/empty mbarriers so the next
+//     tile's q lands under this tile's last P V and store, and 128-key K
+//     and V chunks through a ring of 3 stages (2 at hd 160) with
+//     full/empty mbarriers, K and V apart, so a stage's K is refilled once
+//     its S is done.  Warpgroups 1 and 2 are consumers with raised
+//     registers, 64 query rows each.
+//   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     (K-major, hd split into swizzle-wide column blocks: 64 columns with
+//     the 128-byte swizzle at hd 64/128, 32 with the 64-byte one at hd 160,
+//     16 with the 32-byte one at hd 16, the same mode in the TMA map and
+//     the wgmma descriptor).  O += P V is wgmma m64n(hd)k16 with P in
+//     registers and V read MN-major through the descriptor's transpose bit
+//     (no transposed copy).  The sums stay in registers.
+//   - Inside a consumer, chunk j's S is issued beside chunk j-1's P V, and
+//     chunk j's softmax runs while that P V is on the tensor cores; O is
+//     rescaled once the P V is done.  The two consumers take turns to
+//     issue their products (two named barriers), so one's softmax runs
+//     under the other's products.
+//   - TMA zero-fills rows past Sq or Skv; rows past Sq are never stored,
+//     keys past Skv are masked (kv_len <= Skv).  The mask is applied only
+//     on chunks that need it (the diagonal, the window edge, the kv_len
+//     edge); interior chunks run unmasked.  A consumer drains, without
+//     computing, the chunks none of its rows sees.
+//   - Design limits, at hd 128: q (32 KB) plus 3 stages of K+V (3 x 64 KB)
+//     is 224 KB of the 227 KB a block may use, one block per SM; a
+//     consumer holds S (64 floats), O (64) and P (32 bf16 pairs) in
+//     registers.
+// Numerics (bf16): q . k takes the bf16 values exactly and sums in f32 on
+// the tensor cores; 1/sqrt(hd) is applied to S in f32 after the product,
+// folded with log2(e): p = 2^(s * c - m * c) (one fmaf, then the hardware's
+// ex2.approx, relative error ~2^-22, subnormal p flushed to 0), c =
+// log2(e) / sqrt(hd), m the running row max of the unscaled s; the rescale
+// r = 2^(m_old * c - m_new * c) is exactly 1 while the max holds.  l sums
+// the f32 p; p is rounded to bf16 (nearest even) only as the operand of
+// P V.  Output acc / max(l, 1e-30), rounded to nearest even.  Against
+// float32 math this moves an output by at most ~2^-9 max|v| (p's rounding)
+// plus the output's own rounding.  The build keeps -fmad=false; fused
+// multiply-adds are the explicit fmaf calls.
+//
+// flash_fp32_kernel (float32): 256 threads per (64-row q tile, head,
+// batch); q held transposed and pre-scaled by 1/sqrt(hd) like flash.py's
+// kernel, K and V streamed through shared memory 64 rows at a time, each
+// thread 4 query rows by 4 keys of the score tile, explicit fmaf, expf,
+// masked scores at -1e9.  It agrees with the plain PyTorch version to the
+// order of the sums.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,29 +98,23 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// float32: the FP32-core kernel
+
 constexpr int kQT = 64;           // query rows per block
 constexpr int kKC = 64;           // key/value rows per chunk
 constexpr int kLD = kQT + 4;      // leading dim of the transposed tiles
 constexpr int kThreads = 256;     // 16 x 16 threads
 constexpr float kNeg = -1e9f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float row_max(float x) {
+__device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 
-__device__ __forceinline__ float row_sum(float x) {
+__device__ __forceinline__ float row_sum16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
     x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -90,14 +127,14 @@ constexpr int smem_floats() {
   // [kKC][HD]; probabilities [kKC][kLD]
   return 2 * HD * kLD + kKC * kLD;
 }
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-             int H, int group, long long q_bs, long long q_ss,
-             long long kv_bs, long long kv_ss, int q_offset, int kv_len,
-             int causal, int window, float scale) {
+flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  int Sq, int Skv, int H, int group, long long q_bs,
+                  long long q_ss, long long kv_bs, long long kv_ss,
+                  int q_offset, int kv_len, int causal, int window,
+                  float scale) {
   static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
   constexpr int NG = (HD / 4 + 15) / 16;   // float4 column groups / thread
   constexpr int kLoads = kKC * HD / kThreads;
@@ -109,16 +146,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kQT;
   const int h = blockIdx.y, b = blockIdx.z;
-  const T* const qb = q + b * q_bs + static_cast<long long>(h) * HD;
-  const T* const kb = k + b * kv_bs + static_cast<long long>(h / group) * HD;
-  const T* const vb = v + b * kv_bs + static_cast<long long>(h / group) * HD;
+  const float* const qb = q + b * q_bs + static_cast<long long>(h) * HD;
+  const long long kvh = static_cast<long long>(h / group) * HD;
+  const float* const kb = k + b * kv_bs + kvh;
+  const float* const vb = v + b * kv_bs + kvh;
 
 #pragma unroll 8
   for (int it = 0; it < kLoads; ++it) {
     const int i = tid + it * kThreads;
     const int r = i / HD, d = i - r * HD;
     float x = 0.f;
-    if (q0 + r < Sq) x = __fmul_rn(to_f32(qb[(q0 + r) * q_ss + d]), scale);
+    if (q0 + r < Sq) x = __fmul_rn(qb[(q0 + r) * q_ss + d], scale);
     qT[d * kLD + r] = x;
   }
 
@@ -145,7 +183,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = tid + it * kThreads;
       const int r = i / HD, d = i - r * HD;
       const int j = c0 + r;
-      kv[d * kLD + r] = j < Skv ? to_f32(kb[j * kv_ss + d]) : 0.f;
+      kv[d * kLD + r] = j < Skv ? kb[j * kv_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -182,7 +220,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (!ok[j]) s[i][j] = kNeg;
         mj = fmaxf(mj, s[i][j]);
       }
-      mj = row_max(mj);
+      mj = row_max16(mj);
       const float mn = fmaxf(m[i], mj);
       const float r = expf(__fsub_rn(m[i], mn));
       float rs = 0.f;
@@ -191,7 +229,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p[i][j] = ok[j] ? expf(__fsub_rn(s[i][j], mn)) : 0.f;
         rs = __fadd_rn(rs, p[i][j]);
       }
-      rs = row_sum(rs);
+      rs = row_sum16(rs);
       l[i] = __fadd_rn(__fmul_rn(l[i], r), rs);
 #pragma unroll
       for (int c = 0; c < NG * 4; ++c) acc[i][c] = __fmul_rn(acc[i][c], r);
@@ -208,7 +246,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = tid + it * kThreads;
       const int r = i / HD, d = i - r * HD;
       const int j = c0 + r;
-      kv[r * HD + d] = j < Skv ? to_f32(vb[j * kv_ss + d]) : 0.f;
+      kv[r * HD + d] = j < Skv ? vb[j * kv_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -238,75 +276,817 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* const o = out + ((static_cast<long long>(b) * Sq + row) * H + h) * HD;
+    float* const o =
+        out + ((static_cast<long long>(b) * Sq + row) * H + h) * HD;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int col = (tx + 16 * g) * 4;
       if (col < HD) {
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj)
-          put(o + col + jj, __fdiv_rn(acc[i][g * 4 + jj], den));
+          o[col + jj] = __fdiv_rn(acc[i][g * 4 + jj], den);
       }
     }
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int Hkv, long long q_bs, long long q_ss,
-           long long kv_bs, long long kv_ss, int q_offset, int kv_len,
-           int causal, int window, float scale, cudaStream_t stream) {
-  constexpr int kSmem = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  // the attribute is set once per device, before any launch of this
-  // instantiation there (so never inside a stream capture)
-  static bool configured[64] = {};
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+
+constexpr int kTcRows = 128;      // query rows per block (2 consumer WGs)
+constexpr int kTcKC = 128;        // keys per K/V chunk
+constexpr int kTcThreads = 384;   // producer WG + 2 consumer WGs
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// Column blocks: the head dim is loaded and read in blocks of CB columns,
+// one TMA box and one swizzle span each (CB * 2 bytes per row).
+template <int HD>
+struct TcShape {
+  static constexpr int CB = HD % 64 == 0 ? 64 : (HD % 32 == 0 ? 32 : 16);
+  static constexpr int NCB = HD / CB;
+  static constexpr int RB = CB * 2;                 // bytes per tile row
+  static constexpr int kQBytes = kTcRows * HD * 2;  // q tile
+  static constexpr int kKVBytes = kTcKC * HD * 2;   // one K or V chunk
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr int kLayout = CB == 64 ? 1 : (CB == 32 ? 2 : 3);
+  // K/V ring depth: 3 stages where they fit beside the q tile (hd <= 128),
+  // else 2
+  static constexpr int kStages =
+      kQBytes + 3 * 2 * kKVBytes + 128 + 1024 <= 232448 ? 3 : 2;
+  // q | K stages | V stages | barriers, every tile 1024-byte aligned (the
+  // swizzle pattern repeats every 8 rows)
+  static constexpr int kOffK = kQBytes;
+  static constexpr int kOffV = kOffK + kStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+  static constexpr int kSmem = kOffBar + 128 + 1024;  // + alignment slack
+  static_assert(HD % 16 == 0 && HD <= 256, "wgmma n must divide by 16");
+  static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0, "alignment");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spins until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 4-D TMA box into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (all in 16-byte units) and the swizzle layout type.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Named barriers over the two consumer warpgroups (256 threads): one
+// waits on its id, the other arrives on it.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Waits until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, A and B K-major in shared
+// memory; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 16] += A[64 x 16] . B[16 x 16], A in registers (bf16 pairs),
+// B MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (bf16 pairs),
+// B MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (bf16 pairs),
+// B MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 160] += A[64 x 16] . B[16 x 160], A in registers (bf16 pairs),
+// B MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66,"
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 16) {
+    wgmma_rs_n16(d, a, db);
+  } else if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, db);
+  } else {
+    static_assert(N == 160, "no wgmma wrapper for this head dim");
+    wgmma_rs_n160(d, a, db);
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx, subnormal results flushed
+// to 0): exact at 0 (r = 1 while the max holds) and 0 at -inf (masked p).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// The fixed arguments of one warpgroup's softmax over its 64 rows: where
+// its two rows per thread sit, the masks, and the exponent scale.
+struct RowCtx {
+  int qp_a, qp_b;        // absolute positions of the thread's rows a, b
+  int cq;                // the thread's column pair in each 8-key block
+  int kv_hi, causal, window;
+  float c;               // log2(e) / sqrt(hd)
+};
+
+// One chunk's online-softmax step on the scores sc (the m64n128
+// accumulator: slots 4j, 4j+1 are row a, 4j+2, 4j+3 row b, keys c0 + 8j +
+// 2cq + {0, 1}).  Masks when `masked`; leaves p (f32) in sc, updates m
+// and l, and returns the rescale of rows a and b.
+__device__ __forceinline__ void softmax_chunk(float (&sc)[kTcKC / 2],
+                                              const RowCtx& x, int c0,
+                                              bool masked, float& m_a,
+                                              float& m_b, float& l_a,
+                                              float& l_b, float& ra,
+                                              float& rb) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < kTcKC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = c0 + 8 * j + 2 * x.cq + (e & 1);
+        const int qp = e < 2 ? x.qp_a : x.qp_b;
+        const bool ok = kp < x.kv_hi && (!x.causal || kp <= qp) &&
+                        (x.window <= 0 || kp > qp - x.window);
+        if (!ok) sc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+  for (int j = 0; j < kTcKC / 8; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx_a = quad_max(mx_a);
+  mx_b = quad_max(mx_b);
+  const float mu_a = mx_a == -INFINITY ? 0.f : __fmul_rn(mx_a, x.c);
+  const float mu_b = mx_b == -INFINITY ? 0.f : __fmul_rn(mx_b, x.c);
+  ra = ex2(__fsub_rn(__fmul_rn(m_a, x.c), mu_a));
+  rb = ex2(__fsub_rn(__fmul_rn(m_b, x.c), mu_b));
+  m_a = mx_a;
+  m_b = mx_b;
+  float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < kTcKC / 8; ++j) {
+    sc[4 * j] = ex2(fmaf(sc[4 * j], x.c, -mu_a));
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], x.c, -mu_a));
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], x.c, -mu_b));
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], x.c, -mu_b));
+    ps_a = __fadd_rn(__fadd_rn(ps_a, sc[4 * j]), sc[4 * j + 1]);
+    ps_b = __fadd_rn(__fadd_rn(ps_b, sc[4 * j + 2]), sc[4 * j + 3]);
+  }
+  l_a = __fadd_rn(__fmul_rn(l_a, ra), ps_a);
+  l_b = __fadd_rn(__fmul_rn(l_b, rb), ps_b);
+}
+
+// P as the register operand of P V: the accumulator layout of keys
+// 16kk..16kk+15 is the A-fragment layout of one k-step.
+__device__ __forceinline__ void pack_p(const float (&sc)[kTcKC / 2],
+                                       uint32_t (&pa)[kTcKC / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTcKC / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// One work tile: 128 query rows of one head and batch, and the chunks of
+// keys its rows need.  Tiles are numbered heaviest first: every head and
+// batch of the last q tile (the most causal work), then the one before.
+struct Tile {
+  int q0, h, b, c_begin, n_chunks;
+};
+
+__device__ __forceinline__ Tile tile_at(int t, int n_qt, int H, int B, int Sq,
+                                        int q_offset, int kv_hi, int causal,
+                                        int window) {
+  Tile x;
+  x.q0 = (n_qt - 1 - t / (H * B)) * kTcRows;
+  x.h = t % H;
+  x.b = t / H % B;
+  const int q_last = min(x.q0 + kTcRows, Sq) - 1;
+  const int c_end = causal ? min(kv_hi, q_offset + q_last + 1) : kv_hi;
+  x.c_begin =
+      window > 0 ? max(0, q_offset + x.q0 - window + 1) / kTcKC * kTcKC : 0;
+  x.n_chunks =
+      c_end > x.c_begin ? (c_end - x.c_begin + kTcKC - 1) / kTcKC : 0;
+  return x;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                __nv_bfloat16* __restrict__ out, int B, int Sq, int Skv,
+                int H, int group, int q_offset, int kv_len, int causal,
+                int window, float c) {
+  using Sh = TcShape<HD>;
+  constexpr int NS = Sh::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = s0, k_s = s0 + Sh::kOffK, v_s = s0 + Sh::kOffV;
+  // barriers, 8 bytes each: full_q, empty_q, then per stage full_k,
+  // full_v, empty_k, empty_v
+  const uint32_t full_q = s0 + Sh::kOffBar, empty_q = full_q + 8;
+  const uint32_t full_k = full_q + 16, full_v = full_k + 8 * NS;
+  const uint32_t empty_k = full_v + 8 * NS, empty_v = empty_k + 8 * NS;
+
+  const int kv_hi = min(kv_len, Skv);
+  const int n_qt = (Sq + kTcRows - 1) / kTcRows;
+  const int n_tiles = n_qt * H * B;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 2 * 128);             // every consumer thread
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 2 * 128);
+      mbar_init(empty_v + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the q slot and the K/V ring full, tile
+    // after tile (the block's tiles are blockIdx.x + i * gridDim.x)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      int r = 0;                             // chunks loaded so far
+      int ti = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++ti) {
+        const Tile x =
+            tile_at(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window);
+        const int hk = x.h / group;
+        mbar_wait(empty_q, (ti & 1) ^ 1);    // the last tile's q consumed
+        mbar_expect_tx(full_q, Sh::kQBytes);
+#pragma unroll
+        for (int cb = 0; cb < Sh::NCB; ++cb)
+          tma_load_4d(q_s + cb * kTcRows * Sh::RB, &qmap, full_q,
+                      cb * Sh::CB, x.h, x.q0, x.b);
+        for (int j = 0; j < x.n_chunks; ++j, ++r) {
+          const int s = r % NS;
+          const uint32_t free_par = ((r / NS) & 1) ^ 1;
+          const int c0 = x.c_begin + j * kTcKC;
+          mbar_wait(empty_k + 8 * s, free_par);   // K of the stage consumed
+          mbar_expect_tx(full_k + 8 * s, Sh::kKVBytes);
+#pragma unroll
+          for (int cb = 0; cb < Sh::NCB; ++cb)
+            tma_load_4d(k_s + s * Sh::kKVBytes + cb * kTcKC * Sh::RB, &kmap,
+                        full_k + 8 * s, cb * Sh::CB, hk, c0, x.b);
+          mbar_wait(empty_v + 8 * s, free_par);   // V of the stage consumed
+          mbar_expect_tx(full_v + 8 * s, Sh::kKVBytes);
+#pragma unroll
+          for (int cb = 0; cb < Sh::NCB; ++cb)
+            tma_load_4d(v_s + s * Sh::kKVBytes + cb * kTcKC * Sh::RB, &vmap,
+                        full_v + 8 * s, cb * Sh::CB, hk, c0, x.b);
+        }
+      }
+    }
+  } else {
+    // consumers: 64 query rows per warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int t_wg = threadIdx.x - 128 * wg;
+    const int warp = t_wg / 32, lane = t_wg % 32;
+    const int r0 = (wg - 1) * 64;            // the warpgroup's tile rows
+    const uint32_t qa = q_s + r0 * Sh::RB;
+    // the tensor cores' turn: the two consumers issue their products in
+    // alternation, one chunk each (named barrier = own warpgroup index),
+    // so one's softmax runs under the other's products
+    auto my_turn = [&] { named_sync(wg); };
+    auto your_turn = [&] { named_arrive(3 - wg); };
+    // ring slot r (stage r % NS, its (r / NS)-th use)
+    auto drain = [&](int r) {
+      const int s = r % NS;
+      const uint32_t par = (r / NS) & 1;
+      mbar_wait(full_k + 8 * s, par);
+      my_turn();
+      your_turn();
+      mbar_arrive(empty_k + 8 * s);
+      mbar_wait(full_v + 8 * s, par);
+      mbar_arrive(empty_v + 8 * s);
+    };
+    // S = Q K^T over slot r's 128 keys, issued (not waited for)
+    auto issue_s = [&](int r, float (&sc)[kTcKC / 2]) {
+      const int s = r % NS;
+      mbar_wait(full_k + 8 * s, (r / NS) & 1);
+      const uint32_t ks = k_s + s * Sh::kKVBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk * 16) % Sh::CB * 2;
+        const uint32_t blk = (kk * 16) / Sh::CB;
+        wgmma_ss_n128(
+            sc,
+            make_desc(qa + blk * (kTcRows * Sh::RB) + col, 16, 8 * Sh::RB,
+                      Sh::kLayout),
+            make_desc(ks + blk * (kTcKC * Sh::RB) + col, 16, 8 * Sh::RB,
+                      Sh::kLayout),
+            kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V over slot r, V read MN-major (16 keys per k-step, the
+    // column blocks kTcKC * RB bytes apart), issued (not waited for)
+    auto issue_pv = [&](int r, float (&o)[HD / 2],
+                        uint32_t (&pa)[kTcKC / 16][4]) {
+      const int s = r % NS;
+      mbar_wait(full_v + 8 * s, (r / NS) & 1);
+      const uint32_t vs = v_s + s * Sh::kKVBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcKC / 16; ++kk)
+        wgmma_rs<HD>(o, pa[kk],
+                     make_desc(vs + kk * 16 * Sh::RB, kTcKC * Sh::RB,
+                               8 * Sh::RB, Sh::kLayout));
+      wgmma_commit();
+    };
+
+    float o[HD / 2], sc[kTcKC / 2];
+    uint32_t pa[kTcKC / 16][4];
+    int r = 0;                               // ring slots consumed so far
+    int ti = 0;
+    if (wg == 2) your_turn();                // warpgroup 1 goes first
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++ti) {
+      const Tile x =
+          tile_at(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window);
+      const int row_a = x.q0 + r0 + warp * 16 + lane / 4, row_b = row_a + 8;
+      const RowCtx rc = {q_offset + row_a, q_offset + row_b, lane % 4,
+                         kv_hi, causal, window, c};
+      // the keys any live row of this warpgroup sees, [lo, hi), and the
+      // chunks [j_lo, j_hi) that hold them; the others are only drained
+      const int w_first = x.q0 + r0, w_last = min(x.q0 + r0 + 63, Sq - 1);
+      const bool wg_live = w_first < Sq;
+      const int lo = window > 0 ? q_offset + w_first - window + 1 : 0;
+      const int hi = causal ? min(kv_hi, q_offset + w_last + 1) : kv_hi;
+      int j_lo = 0, j_hi = 0;
+      if (wg_live) {
+        while (j_lo < x.n_chunks && x.c_begin + (j_lo + 1) * kTcKC <= lo)
+          ++j_lo;
+        j_hi = j_lo;
+        while (j_hi < x.n_chunks && x.c_begin + j_hi * kTcKC < hi) ++j_hi;
+      }
+      // the chunk needs its mask: a key past kv_len, above the diagonal
+      // or below the window for some row of the warpgroup
+      auto masked = [&](int c0) {
+        return c0 + kTcKC > kv_hi ||
+               (causal && c0 + kTcKC - 1 > q_offset + w_first) ||
+               (window > 0 && c0 <= q_offset + w_last - window);
+      };
+
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+      float ra, rb;
+      mbar_wait(full_q, ti & 1);
+      for (int j = 0; j < j_lo; ++j) drain(r + j);
+      if (j_lo < j_hi) {
+        // the first live chunk: S, softmax, P
+        my_turn();
+        issue_s(r + j_lo, sc);
+        your_turn();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        mbar_arrive(empty_k + 8 * ((r + j_lo) % NS));
+        if (j_lo + 1 == j_hi) mbar_arrive(empty_q);   // q's last use
+        const int c0 = x.c_begin + j_lo * kTcKC;
+        softmax_chunk(sc, rc, c0, masked(c0), m_a, m_b, l_a, l_b, ra, rb);
+        pack_p(sc, pa);
+        // steady state: chunk j's S runs on the tensor cores beside the
+        // previous chunk's P V, and its softmax overlaps that P V
+        for (int j = j_lo + 1; j < j_hi; ++j) {
+          const int c0 = x.c_begin + j * kTcKC;
+          my_turn();
+          issue_s(r + j, sc);
+          issue_pv(r + j - 1, o, pa);
+          your_turn();
+          wgmma_wait<1>();                    // S of chunk j is done
+          fence_regs(sc);
+          mbar_arrive(empty_k + 8 * ((r + j) % NS));
+          if (j + 1 == j_hi) mbar_arrive(empty_q);    // q's last use
+          softmax_chunk(sc, rc, c0, masked(c0), m_a, m_b, l_a, l_b, ra,
+                        rb);
+          wgmma_wait<0>();                    // P V of chunk j - 1 is done
+          fence_regs(o);
+          fence_regs(pa);
+          mbar_arrive(empty_v + 8 * ((r + j - 1) % NS));
+#pragma unroll
+          for (int i = 0; i < HD / 2; ++i)
+            o[i] = __fmul_rn(o[i], (i & 2) ? rb : ra);
+          pack_p(sc, pa);
+        }
+        issue_pv(r + j_hi - 1, o, pa);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        mbar_arrive(empty_v + 8 * ((r + j_hi - 1) % NS));
+      } else {
+        mbar_arrive(empty_q);                 // no live chunk: q unused
+      }
+      for (int j = j_hi; j < x.n_chunks; ++j) drain(r + j);
+      r += x.n_chunks;
+
+      if (wg_live) {
+        const float den_a = fmaxf(quad_sum(l_a), 1e-30f);
+        const float den_b = fmaxf(quad_sum(l_b), 1e-30f);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = half ? row_b : row_a;
+          if (row >= Sq) continue;
+          const float den = half ? den_b : den_a;
+          __nv_bfloat16* const orow =
+              out + ((static_cast<long long>(x.b) * Sq + row) * H + x.h) * HD;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * rc.cq) =
+                __floats2bfloat162_rn(
+                    __fdiv_rn(o[4 * j + 2 * half], den),
+                    __fdiv_rn(o[4 * j + 2 * half + 1], den));
+        }
+      }
+    }
+    if (wg == 1) my_turn();                   // the last turn handed over
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+
+// cudaFuncSetAttribute for more than 48 KB of dynamic shared memory, once
+// per device and kernel, before any launch there (so never inside a stream
+// capture).
+template <typename K>
+int allow_smem(K kernel, int bytes, bool (&configured)[64]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flash_kernel<T, HD>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
+                               bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[dev] = true;
   }
+  return 0;
+}
+
+template <int HD>
+int launch_fp32(const void* q, const void* k, const void* v, void* out,
+                int B, int Sq, int Skv, int H, int Hkv, long long q_bs,
+                long long q_ss, long long kv_bs, long long kv_ss,
+                int q_offset, int kv_len, int causal, int window,
+                float scale, cudaStream_t stream) {
+  constexpr int kSmem = smem_floats<HD>() * static_cast<int>(sizeof(float));
+  static bool configured[64] = {};
+  const int rc = allow_smem(flash_fp32_kernel<HD>, kSmem, configured);
+  if (rc) return rc;
   const dim3 grid((Sq + kQT - 1) / kQT, H, B);
-  flash_kernel<T, HD><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, H / Hkv,
-      q_bs, q_ss, kv_bs, kv_ss, q_offset, kv_len, causal, window, scale);
+  flash_fp32_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
+      H / Hkv, q_bs, q_ss, kv_bs, kv_ss, q_offset, kv_len, causal, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
-              int B, int Sq, int Skv, int H, int Hkv, long long q_bs,
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over x [B, S, heads, hd] (strides in elements; the
+// (heads, hd) dims contiguous) with boxes of `cols` head-dim columns by
+// `rows` sequence rows of one head and batch.
+int encode_map(CUtensorMap* map, const void* x, int B, int S, int heads,
+               int hd, long long b_stride, long long s_stride, int cols,
+               int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (B == 1) b_stride = static_cast<long long>(S) * s_stride;  // unused
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(s_stride) * 2,
+                                 static_cast<cuuint64_t>(b_stride) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : (cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(x), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Skv, int H, int Hkv, long long q_bs,
               long long q_ss, long long kv_bs, long long kv_ss, int q_offset,
               int kv_len, int causal, int window, float scale,
-              cudaStream_t s) {
-#define FG_HD(N)                                                          \
-  case N:                                                                 \
-    return launch<T, N>(q, k, v, out, B, Sq, Skv, H, Hkv, q_bs, q_ss,     \
-                        kv_bs, kv_ss, q_offset, kv_len, causal, window,   \
-                        scale, s);
-  switch (hd) {
-    FG_HD(16)
-    FG_HD(32)
-    FG_HD(64)
-    FG_HD(128)
-    FG_HD(160)
-    FG_HD(256)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+              cudaStream_t stream) {
+  using Sh = TcShape<HD>;
+  static bool configured[64] = {};
+  int rc = allow_smem(flash_tc_kernel<HD>, Sh::kSmem, configured);
+  if (rc) return rc;
+  // the card's SM count, read once per device
+  static int sm_count[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sm_count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-#undef FG_HD
+  // TMA: 16-byte aligned bases and strides
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 ||
+      (q_bs | q_ss | kv_bs | kv_ss) % 8)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap qm, km, vm;
+  if ((rc = encode_map(&qm, q, B, Sq, H, HD, q_bs, q_ss, Sh::CB, kTcRows)) ||
+      (rc = encode_map(&km, k, B, Skv, Hkv, HD, kv_bs, kv_ss, Sh::CB,
+                       kTcKC)) ||
+      (rc = encode_map(&vm, v, B, Skv, Hkv, HD, kv_bs, kv_ss, Sh::CB,
+                       kTcKC)))
+    return rc;
+  // c = log2(e) / sqrt(hd): the exponent's scale, folded for ex2
+  const float c = static_cast<float>(static_cast<double>(scale) *
+                                     1.4426950408889634);
+  // persistent: one block per SM (the shared memory allows no more), each
+  // walking its share of the tiles
+  const int n_tiles = (Sq + kTcRows - 1) / kTcRows * H * B;
+  const int grid = min(n_tiles, sm_count[dev]);
+  flash_tc_kernel<HD><<<grid, kTcThreads, Sh::kSmem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), B, Sq, Skv, H, H / Hkv,
+      q_offset, kv_len, causal, window, c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Strides are in elements; each (heads, hd)
-// row block must be contiguous.  Returns a cudaError_t (0 on success).
+// dtype: 0 float32 (FP32-core kernel), 1 bfloat16 (tensor-core kernel).
+// Strides are in elements; each (heads, hd) row block must be contiguous,
+// and for bf16 every base and stride 16-byte aligned.  Returns a
+// cudaError_t (0 on success).
 extern "C" int fg_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, int dtype, int B,
                                   int Sq, int Skv, int H, int Hkv, int hd,
@@ -318,13 +1098,30 @@ extern "C" int fg_flash_attention(const void* q, const void* k,
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, out, B, Sq, Skv, H, Hkv, q_bs, q_ss,
-                            kv_bs, kv_ss, q_offset, kv_len, causal, window,
-                            scale, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, out, B, Sq, Skv, H, Hkv,
-                                    q_bs, q_ss, kv_bs, kv_ss, q_offset,
-                                    kv_len, causal, window, scale, s);
+#define FG_HD(N, LAUNCH)                                                   \
+  case N:                                                                  \
+    return LAUNCH<N>(q, k, v, out, B, Sq, Skv, H, Hkv, q_bs, q_ss, kv_bs,  \
+                     kv_ss, q_offset, kv_len, causal, window, scale, s);
+  if (dtype == 0) {
+    switch (hd) {
+      FG_HD(16, launch_fp32)
+      FG_HD(64, launch_fp32)
+      FG_HD(128, launch_fp32)
+      FG_HD(160, launch_fp32)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype == 1) {
+    switch (hd) {
+      FG_HD(16, launch_tc)
+      FG_HD(64, launch_tc)
+      FG_HD(128, launch_tc)
+      FG_HD(160, launch_tc)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+#undef FG_HD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,9 +9,11 @@ query head ``h`` reading key/value head ``h // (H // Hkv)``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/flash_attention.cu``) on the current stream and adds one to its
-count in :data:`LAUNCHES`; on a CPU tensor it runs the plain version in
-``ref`` and counts nothing.  There is no fallback from one to the other: a
-build or launch failure raises.
+count in :data:`LAUNCHES`: bf16 inputs run on the tensor cores (bf16
+products, f32 sums, p rounded to bf16 for p.v), float32 inputs on the FP32
+cores.  On a CPU tensor it runs the plain version in ``ref`` and counts
+nothing.  There is no fallback from one to the other: a build or launch
+failure raises.
 """
 from __future__ import annotations
 
@@ -26,8 +28,10 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_gqa_ref
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"flash_attention": 0}
 
-#: head dims the kernel is instantiated for (``csrc/flash_attention.cu``)
-HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+#: head dims the kernels are instantiated for (``csrc/flash_attention.cu``):
+#: the reduced configs (16), the windowed case (64), starcoder2-7b,
+#: qwen2-72b and mistral-large-123b (128), stablelm-12b (160)
+HEAD_DIMS = (16, 64, 128, 160)
 #: dtype codes of the C entry
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -83,9 +87,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, kv_len: Optional[int] = None
                     ) -> torch.Tensor:
-    """Blocked online-softmax attention, float32 math, output in the input
-    dtype.  k and v may be strided views (a prefix of a KV cache) as long as
-    their (heads, hd) dims are contiguous and their strides agree."""
+    """Blocked online-softmax attention, output in the input dtype.  k and v
+    may be strided views (a prefix of a KV cache) as long as their (heads,
+    hd) dims are contiguous and their strides agree; for bf16 (read by the
+    TMA) every base address must be 16-byte aligned and every stride a
+    multiple of 8 elements."""
     _check(q, k, v)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive; got {window}")
@@ -111,6 +117,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _rows(v, "v") != kv_strides:
         raise ValueError(f"k and v strides differ: {k.stride()} vs "
                          f"{v.stride()}")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:2]):
+                raise ValueError(f"flash_attention: bf16 {name} needs a "
+                                 f"16-byte aligned base and strides that "
+                                 f"are multiples of 8; strides "
+                                 f"{x.stride()}")
     kv_len = Skv if kv_len is None else max(0, min(int(kv_len), Skv))
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:

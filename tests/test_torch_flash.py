@@ -10,7 +10,10 @@ seed and handed to both.
 Tolerances are the JAX suite's own: float32 ``atol=1e-5`` (the softmax and
 the sums run in another order: one pass against the online blocks), bf16
 ``atol=2e-2`` (about two bf16 ulps at unit scale: both round the float32
-result once, but the float32 results differ in the last bits).
+result once, but the float32 results differ in the last bits).  The card's
+bf16 kernel rounds p to bf16 for p.v; a plain-torch emulation of its
+arithmetic (below) holds the card's tolerance, ``rtol=atol=8e-3``, against
+the JAX kernel and the plain version.
 """
 import numpy as np
 import pytest
@@ -25,7 +28,7 @@ from repro.kernels.flash_attention.flash import \
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    flash_attention_gqa_ref, flash_attention_ref)
+    attention_mask, flash_attention_gqa_ref, flash_attention_ref)
 from repro_torch.models import attention as tattn  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -140,3 +143,91 @@ def test_fully_masked_rows_are_zero():
     _, (q, k, v) = _qkv(2, 1, 4, 8, 2, 2, 16, "float32")
     out = ops.flash_attention(q, k, v, kv_len=0)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic (csrc/flash_attention.cu,
+# flash_tc_kernel), emulated in plain torch: it backs the card's bf16
+# tolerance before any card run
+
+#: keys per chunk of the tensor-core kernel (kTcKC)
+TC_CHUNK = 128
+#: the card's bf16 tolerance (chip_smoke.FLASH_TOL, test_torch_cuda): p
+#: rounded to bf16 for p.v moves an output by at most 2^-9 max|v|, on top
+#: of one output ulp
+TC_TOL = dict(rtol=8e-3, atol=8e-3)
+
+
+def _tc_emulation(q, k, v, *, causal=True, window=None, q_offset=0,
+                  kv_len=None):
+    """bf16 q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] -> bf16 [B,Sq,H,hd], as the
+    tensor-core kernel computes it: 128-key chunks with the online-softmax
+    carry; s = q.k from the bf16 values in f32, scaled after the product,
+    p = exp2(s c - m c) with c = log2(e)/sqrt(hd); l sums the f32 p; p is
+    rounded to bf16 as the operand of p.v; out = acc / max(l, 1e-30)."""
+    B, Sq, H, hd = q.shape
+    Skv, g = k.shape[1], H // k.shape[2]
+    qf = q.float().transpose(1, 2)                          # [B,H,Sq,hd]
+    kf = k.float().repeat_interleave(g, 2).transpose(1, 2)  # [B,H,Skv,hd]
+    vf = v.float().repeat_interleave(g, 2).transpose(1, 2)
+    scale = float(np.float32(1.0 / hd ** 0.5))          # the wrapper's f32
+    c = float(np.float32(scale * np.log2(np.e)))
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len)
+    m = torch.full((B, H, Sq), -torch.inf)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, hd))
+    for c0 in range(0, Skv, TC_CHUNK):
+        s = qf @ kf[:, :, c0:c0 + TC_CHUNK].transpose(-1, -2)
+        s = torch.where(mask[:, c0:c0 + TC_CHUNK], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(m_new == -torch.inf, 0.0, m_new * c)
+        r = torch.exp2(m * c - mu)
+        p = torch.exp2(s * c - mu[..., None])
+        l = l * r + p.sum(-1)
+        acc = acc * r[..., None] + (p.bfloat16().float()
+                                    @ vf[:, :, c0:c0 + TC_CHUNK])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.bfloat16().transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,hd,causal,window", SWEEP)
+def test_tensor_core_arithmetic_matches_jax_flash(B, Sq, Skv, H, Hkv, hd,
+                                                  causal, window):
+    """The tensor-core kernel's rounding (p in bf16 for p.v) stays within
+    the card's bf16 tolerance of the JAX flash kernel (interpret mode,
+    float32 math on the same bf16 inputs)."""
+    (jq, jk, jv), (q, k, v) = _qkv(Sq * 7 + Skv, B, Sq, Skv, H, Hkv, hd,
+                                   "bfloat16")
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                interpret=True)
+    got = _tc_emulation(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TC_TOL)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,hd,q_offset,causal,window,kv_len", [
+    (1, 200, 200, 36, 4, 128, 0, True, None, None),    # the path's GQA
+    (2, 64, 320, 8, 2, 128, 256, True, None, None),    # chunk with offset
+    (1, 100, 300, 4, 1, 64, 200, True, 32, None),      # window edge
+    (2, 77, 300, 4, 4, 16, 0, False, None, 190),       # kv_len mid-chunk
+    (1, 130, 130, 2, 2, 160, 0, True, None, None),     # head_dim 160
+])
+def test_tensor_core_arithmetic_matches_plain_version(B, Sq, Skv, H, Hkv, hd,
+                                                      q_offset, causal,
+                                                      window, kv_len):
+    """What the card compares: the tensor-core arithmetic against the plain
+    version (float32 math) on bf16 inputs, within the card's tolerance, at
+    ragged tiles, masks that end mid-chunk and every kept head dim."""
+    _, (q, k, v) = _qkv(Sq + Skv + hd, B, Sq, Skv, H, Hkv, hd, "bfloat16")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    got = _tc_emulation(q, k, v, **kw)
+    want = flash_attention_gqa_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, **TC_TOL)
+    if kv_len is not None:
+        # a masked key takes exactly zero probability: the values there
+        # do not reach the output
+        v2 = v.clone()
+        v2[:, kv_len:] = 1e4
+        assert torch.equal(_tc_emulation(q, k, v2, **kw), got)

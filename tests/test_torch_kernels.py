@@ -220,3 +220,16 @@ def test_build_target_hashes_the_headers(tmp_path, same_header):
         names.append(_build._target(d / "k.cu").name)
     assert (names[0] == names[1]) == same_header
     assert names[0].startswith("libk-")
+
+
+def test_build_target_hashes_a_sources_own_flags(tmp_path, monkeypatch):
+    """A source's extra flags (``EXTRA_FLAGS``) rename its library and no
+    other's; no compiler is run."""
+    for stem in ("k", "j"):
+        (tmp_path / f"{stem}.cu").write_text("int f() { return 1; }\n")
+    monkeypatch.setattr(_build, "EXTRA_FLAGS", {})
+    before = {s: _build._target(tmp_path / f"{s}.cu").name for s in "kj"}
+    monkeypatch.setattr(_build, "EXTRA_FLAGS", {"k": ("-DFG_EXTRA",)})
+    after = {s: _build._target(tmp_path / f"{s}.cu").name for s in "kj"}
+    assert after["k"] != before["k"] and after["j"] == before["j"]
+    assert _build._flags(tmp_path / "k.cu")[-1] == "-DFG_EXTRA"
