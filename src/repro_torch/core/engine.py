@@ -7,8 +7,8 @@ the device, so the host harvests stats once per K visits
 (``host_loop=True`` keeps the per-visit loop with the host scheduler as the
 oracle).  On a CUDA device the visit's contractions run the hand-written
 kernels of ``kernels/minplus``; on the CPU their plain versions.
-``fused=True`` runs each visit as one launch of the fused visit kernel
-(``kernels/fused_visit``), with no read back to the host inside a chunk.
+``fused=True`` runs each K-visit chunk as one launch of the fused visit
+kernel (``kernels/fused_visit``), with no read back to the host inside it.
 """
 from __future__ import annotations
 
@@ -61,11 +61,36 @@ class VisitStats(NamedTuple):
 # device-side graph bundle
 
 
+def column_lists(blocks: np.ndarray):
+    """Each block's finite entries as column lists, the fused visit's
+    adjacency: ``(col_ptr [nblk, B+1] i32, col_u [nnz] i32, col_w [nnz]
+    f32)``.  The entries of column v of block k are
+    ``col_ptr[k, v] .. col_ptr[k, v+1]`` (``col_ptr[k, B]`` is where block
+    k + 1 starts), in ascending u, with ``col_w == blocks[k, u, v]``
+    bit for bit; +inf entries are left out."""
+    nblk, B, _ = blocks.shape
+    # flat indices of the finite entries in (k, v, u) order
+    kv, u = np.divmod(
+        np.flatnonzero(np.isfinite(blocks).transpose(0, 2, 1).ravel()), B)
+    k, v = np.divmod(kv, B)
+    starts = np.zeros(nblk * B + 1, dtype=np.int64)
+    np.cumsum(np.bincount(kv, minlength=nblk * B), out=starts[1:])
+    if starts[-1] > np.iinfo(np.int32).max:
+        raise ValueError(f"{starts[-1]} finite block entries overflow the "
+                         f"column lists' int32 offsets")
+    col_ptr = starts[np.arange(nblk)[:, None] * B + np.arange(B + 1)]
+    return (col_ptr.astype(np.int32), u.astype(np.int32),
+            blocks[k, u, v].astype(np.float32))
+
+
 @dataclasses.dataclass
 class DeviceGraph:
     """BlockGraph arrays staged onto one device once, plus per-partition
     neighbour tables the visit indexes without masking."""
     blocks: torch.Tensor      # [nblk, B, B] f32, +inf absent
+    col_ptr: torch.Tensor     # [nblk, B+1] i32 } the finite entries of each
+    col_u: torch.Tensor       # [nnz] i32       } block by column
+    col_w: torch.Tensor       # [nnz] f32       } (column_lists)
     row_nnz: torch.Tensor     # [nblk, B] i32
     nbr_blk: torch.Tensor     # [P, Dmax] i64 (-1 pad: identity contribution)
     nbr_dst: torch.Tensor     # [P, Dmax] i64 destination (P pad: trash row)
@@ -94,8 +119,13 @@ class DeviceGraph:
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
                 dev)
 
+        blocks = np.ascontiguousarray(bg.blocks, dtype=np.float32)
+        col_ptr, col_u, col_w = column_lists(blocks)
         return DeviceGraph(
-            blocks=put(bg.blocks, np.float32),
+            blocks=put(blocks, np.float32),
+            col_ptr=put(col_ptr, np.int32),
+            col_u=put(col_u, np.int32),
+            col_w=put(col_w, np.float32),
             row_nnz=put(bg.row_nnz, np.int32),
             nbr_blk=put(bg.nbr_blk, np.int64),
             nbr_dst=put(np.where(valid, bg.nbr_part, P), np.int64),

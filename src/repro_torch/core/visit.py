@@ -388,15 +388,15 @@ def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
     termination signal.  Edge counters carry an exact ``(hi, lo)`` int32
     pair per query.
 
-    ``fused=True`` runs each iteration of the loop as one launch of the
-    fused visit kernel (``kernels/fused_visit``): selection, the whole
-    visit and the stats stay on the device, the chunk's ``min(limit, K)``
-    launches go out back to back, and the host reads the stats once per
-    chunk (``device_syncs`` is 1).  On the CPU each launch is the kernel's
-    plain version.  Bit-identical to the unfused loop for minplus, and for
-    push on the same device (the spread sums in one order on each).
-    ``frontier_mode="sparse"`` (minplus only) lets the kernel skip all-+inf
-    source columns: identical bits, less work on thin frontiers.
+    ``fused=True`` runs the whole loop as one launch of the fused visit
+    kernel (``kernels/fused_visit``): selection, up to ``min(limit, K)``
+    visits and the stats stay on the device, and the host reads the stats
+    once per chunk (``device_syncs`` is 1).  On the CPU each visit is the
+    kernel's plain version.  Bit-identical to the unfused loop for
+    minplus, and for push on the same device (the spread sums in one order
+    on each).  ``frontier_mode="sparse"`` (minplus only) lets the kernel
+    skip query rows whose sources are all +inf: identical bits, less work
+    on thin frontiers.
     """
     if policy not in POLICIES:
         raise ValueError(f"unknown scheduling policy {policy!r}; "
@@ -451,8 +451,8 @@ def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
 def _make_fused_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
                          policy: str, K: int,
                          frontier_mode: str) -> Callable:
-    """The fused arm of :func:`make_megastep`: one kernel launch per loop
-    iteration, one stats read per chunk."""
+    """The fused arm of :func:`make_megastep`: one kernel launch and one
+    stats read per chunk."""
     P = dg.num_parts
     fv = make_fused_visit(dg, algebra, max_rounds, policy=policy,
                           frontier_mode=frontier_mode, K=K)

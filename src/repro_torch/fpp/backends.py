@@ -71,9 +71,9 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
     """Run one query batch (sources in reordered ids) on one backend.
     bfs expects ``bg`` built from the unit-weight variant (the session's
     ``prepared`` does this).  ``fused=True`` (engine backend only) runs
-    each visit as one launch of the fused visit kernel;
-    ``frontier_mode="sparse"`` (minplus kinds) lets it skip all-+inf source
-    columns."""
+    each K-visit chunk as one launch of the fused visit kernel;
+    ``frontier_mode="sparse"`` (minplus kinds) lets it skip query rows whose
+    sources are all +inf."""
     if fused and backend != "engine":
         raise ValueError(
             f"fused=True is an engine-backend flag; backend={backend!r} "

@@ -13,7 +13,8 @@ that keeps hot blocks warm across visits; the state planes must fit HBM:
 At Q = 64 that gives B = 128 (2·128²·4 + 2·64·128·4 = 196,608 bytes of
 232,448); B = 256 does not fit.  A fused plan must also fit the fused visit
 kernel's shared-memory layout (:meth:`MemoryModel.fused_working_set`, the
-bytes the kernel asks for at launch); at Q = 64 that still gives B = 128.
+bytes each CTA of its cluster asks for at launch); at Q = 64 that still
+gives B = 128.
 Measuring the candidates (the reference's ``tune=True``) waits for a later
 slice.
 """
@@ -75,8 +76,8 @@ class MemoryModel:
     ``l2_bytes`` bounds one visit's hub neighbourhood; HBM holds the
     block-sparse graph plus the [P, Q, B] state planes, and ``hbm_bytes``
     caps the state so Q and B cannot silently overflow the card.  A fused
-    visit holds its rows, masks and one block in shared memory for the whole
-    visit: :meth:`fused_working_set`.
+    visit holds each CTA's slice of the rows, their masks and three stages
+    of neighbour rows in shared memory: :meth:`fused_working_set`.
     """
     smem_bytes: int = 232_448            # per thread block (227 KB)
     l2_bytes: int = 50 * 1000 ** 2       # 50 MB
@@ -91,12 +92,14 @@ class MemoryModel:
 
     def fused_working_set(self, block_size: int, num_queries: int,
                           num_planes: int = 2) -> int:
-        """Dynamic shared-memory bytes one fused visit asks for at launch:
+        """Dynamic shared-memory bytes each CTA of a fused launch asks for:
         the kernel's layout for ``num_planes`` value planes (1: minplus,
-        2: push) — the ``[Q, B]`` planes and masks of the visited rows,
-        one adjacency block (minplus: f32; push: its finite mask as bits)
-        and the per-row and per-column scratch.  Neighbour blocks stream
-        through that one block slot, so ``dmax`` does not enter."""
+        2: push) at the cluster size ``num_queries`` picks — the CTA's
+        ``[ceil(Q / C), B]`` slice of the visited rows' planes and masks,
+        three stages of at most 8 neighbour rows, and the per-row,
+        per-column and exchange scratch.  The blocks are column lists in
+        global memory and neighbour rows stream through the stages, so
+        neither ``dmax`` nor a block's density enters."""
         return smem_bytes(num_planes, num_queries, block_size)
 
     def state_bytes(self, n_vertices: int, num_queries: int,
@@ -145,7 +148,7 @@ class Plan:
 
     def working_set_bytes(self) -> int:
         """Shared memory one visit of this plan holds: the fused kernel's
-        launch size (the larger algebra's) or the unfused working set."""
+        size per CTA (the larger algebra's) or the unfused working set."""
         if self.fused:
             return max(self.mem.fused_working_set(
                 self.block_size, self.num_queries, n) for n in (1, 2))

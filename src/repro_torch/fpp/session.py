@@ -5,7 +5,7 @@ The port of the JAX package's ``repro.fpp.session`` for this slice:
     sess = FPPSession(g)                       # host CSR, original vertex ids
     sess.plan(num_queries=64)                  # Hopper memory-model plan
     res = sess.run("sssp", sources)            # original ids in AND out
-    sess.plan(num_queries=64, fused=True)      # one kernel launch per visit
+    sess.plan(num_queries=64, fused=True)      # one kernel launch per chunk
 
 The session runs on CUDA unless it is given ``device="cpu"``; with no card
 and no explicit CPU device it raises.  Everything downstream (engine,

@@ -1,58 +1,87 @@
-// Hopper (sm_90a) kernel for a whole partition visit: one launch = one
-// iteration of the engine's K-visit loop.
+// Hopper (sm_90a) kernel for the engine's K-visit loop: one launch runs one
+// chunk of partition visits.
 //
-//   fg_fused_visit  select the partition (priority / fifo / max_ops, first
+//   fg_fused_visit  for k = stats[0] .. min(K, stats[0] + launches) - 1:
+//                   select the partition (priority / fifo / max_ops, first
 //                   index on ties), consolidate its buffer, relax until no
 //                   op is active or max_rounds, emit into every neighbour's
 //                   buffer row, refresh the scheduler metadata of every row
-//                   it touched, and update the chunk's stats -- with no
-//                   read back to the host.  When no partition holds a
-//                   pending op the launch does nothing: that is the loop's
-//                   exit, and the host reads the stats once per chunk.
-//                   Replaces the TPU kernel of make_fused_visit
-//                   (src/repro/kernels/fused_visit/fused.py, pallas_call in
-//                   `visit`) and the while_loop around it
-//                   (src/repro/core/visit.py make_megastep(fused=True)).
+//                   it touched and update the chunk's stats -- with no
+//                   read back to the host.  The loop ends early when no
+//                   partition holds a pending op, and the host reads the
+//                   stats once per chunk.  Replaces the TPU kernel of
+//                   make_fused_visit (src/repro/kernels/fused_visit/
+//                   fused.py, pallas_call in `visit`) and the while_loop
+//                   around it (src/repro/core/visit.py
+//                   make_megastep(fused=True)).
 //
-// Design.  The TPU kernel runs the visit as grid steps 0..dmax over a VMEM
-// copy of the partition's whole adjacency row ([1+dmax, B+1, B], over
-// 600 KB at B = 128) plus parking scratch.  A Hopper block has 227 KB of
-// shared memory, so here one thread block of 512 threads runs the visit
-// as a loop and streams the blocks one at a time:
-//   * the visited rows ([Q, B] values and masks) stay in shared memory for
-//     the whole visit, with the diagonal block (min-plus: f32; push: its
-//     finite mask as bits);
-//   * the relax loop's exit test is a block-wide __syncthreads_or;
-//   * each valid neighbour slot in turn: its block is loaded into shared
-//     memory, its contribution is combined into the neighbour's buffer row
-//     in global memory (neighbour lists are unique and diagonal-free, so
-//     the read-modify-write is exact), and a block reduction refreshes that
-//     row's prio / ops_count / stamp;
-//   * padded slots (nbr_blk < 0) are skipped, so the trash row P is never
-//     touched.
-// The contraction is fg::contract_tile: each thread owns 4x4 output tiles;
-// the weight row is one float4 load, the sources warp broadcasts.  With
-// sparse = 1 (min-plus only) each contraction walks only the source
-// columns u that hold a finite source in some query row.
+// Design.  The TPU kernel runs a visit as grid steps 0..dmax over a VMEM
+// copy of the partition's dense adjacency row.  On the road graphs the
+// port serves, a 128 x 128 block holds ~4 finite entries per column, and a
+// visit needs ~20-40 live (q, u, v) pairs; a dense contraction on one SM
+// spent ~0.15 ms per visit on +inf.  So here:
+//   * Column lists.  DeviceGraph.build keeps each block as the list of its
+//     finite entries by column (col_ptr [nblk, B+1], col_u and col_w
+//     [nnz], ascending u within a column).  Every output cell (q, v) of a
+//     relax round or an emission slot walks only the in-list of v.  The
+//     lists stay in global memory (L2-resident, read through the
+//     read-only path; each thread loads its column's bounds one item ahead
+//     and pulls the entries into L1), so shared memory depends on
+//     (algebra, Q, B) only.
+//   * A cluster per visit.  The kernel runs as one thread-block cluster of
+//     C CTAs (C = 1, 4 or 8).  CTA `rank` owns query rows [rank R,
+//     rank R + R) with R = ceil(Q / C) -- possibly none -- of every
+//     partition for the whole launch: its rows of plane0/plane1/buf, its
+//     EQ counters and its rows of the stats.  Rows are independent through
+//     consolidate, relax and emission, so one exchange per visit (through
+//     distributed shared memory and barrier.cluster) carries all that
+//     crosses CTAs: the partial (best, count) of each metadata refresh and
+//     each CTA's relax rounds.  Each CTA selects the partition itself from
+//     prio / stamp / ops.
+//   * Rounds.  Each CTA relaxes until its own rows hold no active op.  A
+//     row with no active op in a round is unchanged by it, bit for bit
+//     (min-plus: all its sources are +inf, so d = fminf(d, +inf) and no
+//     op turns pending; push: af = 0 leaves p, r and acc as they are and
+//     the spread adds +0), so idle rows stay idle and a CTA that stops
+//     early computes what the cluster's remaining rounds would.  The
+//     visit's round count -- the reference's, per visit -- is the largest
+//     CTA's.
+//   * Metadata.  Each CTA reduces the exchanged partials in rank order and
+//     writes the same prio / ops / stamp values; a CTA's later reads see
+//     its own writes (or another CTA's identical ones), so selection needs
+//     no further barrier.  The stamp's "was empty" test is read before the
+//     exchange barrier, which no CTA passes before every CTA has read it.
+//   * Copies.  Own rows in and out, and each neighbour slot's buffer and
+//     distance (min-plus) or residual (push) rows, move by cp.async.bulk
+//     completed on mbarriers; a neighbour slot's rows are staged in chunks
+//     of at most 8 rows through three stages, the next item's copy in
+//     flight while the current one is combined (the first one issued at
+//     the visit's start) and the last one's store still draining.  Rows
+//     whose byte ranges are not 16-byte aligned (B % 4 != 0) are copied
+//     by the threads instead.
+//   * One launch per chunk.  The kernel loops over the chunk's visits
+//     itself; the exchange ends every visit, so visit k + 1 reads what
+//     visit k wrote.
 //
-// Bound.  At the main path's shapes (Q = 64, B = 128, dmax = 4) a visit
-// moves ~0.8 MB (own rows in and out, the diagonal block, the neighbour
-// blocks and the neighbours' rows read and written), ~0.25 us at
-// 3.35 TB/s.  The dense contractions are larger: (rounds + emission slots)
-// x Q B^2 cells at two f32 instructions each (min-plus), ~12 M
-// instructions for a typical visit, ~0.35 us at the card's 33.5 T
-// instructions/s but ~50 us on the one SM this design uses.  So the
-// kernel is bound by its own single-SM issue rate, not by the card.
-// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.148 ms per
-// sssp visit and 0.182 ms per ppr visit, while the road grid's data needs
-// only ~20-40 live (q, u, v) pairs per visit.  The answers after this
-// slice: contract over each block's finite entries only, then split a
-// visit's query rows over a thread block cluster (rows are independent
-// through the relax).
+// Numerics.  Min-plus: acc = fminf(acc, x + w) over the list; a skipped
+// +inf weight only adds +inf to an exact, order-free min, so the bits are
+// those of the dense contraction.  Push: the dense order is u = 0..B-1
+// with fmaf(x, m, acc) from +0, m = finite(w); each absent term is
+// fmaf(x, 0, acc) = acc exactly (x finite, acc never -0), so one
+// fmaf(x, 1, acc) per present entry in ascending u gives
+// fg_masked_matmul's bits.  Everything else is the expressions of
+// visit_tiles.cuh in the plain version's order.  `sparse` (min-plus only)
+// also skips the row groups with no live source: same bits, less work.
 //
-// Numerics: the expressions of visit_tiles.cuh, in the plain version's
-// order; min-plus is bitwise equal to the plain version, push to the
-// unfused card path (same spread order as fg_masked_matmul).
+// Bound.  At the main path's shapes (Q = 64, B = 128, dmax = 4, ~4
+// entries per list column) a visit must move its own rows in and out, the
+// lists of the diagonal block and of each neighbour block (8 B per finite
+// entry) and each neighbour's buffer row in and out and its distance row
+// in: ~0.4-0.5 MB, ~0.14 us at 3.35 TB/s; its live pairs are a few dozen
+// instructions.  What remains is latency: a visit is a chain of dependent
+// steps (select, copy, ~2 relax rounds, ~3 slots, exchange), each a few
+// hundred cycles of global-memory or barrier latency.  Times are measured
+// by chip_smoke.py (PERF.md).
 #include <limits.h>
 
 #include "visit_tiles.cuh"
@@ -70,7 +99,9 @@ struct FusedArgs {
   int* stamp;                // [P+1]
   int* stats;                // [2 + 2Q + P + K]: k, rounds, eq_hi, eq_lo,
                              //   visit_counts, order
-  const float* blocks;       // [nblk, B, B]
+  const int* col_ptr;        // [nblk, B+1] list start of each column
+  const int* col_u;          // [nnz] source row of each finite entry
+  const float* col_w;        // [nnz] its weight
   const int* row_nnz;        // [nblk, B]
   const int64_t* nbr_blk;    // [P, dmax], -1 = padded slot
   const int64_t* nbr_dst;    // [P, dmax]
@@ -78,84 +109,222 @@ struct FusedArgs {
   const int64_t* diag_blk;   // [P]
   const int* deg;            // [P, B]
   const float* budget;       // [P]
-  long long nblk;
-  int P, Q, B, dmax, K, max_rounds, counter, strict;
+  int P, Q, B, dmax, K, launches, max_rounds, counter, strict;
   float window, alpha, c1, eps;
   int smem_bytes;
+  int bulk;                  // set by fg_fused_visit: rows 16-byte aligned
 };
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBigStamp = INT_MAX - 1;
 constexpr int kEdgeShift = 20;
-constexpr int kErrSmem = -1;  // smem_bytes below what the layout needs
+constexpr int kErrSmem = -1;      // smem_bytes below what the layout needs
+constexpr int kMaxCluster = 8;
+constexpr int kGroup = 8;         // metadata refreshes per cluster exchange
+constexpr int kStageRows = 8;     // neighbour rows per staged chunk
+constexpr int kStages = 3;        // neighbour chunks in flight or in use
+constexpr int kTaskRows = 4;      // query rows one contraction task covers
 
 enum { kMinplus = 0, kPush = 1 };
 enum { kPriority = 0, kFifo = 1, kMaxOps = 2 };
 
-// Shared-memory layout, in 4-byte words then bytes.  kernels/fused_visit/
-// ops.py asks fg_fused_visit_smem for the total, and
-// fpp/planner.MemoryModel.fused_working_set computes the same number.
+// Shared-memory layout of one CTA, in 4-byte words then bytes.
+// kernels/fused_visit/ops.py asks fg_fused_visit_smem for the total, and
+// ops.smem_bytes (fpp/planner.MemoryModel.fused_working_set) computes the
+// same number.  Every float plane starts on a 16-byte boundary.
 struct Layout {
-  int Qp, Bp, bw;
-  // word offsets
-  int v0, v1, v2, v3;        // [Qp, Bp] planes (see the kernels)
-  int w;                     // min-plus: [Bp, Bp] f32; push: [B, bw] bits
-  int degc, thresh, degi;    // [Bp] (push)
-  int nnz, nnz2, ulist;      // [Bp]
-  int alpha, eq;             // [Qp]
-  int red, misc;             // [4 kWarps], [4]
+  int R, SR;                 // rows per CTA, rows per neighbour chunk
+  int rb, sb;                // words of an [R, B] plane, an [SR, B] stage
+  int v0, v1, v2, v3;        // [R, B] planes (see the kernels)
+  int sbuf, sval;            // [3][SR, B]: neighbour buffer rows, and their
+                             //   dist (min-plus) or r (push) rows
+  int nnz, nnz2;             // [B] row counts: diagonal, all neighbours
+  int degc, thresh, degi;    // [B] (push)
+  int alpha, eq, elo, ehi;   // [R]: window base, this visit's edges,
+                             //   the chunk's (hi, lo) edge counters
+  int red, pair;             // [4 kWarps]: argmin, (best, n) pairs
+  int misc;                  // [4]
+  int part, ploc;            // [2][kGroup][kMaxCluster] int4, [kGroup] int4
+  int ent_j, ent_was;        // [kGroup]
+  int mbar;                  // 4 mbarriers: own rows, stages 0..2
   int words;
-  // byte offsets from the start of shared memory
-  int m0, m1, live;          // [Qp, Bp] masks, [Bp] live columns
+  int m0, m1, live;          // bytes: [R, B] masks, [round4(R)] row flags
+                             //   (4-byte aligned, padding rows 0)
   size_t total;
 };
 
-__host__ __device__ inline Layout layout(int algebra, int Q, int B) {
+__host__ __device__ inline Layout layout(int algebra, int Q, int B, int C) {
   Layout L{};
-  L.Qp = fg::round4(Q);
-  L.Bp = fg::round4(B);
-  L.bw = (L.Bp + 31) / 32;
-  const int QB = L.Qp * L.Bp;
+  const bool push = algebra == kPush;
+  L.R = (Q + C - 1) / C;
+  L.SR = L.R < kStageRows ? L.R : kStageRows;
+  L.rb = fg::round4(L.R * B);
+  L.sb = fg::round4(L.SR * B);
+  const int bw = fg::round4(B), rw = fg::round4(L.R);
   int o = 0;
-  L.v0 = o; o += QB;
-  L.v1 = o; o += QB;
-  if (algebra == kPush) {
-    L.v2 = o; o += QB;
-    L.v3 = o; o += QB;
-    L.w = o; o += L.Bp * L.bw;
-    L.degc = o; o += L.Bp;
-    L.thresh = o; o += L.Bp;
-    L.degi = o; o += L.Bp;
-  } else {
-    L.v2 = L.v3 = L.degc = L.thresh = L.degi = -1;
-    L.w = o; o += L.Bp * L.Bp;
+  L.v0 = o; o += L.rb;
+  L.v1 = o; o += L.rb;
+  L.v2 = L.v3 = -1;
+  if (push) {
+    L.v2 = o; o += L.rb;
+    L.v3 = o; o += L.rb;
   }
-  L.nnz = o; o += L.Bp;
-  L.nnz2 = o; o += L.Bp;
-  if (algebra == kPush) {
-    L.ulist = L.alpha = -1;
+  L.sbuf = o; o += kStages * L.sb;
+  L.sval = o; o += kStages * L.sb;
+  L.nnz = o; o += bw;
+  L.nnz2 = o; o += bw;
+  L.degc = L.thresh = L.degi = L.alpha = -1;
+  if (push) {
+    L.degc = o; o += bw;
+    L.thresh = o; o += bw;
+    L.degi = o; o += bw;
   } else {
-    L.ulist = o; o += L.Bp;
-    L.alpha = o; o += L.Qp;
+    L.alpha = o; o += rw;
   }
-  L.eq = o; o += L.Qp;
+  L.eq = o; o += rw;
+  L.elo = o; o += rw;
+  L.ehi = o; o += rw;
   L.red = o; o += 4 * kWarps;
+  L.pair = o; o += 4 * kWarps;
   L.misc = o; o += 4;
+  L.part = o; o += 2 * kGroup * kMaxCluster * 4;
+  L.ploc = o; o += 4 * kGroup;
+  L.ent_j = o; o += kGroup;
+  L.ent_was = o; o += kGroup;
+  L.mbar = o; o += 8;
   L.words = o;
   int b = 4 * o;
-  L.m0 = b; b += QB;
-  if (algebra == kPush) {
-    L.m1 = L.live = -1;
-  } else {
-    L.m1 = b; b += QB;
-    L.live = b; b += L.Bp;
+  L.m0 = b; b += L.R * B;
+  L.m1 = L.live = -1;
+  if (!push) {
+    L.m1 = b; b += L.R * B;
+    b = fg::round4(b);
+    L.live = b; b += rw;
   }
   L.total = static_cast<size_t>((b + 15) & ~15);
   return L;
 }
+
+// ---------------------------------------------------------------------------
+// cluster, mbarrier and bulk-copy primitives
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives and waits; writes before
+// it (global, local or remote shared) are visible to reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (in this CTA's shared memory) in CTA `rank`'s.
+template <typename T>
+__device__ __forceinline__ T* map_rank(T* p, unsigned rank) {
+  uint64_t r;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(r)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(r);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(1)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spins until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until every committed bulk store but the latest has read its
+// shared-memory source.
+__device__ __forceinline__ void bulk_wait_read1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// Until every committed bulk store has completed its writes.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's shared-memory writes before a later bulk store's
+// reads of them (generic proxy -> async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Pulls the line holding `p` into L1 (no register, no wait).
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(reinterpret_cast<uint64_t>(p)));
+}
+
+// prio / ops / stamp are written by every CTA with the same values and
+// read by all of them: strong (volatile) accesses, so no read races.
+template <typename T>
+__device__ __forceinline__ T ld_meta(const T* p) {
+  return *reinterpret_cast<const volatile T*>(p);
+}
+template <typename T>
+__device__ __forceinline__ void st_meta(T* p, T v) {
+  *reinterpret_cast<volatile T*>(p) = v;
+}
+
+// ---------------------------------------------------------------------------
+// block reductions (every thread of the CTA calls them)
 
 template <typename T>
 __device__ __forceinline__ void take(T& bk, int& bi, T k, int i) {
@@ -187,324 +356,683 @@ __device__ int block_argmin(T key, int idx, T* red_k, int* red_i, int lane,
   return bi;
 }
 
-// device_select (core/visit.py) over prio/stamp/ops [0, P): the partition
-// to visit, or -1 when no priority is finite.
+// ---------------------------------------------------------------------------
+// one CTA's part of the chunk
+
+// What one CTA keeps across the chunk's visits.
+struct Cta {
+  int tid, lane, warp;
+  unsigned rank;
+  int r0, nr;                // its first query row and its row count
+  bool bulk;                 // rows move by cp.async.bulk
+  uint32_t phases;           // mbarrier parities: bit 0 own, 1 + s stage s
+  int par_part, par_pair;    // which half of the exchange buffer and of
+                             //   the pair scratch is next
+  int ent;                   // metadata refreshes waiting for an exchange
+};
+
+template <int C>
+__device__ Cta make_cta(const FusedArgs& a, const Layout& L, uint64_t* mbar) {
+  Cta c;
+  c.tid = threadIdx.x;
+  c.lane = c.tid & 31;
+  c.warp = c.tid >> 5;
+  c.rank = C > 1 ? cluster_rank() : 0u;
+  c.r0 = static_cast<int>(c.rank) * L.R;
+  c.nr = max(0, min(a.Q - c.r0, L.R));
+  c.bulk = a.bulk != 0;
+  c.phases = 0;
+  c.par_part = c.par_pair = 0;
+  c.ent = 0;
+  if (c.tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(mbar + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // every CTA of the cluster runs before any remote shared-memory store
+  if (C > 1) cluster_sync();
+  return c;
+}
+
+// A block-wide (min or max, sum) of one (best, n) pair per thread, split
+// around a block barrier that the caller places (so it can share it):
+// pair_post before it, pair_read after it.  The two halves of the scratch
+// alternate, so the next reduction never overwrites a warp result that a
+// slower thread has yet to read.
+template <bool kMax>
+__device__ __forceinline__ void pair_post(const Cta& c, int* pair, float b,
+                                          int n) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float b2 = __shfl_xor_sync(0xffffffffu, b, o);
+    b = kMax ? fmaxf(b, b2) : fminf(b, b2);
+    n += __shfl_xor_sync(0xffffffffu, n, o);
+  }
+  if (c.lane == 0) {
+    int* half = pair + c.par_pair * 2 * kWarps;
+    half[c.warp] = __float_as_int(b);
+    half[kWarps + c.warp] = n;
+  }
+}
+
+template <bool kMax>
+__device__ __forceinline__ void pair_read(Cta& c, const int* pair, float& b,
+                                          int& n) {
+  const int* half = pair + c.par_pair * 2 * kWarps;
+  b = __int_as_float(half[0]);
+  n = half[kWarps];
+  for (int w = 1; w < kWarps; ++w) {
+    const float b2 = __int_as_float(half[w]);
+    b = kMax ? fmaxf(b, b2) : fminf(b, b2);
+    n += half[kWarps + w];
+  }
+  c.par_pair ^= 1;
+}
+
+// The partition to visit (device_select in core/visit.py over prio/stamp/
+// ops [0, P)), or -1 when no priority is finite.  Every CTA computes it
+// from the same values.
 template <int kPolicy>
 __device__ int select_partition(const FusedArgs& a, float* redf, int* redi,
-                                int tid, int lane, int warp) {
+                                const Cta& c) {
   bool any = false;
   float bf = INFINITY;
   int bk = INT_MAX, bi = INT_MAX;
-  for (int i = tid; i < a.P; i += kThreads) {
-    const float pr = a.prio[i];
+  for (int i = c.tid; i < a.P; i += kThreads) {
+    const float pr = ld_meta(a.prio + i);
     const bool fin = isfinite(pr);
     any |= fin;
     if (kPolicy == kPriority) take(bf, bi, pr, i);
-    else if (kPolicy == kFifo) take(bk, bi, fin ? a.stamp[i] : INT_MAX, i);
-    else take(bk, bi, fin ? -a.ops[i] : 1, i);  // argmax of ops, or -1
+    else if (kPolicy == kFifo)
+      take(bk, bi, fin ? ld_meta(a.stamp + i) : INT_MAX, i);
+    else take(bk, bi, fin ? -ld_meta(a.ops + i) : 1, i);  // argmax of ops
   }
   if (!__syncthreads_or(any)) return -1;
   if (kPolicy == kPriority)
-    return block_argmin(bf, bi, redf, redi, lane, warp);
-  return block_argmin(bk, bi, redi + kWarps, redi, lane, warp);
+    return block_argmin(bf, bi, redf, redi, c.lane, c.warp);
+  return block_argmin(bk, bi, redi + kWarps, redi, c.lane, c.warp);
 }
 
-__device__ __forceinline__ float block_min(float v, float* red, int lane,
-                                           int warp) {
-  v = fg::warp_min(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = fminf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_max(float v, float* red, int lane,
-                                           int warp) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ int block_sum(int v, int* red, int lane,
-                                         int warp) {
-  v = fg::warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int r = 0;
-  for (int w = 0; w < kWarps; ++w) r += red[w];
-  __syncthreads();
-  return r;
-}
-
-// The columns u with live[u] set, ascending, into list; live is cleared.
-// Warp 0 compacts with ballots; returns the count to every thread.
-__device__ int compact_live(uint8_t* live, int* list, int* misc, int B,
-                            int lane, int warp) {
-  if (warp == 0) {
-    int n = 0;
-    for (int u0 = 0; u0 < B; u0 += 32) {
-      const int u = u0 + lane;
-      const bool on = u < B && live[u];
-      const unsigned m = __ballot_sync(0xffffffffu, on);
-      if (on) {
-        list[n + __popc(m & ((1u << lane) - 1u))] = u;
-        live[u] = 0;
-      }
-      n += __popc(m);
+// Rows [r0, r0 + nr) of N planes into shared memory: one bulk copy each,
+// completing on the own-rows mbarrier, or the threads' own loads.  Thread
+// 0 first waits for every earlier bulk store (the rows may be the ones it
+// wrote last).
+template <int N>
+__device__ void load_own(const Cta& c, uint64_t* mbar, float* const (&dst)[N],
+                         const float* const (&src)[N], int nrb) {
+  if (c.nr == 0) return;
+  if (c.bulk) {
+    if (c.tid == 0) {
+      bulk_wait();
+      mbar_expect(mbar, static_cast<uint32_t>(N * nrb * 4));
+      for (int i = 0; i < N; ++i)
+        bulk_load(dst[i], src[i], static_cast<uint32_t>(nrb * 4), mbar);
     }
-    if (lane == 0) misc[0] = n;
+  } else {
+    for (int i = 0; i < N; ++i)
+      for (int e = c.tid; e < nrb; e += kThreads) dst[i][e] = src[i][e];
+  }
+}
+
+__device__ void wait_own(Cta& c, uint64_t* mbar) {
+  if (c.nr > 0 && c.bulk) {
+    mbar_wait(mbar, c.phases & 1u);
+    c.phases ^= 1u;
   }
   __syncthreads();
-  return misc[0];
 }
 
-// The visit's chunk bookkeeping: k, rounds, the exact (hi, lo) edge
-// counters, visits per partition and the visit order.
-__device__ void update_stats(const FusedArgs& a, int p, int k, int rounds,
-                             const int* eq, int tid) {
-  int* st = a.stats;
-  int* hi = st + 2;
-  int* lo = hi + a.Q;
-  int* counts = lo + a.Q;
-  int* order = counts + a.P;
-  for (int q = tid; q < a.Q; q += kThreads) {
-    int l = lo[q] + eq[q];
-    const int spill = l >> kEdgeShift;
-    hi[q] += spill;
-    lo[q] = l - (spill << kEdgeShift);
-  }
-  if (tid == 0) {
-    st[0] = k + 1;
-    st[1] += rounds;
-    counts[p] += 1;
-    order[k] = p;
+// The CTA's rows back to N planes (bulk: after a proxy fence and a block
+// barrier, thread 0 issues the stores; the threads' own stores happen in
+// the caller's loop otherwise).
+template <int N>
+__device__ void store_own(const Cta& c, float* const (&dst)[N],
+                          const float* const (&src)[N], int nrb) {
+  if (c.bulk) fence_async_smem();
+  __syncthreads();
+  if (c.nr == 0 || !c.bulk || c.tid != 0) return;
+  for (int i = 0; i < N; ++i)
+    bulk_store(dst[i], src[i], static_cast<uint32_t>(nrb * 4));
+  bulk_commit();
+}
+
+// One neighbour item: rows [c0, c0 + cr) of the CTA's rows of slot s.
+struct Item {
+  int s, ch;
+};
+
+// A neighbour-table entry, through the read-only path.
+__device__ __forceinline__ int64_t ld_idx(const int64_t* p) {
+  return __ldg(reinterpret_cast<const long long*>(p));
+}
+
+__device__ __forceinline__ int next_slot(const int64_t* blks, int s,
+                                         int dmax) {
+  for (++s; s < dmax; ++s)
+    if (ld_idx(blks + s) >= 0) break;
+  return s;
+}
+
+// Issues item it's copies into stage `st`: the neighbour's buffer rows and
+// its value rows (dist or r).  Bulk: thread 0, once the stage's last bulk
+// store has read it -- that store is at least two groups back, so the
+// latest group may stay in flight.  Otherwise every thread copies now.
+__device__ void issue_item(const FusedArgs& a, const Layout& L, const Cta& c,
+                           const int64_t* dsts, Item it, int st,
+                           const float* vplane, float* sbuf, float* sval,
+                           uint64_t* mbar) {
+  const int c0 = it.ch * L.SR, cr = min(L.SR, c.nr - c0), n = cr * a.B;
+  const int64_t row =
+      (ld_idx(dsts + it.s) * a.Q + c.r0 + c0) * static_cast<int64_t>(a.B);
+  float* db = sbuf + st * L.sb;
+  float* dv = sval + st * L.sb;
+  if (c.bulk) {
+    if (c.tid == 0) {
+      bulk_wait_read1();
+      uint64_t* bar = mbar + 1 + st;
+      mbar_expect(bar, static_cast<uint32_t>(2 * n * 4));
+      bulk_load(db, a.buf + row, static_cast<uint32_t>(n * 4), bar);
+      bulk_load(dv, vplane + row, static_cast<uint32_t>(n * 4), bar);
+    }
+  } else {
+    for (int e = c.tid; e < n; e += kThreads) {
+      db[e] = a.buf[row + e];
+      dv[e] = vplane[row + e];
+    }
   }
 }
 
-template <int kPolicy, bool kSparse>
-__global__ void __launch_bounds__(kThreads)
-fused_minplus_kernel(const FusedArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(kMinplus, a.Q, a.B);
-  float* sf = reinterpret_cast<float*>(smem);
-  int* si = reinterpret_cast<int*>(smem);
-  float* D = sf + L.v0;        // the row's values
-  float* X = sf + L.v1;        // contraction sources
-  float* W = sf + L.w;         // the current block
-  float* ALPHA = sf + L.alpha;
-  int* EQ = si + L.eq;
-  int* NNZ = si + L.nnz;       // diagonal block's row counts
-  int* NNZ2 = si + L.nnz2;     // row counts into all neighbour blocks
-  int* ULIST = si + L.ulist;
-  float* REDF = sf + L.red;
-  int* REDI = si + L.red + kWarps;
-  int* MISC = si + L.misc;
-  uint8_t* PEND = smem + L.m0;
-  uint8_t* EMIT = smem + L.m1;
-  uint8_t* LIVE = smem + L.live;
+__device__ void wait_item(Cta& c, uint64_t* mbar, int st) {
+  if (c.bulk) {
+    const uint32_t bit = 2u << st;
+    mbar_wait(mbar + 1 + st, (c.phases & bit) ? 1u : 0u);
+    c.phases ^= bit;
+  } else {
+    __syncthreads();
+  }
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Q = a.Q, B = a.B, Bp = L.Bp, Qp = L.Qp;
-  const int nvt = Bp / 4, ntiles = (Qp / 4) * nvt;
+// The new buffer rows of an item back to the neighbour's buffer row.
+__device__ void store_item(const FusedArgs& a, const Layout& L, const Cta& c,
+                           const int64_t* dsts, Item it, int st,
+                           const float* sbuf) {
+  const int c0 = it.ch * L.SR, cr = min(L.SR, c.nr - c0), n = cr * a.B;
+  const int64_t row =
+      (ld_idx(dsts + it.s) * a.Q + c.r0 + c0) * static_cast<int64_t>(a.B);
+  const float* sb = sbuf + st * L.sb;
+  if (c.bulk) {
+    fence_async_smem();
+    __syncthreads();
+    if (c.tid == 0) {
+      bulk_store(a.buf + row, sb, static_cast<uint32_t>(n * 4));
+      bulk_commit();
+    }
+  } else {
+    __syncthreads();
+    for (int e = c.tid; e < n; e += kThreads) a.buf[row + e] = sb[e];
+    __syncthreads();
+  }
+}
+
+// acc[r] over the list entries [e0, e1) of one column, for the query rows
+// x[r * ldx], r < nq:
+//   min-plus  acc = fminf(acc, x[u] + w)
+//   push      acc = fmaf(x[u], 1, acc)       (entries in ascending u)
+template <bool kMinPlus>
+__device__ __forceinline__ void contract_list(float (&acc)[kTaskRows],
+                                              const float* x, int ldx,
+                                              int nq, int e0, int e1,
+                                              const int* col_u,
+                                              const float* col_w) {
+  for (int e = e0; e < e1; ++e) {
+    const int u = __ldg(col_u + e);
+    const float w = kMinPlus ? __ldg(col_w + e) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < kTaskRows; ++r) {
+      if (r < nq) {
+        const float xv = x[r * ldx + u];
+        acc[r] = kMinPlus ? fminf(acc[r], __fadd_rn(xv, w))
+                          : fmaf(xv, 1.0f, acc[r]);
+      }
+    }
+  }
+}
+
+// Any of the four rows q0..q0+3 (q0 a multiple of 4) flagged live: one
+// word of the row flags, whose padding rows hold 0.
+__device__ __forceinline__ bool rows_live(const uint8_t* live, int q0) {
+  return *reinterpret_cast<const uint32_t*>(live + q0) != 0u;
+}
+
+// Appends one metadata refresh (this CTA's partial best and count) for
+// row j; `was` is 1 / 0 for a neighbour row that was / was not empty
+// before the visit, -1 for the visited row itself, whose entry also
+// carries the CTA's relax rounds.
+__device__ void append(int* si, const Layout& L, Cta& c, float best, int n,
+                       int j, int was, int rounds = 0) {
+  if (c.tid == 0) {
+    reinterpret_cast<int4*>(si + L.ploc)[c.ent] =
+        make_int4(__float_as_int(best), n, rounds, 0);
+    si[L.ent_j + c.ent] = j;
+    si[L.ent_was + c.ent] = was;
+  }
+  ++c.ent;
+}
+
+// The waiting refreshes: each CTA's partials go to every CTA, and every
+// CTA reduces them in rank order and writes the same prio / ops / stamp;
+// the visited row's entry also yields the visit's round count (the
+// largest CTA's), left in misc[0].  Ends with a block barrier, so the
+// CTA's next selection sees its writes.
+template <int C, bool kPushAlg>
+__device__ void flush(const FusedArgs& a, int* si, const Layout& L, Cta& c,
+                      int cnt) {
+  const int4* ploc = reinterpret_cast<const int4*>(si + L.ploc);
+  int4* part = reinterpret_cast<int4*>(si + L.part) +
+               c.par_part * kGroup * kMaxCluster;
+  __syncthreads();
+  if (C > 1) {
+    if (c.tid < c.ent * C) {
+      const int e = c.tid / C, dst = c.tid % C;
+      *map_rank(part + e * kMaxCluster + c.rank, dst) = ploc[e];
+    }
+    cluster_sync();
+  }
+  if (c.tid < c.ent) {         // thread e finishes entry e
+    const int e = c.tid;
+    int4 v = ploc[e];
+    if (C > 1) {
+      const int4* pe = part + e * kMaxCluster;
+      v = pe[0];
+      for (int r = 1; r < C; ++r) {
+        const float b = __int_as_float(pe[r].x), b0 = __int_as_float(v.x);
+        v.x = __float_as_int(kPushAlg ? fmaxf(b0, b) : fminf(b0, b));
+        v.y += pe[r].y;
+        v.z = max(v.z, pe[r].z);
+      }
+    }
+    const float best = __int_as_float(v.x);
+    const int n = v.y;
+    const float np = kPushAlg ? (n > 0 ? -best : INFINITY) : best;
+    const int j = si[L.ent_j + e], was = si[L.ent_was + e];
+    st_meta(a.prio + j, np);
+    st_meta(a.ops + j, n);
+    if (was < 0) {
+      st_meta(a.stamp + j, isfinite(np) ? cnt : kBigStamp);
+      si[L.misc] = v.z;
+    } else if (was && isfinite(np)) {
+      st_meta(a.stamp + j, cnt);
+    }
+  }
+  c.par_part ^= 1;
+  c.ent = 0;
+  __syncthreads();
+}
+
+// The emission: for every valid neighbour slot in order, the contribution
+// of the payload rows X through the slot's block list, combined into the
+// neighbour's buffer rows, and the neighbour's metadata refresh.  Item 0
+// (if any) was issued into stage 0 at the visit's start.
+template <bool kPushAlg, bool kSparse, int C>
+__device__ void emit(const FusedArgs& a, const Layout& L, Cta& c, int p,
+                     int cnt, const float* X, const uint8_t* live,
+                     float* sbuf, float* sval, uint64_t* mbar, int* pair,
+                     int* si) {
+  const int B = a.B;
   const bool strict = a.strict != 0;
-  const int k = a.stats[0];
-  if (k >= a.K) return;
-  const int p = select_partition<kPolicy>(a, REDF, REDI, tid, lane, warp);
-  if (p < 0) return;
-  const int cnt = a.counter + k;
-  const int64_t kd = a.diag_blk[p];
-  const float budget = a.budget[p];
-  const int64_t QB = static_cast<int64_t>(Q) * B;
-  float* dist_p = a.plane0 + p * QB;
-  float* buf_p = a.buf + p * QB;
-
-  // consolidate: the frontier tile, one warp per query row
-  for (int q = warp; q < Q; q += kWarps) {
-    const float al = fg::frontier_row(buf_p + q * B, dist_p + q * B,
-                                      D + q * Bp, PEND + q * Bp, nullptr, B,
-                                      a.window, strict, lane);
-    if (lane == 0) {
-      ALPHA[q] = al;
-      EQ[q] = 0;
-    }
+  const int nch = (c.nr + L.SR - 1) / L.SR;   // chunks per slot
+  const float* vplane = kPushAlg ? a.plane1 : a.plane0;
+  const int64_t* blks = a.nbr_blk + static_cast<int64_t>(p) * a.dmax;
+  const int64_t* dsts = a.nbr_dst + static_cast<int64_t>(p) * a.dmax;
+  float best = kPushAlg ? -INFINITY : INFINITY;
+  int n = 0, st = 0, was = 0;         // st: the item's stage
+  Item it{next_slot(blks, -1, a.dmax), 0};
+  // the list bounds of column vt (the thread's first task) in the current
+  // and the next item's block, loaded one item ahead
+  const int vt = c.tid % B;
+  int cur0 = 0, cur1 = 0, nxt0 = 0, nxt1 = 0;
+  if (it.s < a.dmax && nch > 0) {
+    const int* pc = a.col_ptr + ld_idx(blks + it.s) * (B + 1);
+    cur0 = __ldg(pc + vt);
+    cur1 = __ldg(pc + vt + 1);
   }
-  for (int i = Q * Bp + tid; i < Qp * Bp; i += kThreads) X[i] = INFINITY;
-  for (int i = tid; i < Qp * Bp; i += kThreads) EMIT[i] = 0;
-  for (int u = tid; u < Bp; u += kThreads) LIVE[u] = 0;
-  for (int u = tid; u < B; u += kThreads) {
-    NNZ[u] = a.row_nnz[kd * B + u];
-    NNZ2[u] = a.nbr_nnz[static_cast<int64_t>(p) * B + u];
-  }
-  fg::load_weights(W, a.blocks + kd * B * B, B, Bp, tid, kThreads);
-  __syncthreads();
-
-  // relax until no op is active or max_rounds
-  int rounds = 0;
-  while (rounds < a.max_rounds) {
-    bool any = false;
-    for (int q = warp; q < Q; q += kWarps) {
-      const bool lane_ok = __int2float_rn(EQ[q]) < budget;
-      const float thr = __fadd_rn(ALPHA[q], a.window);
-      int inc = 0;
-      for (int u = lane; u < B; u += 32) {
-        const int o = q * Bp + u;
-        const float d = D[o];
-        const bool act = PEND[o] && d <= thr && lane_ok;
-        X[o] = act ? d : INFINITY;
-        if (act) {
-          PEND[o] = 0;
-          EMIT[o] = 1;
-          inc += NNZ[u];
-          any = true;
-          if (kSparse) LIVE[u] = 1;
-        }
-      }
-      inc = fg::warp_sum(inc);
-      if (lane == 0) EQ[q] += inc;
+  while (it.s < a.dmax) {
+    Item nx{it.s, it.ch + 1};
+    if (nx.ch >= nch) nx = Item{next_slot(blks, it.s, a.dmax), 0};
+    const int st_next = st + 1 == kStages ? 0 : st + 1;
+    const bool more = nx.s < a.dmax && nch > 0;
+    if (more) {
+      issue_item(a, L, c, dsts, nx, st_next, vplane, sbuf, sval, mbar);
+      const int* pn = a.col_ptr + ld_idx(blks + nx.s) * (B + 1);
+      nxt0 = __ldg(pn + vt);
+      nxt1 = __ldg(pn + vt + 1);
     }
-    if (!__syncthreads_or(any)) break;
-    int nu = B;
-    const int* us = nullptr;
-    if (kSparse) {
-      nu = compact_live(LIVE, ULIST, MISC, B, lane, warp);
-      us = ULIST;
-    }
-    for (int t = tid; t < ntiles; t += kThreads) {
-      const int q0 = (t / nvt) * 4, v0 = (t % nvt) * 4;
-      float acc[4][4];
+    const int j = static_cast<int>(ld_idx(dsts + it.s));
+    // was row j empty before the visit?  (read early; used at the slot's
+    // end, before the exchange that publishes the visit's writes)
+    if (it.ch == 0 && c.tid == 0) was = !isfinite(ld_meta(a.prio + j));
+    const bool slot_end = it.ch + 1 >= nch;   // at once with no rows
+    if (nch > 0) {
+      wait_item(c, mbar, st);
+      const int c0 = it.ch * L.SR, cr = min(L.SR, c.nr - c0);
+      const int64_t blk = ld_idx(blks + it.s);
+      const int* ptr = a.col_ptr + blk * (B + 1);
+      const int* deg_j = a.deg + static_cast<int64_t>(j) * B;
+      float* sb = sbuf + st * L.sb;
+      const float* sv = sval + st * L.sb;
+      const int groups = (cr + kTaskRows - 1) / kTaskRows;
+      for (int t = c.tid; t < groups * B; t += kThreads) {
+        const int g = t / B, v = t - g * B, q0 = g * kTaskRows;
+        const int nq = min(kTaskRows, cr - q0);
+        float acc[kTaskRows];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < kTaskRows; ++r)
+          acc[r] = kPushAlg ? 0.0f : INFINITY;
+        if (!kSparse || rows_live(live, c0 + q0))
+          contract_list<!kPushAlg>(
+              acc, X + (c0 + q0) * B, B, nq,
+              t == c.tid ? cur0 : __ldg(ptr + v),
+              t == c.tid ? cur1 : __ldg(ptr + v + 1), a.col_u, a.col_w);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = INFINITY;
-      fg::contract_tile<true>(acc, X, Bp, q0, W, nullptr, Bp, v0, us, nu);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int q = q0 + r, v = v0 + c;
-          if (q < Q && v < B) {
-            const int o = q * Bp + v;
-            const float d = D[o], nd = acc[r][c];
-            if (nd < d) PEND[o] = 1;
-            D[o] = fminf(d, nd);
-          }
-        }
-    }
-    __syncthreads();
-    ++rounds;
-  }
-
-  // emission payload (emit ? d : +inf) and its edge count
-  for (int q = warp; q < Q; q += kWarps) {
-    int inc = 0;
-    for (int u = lane; u < B; u += 32) {
-      const int o = q * Bp + u;
-      const bool e = EMIT[o];
-      X[o] = e ? D[o] : INFINITY;
-      if (e) {
-        inc += NNZ2[u];
-        if (kSparse) LIVE[u] = 1;
-      }
-    }
-    inc = fg::warp_sum(inc);
-    if (lane == 0) EQ[q] += inc;
-  }
-  __syncthreads();
-  int nu = B;
-  const int* us = nullptr;
-  if (kSparse) {
-    nu = compact_live(LIVE, ULIST, MISC, B, lane, warp);
-    us = ULIST;
-  }
-  for (int s = 0; s < a.dmax; ++s) {
-    const int64_t blk = a.nbr_blk[static_cast<int64_t>(p) * a.dmax + s];
-    if (blk < 0) continue;  // padded slot: block-uniform
-    const int64_t j = a.nbr_dst[static_cast<int64_t>(p) * a.dmax + s];
-    fg::load_weights(W, a.blocks + blk * B * B, B, Bp, tid, kThreads);
-    __syncthreads();
-    float* buf_j = a.buf + j * QB;
-    const float* dist_j = a.plane0 + j * QB;
-    float best = INFINITY;
-    int n = 0;
-    for (int t = tid; t < ntiles; t += kThreads) {
-      const int q0 = (t / nvt) * 4, v0 = (t % nvt) * 4;
-      float acc[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = INFINITY;
-      fg::contract_tile<true>(acc, X, Bp, q0, W, nullptr, Bp, v0, us, nu);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int q = q0 + r, v = v0 + c;
-          if (q < Q && v < B) {
-            const int o = q * B + v;
-            const float nv = fminf(buf_j[o], acc[r][c]);
-            buf_j[o] = nv;
-            const float d = dist_j[o];
+        for (int r = 0; r < kTaskRows; ++r) {
+          if (r >= nq) break;
+          const int o = (q0 + r) * B + v;
+          if (kPushAlg) {
+            const float nb = __fadd_rn(sb[o], acc[r]);
+            sb[o] = nb;
+            const int dg = __ldg(deg_j + v);
+            const float th = __fmul_rn(a.eps, static_cast<float>(max(dg, 1)));
+            const float ratio = __fdiv_rn(__fadd_rn(sv[o], nb), th);
+            if (dg > 0) {
+              best = fmaxf(best, ratio);
+              if (ratio >= 1.0f) ++n;
+            }
+          } else {
+            const float nv = fminf(sb[o], acc[r]);
+            sb[o] = nv;
+            const float d = sv[o];
             if (isfinite(nv) && (strict ? nv < d : nv <= d)) {
               best = fminf(best, nv);
               ++n;
             }
           }
         }
+      }
+      if (more && nxt1 > nxt0) {  // the next item's entries, into L1
+        prefetch_l1(a.col_u + nxt0);
+        if (!kPushAlg) prefetch_l1(a.col_w + nxt0);
+      }
     }
-    best = block_min(best, REDF, lane, warp);
-    n = block_sum(n, REDI, lane, warp);
-    if (tid == 0) {
-      const bool was_empty = !isfinite(a.prio[j]);
-      a.prio[j] = best;
-      a.ops[j] = n;
-      if (was_empty && isfinite(best)) a.stamp[j] = cnt;
+    // one block barrier serves the item's store and the slot's reduction
+    if (slot_end) pair_post<kPushAlg>(c, pair, best, n);
+    if (nch > 0) store_item(a, L, c, dsts, it, st, sbuf);
+    else __syncthreads();
+    if (slot_end) {
+      pair_read<kPushAlg>(c, pair, best, n);
+      append(si, L, c, best, n, j, was);
+      if (c.ent == kGroup) flush<C, kPushAlg>(a, si, L, c, cnt);
+      best = kPushAlg ? -INFINITY : INFINITY;
+      n = 0;
     }
+    it = nx;
+    st = st_next;
+    cur0 = nxt0;
+    cur1 = nxt1;
   }
-
-  // write back the row, keep its unrelaxed ops, refresh its own metadata
-  float best = INFINITY;
-  int n = 0;
-  for (int i = tid; i < Q * B; i += kThreads) {
-    const int q = i / B, v = i % B, o = q * Bp + v;
-    const float d = D[o];
-    const float keep = PEND[o] ? d : INFINITY;
-    dist_p[i] = d;
-    buf_p[i] = keep;
-    if (isfinite(keep) && (strict ? keep < d : keep <= d)) {
-      best = fminf(best, keep);
-      ++n;
-    }
-  }
-  best = block_min(best, REDF, lane, warp);
-  n = block_sum(n, REDI, lane, warp);
-  if (tid == 0) {
-    a.prio[p] = best;
-    a.ops[p] = n;
-    a.stamp[p] = isfinite(best) ? cnt : kBigStamp;
-  }
-  update_stats(a, p, k, rounds, EQ, tid);
 }
 
-template <int kPolicy>
+// The visit's first neighbour item into stage 0, issued with the own rows.
+__device__ void issue_first(const FusedArgs& a, const Layout& L,
+                            const Cta& c, int p, const float* vplane,
+                            float* sbuf, float* sval, uint64_t* mbar) {
+  if (c.nr == 0) return;
+  const int64_t* blks = a.nbr_blk + static_cast<int64_t>(p) * a.dmax;
+  const int s = next_slot(blks, -1, a.dmax);
+  if (s < a.dmax)
+    issue_item(a, L, c, a.nbr_dst + static_cast<int64_t>(p) * a.dmax,
+               Item{s, 0}, 0, vplane, sbuf, sval, mbar);
+}
+
+// The chunk's stats after visit k of partition p: each CTA adds its rows'
+// edges to its exact (hi, lo) counters (kept in shared memory for the
+// chunk), rank 0 the rest.
+__device__ void update_stats(const FusedArgs& a, const Cta& c, int p, int k,
+                             int rounds, const int* eq, int* elo,
+                             int* ehi) {
+  for (int q = c.tid; q < c.nr; q += kThreads) {
+    const int l = elo[q] + eq[q];
+    const int spill = l >> kEdgeShift;
+    ehi[q] += spill;
+    elo[q] = l - (spill << kEdgeShift);
+  }
+  if (c.rank == 0 && c.tid == 0) {
+    int* st = a.stats;
+    int* counts = st + 2 + 2 * a.Q;
+    st[0] = k + 1;
+    atomicAdd(st + 1, rounds);
+    atomicAdd(counts + p, 1);
+    counts[a.P + k] = p;                 // the order ring
+  }
+}
+
+// The chunk's (hi, lo) edge counters of the CTA's rows: in (load = true)
+// or out.  The same thread handles row q in update_stats.
+__device__ void edge_counters(const FusedArgs& a, const Cta& c, int* elo,
+                              int* ehi, bool load) {
+  int* hi = a.stats + 2 + c.r0;
+  int* lo = hi + a.Q;
+  for (int q = c.tid; q < c.nr; q += kThreads) {
+    if (load) {
+      elo[q] = lo[q];
+      ehi[q] = hi[q];
+    } else {
+      lo[q] = elo[q];
+      hi[q] = ehi[q];
+    }
+  }
+}
+
+// Leaves no bulk store in flight and no CTA exited while another may still
+// write its shared memory.
+template <int C>
+__device__ void finish(const Cta& c) {
+  if (c.bulk && c.tid == 0) bulk_wait();
+  if (C > 1) cluster_sync();
+}
+
+template <int kPolicy, bool kSparse, int C>
+__global__ void __launch_bounds__(kThreads)
+fused_minplus_kernel(const FusedArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int k0 = a.stats[0];
+  const Layout L = layout(kMinplus, a.Q, a.B, C);
+  float* sf = reinterpret_cast<float*>(smem);
+  int* si = reinterpret_cast<int*>(smem);
+  float* D = sf + L.v0;        // the CTA's rows' values
+  float* X = sf + L.v1;        // buffer rows in, sources, buffer rows out
+  float* SBUF = sf + L.sbuf;
+  float* SVAL = sf + L.sval;
+  float* ALPHA = sf + L.alpha;
+  int* NNZ = si + L.nnz;       // diagonal block's row counts
+  int* NNZ2 = si + L.nnz2;     // row counts into all neighbour blocks
+  int* EQ = si + L.eq;
+  float* REDF = sf + L.red;
+  int* REDI = si + L.red + kWarps;
+  int* PAIR = si + L.pair;
+  int* ELO = si + L.elo;
+  int* EHI = si + L.ehi;
+  uint64_t* MBAR = reinterpret_cast<uint64_t*>(si + L.mbar);
+  uint8_t* PEND = smem + L.m0;
+  uint8_t* EMIT = smem + L.m1;
+  uint8_t* LIVE = smem + L.live;
+
+  Cta c = make_cta<C>(a, L, MBAR);
+  edge_counters(a, c, ELO, EHI, true);
+  for (int q = c.nr + c.tid; q < fg::round4(L.R); q += kThreads) LIVE[q] = 0;
+  const int B = a.B, nrb = c.nr * B;
+  const bool strict = a.strict != 0;
+  const int64_t QB = static_cast<int64_t>(a.Q) * B;
+  const int kend = min(a.K, k0 + a.launches);
+  for (int k = k0; k < kend; ++k) {
+    const int p = select_partition<kPolicy>(a, REDF, REDI, c);
+    if (p < 0) break;
+    const int cnt = a.counter + k;
+    const int64_t kd = a.diag_blk[p];
+    const float budget = a.budget[p];
+    float* dist_p = a.plane0 + p * QB + static_cast<int64_t>(c.r0) * B;
+    float* buf_p = a.buf + p * QB + static_cast<int64_t>(c.r0) * B;
+
+    load_own<2>(c, MBAR, {D, X}, {dist_p, buf_p}, nrb);
+    issue_first(a, L, c, p, a.plane0, SBUF, SVAL, MBAR);
+    // the diagonal block's list bounds of column vt (the thread's first
+    // task), for every round
+    const int* dptr = a.col_ptr + kd * (B + 1);
+    const int vt = c.tid % B;
+    const int d0 = __ldg(dptr + vt), d1 = __ldg(dptr + vt + 1);
+    for (int u = c.tid; u < B; u += kThreads) {
+      NNZ[u] = a.row_nnz[kd * B + u];
+      NNZ2[u] = a.nbr_nnz[static_cast<int64_t>(p) * B + u];
+    }
+    wait_own(c, MBAR);
+
+    // consolidate: the frontier tile in place, one warp per query row
+    for (int q = c.warp; q < c.nr; q += kWarps) {
+      const float al = fg::frontier_row(X + q * B, D + q * B, D + q * B,
+                                        PEND + q * B, nullptr, B, a.window,
+                                        strict, c.lane);
+      if (c.lane == 0) {
+        ALPHA[q] = al;
+        EQ[q] = 0;
+      }
+    }
+    for (int i = c.tid; i < nrb; i += kThreads) EMIT[i] = 0;
+    if (d1 > d0) {
+      prefetch_l1(a.col_u + d0);
+      prefetch_l1(a.col_w + d0);
+    }
+    __syncthreads();
+
+    // relax until no op of the CTA's rows is active, or max_rounds (a CTA
+    // whose rows are idle would only run no-op rounds: see the header)
+    const int groups = (c.nr + kTaskRows - 1) / kTaskRows;
+    int rounds = 0;
+    while (rounds < a.max_rounds) {
+      bool any = false;
+      for (int q = c.warp; q < c.nr; q += kWarps) {
+        const bool lane_ok = __int2float_rn(EQ[q]) < budget;
+        const float thr = __fadd_rn(ALPHA[q], a.window);
+        int inc = 0;
+        bool row = false;
+        for (int u = c.lane; u < B; u += 32) {
+          const int o = q * B + u;
+          const float d = D[o];
+          const bool act = PEND[o] && d <= thr && lane_ok;
+          X[o] = act ? d : INFINITY;
+          if (act) {
+            PEND[o] = 0;
+            EMIT[o] = 1;
+            inc += NNZ[u];
+            row = true;
+          }
+        }
+        inc = fg::warp_sum(inc);
+        row = __any_sync(0xffffffffu, row);
+        if (c.lane == 0) {
+          EQ[q] += inc;
+          LIVE[q] = row;
+        }
+        any |= row;
+      }
+      if (!__syncthreads_or(any)) break;
+      for (int t = c.tid; t < groups * B; t += kThreads) {
+        const int g = t / B, v = t - g * B, q0 = g * kTaskRows;
+        const int nq = min(kTaskRows, c.nr - q0);
+        if (kSparse && !rows_live(LIVE, q0)) continue;
+        float acc[kTaskRows];
+#pragma unroll
+        for (int r = 0; r < kTaskRows; ++r) acc[r] = INFINITY;
+        contract_list<true>(acc, X + q0 * B, B, nq,
+                            t == c.tid ? d0 : __ldg(dptr + v),
+                            t == c.tid ? d1 : __ldg(dptr + v + 1), a.col_u,
+                            a.col_w);
+#pragma unroll
+        for (int r = 0; r < kTaskRows; ++r) {
+          if (r >= nq) break;
+          const int o = (q0 + r) * B + v;
+          const float d = D[o], nd = acc[r];
+          if (nd < d) PEND[o] = 1;
+          D[o] = fminf(d, nd);
+        }
+      }
+      __syncthreads();
+      ++rounds;
+    }
+
+    // emission payload (emit ? d : +inf) and its edge count
+    for (int q = c.warp; q < c.nr; q += kWarps) {
+      int inc = 0;
+      bool row = false;
+      for (int u = c.lane; u < B; u += 32) {
+        const int o = q * B + u;
+        const bool e = EMIT[o];
+        X[o] = e ? D[o] : INFINITY;
+        if (e) {
+          inc += NNZ2[u];
+          row = true;
+        }
+      }
+      inc = fg::warp_sum(inc);
+      row = __any_sync(0xffffffffu, row);
+      if (c.lane == 0) {
+        EQ[q] += inc;
+        LIVE[q] = row;
+      }
+    }
+    __syncthreads();
+    emit<false, kSparse, C>(a, L, c, p, cnt, X, LIVE, SBUF, SVAL, MBAR, PAIR,
+                            si);
+
+    // write back the rows, keep their unrelaxed ops, refresh own metadata
+    float best = INFINITY;
+    int n = 0;
+    for (int i = c.tid; i < nrb; i += kThreads) {
+      const float d = D[i];
+      const float keep = PEND[i] ? d : INFINITY;
+      X[i] = keep;
+      if (!c.bulk) {
+        dist_p[i] = d;
+        buf_p[i] = keep;
+      }
+      if (isfinite(keep) && (strict ? keep < d : keep <= d)) {
+        best = fminf(best, keep);
+        ++n;
+      }
+    }
+    pair_post<false>(c, PAIR, best, n);
+    store_own<2>(c, {dist_p, buf_p}, {D, X}, nrb);
+    pair_read<false>(c, PAIR, best, n);
+    append(si, L, c, best, n, p, -1, rounds);
+    flush<C, false>(a, si, L, c, cnt);
+    update_stats(a, c, p, k, si[L.misc], EQ, ELO, EHI);
+  }
+  edge_counters(a, c, ELO, EHI, false);
+  finish<C>(c);
+}
+
+template <int kPolicy, int C>
 __global__ void __launch_bounds__(kThreads)
 fused_push_kernel(const FusedArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(kPush, a.Q, a.B);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int k0 = a.stats[0];
+  const Layout L = layout(kPush, a.Q, a.B, C);
   float* sf = reinterpret_cast<float*>(smem);
   int* si = reinterpret_cast<int*>(smem);
   float* PP = sf + L.v0;       // PPR mass
-  float* R = sf + L.v1;        // residual
+  float* RR = sf + L.v1;       // residual
   float* ACC = sf + L.v2;      // pushed mass (the emission payload)
-  float* X = sf + L.v3;        // this round's pushed values
-  uint32_t* BITS = reinterpret_cast<uint32_t*>(si + L.w);
+  float* X = sf + L.v3;        // buffer rows in, a round's pushed values
+  float* SBUF = sf + L.sbuf;
+  float* SVAL = sf + L.sval;
   float* DEGC = sf + L.degc;
   float* TH = sf + L.thresh;
   int* DEGI = si + L.degi;
@@ -513,203 +1041,233 @@ fused_push_kernel(const FusedArgs a) {
   int* EQ = si + L.eq;
   float* REDF = sf + L.red;
   int* REDI = si + L.red + kWarps;
+  int* PAIR = si + L.pair;
+  int* ELO = si + L.elo;
+  int* EHI = si + L.ehi;
+  uint64_t* MBAR = reinterpret_cast<uint64_t*>(si + L.mbar);
   uint8_t* ACT = smem + L.m0;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Q = a.Q, B = a.B, Bp = L.Bp, Qp = L.Qp, bw = L.bw;
-  const int nvt = Bp / 4, ntiles = (Qp / 4) * nvt;
-  const int k = a.stats[0];
-  if (k >= a.K) return;
-  const int p = select_partition<kPolicy>(a, REDF, REDI, tid, lane, warp);
-  if (p < 0) return;
-  const int cnt = a.counter + k;
-  const int64_t kd = a.diag_blk[p];
-  const float budget = a.budget[p];
-  const int64_t QB = static_cast<int64_t>(Q) * B;
-  float* p_p = a.plane0 + p * QB;
-  float* r_p = a.plane1 + p * QB;
-  float* buf_p = a.buf + p * QB;
+  Cta c = make_cta<C>(a, L, MBAR);
+  edge_counters(a, c, ELO, EHI, true);
+  const int B = a.B, nrb = c.nr * B;
+  const int64_t QB = static_cast<int64_t>(a.Q) * B;
+  const int kend = min(a.K, k0 + a.launches);
+  for (int k = k0; k < kend; ++k) {
+    const int p = select_partition<kPolicy>(a, REDF, REDI, c);
+    if (p < 0) break;
+    const int cnt = a.counter + k;
+    const int64_t kd = a.diag_blk[p];
+    const float budget = a.budget[p];
+    const int64_t off = p * QB + static_cast<int64_t>(c.r0) * B;
+    float* p_p = a.plane0 + off;
+    float* r_p = a.plane1 + off;
+    float* buf_p = a.buf + off;
 
-  // begin: r += buf, acc = 0 (pad rows of acc and x stay 0)
-  for (int i = tid; i < Qp * Bp; i += kThreads) {
-    ACC[i] = 0.0f;
-    X[i] = 0.0f;
-  }
-  for (int i = tid; i < Q * B; i += kThreads) {
-    const int o = (i / B) * Bp + i % B;
-    PP[o] = p_p[i];
-    R[o] = __fadd_rn(r_p[i], buf_p[i]);
-  }
-  for (int u = tid; u < B; u += kThreads) {
-    const int dg = a.deg[static_cast<int64_t>(p) * B + u];
-    DEGI[u] = dg;
-    DEGC[u] = static_cast<float>(max(dg, 1));
-    TH[u] = __fmul_rn(a.eps, DEGC[u]);
-    NNZ[u] = a.row_nnz[kd * B + u];
-    NNZ2[u] = a.nbr_nnz[static_cast<int64_t>(p) * B + u];
-  }
-  for (int q = tid; q < Q; q += kThreads) EQ[q] = 0;
-  fg::load_mask_bits(BITS, a.blocks + kd * B * B, B, bw, warp, kWarps, lane);
-  __syncthreads();
-
-  // push rounds until no op is active or max_rounds
-  int rounds = 0;
-  while (rounds < a.max_rounds) {
-    bool any = false;
-    for (int q = warp; q < Q; q += kWarps) {
-      const bool lane_ok = __int2float_rn(EQ[q]) < budget;
-      int inc = 0;
-      for (int u = lane; u < B; u += 32) {
-        const int o = q * Bp + u;
-        const bool act =
-            fg::push_active(R[o], TH[u], DEGI[u] > 0) && lane_ok;
-        ACT[o] = act;
-        if (act) {
-          inc += NNZ[u];
-          any = true;
-        }
-      }
-      inc = fg::warp_sum(inc);
-      if (lane == 0) EQ[q] += inc;
+    load_own<3>(c, MBAR, {PP, RR, X}, {p_p, r_p, buf_p}, nrb);
+    issue_first(a, L, c, p, a.plane1, SBUF, SVAL, MBAR);
+    const int* dptr = a.col_ptr + kd * (B + 1);
+    const int vt = c.tid % B;
+    const int d0 = __ldg(dptr + vt), d1 = __ldg(dptr + vt + 1);
+    for (int u = c.tid; u < B; u += kThreads) {
+      const int dg = a.deg[static_cast<int64_t>(p) * B + u];
+      DEGI[u] = dg;
+      DEGC[u] = static_cast<float>(max(dg, 1));
+      TH[u] = __fmul_rn(a.eps, DEGC[u]);
+      NNZ[u] = a.row_nnz[kd * B + u];
+      NNZ2[u] = a.nbr_nnz[static_cast<int64_t>(p) * B + u];
     }
-    if (!__syncthreads_or(any)) break;
-    fg::push_round(PP, R, ACC, X, ACT, DEGC, BITS, bw, Q, Qp, B, Bp, a.alpha,
-                   a.c1, tid, kThreads);
-    ++rounds;
-  }
+    for (int q = c.tid; q < c.nr; q += kThreads) EQ[q] = 0;
+    wait_own(c, MBAR);
 
-  // emission edge count (acc > 0 marks the rows that cost edges)
-  for (int q = warp; q < Q; q += kWarps) {
-    int inc = 0;
-    for (int u = lane; u < B; u += 32)
-      if (ACC[q * Bp + u] > 0.0f) inc += NNZ2[u];
-    inc = fg::warp_sum(inc);
-    if (lane == 0) EQ[q] += inc;
-  }
-  for (int s = 0; s < a.dmax; ++s) {
-    const int64_t blk = a.nbr_blk[static_cast<int64_t>(p) * a.dmax + s];
-    if (blk < 0) continue;  // padded slot: block-uniform
-    const int64_t j = a.nbr_dst[static_cast<int64_t>(p) * a.dmax + s];
-    __syncthreads();  // the previous slot's bits are no longer read
-    fg::load_mask_bits(BITS, a.blocks + blk * B * B, B, bw, warp, kWarps,
-                       lane);
+    // begin: r += buf, acc = 0
+    for (int i = c.tid; i < nrb; i += kThreads) {
+      RR[i] = __fadd_rn(RR[i], X[i]);
+      ACC[i] = 0.0f;
+    }
+    if (d1 > d0) prefetch_l1(a.col_u + d0);
     __syncthreads();
-    float* buf_j = a.buf + j * QB;
-    const float* r_j = a.plane1 + j * QB;
-    const int* deg_j = a.deg + j * B;
-    float best = -INFINITY;
-    int n = 0;
-    for (int t = tid; t < ntiles; t += kThreads) {
-      const int q0 = (t / nvt) * 4, v0 = (t % nvt) * 4;
-      float acc[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-      fg::contract_tile<false>(acc, ACC, Bp, q0, nullptr, BITS, bw, v0,
-                               nullptr, B);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int q = q0 + r, v = v0 + c;
-          if (q < Q && v < B) {
-            const int o = q * B + v;
-            const float nb = __fadd_rn(buf_j[o], acc[r][c]);
-            buf_j[o] = nb;
-            const int dg = deg_j[v];
-            const float th =
-                __fmul_rn(a.eps, static_cast<float>(max(dg, 1)));
-            const float ratio = __fdiv_rn(__fadd_rn(r_j[o], nb), th);
-            if (dg > 0) {
-              best = fmaxf(best, ratio);
-              if (ratio >= 1.0f) ++n;
-            }
+
+    // push rounds until no op of the CTA's rows is active, or max_rounds
+    const int groups = (c.nr + kTaskRows - 1) / kTaskRows;
+    int rounds = 0;
+    while (rounds < a.max_rounds) {
+      bool any = false;
+      for (int q = c.warp; q < c.nr; q += kWarps) {
+        const bool lane_ok = __int2float_rn(EQ[q]) < budget;
+        int inc = 0;
+        for (int u = c.lane; u < B; u += 32) {
+          const int o = q * B + u;
+          const bool act =
+              fg::push_active(RR[o], TH[u], DEGI[u] > 0) && lane_ok;
+          ACT[o] = act;
+          if (act) {
+            inc += NNZ[u];
+            any = true;
           }
         }
+        inc = fg::warp_sum(inc);
+        if (c.lane == 0) EQ[q] += inc;
+      }
+      if (!__syncthreads_or(any)) break;
+      for (int i = c.tid; i < nrb; i += kThreads)
+        fg::push_cell(PP[i], RR[i], ACC[i], X[i], ACT[i], DEGC[i % B],
+                      a.alpha, a.c1);
+      __syncthreads();
+      // r += x @ finite(W), over the diagonal block's list
+      for (int t = c.tid; t < groups * B; t += kThreads) {
+        const int g = t / B, v = t - g * B, q0 = g * kTaskRows;
+        const int nq = min(kTaskRows, c.nr - q0);
+        float s[kTaskRows];
+#pragma unroll
+        for (int r = 0; r < kTaskRows; ++r) s[r] = 0.0f;
+        contract_list<false>(s, X + q0 * B, B, nq,
+                             t == c.tid ? d0 : __ldg(dptr + v),
+                             t == c.tid ? d1 : __ldg(dptr + v + 1), a.col_u,
+                             a.col_w);
+#pragma unroll
+        for (int r = 0; r < kTaskRows; ++r) {
+          if (r >= nq) break;
+          const int o = (q0 + r) * B + v;
+          RR[o] = __fadd_rn(RR[o], s[r]);
+        }
+      }
+      __syncthreads();
+      ++rounds;
     }
-    best = block_max(best, REDF, lane, warp);
-    n = block_sum(n, REDI, lane, warp);
-    if (tid == 0) {
-      const float np = n > 0 ? -best : INFINITY;
-      const bool was_empty = !isfinite(a.prio[j]);
-      a.prio[j] = np;
-      a.ops[j] = n;
-      if (was_empty && isfinite(np)) a.stamp[j] = cnt;
-    }
-  }
 
-  // write back p and r, empty the buffer, refresh own metadata
-  float best = -INFINITY;
-  int n = 0;
-  for (int i = tid; i < Q * B; i += kThreads) {
-    const int v = i % B, o = (i / B) * Bp + v;
-    const float rv = R[o];
-    p_p[i] = PP[o];
-    r_p[i] = rv;
-    buf_p[i] = 0.0f;
-    const float ratio = __fdiv_rn(__fadd_rn(rv, 0.0f), TH[v]);
-    if (DEGI[v] > 0) {
-      best = fmaxf(best, ratio);
-      if (ratio >= 1.0f) ++n;
+    // emission edge count (acc > 0 marks the cells that cost edges)
+    for (int q = c.warp; q < c.nr; q += kWarps) {
+      int inc = 0;
+      for (int u = c.lane; u < B; u += 32)
+        if (ACC[q * B + u] > 0.0f) inc += NNZ2[u];
+      inc = fg::warp_sum(inc);
+      if (c.lane == 0) EQ[q] += inc;
     }
+    __syncthreads();
+    emit<true, false, C>(a, L, c, p, cnt, ACC, nullptr, SBUF, SVAL, MBAR,
+                         PAIR, si);
+
+    // write back p and r, empty the buffer rows, refresh own metadata
+    float best = -INFINITY;
+    int n = 0;
+    for (int i = c.tid; i < nrb; i += kThreads) {
+      const int v = i % B;
+      const float rv = RR[i];
+      X[i] = 0.0f;
+      if (!c.bulk) {
+        p_p[i] = PP[i];
+        r_p[i] = rv;
+        buf_p[i] = 0.0f;
+      }
+      const float ratio = __fdiv_rn(__fadd_rn(rv, 0.0f), TH[v]);
+      if (DEGI[v] > 0) {
+        best = fmaxf(best, ratio);
+        if (ratio >= 1.0f) ++n;
+      }
+    }
+    pair_post<true>(c, PAIR, best, n);
+    store_own<3>(c, {p_p, r_p, buf_p}, {PP, RR, X}, nrb);
+    pair_read<true>(c, PAIR, best, n);
+    append(si, L, c, best, n, p, -1, rounds);
+    flush<C, true>(a, si, L, c, cnt);
+    update_stats(a, c, p, k, si[L.misc], EQ, ELO, EHI);
   }
-  best = block_max(best, REDF, lane, warp);
-  n = block_sum(n, REDI, lane, warp);
-  if (tid == 0) {
-    const float np = n > 0 ? -best : INFINITY;
-    a.prio[p] = np;
-    a.ops[p] = n;
-    a.stamp[p] = isfinite(np) ? cnt : kBigStamp;
-  }
-  update_stats(a, p, k, rounds, EQ, tid);
+  edge_counters(a, c, ELO, EHI, false);
+  finish<C>(c);
 }
 
-using Kernel = void (*)(const FusedArgs);
+using Kernel = void (*)(FusedArgs);
 
-Kernel pick(int algebra, int policy, int sparse) {
+template <int C>
+Kernel pick_for(int algebra, int policy, int sparse) {
   static const Kernel minplus[3][2] = {
-      {fused_minplus_kernel<kPriority, false>,
-       fused_minplus_kernel<kPriority, true>},
-      {fused_minplus_kernel<kFifo, false>, fused_minplus_kernel<kFifo, true>},
-      {fused_minplus_kernel<kMaxOps, false>,
-       fused_minplus_kernel<kMaxOps, true>}};
-  static const Kernel push[3] = {fused_push_kernel<kPriority>,
-                                 fused_push_kernel<kFifo>,
-                                 fused_push_kernel<kMaxOps>};
-  if (policy < 0 || policy > 2) return nullptr;
-  if (algebra == kMinplus) return minplus[policy][sparse ? 1 : 0];
+      {fused_minplus_kernel<kPriority, false, C>,
+       fused_minplus_kernel<kPriority, true, C>},
+      {fused_minplus_kernel<kFifo, false, C>,
+       fused_minplus_kernel<kFifo, true, C>},
+      {fused_minplus_kernel<kMaxOps, false, C>,
+       fused_minplus_kernel<kMaxOps, true, C>}};
+  static const Kernel push[3] = {fused_push_kernel<kPriority, C>,
+                                 fused_push_kernel<kFifo, C>,
+                                 fused_push_kernel<kMaxOps, C>};
+  if (algebra == kMinplus) return minplus[policy][sparse];
   if (algebra == kPush && !sparse) return push[policy];
   return nullptr;
 }
 
-}  // namespace
+// The cluster sizes compiled in (kernels/fused_visit/ops.CLUSTER_SIZES).
+constexpr int kClusters[3] = {1, 4, 8};
 
-// Dynamic shared-memory bytes one launch needs for (algebra, Q, B).
-extern "C" long long fg_fused_visit_smem(int algebra, int Q, int B) {
-  return static_cast<long long>(layout(algebra, Q, B).total);
+int cluster_index(int cluster) {
+  for (int i = 0; i < 3; ++i)
+    if (kClusters[i] == cluster) return i;
+  return -1;
 }
 
-// One visit (or nothing, when no partition holds a pending op), on one
-// thread block with a->smem_bytes of dynamic shared memory.  Returns a
-// CUDA error code, or -1 when a->smem_bytes is below what the layout needs.
+Kernel pick(int algebra, int policy, int sparse, int cluster) {
+  if (policy < 0 || policy > 2 || sparse < 0 || sparse > 1) return nullptr;
+  switch (cluster) {
+    case 1: return pick_for<1>(algebra, policy, sparse);
+    case 4: return pick_for<4>(algebra, policy, sparse);
+    case 8: return pick_for<8>(algebra, policy, sparse);
+    default: return nullptr;
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+}  // namespace
+
+// Dynamic shared-memory bytes of one CTA for (algebra, Q, B, cluster), or
+// -1 for a cluster size that is not compiled in.
+extern "C" long long fg_fused_visit_smem(int algebra, int Q, int B,
+                                         int cluster) {
+  if (cluster_index(cluster) < 0 || Q <= 0 || B <= 0) return -1;
+  return static_cast<long long>(layout(algebra, Q, B, cluster).total);
+}
+
+// One chunk of up to a->launches visits (fewer when no partition holds a
+// pending op, or the order ring of K is full), as one cluster of `cluster`
+// CTAs with a->smem_bytes of dynamic shared memory each.  Returns a CUDA
+// error code, or -1 when a->smem_bytes is below what the layout needs.
 extern "C" int fg_fused_visit(const FusedArgs* a, int algebra, int policy,
-                              int sparse, void* stream) {
-  if (a->P <= 0 || a->Q <= 0 || a->B <= 0 || a->K <= 0)
+                              int sparse, int cluster, void* stream) {
+  if (a->P <= 0 || a->Q <= 0 || a->B <= 0 || a->K <= 0 || a->launches < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<size_t>(a->smem_bytes) < layout(algebra, a->Q, a->B).total)
-    return kErrSmem;
-  const Kernel k = pick(algebra, policy, sparse);
+  const Kernel k = pick(algebra, policy, sparse, cluster);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<size_t>(a->smem_bytes) <
+      layout(algebra, a->Q, a->B, cluster).total)
+    return kErrSmem;
+  FusedArgs args = *a;
+  args.bulk = (a->B % 4 == 0 && aligned16(a->plane0) &&
+               aligned16(a->plane1) && aligned16(a->buf))
+                  ? 1
+                  : 0;
   // raise the kernel's dynamic shared-memory cap once per size
-  static int configured[2][3][2] = {};
-  int& cap = configured[algebra][policy][sparse ? 1 : 0];
+  static int configured[3][2][3][2] = {};
+  int& cap = configured[cluster_index(cluster)][algebra][policy][sparse];
   if (a->smem_bytes > cap) {
     const cudaError_t e = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     cap = a->smem_bytes;
   }
-  k<<<1, kThreads, a->smem_bytes, static_cast<cudaStream_t>(stream)>>>(*a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(a->smem_bytes);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, k, args);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

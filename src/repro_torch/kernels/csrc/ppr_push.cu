@@ -11,10 +11,11 @@
 //                (src/repro/kernels/ppr_push/push.py, body _push_kernel,
 //                tile push_tile) and the zero Q padding of its ops wrapper.
 //
-// The round itself is fg::push_round (visit_tiles.cuh), which the fused
-// visit kernel (fused_visit.cu) runs for every relax round of a push
-// visit; on the engine's path this entry is not launched, its round runs
-// inside fg_fused_visit.
+// The round itself is fg::push_round (visit_tiles.cuh).  The fused visit
+// kernel (fused_visit.cu) runs its elementwise half (fg::push_cell) for
+// every relax round of a push visit and the spread over the block's
+// column lists, in the same order; on the engine's path this entry is not
+// launched, its round runs inside fg_fused_visit.
 //
 // Layout: one block of 256 threads per 16 query rows (rows of the spread
 // are independent: row q of push @ mask reads only row q of push).  The

@@ -1,5 +1,5 @@
-// Device code shared by the visit kernels: the frontier tile, the push round
-// and the 4x4 contraction tile.  frontier.cu, ppr_push.cu and fused_visit.cu
+// Device code shared by the visit kernels: the frontier tile, the push
+// round and its per-cell update.  frontier.cu, ppr_push.cu and fused_visit.cu
 // include it, so each standalone entry and the fused visit run the same
 // instructions, as the reference's standalone Pallas calls and its fused
 // kernel share frontier_tile and push_tile.
@@ -10,8 +10,9 @@
 // (__fadd_rn, __fmul_rn, __fdiv_rn), and the sources build with
 // -fmad=false, so no product is contracted into a following add.  The push
 // spread sums u = 0..B-1 in order with one fmaf per term starting from 0,
-// exactly as fg_masked_matmul (minplus.cu) does, so the fused and the
-// unfused ppr on the card are bitwise equal.
+// exactly as fg_masked_matmul (minplus.cu) does; the fused visit sums only
+// the finite entries, in the same order, which gives the same bits (see
+// fused_visit.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,15 +67,6 @@ __device__ inline float frontier_row(const float* buf, const float* dist,
   return alpha;
 }
 
-// W[u][v] = blk[u][v] for u, v < B, +inf in the pad columns [B, ldw).
-__device__ inline void load_weights(float* W, const float* blk, int B,
-                                    int ldw, int tid, int nt) {
-  for (int i = tid; i < B * ldw; i += nt) {
-    const int u = i / ldw, v = i % ldw;
-    W[i] = v < B ? blk[static_cast<int64_t>(u) * B + v] : INFINITY;
-  }
-}
-
 // bits[u][w] bit b = isfinite(blk[u][32 w + b]) (0 past B); one warp per
 // word, each lane reading one column, so the reads are coalesced.
 __device__ inline void load_mask_bits(uint32_t* bits, const float* blk,
@@ -88,43 +80,25 @@ __device__ inline void load_mask_bits(uint32_t* bits, const float* blk,
   }
 }
 
-// One 4x4 output tile of a visit's contraction: rows q0..q0+3 of X
-// [.., ldx] against block columns v0..v0+3 (v0 a multiple of 4), over the
-// source rows u = us[0..nu) (u = 0..nu-1, ascending, when us is null):
-//   min-plus  acc = min(acc, x[q, u] + W[u, v])          W    [.., ldw] f32
-//   push      acc = fmaf(x[q, u], finite(W[u, v]), acc)  bits [.., ldw] u32
-// A skipped u (sparse list) whose sources are all +inf adds only +inf to
-// an exact min, so the list changes the work and not the bits.
-template <bool kMinPlus>
-__device__ __forceinline__ void contract_tile(float (&acc)[4][4],
-                                              const float* X, int ldx,
-                                              int q0, const float* W,
-                                              const uint32_t* bits, int ldw,
-                                              int v0, const int* us,
-                                              int nu) {
-  for (int i = 0; i < nu; ++i) {
-    const int u = us ? us[i] : i;
+// One 4x4 output tile of the push spread: rows q0..q0+3 of X [.., ldx]
+// against block columns v0..v0+3 (v0 a multiple of 4), u = 0..B-1 in order:
+//   acc = fmaf(x[q, u], finite(W[u, v]), acc)        bits [.., ldw] u32
+__device__ __forceinline__ void spread_tile(float (&acc)[4][4], const float* X,
+                                            int ldx, int q0,
+                                            const uint32_t* bits, int ldw,
+                                            int v0, int B) {
+  for (int u = 0; u < B; ++u) {
     float x[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) x[r] = X[(q0 + r) * ldx + u];
-    if (kMinPlus) {
-      const float4 w4 = *reinterpret_cast<const float4*>(W + u * ldw + v0);
-      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+    const uint32_t nib = bits[u * ldw + (v0 >> 5)] >> (v0 & 31);
+    float m[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int c = 0; c < 4; ++c) m[c] = ((nib >> c) & 1u) ? 1.0f : 0.0f;
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[r][c] = fminf(acc[r][c], __fadd_rn(x[r], w[c]));
-    } else {
-      const uint32_t nib = bits[u * ldw + (v0 >> 5)] >> (v0 & 31);
-      float m[4];
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) m[c] = ((nib >> c) & 1u) ? 1.0f : 0.0f;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r], m[c], acc[r][c]);
-    }
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r], m[c], acc[r][c]);
   }
 }
 
@@ -135,14 +109,29 @@ __device__ __forceinline__ bool push_active(float r, float thresh,
   return r >= thresh && has_edges;
 }
 
-// One ACL push round (reference kernels/ppr_push/push.py push_tile, in
-// push_algebra.step's expression order) over rows [0, rows) of the
-// [rows_pad, ld] shared tiles p, r, acc, with the active set `act` given:
-//   af = act;  p += alpha*r*af;  x = (1-alpha)*r*af/degc;  acc += x
-//   r  = r*(1-af) + x @ finite(W)           (W as mask bits [B, bw])
-// `c1` is the f32 value of 1 - alpha.  x is scratch; its rows in
-// [rows, rows_pad) must hold 0.  Every thread of the block calls it; it
-// ends with a barrier.
+// The elementwise half of one push round on one cell, in
+// push_algebra.step's expression order:
+//   af = act;  p += alpha*r*af;  x = (1-alpha)*r*af/degc;  acc += x;
+//   r = r*(1-af)                       (the spread is added to r after)
+// `c1` is the f32 value of 1 - alpha.
+__device__ __forceinline__ void push_cell(float& p, float& r, float& acc,
+                                          float& x, bool act, float degc,
+                                          float alpha, float c1) {
+  const float af = act ? 1.0f : 0.0f;
+  const float rv = r;
+  p = __fadd_rn(p, __fmul_rn(__fmul_rn(alpha, rv), af));
+  const float pushed = __fdiv_rn(__fmul_rn(__fmul_rn(c1, rv), af), degc);
+  x = pushed;
+  r = __fmul_rn(rv, __fsub_rn(1.0f, af));
+  acc = __fadd_rn(acc, pushed);
+}
+
+// One ACL push round (reference kernels/ppr_push/push.py push_tile) over
+// rows [0, rows) of the [rows_pad, ld] shared tiles p, r, acc, with the
+// active set `act` given: push_cell on every cell, then
+//   r  = r + x @ finite(W)                  (W as mask bits [B, bw])
+// x is scratch; its rows in [rows, rows_pad) must hold 0.  Every thread of
+// the block calls it; it ends with a barrier.
 __device__ inline void push_round(float* p, float* r, float* acc, float* x,
                                   const uint8_t* act, const float* degc,
                                   const uint32_t* bits, int bw, int rows,
@@ -150,14 +139,7 @@ __device__ inline void push_round(float* p, float* r, float* acc, float* x,
                                   float c1, int tid, int nt) {
   for (int i = tid; i < rows * B; i += nt) {
     const int q = i / B, v = i % B, o = q * ld + v;
-    const float af = act[o] ? 1.0f : 0.0f;
-    const float rv = r[o];
-    p[o] = __fadd_rn(p[o], __fmul_rn(__fmul_rn(alpha, rv), af));
-    const float pushed =
-        __fdiv_rn(__fmul_rn(__fmul_rn(c1, rv), af), degc[v]);
-    x[o] = pushed;
-    r[o] = __fmul_rn(rv, __fsub_rn(1.0f, af));
-    acc[o] = __fadd_rn(acc[o], pushed);
+    push_cell(p[o], r[o], acc[o], x[o], act[o], degc[v], alpha, c1);
   }
   __syncthreads();
   const int nvt = ld / 4, ntiles = (rows_pad / 4) * nvt;
@@ -168,7 +150,7 @@ __device__ inline void push_round(float* p, float* r, float* acc, float* x,
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
-    contract_tile<false>(s, x, ld, q0, nullptr, bits, bw, v0, nullptr, B);
+    spread_tile(s, x, ld, q0, bits, bw, v0, B);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll

@@ -122,9 +122,9 @@ def _run(bg, srcs, yc, kind, dev, **kw):
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("kind", ["sssp", "bfs", "ppr"])
 def test_fused_on_card_bitwise_equals_unfused_on_card(card, kind, ragged):
-    """One launch of fg_fused_visit per visit gives the unfused card run's
-    bits: values (and ppr residuals), edges, visits, rounds, order; the
-    fused run reads the device once per chunk."""
+    """One launch of fg_fused_visit per K-visit chunk gives the unfused
+    card run's bits: values (and ppr residuals), edges, visits, rounds,
+    order; the fused run reads the device once per chunk."""
     from repro_torch.kernels.fused_visit import ops as fvops
     bg, srcs, yc = _fused_setup(kind, ragged)
     want = _run(bg, srcs, yc, kind, card)
@@ -138,12 +138,97 @@ def test_fused_on_card_bitwise_equals_unfused_on_card(card, kind, ragged):
     assert (got.stats.visits, got.stats.rounds) == (want.stats.visits,
                                                     want.stats.rounds)
     assert got.stats.device_syncs == got.stats.host_syncs
-    assert fvops.LAUNCHES["fused_visit"] >= got.stats.visits
+    assert fvops.LAUNCHES["fused_visit"] == got.stats.host_syncs
     if kind != "ppr":
         sparse = _run(bg, srcs, yc, kind, card, fused=True,
                       frontier_mode="sparse")
         np.testing.assert_array_equal(sparse.values, want.values)
         assert sparse.visit_order == want.visit_order
+
+
+@pytest.mark.parametrize("q,b", [(12, 32), (64, 32), (60, 30)])
+@pytest.mark.parametrize("kind", ["sssp", "bfs", "ppr"])
+def test_fused_cluster_on_card_bitwise_equals_unfused(card, kind, q, b):
+    """Clusters of 4 (Q=12: 3 rows per CTA) and 8 (Q=64; Q=60 at B=30:
+    ragged rows, a CTA with none, copies by the threads instead of bulk
+    copies) give the unfused card run's bits, one launch per chunk."""
+    from repro_torch.kernels.fused_visit import ops as fvops
+    g = grid2d(16, 16, seed=2, weighted=(kind == "sssp"))
+    bg, perm = partition(g, b)
+    srcs = perm[np.random.default_rng(q).choice(g.n, q, replace=False)]
+    yc = planner.default_yield_config(kind, bg)
+    want = _run(bg, srcs, yc, kind, card)
+    fvops.reset_launches()
+    got = _run(bg, srcs, yc, kind, card, fused=True)
+    np.testing.assert_array_equal(got.values, want.values)
+    if kind == "ppr":
+        np.testing.assert_array_equal(got.residual, want.residual)
+    np.testing.assert_array_equal(got.edges_processed, want.edges_processed)
+    assert got.visit_order == want.visit_order
+    assert (got.stats.visits, got.stats.rounds) == (want.stats.visits,
+                                                    want.stats.rounds)
+    assert fvops.LAUNCHES["fused_visit"] == got.stats.host_syncs
+
+
+@pytest.mark.parametrize("cluster", [1, 4, 8])
+@pytest.mark.parametrize("kind", ["sssp", "ppr"])
+def test_fused_launch_at_each_cluster_size_matches_plain(card, kind,
+                                                         cluster):
+    """One launch of up to K=8 visits at every compiled cluster size, from
+    a mid-run state at Q=12 (a cluster of 8 leaves two CTAs without
+    rows): min-plus bitwise against 8 visits of the plain version on the
+    card; push bitwise against 8 visits of the unfused card megastep, and
+    one visit within the masked-matmul tolerance of the plain version."""
+    from repro_torch.core.visit import VisitState, make_megastep
+    from repro_torch.kernels.fused_visit import ops as fvops
+    g = grid2d(16, 16, seed=2)
+    bg, perm = partition(g, 32)
+    srcs = perm[np.random.default_rng(1).choice(g.n, 12, replace=False)]
+    mode = "push" if kind == "ppr" else "minplus"
+    eng = FPPEngine(bg, mode=mode, num_queries=12, k_visits=8, eps=1e-3,
+                    fused=True, device=card,
+                    yield_config=planner.default_yield_config(kind, bg))
+    state, _ = eng._megastep(eng.init_state(srcs), 0, 8)
+    fv = fvops.make_fused_visit(eng.dg, eng.algebra, eng.max_rounds, K=8)
+    P = eng.dg.num_parts
+
+    def clone(s):
+        return VisitState(tuple(x.clone() for x in s.planes), s.buf.clone(),
+                          s.prio.clone(), s.ops_count.clone(),
+                          s.stamp.clone())
+
+    def rows(s):        # the fused visit never touches the trash slot P
+        return (*s.planes, s.buf[:P], s.prio[:P], s.ops_count[:P],
+                s.stamp[:P])
+
+    a, b = clone(state), clone(state)
+    sa = fv.new_stats(a)
+    fv.launch(a, sa, 8, 8, cluster)
+    if mode == "minplus":
+        sb = fv.new_stats(b)
+        for _ in range(8):
+            fv.ref(b, sb, 8)
+        torch.cuda.synchronize()
+        assert int(sa[0]) == 8 and torch.equal(sa, sb)
+        for x, y in zip(rows(a), rows(b)):
+            assert torch.equal(x, y)
+        return
+    unfused = make_megastep(eng.dg, eng.algebra, eng.max_rounds, K=8)
+    b, ms = unfused(b, 8, 8)
+    assert int(sa[0]) == ms.visits == 8 and int(sa[1]) == ms.rounds
+    for x, y in zip(rows(a), rows(b)):
+        assert torch.equal(x, y)
+    a, b = clone(state), clone(state)
+    sa, sb = fv.new_stats(a), fv.new_stats(b)
+    fv.launch(a, sa, 8, 1, cluster)
+    fv.ref(b, sb, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(sa, sb)
+    for x, y in zip(rows(a), rows(b)):
+        if x.is_floating_point():
+            torch.testing.assert_close(x, y, **MM_TOL)
+        else:
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("kind", ["sssp", "bfs", "ppr"])

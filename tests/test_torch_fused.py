@@ -228,12 +228,13 @@ def test_fused_visit_rejects_bad_neighbour_lists(fault):
 
 def test_fused_plan_picks_b128_at_q64_and_fits_shared_memory():
     mem = planner.MemoryModel()
-    for n, want in ((1, 149_904), (2, 144_400)):
+    # per CTA of a cluster of 8 (8 query rows each)
+    for n, want in ((1, 38_528), (2, 47_184)):
         assert mem.fused_working_set(128, 64, n) == want <= mem.smem_bytes
     assert mem.fits(128, 64, fused=True)
     plan = planner.make_plan(gen.grid2d(256, 256), 64, fused=True)
     assert (plan.block_size, plan.fused) == (128, True)
-    assert plan.working_set_bytes() == 149_904
+    assert plan.working_set_bytes() == 47_184
     assert plan.resolve_fused("ppr")
     assert not planner.make_plan(gen.grid2d(64, 64), 64,
                                  fused="auto").resolve_fused("sssp")
