@@ -10,9 +10,13 @@ Phases, each of which fails the run on any error:
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes (Q=64, B=128; single and batched),
               with its time, the plain version's, a library call's where
-              one exists, and the bound: min-plus and masked matmul, the
-              frontier (bitwise) and the push round (masked-matmul
-              tolerance), and the fused visit: one launch of a whole K=64
+              one exists, and the bound: min-plus (bitwise) and masked
+              matmul (tolerance, and bitwise with the list order) walking
+              the column lists, at the road density, a hub-like 25 % and
+              fully finite blocks, an index past nblk (NaN plane) and -1
+              (identity), beside an empty launch's time; the frontier
+              (bitwise) and the push round (masked-matmul tolerance), and
+              the fused visit: one launch of a whole K=64
               chunk, at every compiled cluster size and at Q = 64 and a
               ragged 60, against K plain visits on copies of a mid-run
               state of the main path (minplus dense, sparse and strict
@@ -30,14 +34,16 @@ Phases, each of which fails the run on any error:
               .plan(num_queries=64)`` runs sssp, bfs and ppr on 64 seeded
               sources; sssp/bfs are checked against scipy's Dijkstra, ppr
               against mass conservation and the residual bound; each kind
-              must launch its kernel.  Then ``plan(fused=True)`` runs
+              must launch its kernel once per relax round and once per
+              visit.  Then ``plan(fused=True)`` runs
               sssp, bfs, ppr and sssp with the sparse frontier: sssp/bfs
               bitwise equal to the unfused runs, visits, rounds and chunks
               equal to theirs, one fused launch per chunk and no
               contraction launch, one device read per chunk.  Then one
               K=64 chunk per algebra and dispatch is timed and traced for
               the card's busy share; a fused chunk's trace must name one
-              launch of the cluster kernel
+              launch of the cluster kernel, an unfused one the list
+              contraction kernel (its share of the card time)
   6. flash    the flash-attention kernels against their plain version on
               the card at the LM path's shapes (starcoder2-7b: H=36, Hkv=4,
               hd=128; (Sq, Skv, q_offset) = (512, 512, 0), (3000, 3000, 0),
@@ -227,8 +233,17 @@ def replay_ms(torch, fn, reset, count, reps: int = 3):
     return total_ms, total
 
 
+#: finite share of phase 3's blocks besides the main path's road density
+#: (~4 entries a column): a hub-heavy block and a fully finite one
+DENSE_SHARES = (("hub", 0.25), ("full", 1.0))
+
+
 def phase_kernels(torch, ops, rng) -> dict:
-    """Phase 3: both kernels against their plain versions at Q=64, B=128."""
+    """Phase 3: both kernels against their plain versions at Q=64, B=128,
+    at the road density, a hub-like one and fully finite blocks."""
+    from repro_torch.core.engine import column_lists
+    from repro_torch.kernels.minplus.ref import list_contract_ref
+
     Q, B, nblk = 64, 128, 16
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -240,60 +255,119 @@ def phase_kernels(torch, ops, rng) -> dict:
                  np.inf)
     x = np.where(rng.random((Q, B)) < 0.3, rng.uniform(0.0, 1e-2, (Q, B)),
                  0.0)
-    blocks = torch.tensor(w, dtype=torch.float32, device=dev)
+    # the denser blocks come from a generator of their own, so the later
+    # phases draw what they drew before
+    rng_dense = np.random.default_rng(16)
+    by_density = {"road": w}
+    for label, share in DENSE_SHARES:
+        by_density[label] = np.where(
+            rng_dense.random((nblk, B, B)) < share,
+            rng_dense.uniform(1.0, 11.0, (nblk, B, B)), np.inf)
+    graphs = {}
+    for label, wd in by_density.items():
+        wd = wd.astype(np.float32)
+        graphs[label] = (torch.tensor(wd, device=dev),
+                         tuple(torch.from_numpy(a).to(dev)
+                               for a in column_lists(wd)))
     dt = torch.tensor(d, dtype=torch.float32, device=dev)
     xt = torch.tensor(x, dtype=torch.float32, device=dev)
     single = torch.tensor([3], dtype=torch.int64, device=dev)
     batched = torch.tensor([2, 5, 11, 7, -1], dtype=torch.int64, device=dev)
+    # an empty launch through the same harness: the least any launch takes
+    floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
+    log(f"kernel floor (empty launch, CUDA graph): {floor_ms} ms")
+
+    def bounds(name, inp, idx, blocks, lists):
+        """(bound ms, bound_by, dense-tile bound ms) of one call."""
+        S = idx.shape[0]
+        real = idx[idx >= 0]
+        wf = torch.isfinite(blocks.index_select(0, real)).float()
+        # instructions these inputs need, per (q, u, v) with a finite
+        # w[u, v] and a live x[q, u]: min-plus issues an add and a min
+        # (two instructions; min is taken at the add's issue rate, which
+        # it does not exceed), the masked matmul one FMA
+        lhs = (torch.isfinite(inp) if name == "minplus"
+               else inp != 0).float()
+        pairs = float((lhs @ wf).sum())
+        t_ops = pairs * (2.0 if name == "minplus" else 1.0) / (
+            PEAK_F32_INSTR_PER_S)
+        # x in, out, idx; each real block as the smaller of its list (8 B
+        # an entry for min-plus, 4 for the masked matmul, and its B + 1
+        # starts) and its dense f32 tile, which holds the same operand;
+        # beside it the dense tiles alone
+        col_ptr = lists[0].long()
+        nnz = (col_ptr[real, B] - col_ptr[real, 0]).double()
+        tile = 4.0 * B * B
+        per_block = ((8.0 if name == "minplus" else 4.0) * nnz
+                     + 4.0 * (B + 1)).clamp(max=tile)
+        rows = 4.0 * (Q * B + S * Q * B) + 8 * S
+        t_lists = (rows + float(per_block.sum())) / PEAK_BYTES_PER_S
+        t_dense = (rows + tile * real.numel()) / PEAK_BYTES_PER_S
+        return (1e3 * max(t_lists, t_ops),
+                "bytes" if t_lists >= t_ops else "operations",
+                1e3 * max(t_dense, t_ops))
 
     rows = {}
     for name, inp, fn in (("minplus", dt, ops.minplus),
                           ("masked_matmul", xt, ops.masked_matmul)):
         row = {}
         for form, idx in (("single", single), ("batched", batched)):
-            got = fn(inp, blocks, idx)
-            want = ops.plain(name, inp, blocks, idx)
-            torch.cuda.synchronize()
-            if name == "minplus":
-                if not torch.equal(got, want):
-                    raise AssertionError(f"minplus {form} is not bitwise "
-                                         f"equal to its plain version")
-                err = 0.0
-            else:
-                torch.testing.assert_close(got, want, rtol=MM_RTOL,
-                                           atol=MM_ATOL)
-                err = float((got - want).abs().max())
-            S = idx.shape[0]
-            real = idx[idx >= 0]
-            wf = torch.isfinite(blocks.index_select(0, real)).float()
-            # instructions these inputs need, per (q, u, v) with a finite
-            # w[u, v] and a live x[q, u]: min-plus issues an add and a min
-            # (two instructions; min is taken at the add's issue rate,
-            # which it does not exceed), the masked matmul one FMA
-            lhs = (torch.isfinite(inp) if name == "minplus"
-                   else inp != 0).float()
-            pairs = float((lhs @ wf).sum())
-            ninstr = pairs * (2.0 if name == "minplus" else 1.0)
-            nbytes = 4.0 * (Q * B + real.numel() * B * B + S * Q * B) + 8 * S
-            t_bytes = nbytes / PEAK_BYTES_PER_S
-            t_ops = ninstr / PEAK_F32_INSTR_PER_S
-            bound_ms = 1e3 * max(t_bytes, t_ops)
-            t = {
-                "max_abs_err": err,
-                "ms": device_ms(torch, lambda: fn(inp, blocks, idx)),
-                "plain_ms": device_ms(
-                    torch, lambda: ops.plain(name, inp, blocks, idx)),
-                "eager_ms": eager_ms(torch, lambda: fn(inp, blocks, idx)),
-                "bound_ms": bound_ms,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
-            }
-            if name == "masked_matmul":
-                wv = blocks.index_select(0, real)
-                t["library_ms"] = device_ms(
-                    torch, lambda: inp @ torch.isfinite(wv).float())
-            log(f"kernel {name} {form} S={S}: " + json.dumps(t))
+            t = {"ms_by_density": {}, "plain_ms_by_density": {},
+                 "bound_ms_by_density": {}, "max_abs_err": 0.0}
+            for label, (blocks, lists) in graphs.items():
+                got = fn(inp, blocks, idx, lists)
+                want = ops.plain(name, inp, blocks, idx)
+                torch.cuda.synchronize()
+                if name == "minplus":
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"minplus {form} ({label}) is not bitwise equal "
+                            f"to its plain version")
+                else:
+                    torch.testing.assert_close(got, want, rtol=MM_RTOL,
+                                               atol=MM_ATOL)
+                    t["max_abs_err"] = max(t["max_abs_err"], float(
+                        (got - want).abs().max()))
+                    # the list order the fused visit shares, bit for bit
+                    if not torch.equal(got, list_contract_ref(
+                            name, inp, *lists, idx)):
+                        raise AssertionError(
+                            f"masked_matmul {form} ({label}) differs from "
+                            f"the list order's bits")
+                bound_ms, bound_by, dense_ms = bounds(name, inp, idx,
+                                                      blocks, lists)
+                ms = device_ms(torch, lambda: fn(inp, blocks, idx, lists))
+                plain_ms = device_ms(
+                    torch, lambda: ops.plain(name, inp, blocks, idx))
+                t["ms_by_density"][label] = ms
+                t["plain_ms_by_density"][label] = plain_ms
+                t["bound_ms_by_density"][label] = bound_ms
+                if label == "road":
+                    t.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, dense_tile_bound_ms=dense_ms,
+                             eager_ms=eager_ms(
+                                 torch, lambda: fn(inp, blocks, idx, lists)),
+                             library_ms=None)
+                    if name == "masked_matmul":
+                        wv = blocks.index_select(0, idx[idx >= 0])
+                        t["library_ms"] = device_ms(
+                            torch, lambda: inp @ torch.isfinite(wv).float())
+            t["floor_ms"] = floor_ms
+            log(f"kernel {name} {form} S={idx.shape[0]}: " + json.dumps(t))
             row[form] = t
+        # an index past nblk gives a NaN plane, -1 the identity plane
+        blocks, lists = graphs["road"]
+        idx = torch.tensor([3, nblk, -1], dtype=torch.int64, device=dev)
+        got = fn(inp, blocks, idx, lists)
+        ident = float("inf") if name == "minplus" else 0.0
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], fn(inp, blocks, single, lists)[0])
+                and bool(got[1].isnan().all())
+                and bool((got[2] == ident).all())):
+            raise AssertionError(f"{name}: an index past nblk or -1 did not "
+                                 f"give the NaN / identity plane")
+        log(f"kernel {name}: index {nblk} (past nblk) gives a NaN plane, "
+            f"-1 the identity plane")
         rows[name] = row
     return rows
 
@@ -398,9 +472,10 @@ def _visit_bytes(torch, dg, order, nplanes, Q, B, list_bytes_per_entry):
     each output written once: own rows in and out, the per-column vectors
     and the metadata, and for each valid neighbour slot its buffer rows in
     and out and its value rows in; each block (the diagonal and each
-    slot's) as its column lists (``list_bytes_per_entry`` per finite entry
-    plus its B + 1 column starts), and, for comparison, as the dense
-    B x B f32 tile the dense design streamed.  Returns (lists, dense)."""
+    slot's) as the smaller of its column lists (``list_bytes_per_entry``
+    per finite entry plus its B + 1 column starts) and its dense B x B f32
+    tile, and, for comparison, as the dense tile alone.  Returns (lists,
+    dense)."""
     qb4 = Q * B * 4.0
     col_ptr = dg.col_ptr.long()
     nnz = (col_ptr[:, -1] - col_ptr[:, 0]).double()
@@ -411,9 +486,10 @@ def _visit_bytes(torch, dg, order, nplanes, Q, B, list_bytes_per_entry):
     rows = (nv * (2 * (nplanes + 1) * qb4 + 12.0 * B + 12.0 * dg.num_parts
                   + 16.0 * Q)
             + nslots * (3 * qb4 + 4.0 * B))
+    tile = B * B * 4.0
     lists = float((list_bytes_per_entry * nnz.index_select(0, blocks)
-                   ).sum()) + blocks.numel() * 4.0 * (B + 1)
-    dense = blocks.numel() * B * B * 4.0
+                   + 4.0 * (B + 1)).clamp(max=tile).sum())
+    dense = blocks.numel() * tile
     return rows + lists, rows + dense
 
 
@@ -605,7 +681,8 @@ def phase_fused_kernel(torch) -> dict:
             if real.numel():
                 lhs = (torch.isfinite(x) if mode == "minplus"
                        else x != 0).float()
-                wf = torch.isfinite(dg.blocks.index_select(0, real)).float()
+                wf = torch.isfinite(
+                    dg.dense_blocks().index_select(0, real)).float()
                 pairs[0] += float((lhs @ wf).sum())
 
         reset()
@@ -758,9 +835,12 @@ def phase_path(torch, counters) -> dict:
                 raise AssertionError(f"{kind} disagrees with dijkstra")
         if not fused:
             unfused[kind] = res
+            # one launch per relax round and one per visit's emission
             need = "masked_matmul" if kind == "ppr" else "minplus"
-            if counts[need] <= 0:
-                raise AssertionError(f"{kind} launched no {need} kernel")
+            if counts[need] != st["rounds"] + st["visits"]:
+                raise AssertionError(f"{kind} launched {need} "
+                                     f"{counts[need]} times, want one per "
+                                     f"round and one per visit")
         else:
             # one launch per K-visit chunk, the final empty chunk included
             if counts["fused_visit"] != st["host_syncs"]:
@@ -813,6 +893,8 @@ def phase_path(torch, counters) -> dict:
 #: the fused visit's kernels in a profiler trace (one per algebra, each
 #: instantiated per cluster size: the last template argument)
 FUSED_NAMES = {"minplus": "fused_minplus_kernel", "push": "fused_push_kernel"}
+#: fg_minplus's and fg_masked_matmul's kernel in a profiler trace
+CONTRACT_NAME = "list_contract_kernel"
 
 
 def _cluster_of(key: str):
@@ -909,8 +991,20 @@ def phase_profile(torch, bg, srcs) -> None:
         dev_ms = sum(r[0] for r in rows) / 1e3
         per_visit_wall = wall_ms / max(timed.visits, 1)
         per_visit_dev = dev_ms / max(traced.visits, 1)
+        # an unfused chunk's contractions are the list kernel's launches
+        contract = [(us, n) for us, k, n in rows if CONTRACT_NAME in k]
+        if not fused and not contract:
+            raise AssertionError(f"{kind}: the traced unfused chunk holds "
+                                 f"no {CONTRACT_NAME} launch")
+        contract_us = sum(us for us, _ in contract)
         log(f"profile {'fused ' if fused else ''}{kind}: " + json.dumps({
             "fused_kernels": hits,
+            "contraction_kernel": {
+                "launches": sum(n for _, n in contract),
+                "device_ms_per_visit": contract_us / 1e3 / max(
+                    traced.visits, 1),
+                "share_of_device": (contract_us / 1e3 / dev_ms
+                                    if dev_ms else None)},
             "visits": [timed.visits, traced.visits],
             "rounds": [timed.rounds, traced.rounds],
             "device_syncs": [timed.device_syncs, traced.device_syncs],
@@ -1431,6 +1525,13 @@ def main() -> int:
             # the tile runs inside every fused launch of its algebra; its
             # own entry is not launched on the path
             row["launches_of"] = "fused_visit"
+        if name in ("minplus", "masked_matmul"):
+            row["ms_is"] = ("card ms per launch, S = 1, at the road "
+                            "density (~4 finite entries a column), CUDA "
+                            "graph")
+            row.update({k: krows[name][k] for k in (
+                "ms_by_density", "bound_ms_by_density", "floor_ms",
+                "dense_tile_bound_ms")})
         if name == "fused_visit":
             row["ms_is"] = ("card ms per visit (one K=64 chunk's launch, "
                             "CUDA graph), at the path's cluster size")

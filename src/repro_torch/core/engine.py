@@ -83,11 +83,30 @@ def column_lists(blocks: np.ndarray):
             blocks[k, u, v].astype(np.float32))
 
 
+def blocks_from_lists(col_ptr: torch.Tensor, col_u: torch.Tensor,
+                      col_w: torch.Tensor) -> torch.Tensor:
+    """The dense blocks ``[nblk, B, B]`` f32 (+inf absent) that
+    :func:`column_lists` made these lists of, bit for bit, on the lists'
+    device."""
+    nblk, B = col_ptr.shape[0], col_ptr.shape[1] - 1
+    ptr = col_ptr.long()
+    kv = torch.repeat_interleave(
+        torch.arange(nblk * B, device=ptr.device),
+        (ptr[:, 1:] - ptr[:, :-1]).reshape(-1))
+    out = torch.full((nblk, B, B), float("inf"), dtype=torch.float32,
+                     device=ptr.device)
+    out[kv // B, col_u.long(), kv % B] = col_w
+    return out
+
+
 @dataclasses.dataclass
 class DeviceGraph:
     """BlockGraph arrays staged onto one device once, plus per-partition
-    neighbour tables the visit indexes without masking."""
-    blocks: torch.Tensor      # [nblk, B, B] f32, +inf absent
+    neighbour tables the visit indexes without masking.  The blocks travel
+    as column lists, which the kernels walk; the dense blocks are staged
+    only on the CPU, where the plain versions contract them."""
+    blocks: Optional[torch.Tensor]  # [nblk, B, B] f32, +inf absent (CPU;
+    #                                 None on the card: see dense_blocks)
     col_ptr: torch.Tensor     # [nblk, B+1] i32 } the finite entries of each
     col_u: torch.Tensor       # [nnz] i32       } block by column
     col_w: torch.Tensor       # [nnz] f32       } (column_lists)
@@ -103,6 +122,19 @@ class DeviceGraph:
     num_parts: int
     block_size: int
     device: torch.device
+
+    @property
+    def lists(self):
+        """``(col_ptr, col_u, col_w)``: what the contraction kernels walk."""
+        return self.col_ptr, self.col_u, self.col_w
+
+    def dense_blocks(self) -> torch.Tensor:
+        """The dense blocks, for a plain version: the staged ones on the
+        CPU; on the card rebuilt from the lists at the first call (only a
+        comparison with a plain version asks) and kept."""
+        if self.blocks is None:
+            self.blocks = blocks_from_lists(*self.lists)
+        return self.blocks
 
     @staticmethod
     def build(bg: BlockGraph, yc: YieldConfig, num_queries: int,
@@ -122,7 +154,7 @@ class DeviceGraph:
         blocks = np.ascontiguousarray(bg.blocks, dtype=np.float32)
         col_ptr, col_u, col_w = column_lists(blocks)
         return DeviceGraph(
-            blocks=put(blocks, np.float32),
+            blocks=put(blocks, np.float32) if dev.type == "cpu" else None,
             col_ptr=put(col_ptr, np.int32),
             col_u=put(col_u, np.int32),
             col_w=put(col_w, np.float32),

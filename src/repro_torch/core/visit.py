@@ -11,8 +11,10 @@ The mode-specific operators live in a :class:`VisitAlgebra`:
 :func:`minplus_algebra` (sssp/bfs: ops combine by ``min``, the relax is a
 tropical product) and :func:`push_algebra` (ppr: ops combine by ``+``, the
 relax is a masked residual push).  Both contraction slots go through
-``kernels/minplus/ops``, which launches the hand-written kernels on a CUDA
-tensor and runs their plain versions on a CPU tensor.
+``kernels/minplus/ops`` with the device graph's column lists and dense
+blocks: on a CUDA tensor the hand-written kernels walk the lists (the
+dense blocks are not staged there), on a CPU tensor the plain versions
+contract the dense blocks.
 
 Where eager PyTorch differs from the traced reference:
 
@@ -95,11 +97,12 @@ class VisitAlgebra:
     combine: Callable                # consolidate ops: (buf, contrib) -> buf
     begin: Callable                  # (planes_row, buf_row, deg_row) -> carry
     active: Callable                 # (carry, deg_row, eq, budget) -> [Q, B]
-    step: Callable                   # (carry, active, blocks, kd, deg_row)
-    #                                  -> carry; kd [1] is the diagonal block
+    step: Callable                   # (carry, active, dg, kd, deg_row)
+    #                                  -> carry; dg the DeviceGraph, kd [1]
+    #                                  its diagonal block
     emit_payload: Callable           # (carry) -> [Q, B] boundary payload
     emit_mask: Callable              # (carry) -> [Q, B] rows that cost edges
-    contrib: Callable                # (payload, blocks, idx [S]) -> [S, Q, B]
+    contrib: Callable                # (payload, dg, idx [S]) -> [S, Q, B]
     pending: Callable                # (buf, planes, deg) -> bool [..., Q, B]
     prio_of: Callable                # (buf, planes, deg) -> ([...] f32
     #                                  priority, [...] i32 op count)
@@ -126,7 +129,9 @@ def minplus_algebra(window: float, strict: bool = False) -> VisitAlgebra:
     plane value (``buf < d`` instead of ``buf <= d``), the rule the
     zero-weight cc instantiation needs to terminate.
     """
-    relax = minplus_ops.minplus
+    def relax(x, dg, idx):
+        return minplus_ops.minplus(x, dg.blocks, idx, dg.lists)
+
     lt = torch.lt if strict else torch.le
 
     def pending(buf, planes, deg):
@@ -150,9 +155,9 @@ def minplus_algebra(window: float, strict: bool = False) -> VisitAlgebra:
         return (carry.pending & (carry.d <= carry.alpha + window)
                 & (eq.to(torch.float32) < budget)[:, None])
 
-    def step(carry, act, blocks, kd, deg_row):
+    def step(carry, act, dg, kd, deg_row):
         srcs = torch.where(act, carry.d, INF)
-        nd = relax(srcs, blocks, kd)[0]
+        nd = relax(srcs, dg, kd)[0]
         improved = nd < carry.d
         return MinplusCarry(d=torch.minimum(carry.d, nd),
                             pending=(carry.pending & ~act) | improved,
@@ -173,7 +178,8 @@ def minplus_algebra(window: float, strict: bool = False) -> VisitAlgebra:
 def push_algebra(alpha: float, eps: float) -> VisitAlgebra:
     """PPR family: residual contributions combine by ``+``, relax is a masked
     ACL push round, priority is the most negative residual ratio."""
-    spread = minplus_ops.masked_matmul
+    def spread(x, dg, idx):
+        return minplus_ops.masked_matmul(x, dg.blocks, idx, dg.lists)
 
     def _thresh(deg):
         return eps * torch.clamp(deg, min=1).to(torch.float32)
@@ -201,12 +207,12 @@ def push_algebra(alpha: float, eps: float) -> VisitAlgebra:
                 & (deg_row > 0)[None, :]
                 & (eq.to(torch.float32) < budget)[:, None])
 
-    def step(carry, act, blocks, kd, deg_row):
+    def step(carry, act, dg, kd, deg_row):
         degc = torch.clamp(deg_row, min=1).to(torch.float32)
         af = act.to(carry.r.dtype)
         pushed = (1.0 - alpha) * carry.r * af / degc[None, :]
         return PushCarry(p=carry.p + alpha * carry.r * af,
-                         r=carry.r * (1.0 - af) + spread(pushed, blocks,
+                         r=carry.r * (1.0 - af) + spread(pushed, dg,
                                                          kd)[0],
                          acc=carry.acc + pushed)
 
@@ -316,17 +322,18 @@ def make_visit(dg, algebra: VisitAlgebra, max_rounds: int) -> Callable:
             if not bool(act.any()):
                 break
             eq += torch.where(act, nnz_pp, 0).sum(dim=1, dtype=torch.int32)
-            carry = algebra.step(carry, act, dg.blocks, kd, deg_p)
+            carry = algebra.step(carry, act, dg, kd, deg_p)
             rounds += 1
 
         # emission to neighbour partitions (Alg. 2 line 16): one batched
-        # contrib over all neighbour blocks, read in place by the kernel
+        # contrib over all neighbour blocks, whose lists the kernel walks in
+        # place
         payload = algebra.emit_payload(carry)
         emask = algebra.emit_mask(carry)
         nbr_blk = dg.nbr_blk.index_select(0, p)[0]                # [dmax]
         jj = dg.nbr_dst.index_select(0, p)[0]     # [dmax], P = trash slot
         j0 = dg.nbr_src.index_select(0, p)[0]     # [dmax], clamped to 0
-        cands = algebra.contrib(payload, dg.blocks, nbr_blk)      # [dmax,Q,B]
+        cands = algebra.contrib(payload, dg, nbr_blk)             # [dmax,Q,B]
         eq += torch.where(emask, dg.nbr_nnz.index_select(0, p), 0).sum(
             dim=1, dtype=torch.int32)
         was_empty = ~torch.isfinite(state.prio)                   # [P+1]

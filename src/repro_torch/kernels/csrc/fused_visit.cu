@@ -63,15 +63,13 @@
 //     itself; the exchange ends every visit, so visit k + 1 reads what
 //     visit k wrote.
 //
-// Numerics.  Min-plus: acc = fminf(acc, x + w) over the list; a skipped
-// +inf weight only adds +inf to an exact, order-free min, so the bits are
-// those of the dense contraction.  Push: the dense order is u = 0..B-1
-// with fmaf(x, m, acc) from +0, m = finite(w); each absent term is
-// fmaf(x, 0, acc) = acc exactly (x finite, acc never -0), so one
-// fmaf(x, 1, acc) per present entry in ascending u gives
-// fg_masked_matmul's bits.  Everything else is the expressions of
-// visit_tiles.cuh in the plain version's order.  `sparse` (min-plus only)
-// also skips the row groups with no live source: same bits, less work.
+// Numerics.  Each contraction is fg::contract_list (visit_tiles.cuh), the
+// tile fg_minplus and fg_masked_matmul (minplus.cu) run too: min-plus over
+// the list gives the dense contraction's bits, and push sums the present
+// entries in ascending u, which gives the dense u = 0..B-1 fmaf order's
+// bits.  Everything else is the expressions of visit_tiles.cuh in the
+// plain version's order.  `sparse` (min-plus only) also skips the row
+// groups with no live source: same bits, less work.
 //
 // Bound.  At the main path's shapes (Q = 64, B = 128, dmax = 4, ~4
 // entries per list column) a visit must move its own rows in and out, the
@@ -574,30 +572,6 @@ __device__ void store_item(const FusedArgs& a, const Layout& L, const Cta& c,
   }
 }
 
-// acc[r] over the list entries [e0, e1) of one column, for the query rows
-// x[r * ldx], r < nq:
-//   min-plus  acc = fminf(acc, x[u] + w)
-//   push      acc = fmaf(x[u], 1, acc)       (entries in ascending u)
-template <bool kMinPlus>
-__device__ __forceinline__ void contract_list(float (&acc)[kTaskRows],
-                                              const float* x, int ldx,
-                                              int nq, int e0, int e1,
-                                              const int* col_u,
-                                              const float* col_w) {
-  for (int e = e0; e < e1; ++e) {
-    const int u = __ldg(col_u + e);
-    const float w = kMinPlus ? __ldg(col_w + e) : 0.0f;
-#pragma unroll
-    for (int r = 0; r < kTaskRows; ++r) {
-      if (r < nq) {
-        const float xv = x[r * ldx + u];
-        acc[r] = kMinPlus ? fminf(acc[r], __fadd_rn(xv, w))
-                          : fmaf(xv, 1.0f, acc[r]);
-      }
-    }
-  }
-}
-
 // Any of the four rows q0..q0+3 (q0 a multiple of 4) flagged live: one
 // word of the row flags, whose padding rows hold 0.
 __device__ __forceinline__ bool rows_live(const uint8_t* live, int q0) {
@@ -729,10 +703,11 @@ __device__ void emit(const FusedArgs& a, const Layout& L, Cta& c, int p,
         for (int r = 0; r < kTaskRows; ++r)
           acc[r] = kPushAlg ? 0.0f : INFINITY;
         if (!kSparse || rows_live(live, c0 + q0))
-          contract_list<!kPushAlg>(
+          fg::contract_list<!kPushAlg, kTaskRows>(
               acc, X + (c0 + q0) * B, B, nq,
               t == c.tid ? cur0 : __ldg(ptr + v),
-              t == c.tid ? cur1 : __ldg(ptr + v + 1), a.col_u, a.col_w);
+              t == c.tid ? cur1 : __ldg(ptr + v + 1),
+              fg::GlobalEntries{a.col_u, a.col_w});
 #pragma unroll
         for (int r = 0; r < kTaskRows; ++r) {
           if (r >= nq) break;
@@ -951,10 +926,10 @@ fused_minplus_kernel(const FusedArgs a) {
         float acc[kTaskRows];
 #pragma unroll
         for (int r = 0; r < kTaskRows; ++r) acc[r] = INFINITY;
-        contract_list<true>(acc, X + q0 * B, B, nq,
-                            t == c.tid ? d0 : __ldg(dptr + v),
-                            t == c.tid ? d1 : __ldg(dptr + v + 1), a.col_u,
-                            a.col_w);
+        fg::contract_list<true, kTaskRows>(
+            acc, X + q0 * B, B, nq, t == c.tid ? d0 : __ldg(dptr + v),
+            t == c.tid ? d1 : __ldg(dptr + v + 1),
+            fg::GlobalEntries{a.col_u, a.col_w});
 #pragma unroll
         for (int r = 0; r < kTaskRows; ++r) {
           if (r >= nq) break;
@@ -1120,10 +1095,10 @@ fused_push_kernel(const FusedArgs a) {
         float s[kTaskRows];
 #pragma unroll
         for (int r = 0; r < kTaskRows; ++r) s[r] = 0.0f;
-        contract_list<false>(s, X + q0 * B, B, nq,
-                             t == c.tid ? d0 : __ldg(dptr + v),
-                             t == c.tid ? d1 : __ldg(dptr + v + 1), a.col_u,
-                             a.col_w);
+        fg::contract_list<false, kTaskRows>(
+            s, X + q0 * B, B, nq, t == c.tid ? d0 : __ldg(dptr + v),
+            t == c.tid ? d1 : __ldg(dptr + v + 1),
+            fg::GlobalEntries{a.col_u, a.col_w});
 #pragma unroll
         for (int r = 0; r < kTaskRows; ++r) {
           if (r >= nq) break;

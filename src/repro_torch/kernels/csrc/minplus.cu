@@ -1,4 +1,5 @@
-// Hopper (sm_90a) kernels for the intra-partition contraction of a visit.
+// Hopper (sm_90a) kernel for the intra-partition contraction of a visit,
+// over the column lists of each block's finite entries.
 //
 //   fg_minplus        out[s, q, v] = min_u x[q, u] + W_s[u, v]
 //                     the tropical relax and the minplus neighbour contrib.
@@ -11,143 +12,247 @@
 //                     Replaces masked_matmul_pallas_call (same file, body
 //                     _masked_matmul_kernel) and its zero Q padding.
 //
-// Both take a batched form: x [Q, B], blocks [nblk, B, B], idx [S] ->
-// out [S, Q, B] with W_s = blocks[idx[s]], read in place.  A visit's
-// emission over its dmax neighbour blocks is one launch that gathers no
-// [dmax, B, B] copy; the single relax is S = 1.  idx[s] < 0 (the -1 padding
-// of a neighbour list) yields the identity plane (+inf / 0); an index past
-// nblk yields NaN so a corrupt index cannot pass for a result.
+// Both take a batched form: x [Q, B], idx [S] and the lists of
+// core/engine.column_lists -- col_ptr [nblk, B+1], col_u and col_w [nnz],
+// the entries of column v of block k at col_ptr[k, v] .. col_ptr[k, v+1]
+// in ascending u -- give out [S, Q, B], W_s being block idx[s].  A visit's
+// emission over its dmax neighbour blocks is one launch; the relax is
+// S = 1.  idx[s] < 0 (the -1 padding of a neighbour list) yields the
+// identity plane (+inf / 0); an index past nblk yields NaN so a corrupt
+// index cannot pass for a result.
 //
-// Layout: one thread per output column v (128 along x), each thread owning
-// kRQ query rows (4 thread rows along y, so 16 rows per block).  The x rows
-// of a u-chunk sit in shared memory and are read as warp broadcasts;
-// W_s[u, v] is read once per u, coalesced along v, and reused for all the
-// thread's rows.  The ragged Q and B edges are masked in the kernel.
+// Design.  On the road graphs the port serves a 128 x 128 block holds ~4
+// finite entries per column, so the work is a few list entries per output
+// column, and a launch is a short chain of dependent loads:
+//   * One CTA per (32 output columns, 8 query rows, s): four warps, lane
+//     c of each on column v0 + c, warp w on query rows 2w, 2w + 1.  At the
+//     main path's Q = 64, B = 128 that is 32 CTAs for the relax (S = 1)
+//     and 128 for the emission (S = 4), on 132 SMs.  32 columns keep a
+//     CTA's segment of the list within its staging budget at B = 128;
+//     four warps with two rows each share one staged segment and hide
+//     each other's shared-memory latency on a long list (one warp holding
+//     all 8 rows took 1.3x as long at the road density and 1.9x on a
+//     fully finite block).
+//   * The two independent reads overlap: the CTA's rows of x go into
+//     shared memory by asynchronous copies (16-byte cp.async when rows are
+//     16-byte aligned) while the block index and then the column bounds
+//     load (coalesced along v).
+//   * The CTA's columns are contiguous in the list, [col_ptr[k, v0],
+//     col_ptr[k, v0 + 32]), so that segment is copied into shared memory
+//     with coalesced copies when it fits (kSegCap entries: 32 full columns
+//     at B = 128), and each thread walks its own column there.  A segment
+//     that does not fit (B > 128 at high density) is walked in global
+//     memory through L2 instead -- a size choice inside the kernel.
+//     Staged entry j sits at slot j + j / 128, so the columns of a fully
+//     finite 128-wide block (starts 128 apart) fall on 32 distinct banks.
+//   * The walk is fg::contract_list (visit_tiles.cuh), the tile the fused
+//     visit runs, on the FP32 cores (no tensor cores, no TF32).
+// The chain per launch: idx -> col_ptr -> list segment -> walk in shared
+// memory -> store.
 //
-// Numerics: every min-plus candidate is the same IEEE f32 add x + w as in
-// the plain version, and min is order-free, so fg_minplus is bitwise equal
-// to it (no fast-math: +inf + w must stay +inf, denormals must not flush).
-// fg_masked_matmul sums in the fixed order u = 0..B-1 with FMAs on the FP32
-// cores (no tensor cores, no TF32); it agrees with a float32 matmul to
-// rounding, not bitwise.
+// Numerics: min-plus over the list is the dense min bit for bit (an absent
+// entry adds +inf to an exact, order-free min; no fast-math: +inf + w must
+// stay +inf, denormals must not flush).  The masked matmul sums the present
+// entries in ascending u with fmaf(x, 1, acc) from +0, the bits of the
+// dense u = 0..B-1 fmaf(x, finite(w), acc) order for finite x, and of the
+// fused visit's spread; it agrees with a float32 matmul to rounding, not
+// bitwise.  Its x must be finite (see contract_list).
 //
-// Bound, at the slice's shapes (Q = 64, B = 128, one block): 128 KB moved
-// (x 32 KB, W 64 KB, out 32 KB), ~0.04 us at an H100 SXM's data-sheet
-// 3.35 TB/s (700 W limit).  Dense, the work is Q B^2 = 1.05 M (q, u, v)
-// pairs: two FP32 instructions each for min-plus (add, then min), one FMA
-// for the masked matmul.  One FP32 instruction issues at most at half the
-// data sheet's 67 TFLOP/s (which counts an FMA as two operations), so the
-// dense min-plus needs >= ~0.06 us and the masked matmul >= ~0.03 us; with
-// the path's +inf density the pairs that need work are a few percent of
-// that, and the bytes bound it.  Either way it is far below one launch's
-// latency, so on this path the kernels are launch-bound.  The design answer
-// is the batched form above (one launch for all of a visit's neighbour
-// blocks).  Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W, one
-// launch takes ~10 us on the card: with Q = 64 only 4 blocks run, and each
-// thread walks a serial chain of B loads of W.  Splitting u across warps,
-// staging W in shared memory, TMA and a persistent visit are later work.
+// Bound, at the main path's shapes (Q = 64, B = 128, ~4 entries a column):
+// x 32 KB in, 32 KB out per block, and each block's list (8 B an entry
+// for min-plus, 4 for the masked matmul, plus 129 starts of 4 B): ~70 KB,
+// ~0.02 us at an H100 SXM's data-sheet 3.35 TB/s (700 W limit); a few
+// tens of thousands of live (q, u, v) pairs, far less at the FP32 rate.
+// Both are far below one launch's latency: the kernel is latency-bound,
+// and the design shortens its chain of dependent loads.  Measured by
+// chip_smoke.py (phase 3, CUDA graph, L2-warm) on an H100 80GB HBM3 at a
+// 700.00 W limit: one min-plus launch takes 0.0023 ms at the road density
+// (S = 1 and S = 5 alike), 0.0033 ms with 25 % of the entries finite and
+// 0.0049 ms on fully finite blocks; the masked matmul 0.0022 / 0.0030 /
+// 0.0043 ms; an empty launch 0.0009 ms.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "visit_tiles.cuh"
+
 namespace {
 
-constexpr int kTV = 128;          // threads along v
-constexpr int kTY = 4;            // thread rows
-constexpr int kRQ = 4;            // query rows per thread
-constexpr int kTQ = kTY * kRQ;    // query rows per block
-constexpr int kUC = 32;           // u chunk held in shared memory
+constexpr int kCols = 32;        // output columns per CTA, one lane each
+constexpr int kWarps = 4;        // warps per CTA, each its own query rows
+constexpr int kWarpRows = 2;     // query rows of one warp
+constexpr int kRows = kWarps * kWarpRows;   // query rows per CTA
+constexpr int kThreads = kCols * kWarps;
+constexpr int kSegCap = 4096;    // list entries a CTA may stage
+constexpr int kSmemDefault = 48 * 1024;
+
+// Shared-memory slot of staged entry j: one padding word per 128 entries,
+// so the 32 columns of a fully finite 128-wide block start on 32 banks.
+__host__ __device__ __forceinline__ int slot(int j) { return j + (j >> 7); }
+
+// A CTA's staged segment of the lists, indexed from the segment's start.
+struct SharedEntries {
+  const int* u;
+  const float* w;
+  __device__ __forceinline__ int row(int e) const { return u[slot(e)]; }
+  __device__ __forceinline__ float weight(int e) const { return w[slot(e)]; }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 template <bool kMinPlus>
-__global__ void __launch_bounds__(kTV * kTY)
-contract_kernel(const float* __restrict__ x, const float* __restrict__ blocks,
-                const int64_t* __restrict__ idx, float* __restrict__ out,
-                int Q, int B, int64_t nblk) {
-  __shared__ float xs[kTQ][kUC];
-  const float ident = kMinPlus ? INFINITY : 0.0f;
-  const int v = blockIdx.x * kTV + threadIdx.x;
-  const int q0 = blockIdx.y * kTQ;
-  const int row0 = threadIdx.y * kRQ;
+__global__ void __launch_bounds__(kThreads)
+list_contract_kernel(const float* __restrict__ x,
+                     const int64_t* __restrict__ idx,
+                     const int* __restrict__ col_ptr,
+                     const int* __restrict__ col_u,
+                     const float* __restrict__ col_w, float* __restrict__ out,
+                     int Q, int B, int64_t nblk, int seg_cap) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                                          // [kRows, B]
+  int* su = reinterpret_cast<int*>(smem + kRows * B);        // staged u
+  float* sw = reinterpret_cast<float*>(su + slot(seg_cap));  // staged w
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * kCols + lane;
+  const int v0 = blockIdx.x * kCols, v = v0 + lane;
+  const int nv = min(kCols, B - v0);
+  const int q0 = blockIdx.y * kRows, nq = min(kRows, Q - q0);
   const int s = blockIdx.z;
-  const int64_t k = idx[s];
-  float* o = out + static_cast<int64_t>(s) * Q * B;
+  const int64_t k = __ldg(reinterpret_cast<const long long*>(idx) + s);
 
-  if (k < 0 || k >= nblk) {       // whole block takes the same branch
-    if (v < B) {
-      const float fill = k < 0 ? ident : NAN;
-      for (int r = 0; r < kRQ; ++r) {
-        const int q = q0 + row0 + r;
-        if (q < Q) o[static_cast<int64_t>(q) * B + v] = fill;
-      }
-    }
+  // this CTA's rows of x, in flight while the block index and the bounds
+  // load
+  const float* xq = x + static_cast<int64_t>(q0) * B;
+  const int n = nq * B;
+  if (((reinterpret_cast<uintptr_t>(x) & 15) | (B & 3)) == 0) {
+    for (int i = 4 * tid; i < n; i += 4 * kThreads)
+      cp_async16(xs + i, xq + i);
+  } else {
+    for (int i = tid; i < n; i += kThreads) cp_async4(xs + i, xq + i);
+  }
+
+  // the warp's query rows [r0, r0 + wq) of the CTA's
+  const int r0 = warp * kWarpRows;
+  const int wq = min(kWarpRows, nq - r0);
+  float* o = out + (static_cast<int64_t>(s) * Q + q0 + r0) * B;
+  if (k < 0 || k >= nblk) {          // the whole CTA takes the same branch
+    const float fill = k < 0 ? (kMinPlus ? INFINITY : 0.0f) : NAN;
+    if (lane < nv)
+      for (int r = 0; r < wq; ++r) o[r * B + v] = fill;
+    cp_async_wait_all();
     return;
   }
 
-  const float* w = blocks + k * B * B;
-  float acc[kRQ];
-#pragma unroll
-  for (int r = 0; r < kRQ; ++r) acc[r] = ident;
-
-  const int tid = threadIdx.y * kTV + threadIdx.x;
-  for (int u0 = 0; u0 < B; u0 += kUC) {
-    for (int i = tid; i < kTQ * kUC; i += kTV * kTY) {
-      const int qq = i / kUC, uu = i % kUC;
-      const int q = q0 + qq, u = u0 + uu;
-      xs[qq][uu] = (q < Q && u < B) ? x[static_cast<int64_t>(q) * B + u]
-                                    : ident;
-    }
-    __syncthreads();
-    if (v < B) {
-      const int ulim = min(kUC, B - u0);
-      for (int uu = 0; uu < ulim; ++uu) {
-        const float wv = w[static_cast<int64_t>(u0 + uu) * B + v];
-        if (kMinPlus) {
-#pragma unroll
-          for (int r = 0; r < kRQ; ++r)
-            acc[r] = fminf(acc[r], __fadd_rn(xs[row0 + r][uu], wv));
-        } else {
-          const float m = isfinite(wv) ? 1.0f : 0.0f;
-#pragma unroll
-          for (int r = 0; r < kRQ; ++r)
-            acc[r] = fmaf(xs[row0 + r][uu], m, acc[r]);
-        }
-      }
-    }
-    __syncthreads();
+  // every warp loads the bounds of its lanes' columns (the same lines)
+  const int* ptr = col_ptr + k * (B + 1);
+  int e0 = 0, e1 = 0;
+  if (lane < nv) {
+    e0 = __ldg(ptr + v);
+    e1 = __ldg(ptr + v + 1);
   }
-  if (v < B) {
-#pragma unroll
-    for (int r = 0; r < kRQ; ++r) {
-      const int q = q0 + row0 + r;
-      if (q < Q) o[static_cast<int64_t>(q) * B + v] = acc[r];
+  const int seg0 = __shfl_sync(0xffffffffu, e0, 0);
+  const int nseg = __shfl_sync(0xffffffffu, e1, nv - 1) - seg0;
+  const bool staged = nseg <= seg_cap;
+  if (staged) {
+    for (int j = tid; j < nseg; j += kThreads) {
+      cp_async4(su + slot(j), col_u + seg0 + j);
+      if (kMinPlus) cp_async4(sw + slot(j), col_w + seg0 + j);
     }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  if (lane >= nv || wq <= 0) return;
+  float acc[kWarpRows];
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) acc[r] = kMinPlus ? INFINITY : 0.0f;
+  const float* xw = xs + r0 * B;
+  if (staged)
+    fg::contract_list<kMinPlus, kWarpRows>(acc, xw, B, wq, e0 - seg0,
+                                           e1 - seg0, SharedEntries{su, sw});
+  else
+    fg::contract_list<kMinPlus, kWarpRows>(acc, xw, B, wq, e0, e1,
+                                           fg::GlobalEntries{col_u, col_w});
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    if (r >= wq) break;
+    o[r * B + v] = acc[r];
   }
 }
 
 template <bool kMinPlus>
-int launch(const void* x, const void* blocks, const void* idx, void* out,
-           int S, int Q, int B, long long nblk, void* stream) {
+int launch(const void* x, const void* idx, const void* col_ptr,
+           const void* col_u, const void* col_w, void* out, int S, int Q,
+           int B, long long nblk, long long nnz, void* stream) {
   if (S <= 0 || Q <= 0 || B <= 0) return 0;
-  const dim3 block(kTV, kTY);
-  const dim3 grid((B + kTV - 1) / kTV, (Q + kTQ - 1) / kTQ, S);
-  contract_kernel<kMinPlus><<<grid, block, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(blocks),
-      static_cast<const int64_t*>(idx), static_cast<float*>(out), Q, B,
-      static_cast<int64_t>(nblk));
+  // stage no more than the lists hold (a small graph's CTAs stay small)
+  const int cap = static_cast<int>(
+      nnz < kSegCap ? (nnz + kCols - 1) / kCols * kCols : kSegCap);
+  const size_t smem = sizeof(float) * (static_cast<size_t>(kRows) * B +
+                                       slot(cap) * (kMinPlus ? 2 : 1));
+  // ask for the largest shared-memory carveout once, so several CTAs share
+  // an SM when a launch has more CTAs than the card has SMs
+  static bool carveout_set = false;
+  if (!carveout_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        list_contract_kernel<kMinPlus>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    carveout_set = true;
+  }
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        list_contract_kernel<kMinPlus>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((B + kCols - 1) / kCols, (Q + kRows - 1) / kRows, S);
+  list_contract_kernel<kMinPlus>
+      <<<grid, dim3(kCols, kWarps), smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const int64_t*>(idx),
+          static_cast<const int*>(col_ptr), static_cast<const int*>(col_u),
+          static_cast<const float*>(col_w), static_cast<float*>(out), Q, B,
+          static_cast<int64_t>(nblk), cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int fg_minplus(const void* x, const void* blocks, const void* idx,
-                          void* out, int S, int Q, int B, long long nblk,
+extern "C" int fg_minplus(const void* x, const void* idx, const void* col_ptr,
+                          const void* col_u, const void* col_w, void* out,
+                          int S, int Q, int B, long long nblk, long long nnz,
                           void* stream) {
-  return launch<true>(x, blocks, idx, out, S, Q, B, nblk, stream);
+  return launch<true>(x, idx, col_ptr, col_u, col_w, out, S, Q, B, nblk, nnz,
+                      stream);
 }
 
-extern "C" int fg_masked_matmul(const void* x, const void* blocks,
-                                const void* idx, void* out, int S, int Q,
-                                int B, long long nblk, void* stream) {
-  return launch<false>(x, blocks, idx, out, S, Q, B, nblk, stream);
+extern "C" int fg_masked_matmul(const void* x, const void* idx,
+                                const void* col_ptr, const void* col_u,
+                                const void* col_w, void* out, int S, int Q,
+                                int B, long long nblk, long long nnz,
+                                void* stream) {
+  return launch<false>(x, idx, col_ptr, col_u, col_w, out, S, Q, B, nblk,
+                       nnz, stream);
 }

@@ -26,9 +26,9 @@
 //
 // Numerics: the elementwise half is the plain version's expression order
 // with explicitly rounded f32 operations; the spread sums u = 0..B-1 in
-// order with fmaf from 0, as fg_masked_matmul does, and so agrees with the
-// plain version's float32 matmul to rounding (rtol 1e-5, atol 2e-6), not
-// bitwise.  alpha, 1 - alpha and eps come in as the f32 values torch uses.
+// order with fmaf from 0 (the bits of fg_masked_matmul's list order, see
+// fg::contract_list), and so agrees with the plain version's float32
+// matmul to rounding (rtol 1e-5, atol 2e-6), not bitwise.  alpha, 1 - alpha and eps come in as the f32 values torch uses.
 //
 // Bound, at the slice's shapes (Q = 64, B = 128): 256 KB moved (three
 // [Q, B] planes in and out, 32 KB each, the 64 KB block, the 512 B degree

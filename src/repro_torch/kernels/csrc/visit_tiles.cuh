@@ -1,18 +1,19 @@
 // Device code shared by the visit kernels: the frontier tile, the push
-// round and its per-cell update.  frontier.cu, ppr_push.cu and fused_visit.cu
-// include it, so each standalone entry and the fused visit run the same
-// instructions, as the reference's standalone Pallas calls and its fused
-// kernel share frontier_tile and push_tile.
+// round and its per-cell update, and the list contraction.  frontier.cu,
+// ppr_push.cu, minplus.cu and fused_visit.cu include it, so each standalone
+// entry and the fused visit run the same instructions, as the reference's
+// standalone Pallas calls and its fused kernel share frontier_tile,
+// push_tile and minplus_tile.
 //
 // Numerics: every expression is evaluated in the order of the port's plain
-// PyTorch versions (kernels/frontier/ref.py, kernels/ppr_push/ref.py and
-// core/visit.py's algebras) with explicitly rounded f32 operations
-// (__fadd_rn, __fmul_rn, __fdiv_rn), and the sources build with
-// -fmad=false, so no product is contracted into a following add.  The push
-// spread sums u = 0..B-1 in order with one fmaf per term starting from 0,
-// exactly as fg_masked_matmul (minplus.cu) does; the fused visit sums only
-// the finite entries, in the same order, which gives the same bits (see
-// fused_visit.cu).
+// PyTorch versions (kernels/frontier/ref.py, kernels/ppr_push/ref.py,
+// kernels/minplus/ref.py and core/visit.py's algebras) with explicitly
+// rounded f32 operations (__fadd_rn, __fmul_rn, __fdiv_rn), and the sources
+// build with -fmad=false, so no product is contracted into a following
+// add.  The push spread (spread_tile) sums u = 0..B-1 in order with one
+// fmaf per term starting from 0; the list contraction (contract_list) sums
+// only the finite entries, in the same order, which gives the same bits
+// (see contract_list).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -161,6 +162,51 @@ __device__ inline void push_round(float* p, float* r, float* acc, float* x,
       }
   }
   __syncthreads();
+}
+
+// A block's column lists in global memory (core/engine.column_lists:
+// col_u, col_w), read through the read-only path.
+struct GlobalEntries {
+  const int* u;
+  const float* w;
+  __device__ __forceinline__ int row(int e) const { return __ldg(u + e); }
+  __device__ __forceinline__ float weight(int e) const {
+    return __ldg(w + e);
+  }
+};
+
+// acc[r] over the list entries [e0, e1) of one output column, read through
+// `list` (row(e) = u, weight(e) = w), for the query rows x[r * ldx],
+// r < nq:
+//   min-plus       acc = fminf(acc, x[u] + w)                 from +inf
+//   masked matmul  acc = fmaf(x[u], 1, acc)   (ascending u)   from +0
+// Min-plus over a column's finite entries is the dense min_u x[u] + w[u, v]
+// bit for bit: an absent entry adds +inf to an exact, order-free min.  The
+// dense masked matmul sums u = 0..B-1 as fmaf(x, m, acc), m = finite(w);
+// an absent term is fmaf(x, 0, acc) = acc exactly (x finite, acc never
+// -0), so one fmaf(x, 1, acc) per present entry in ascending u gives the
+// same bits.  On a non-finite x the dense form turns inf * 0 into NaN in
+// every column and the list form does not: the masked matmul's callers
+// pass finite x.  The walk is unrolled by four, so a long list's entry
+// loads and x reads overlap instead of each waiting on the one before.
+template <bool kMinPlus, int kRows, class Entries>
+__device__ __forceinline__ void contract_list(float (&acc)[kRows],
+                                              const float* x, int ldx,
+                                              int nq, int e0, int e1,
+                                              const Entries& list) {
+#pragma unroll 4
+  for (int e = e0; e < e1; ++e) {
+    const int u = list.row(e);
+    const float w = kMinPlus ? list.weight(e) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < nq) {
+        const float xv = x[r * ldx + u];
+        acc[r] = kMinPlus ? fminf(acc[r], __fadd_rn(xv, w))
+                          : fmaf(xv, 1.0f, acc[r]);
+      }
+    }
+  }
 }
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }

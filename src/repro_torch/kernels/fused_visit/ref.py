@@ -12,9 +12,9 @@ scheduler's ``device_select`` and the algebra's ``combine`` and
 against on the card.  Unlike the unfused visit it never touches the trash
 slot ``P``: a padded neighbour slot is skipped, as the kernel skips it.
 
-:func:`list_contract_ref` is the kernel's contraction over the column lists
-of each block's finite entries (``core/engine.column_lists``) in its
-per-cell order, which the tests hold against the dense contraction.
+The kernel contracts over the column lists of each block's finite entries
+(``core/engine.column_lists``) with the tile of ``csrc/minplus.cu``; its
+per-cell order is ``kernels/minplus/ref.list_contract_ref``.
 
 State (duck-typed ``core.visit.VisitState``): ``planes`` ``[P, Q, B]`` each,
 ``buf [P+1, Q, B]``, ``prio``/``ops_count``/``stamp`` ``[P+1]``.  The chunk's
@@ -67,37 +67,6 @@ def split_stats(stats: torch.Tensor, num_queries: int, num_parts: int):
             stats[2 + 2 * q:2 + 2 * q + p], stats[2 + 2 * q + p:])
 
 
-def list_contract_ref(name: str, x: torch.Tensor, col_ptr: torch.Tensor,
-                      col_u: torch.Tensor, col_w: torch.Tensor,
-                      idx: torch.Tensor) -> torch.Tensor:
-    """The kernel's list contraction of ``x [Q, B]`` with blocks ``idx
-    [S]`` (``< 0``: the identity plane), ``[S, Q, B]``: each output cell
-    (q, v) takes the entries of column v's list one after another, in
-    ascending u,
-      ``"minplus"``        acc = min(acc, x[q, u] + w)     from +inf
-      ``"masked_matmul"``  acc = acc + x[q, u]              from +0
-    (``acc + x`` rounds once, as the kernel's ``fmaf(x, 1, acc)``)."""
-    minplus = name == "minplus"
-    Q, B = x.shape
-    out = torch.full((idx.shape[0], Q, B), INF if minplus else 0.0,
-                     dtype=x.dtype, device=x.device)
-    for s, k in enumerate(idx.tolist()):
-        if k < 0:
-            continue
-        ptr = col_ptr[k].long()
-        count = ptr[1:] - ptr[:-1]
-        acc = out[s]
-        for e in range(int(count.max()) if B else 0):
-            cols = torch.nonzero(count > e).squeeze(1)
-            pos = ptr[cols] + e
-            xs = x[:, col_u[pos].long()]
-            if minplus:
-                acc[:, cols] = torch.minimum(acc[:, cols], xs + col_w[pos])
-            else:
-                acc[:, cols] = acc[:, cols] + xs
-    return out
-
-
 def fused_step_ref(dg, spec: FusedSpec, state, stats: torch.Tensor,
                    counter: int, on_contract=None) -> None:
     """One visit, in place on ``state`` and ``stats``.
@@ -126,7 +95,7 @@ def fused_step_ref(dg, spec: FusedSpec, state, stats: torch.Tensor,
     def contract(x, idx):
         if on_contract is not None:
             on_contract(x, idx)
-        return minplus_ops.plain(name, x, dg.blocks, idx)
+        return minplus_ops.plain(name, x, dg.dense_blocks(), idx)
 
     eq = torch.zeros(Q, dtype=torch.int32, device=state.buf.device)
     rounds = 0

@@ -1,20 +1,31 @@
 """Wrappers of the contraction kernels: one entry per kernel, batched.
 
-``minplus(x, blocks, idx)`` and ``masked_matmul(x, blocks, idx)`` take a
-state tile ``x [Q, B]``, the graph's blocks ``[nblk, B, B]`` and block
-indices ``idx [S]`` (int64), and return ``[S, Q, B]``: the contraction of
-``x`` with ``blocks[idx[s]]``, or the identity plane (+inf / 0) where
-``idx[s] < 0``.  The visit's relax is ``S = 1``; its emission is one call
-over the partition's neighbour list.
+``minplus(x, blocks, idx, lists)`` and ``masked_matmul(x, blocks, idx,
+lists)`` take a state tile ``x [Q, B]``, the graph's dense blocks ``[nblk,
+B, B]`` (or None on the card), block indices ``idx [S]`` (int64) and the
+blocks as column lists ``lists = (col_ptr [nblk, B+1] int32, col_u [nnz]
+int32, col_w [nnz] float32)`` (``core/engine.column_lists``;
+``DeviceGraph.lists``), and return ``[S, Q, B]``: the contraction of ``x``
+with block ``idx[s]``, or the identity plane (+inf / 0) where ``idx[s] <
+0``.  The visit's relax is ``S = 1``; its emission is one call over the
+partition's neighbour list.
 
 On a CUDA tensor a wrapper launches its hand-written kernel
-(``csrc/minplus.cu``) on the current stream and adds one to its count in
-:data:`LAUNCHES`; on a CPU tensor it runs the plain version in ``ref`` and
-counts nothing.  There is no fallback from one to the other.
+(``csrc/minplus.cu``), which walks the lists, on the current stream and
+adds one to its count in :data:`LAUNCHES`; the dense blocks are not read
+and may be None.  On a CPU tensor it runs the plain version on the dense
+``blocks`` (:func:`plain`), which it then needs, and counts nothing.
+There is no fallback from one to the other.
+
+The masked matmul's ``x`` must be finite (both callers' payloads are: the
+pushed mass and the accumulated emission).  On a non-finite ``x`` the dense
+plain version turns ``inf * 0`` into NaN in every column and the kernel's
+list walk does not.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -37,39 +48,59 @@ def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.library("minplus"), _SYMBOLS[name])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, ll, ll, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _check(x: torch.Tensor, blocks: torch.Tensor, idx: torch.Tensor):
-    if x.dim() != 2 or blocks.dim() != 3:
-        raise ValueError(f"want x [Q, B] and blocks [nblk, B, B]; got "
-                         f"{tuple(x.shape)} and {tuple(blocks.shape)}")
+def _check(x: torch.Tensor, blocks: Optional[torch.Tensor],
+           idx: torch.Tensor, lists) -> None:
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"x must be a float32 [Q, B]; got "
+                         f"{tuple(x.shape)} {x.dtype}")
     b = x.shape[1]
-    if blocks.shape[1:] != (b, b):
-        raise ValueError(f"blocks must be [nblk, {b}, {b}] to match x "
-                         f"{tuple(x.shape)}; got {tuple(blocks.shape)}")
     if idx.dim() != 1 or idx.dtype != torch.int64:
         raise ValueError(f"idx must be a 1-d int64 tensor; got "
                          f"{tuple(idx.shape)} {idx.dtype}")
-    if x.dtype != torch.float32 or blocks.dtype != torch.float32:
-        raise ValueError(f"x and blocks must be float32; got {x.dtype} and "
-                         f"{blocks.dtype}")
-    if not (x.device == blocks.device == idx.device):
-        raise ValueError(f"x, blocks and idx must share a device; got "
-                         f"{x.device}, {blocks.device}, {idx.device}")
-    if not (x.is_contiguous() and blocks.is_contiguous()
-            and idx.is_contiguous()):
-        raise ValueError("x, blocks and idx must be contiguous")
+    if len(lists) != 3:
+        raise ValueError("lists must be (col_ptr, col_u, col_w)")
+    col_ptr, col_u, col_w = lists
+    if (col_ptr.dtype, col_u.dtype, col_w.dtype) != (
+            torch.int32, torch.int32, torch.float32):
+        raise ValueError(f"lists must be int32, int32 and float32; got "
+                         f"{col_ptr.dtype}, {col_u.dtype} and {col_w.dtype}")
+    if col_ptr.dim() != 2 or col_ptr.shape[1] != b + 1:
+        raise ValueError(f"col_ptr must be [nblk, B+1] with B = {b} from x; "
+                         f"got {tuple(col_ptr.shape)}")
+    if col_u.dim() != 1 or col_u.shape != col_w.shape:
+        raise ValueError(f"col_u and col_w must be [nnz] each; got "
+                         f"{tuple(col_u.shape)} and {tuple(col_w.shape)}")
+    tensors = [x, idx, col_ptr, col_u, col_w]
+    if blocks is None:
+        if x.device.type == "cpu":
+            raise ValueError("the CPU path contracts the dense blocks; "
+                             "pass them")
+    else:
+        want = (col_ptr.shape[0], b, b)
+        if blocks.shape != want or blocks.dtype != torch.float32:
+            raise ValueError(f"blocks must be float32 [nblk, B, B] = {want} "
+                             f"to match the lists; got "
+                             f"{tuple(blocks.shape)} {blocks.dtype}")
+        tensors.append(blocks)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"x, idx, the lists and blocks must share a "
+                         f"device; got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("x, idx, the lists and blocks must be contiguous")
 
 
 def plain(name: str, x: torch.Tensor, blocks: torch.Tensor,
           idx: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of kernel ``name``'s batched entry, on any
-    device: what the CPU path runs and what the kernels are held against."""
+    """The plain PyTorch version of kernel ``name``'s batched entry, on the
+    dense blocks, on any device: what the CPU path runs and what the
+    kernels are held against."""
     w = blocks.index_select(0, idx.clamp(min=0))
     if name == "minplus":
         out, ident = minplus_ref(x, w), float("inf")
@@ -78,8 +109,8 @@ def plain(name: str, x: torch.Tensor, blocks: torch.Tensor,
     return torch.where((idx >= 0)[:, None, None], out, ident)
 
 
-def _run(name: str, x, blocks, idx) -> torch.Tensor:
-    _check(x, blocks, idx)
+def _run(name: str, x, blocks, idx, lists) -> torch.Tensor:
+    _check(x, blocks, idx, lists)
     if x.device.type == "cpu":
         return plain(name, x, blocks, idx)
     if x.device.type != "cuda":
@@ -88,10 +119,12 @@ def _run(name: str, x, blocks, idx) -> torch.Tensor:
         raise ValueError(f"{name}: tensors on {x.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
     fn = _kernel(name)
+    col_ptr, col_u, col_w = lists
     (q, b), s = x.shape, idx.shape[0]
     out = torch.empty((s, q, b), dtype=x.dtype, device=x.device)
-    rc = fn(x.data_ptr(), blocks.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            s, q, b, blocks.shape[0],
+    rc = fn(x.data_ptr(), idx.data_ptr(), col_ptr.data_ptr(),
+            col_u.data_ptr(), col_w.data_ptr(), out.data_ptr(), s, q, b,
+            col_ptr.shape[0], col_u.shape[0],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
@@ -100,13 +133,13 @@ def _run(name: str, x, blocks, idx) -> torch.Tensor:
     return out
 
 
-def minplus(x: torch.Tensor, blocks: torch.Tensor, idx: torch.Tensor
-            ) -> torch.Tensor:
+def minplus(x: torch.Tensor, blocks: Optional[torch.Tensor],
+            idx: torch.Tensor, lists) -> torch.Tensor:
     """``out[s, q, v] = min_u x[q, u] + blocks[idx[s], u, v]``."""
-    return _run("minplus", x, blocks, idx)
+    return _run("minplus", x, blocks, idx, lists)
 
 
-def masked_matmul(x: torch.Tensor, blocks: torch.Tensor, idx: torch.Tensor
-                  ) -> torch.Tensor:
-    """``out[s] = x @ isfinite(blocks[idx[s]])``."""
-    return _run("masked_matmul", x, blocks, idx)
+def masked_matmul(x: torch.Tensor, blocks: Optional[torch.Tensor],
+                  idx: torch.Tensor, lists) -> torch.Tensor:
+    """``out[s] = x @ isfinite(blocks[idx[s]])``, for finite ``x``."""
+    return _run("masked_matmul", x, blocks, idx, lists)

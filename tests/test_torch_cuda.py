@@ -8,11 +8,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.engine import FPPEngine  # noqa: E402
+from repro_torch.core.engine import FPPEngine, column_lists  # noqa: E402
 from repro_torch.core.partition import partition  # noqa: E402
 from repro_torch.fpp import planner  # noqa: E402
 from repro_torch.graphs.generators import grid2d  # noqa: E402
 from repro_torch.kernels.minplus import ops  # noqa: E402
+from repro_torch.kernels.minplus.ref import list_contract_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -28,24 +29,58 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("q,b", [(64, 128), (7, 32), (130, 16)])
-def test_kernels_match_plain_versions(card, q, b):
+@pytest.mark.parametrize("density", ["road", "hub", "full"])
+@pytest.mark.parametrize("q,b", [(64, 128), (7, 32), (130, 16), (9, 256)])
+def test_kernels_match_plain_versions(card, q, b, density):
     """Both kernels launch, count one launch each, and agree with their
-    plain versions (min-plus bitwise), negative indices included."""
+    plain versions on the dense blocks (min-plus bitwise, the masked matmul
+    at MM_TOL and bitwise with the list order the fused visit shares), at
+    ~4 finite entries a column, 25 % and every entry finite; a -1 index
+    gives the identity plane and an index past nblk a NaN plane.  At
+    B = 256 fully finite, a CTA's list segment (8,192 entries) exceeds
+    what it stages, so the kernel walks the lists in global memory."""
     rng = np.random.default_rng(q + b)
+    dens = {"road": 4.0 / b, "hub": 0.25, "full": 1.0}[density]
     d = np.where(rng.random((q, b)) < 0.4, np.inf, rng.uniform(0, 10, (q, b)))
     x = np.where(rng.random((q, b)) < 0.4, 0.0, rng.uniform(0, 1, (q, b)))
-    w = np.where(rng.random((4, b, b)) < 0.8, np.inf,
-                 rng.uniform(1, 5, (4, b, b)))
+    w = np.where(rng.random((4, b, b)) < dens, rng.uniform(1, 5, (4, b, b)),
+                 np.inf)
     d, x, w = (torch.tensor(a, dtype=torch.float32) for a in (d, x, w))
+    lists = tuple(torch.from_numpy(a) for a in column_lists(w.numpy()))
+    on_card = tuple(a.to(card) for a in lists)
     idx = torch.tensor([3, -1, 0])
     ops.reset_launches()
-    got = ops.minplus(d.to(card), w.to(card), idx.to(card))
-    assert torch.equal(got.cpu(), ops.minplus(d, w, idx))
-    got = ops.masked_matmul(x.to(card), w.to(card), idx.to(card))
-    torch.testing.assert_close(got.cpu(), ops.masked_matmul(x, w, idx),
+    got = ops.minplus(d.to(card), w.to(card), idx.to(card), on_card)
+    assert torch.equal(got.cpu(), ops.minplus(d, w, idx, lists))
+    got = ops.masked_matmul(x.to(card), w.to(card), idx.to(card), on_card)
+    torch.testing.assert_close(got.cpu(), ops.masked_matmul(x, w, idx, lists),
                                **MM_TOL)
+    assert torch.equal(got.cpu(),
+                       list_contract_ref("masked_matmul", x, *lists, idx))
     assert ops.LAUNCHES == {"minplus": 1, "masked_matmul": 1}
+    bad = torch.tensor([4, -1], device=card)
+    for name, inp, ident in (("minplus", d, float("inf")),
+                             ("masked_matmul", x, 0.0)):
+        out = getattr(ops, name)(inp.to(card), w.to(card), bad, on_card)
+        assert out[0].isnan().all() and (out[1] == ident).all()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_card_graph_stages_no_dense_blocks(card, fused):
+    """On the card the device graph holds the blocks as column lists only:
+    a run, unfused or fused, reads no dense block, and the blocks a plain
+    comparison rebuilds from the lists are the CPU's bit for bit."""
+    g = grid2d(16, 16, seed=2)
+    bg, perm = partition(g, 32)
+    srcs = perm[np.array([0, 17, 130, 255])]
+    yc = planner.default_yield_config("sssp", bg)
+    eng = FPPEngine(bg, num_queries=4, yield_config=yc, k_visits=8,
+                    fused=fused, device=card)
+    assert eng.dg.blocks is None
+    eng.run(srcs)
+    assert eng.dg.blocks is None
+    cpu = FPPEngine(bg, num_queries=4, yield_config=yc, device="cpu").dg
+    assert torch.equal(eng.dg.dense_blocks().cpu(), cpu.blocks)
 
 
 @pytest.mark.parametrize("weighted", [True, False])

@@ -6,10 +6,11 @@ runs a whole K-visit chunk per launch.  Here, at small sizes:
 
 * the lists rebuild every block of a graph carried across from the JAX
   package bit for bit (ascending u, every finite entry and no other);
-* the plain emulation of the kernel's list contraction, in its per-cell
-  order (``ref.list_contract_ref``), is bitwise equal to the dense plain
-  contraction: min-plus to ``kernels/minplus/ref.minplus_ref``, push to the
-  dense u = 0..B-1 ``fmaf`` order of ``fg_masked_matmul`` (and within the
+* the plain emulation of the list contraction that the fused visit and
+  ``fg_minplus`` / ``fg_masked_matmul`` share, in its per-cell order
+  (``kernels/minplus/ref.list_contract_ref``), is bitwise equal to the
+  dense plain contraction: min-plus to ``kernels/minplus/ref.minplus_ref``,
+  push to the dense u = 0..B-1 ``fmaf`` order (and within the
   masked-matmul tolerance of ``masked_matmul_ref``'s float32 matmul);
 * whole visits on the lists equal visits on the dense blocks, bitwise;
 * one ``FusedVisit.chunk`` of K visits (one launch on the card) equals K
@@ -29,12 +30,14 @@ from repro.graphs import generators as jgen  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import visit  # noqa: E402
 from repro_torch.core.engine import (DeviceGraph, FPPEngine,  # noqa: E402
+                                     blocks_from_lists,
                                      column_lists)
 from repro_torch.fpp import planner  # noqa: E402
 from repro_torch.kernels.fused_visit import ops as fvops  # noqa: E402
 from repro_torch.kernels.fused_visit.ref import (  # noqa: E402
-    fused_step_ref, list_contract_ref, split_stats)
+    fused_step_ref, split_stats)
 from repro_torch.kernels.minplus import ops as mops  # noqa: E402
+from repro_torch.kernels.minplus.ref import list_contract_ref  # noqa: E402
 
 #: masked matmul against a float32 matmul summing in another order
 MM_TOL = dict(rtol=1e-5, atol=2e-6)
@@ -85,10 +88,14 @@ def test_column_lists_rebuild_every_block(B):
     for got, w in zip((dg.col_ptr, dg.col_u, dg.col_w), want):
         np.testing.assert_array_equal(got.numpy().view(np.int32),
                                       np.asarray(w).view(np.int32))
+    # on the CPU it stages the dense blocks too, for the plain versions
+    assert dg.dense_blocks() is dg.blocks
+    np.testing.assert_array_equal(_bits(blocks_from_lists(*dg.lists)),
+                                  _bits(bg.blocks))
 
 
 def _ordered_masked_matmul(x, blocks, idx):
-    """fg_masked_matmul's order: u = 0..B-1, fmaf(x, finite(w), acc) from
+    """The dense spread's order: u = 0..B-1, fmaf(x, finite(w), acc) from
     +0 (x * m is exact for m in {0, 1}, so one add rounds as fmaf does)."""
     Q, B = x.shape
     out = torch.zeros((idx.shape[0], Q, B), dtype=x.dtype)
@@ -138,6 +145,86 @@ def test_list_contraction_bitwise_equals_dense(name, B):
         assert not torch.signbit(got).any()   # never -0
 
 
+def _blocks_at(rng, density, nblk, B):
+    """``nblk`` blocks at ``density``: ``"road"`` ~4 finite entries per
+    column, ``"hub"`` ~25 %, ``"full"`` every entry finite.  Every block
+    but the last has an empty column; the last is fully finite."""
+    p = {"road": 4.0 / B, "hub": 0.25, "full": 1.0}[density]
+    w = np.where(rng.random((nblk, B, B)) < p,
+                 rng.uniform(1.0, 11.0, (nblk, B, B)), np.inf)
+    w[:-1, :, B // 3] = np.inf
+    w[-1] = rng.uniform(1.0, 11.0, (B, B))
+    return w.astype(np.float32)
+
+
+@pytest.mark.parametrize("density", ["road", "hub", "full"])
+@pytest.mark.parametrize("name", ["minplus", "masked_matmul"])
+def test_list_contract_ref_batched_bitwise_equals_dense(name, density):
+    """At a ragged Q=5, B=30 and S=6 with -1 padding (the identity plane):
+    min-plus bitwise equal to the dense plain version, the masked matmul
+    bitwise equal to the dense u = 0..B-1 fmaf order and within the
+    masked-matmul tolerance of the float32 matmul; an index past nblk
+    gives a NaN plane, as the kernels do."""
+    rng = np.random.default_rng(len(name) * 7 + len(density))
+    Q, B, nblk = 5, 30, 4
+    blocks = _blocks_at(rng, density, nblk, B)
+    live = rng.random((Q, B)) < 0.5
+    x = np.where(live, rng.uniform(0, 50 if name == "minplus" else 1e-2,
+                                   (Q, B)),
+                 np.inf if name == "minplus" else 0.0)
+    x = torch.tensor(x, dtype=torch.float32)
+    bt = torch.tensor(blocks)
+    idx = torch.tensor([1, -1, 3, 0, -1, 2])
+    lists = [torch.from_numpy(a) for a in column_lists(blocks)]
+    got = list_contract_ref(name, x, *lists, idx)
+    dense = mops.plain(name, x, bt, idx)
+    if name == "minplus":
+        assert torch.equal(got, dense)
+    else:
+        assert torch.equal(got, _ordered_masked_matmul(x, bt, idx))
+        torch.testing.assert_close(got, dense, **MM_TOL)
+    ident = float("inf") if name == "minplus" else 0.0
+    assert (got[[1, 4]] == ident).all()
+    bad = list_contract_ref(name, x, *lists, torch.tensor([nblk, 0]))
+    assert bad[0].isnan().all() and torch.equal(bad[1], got[3])
+
+
+@pytest.mark.parametrize("kind", ["sssp", "ppr"])
+def test_unfused_visit_hands_the_lists_to_both_contractions(kind,
+                                                            monkeypatch):
+    """Every relax and emission of the unfused megastep calls its wrapper
+    with the device graph's blocks and its column lists, and one run on
+    the CPU gives the same bits as before."""
+    from repro_torch.core.partition import partition
+    from repro_torch.graphs.generators import grid2d
+    g = grid2d(12, 12, seed=3)
+    bg, perm = partition(g, 16)
+    srcs = perm[np.array([0, 5, 77, 143])]
+    mode = "push" if kind == "ppr" else "minplus"
+    eng = FPPEngine(bg, mode=mode, num_queries=4, k_visits=8, eps=1e-3,
+                    device="cpu",
+                    yield_config=planner.default_yield_config(kind, bg))
+    calls = []
+    run = mops._run
+
+    def spy(name, x, blocks, idx, lists):
+        calls.append((name, idx.shape[0]))
+        assert blocks is eng.dg.blocks
+        assert all(a is b for a, b in zip(lists, eng.dg.lists))
+        return run(name, x, blocks, idx, lists)
+
+    monkeypatch.setattr(mops, "_run", spy)
+    res = eng.run(srcs)
+    want = "masked_matmul" if kind == "ppr" else "minplus"
+    dmax = eng.dg.nbr_blk.shape[1]
+    assert dmax > 1                   # so the two call sites differ in S
+    assert {n for n, _ in calls} == {want}
+    relax = sum(1 for _, s in calls if s == 1)
+    emit = sum(1 for _, s in calls if s == dmax)
+    assert (relax, emit) == (res.stats.rounds, res.stats.visits)
+    assert len(calls) == relax + emit
+
+
 def _mid_run(kind, strict=False):
     """A mid-run state of the fused sssp / ppr engine on grid2d(12, 12),
     B=16, Q=4, after one K=8 chunk."""
@@ -172,8 +259,8 @@ def _tensors(state, stats):
 def test_visits_on_lists_bitwise_equal_visits_on_dense_blocks(variant,
                                                                monkeypatch):
     """Eight visits from the same mid-run state with the kernel's list
-    contraction and with the dense contraction (push: in
-    fg_masked_matmul's order), each in place of the plain version's
+    contraction and with the dense contraction (push: in the dense
+    u = 0..B-1 fmaf order), each in place of the plain version's
     contraction, leave the same bits in every plane, the metadata and
     the stats."""
     kind = "ppr" if variant == "ppr" else "sssp"

@@ -23,6 +23,8 @@ from repro.kernels.frontier.frontier import frontier_tile  # noqa: E402
 from repro.kernels.minplus import ops as jops  # noqa: E402
 from repro.kernels.ppr_push import ops as jpops  # noqa: E402
 from repro.kernels.ppr_push.push import push_tile  # noqa: E402
+from repro_torch.core.engine import (blocks_from_lists,  # noqa: E402
+                                     column_lists)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.frontier import ops as fops  # noqa: E402
 from repro_torch.kernels.frontier.ref import frontier_ref  # noqa: E402
@@ -42,6 +44,11 @@ def _inputs(seed, q, b, nblk=3):
     w = np.where(rng.random((nblk, b, b)) < 0.8, np.inf,
                  rng.uniform(1, 5, (nblk, b, b))).astype(np.float32)
     return d, x, w
+
+
+def _lists(w):
+    """The blocks ``w`` as the kernels' column lists, torch tensors."""
+    return tuple(torch.from_numpy(a) for a in column_lists(w))
 
 
 # ragged Q (not a multiple of 8, and past the reference's 128-row q tile)
@@ -71,12 +78,12 @@ def test_batched_entry_equals_single_calls(name):
     d, x, w = _inputs(5, 6, 32, nblk=4)
     fn = getattr(ops, name)
     inp = torch.from_numpy(d if name == "minplus" else x)
-    blocks = torch.from_numpy(w)
+    blocks, lists = torch.from_numpy(w), _lists(w)
     idx = torch.tensor([2, 0, -1, 3, 2])
-    out = fn(inp, blocks, idx)
+    out = fn(inp, blocks, idx, lists)
     assert out.shape == (5, 6, 32) and out.dtype == torch.float32
     for s, k in enumerate(idx.tolist()):
-        single = fn(inp, blocks, torch.tensor([k]))[0]
+        single = fn(inp, blocks, torch.tensor([k]), lists)[0]
         assert torch.equal(out[s], single), s
     ident = float("inf") if name == "minplus" else 0.0
     assert torch.equal(out[2], torch.full((6, 32), ident))
@@ -87,27 +94,103 @@ def test_batched_entry_equals_single_calls(name):
 
 def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
     d, x, w = _inputs(9, 4, 16)
+    blocks, lists, idx = torch.from_numpy(w), _lists(w), torch.tensor([1, -1])
     ops.reset_launches()
-    ops.minplus(torch.from_numpy(d), torch.from_numpy(w), torch.tensor([1]))
-    ops.masked_matmul(torch.from_numpy(x), torch.from_numpy(w),
-                      torch.tensor([1]))
+    for name, inp in (("minplus", d), ("masked_matmul", x)):
+        inp = torch.from_numpy(inp)
+        got = getattr(ops, name)(inp, blocks, idx, lists)
+        assert torch.equal(got, ops.plain(name, inp, blocks, idx))
     assert ops.LAUNCHES == {"minplus": 0, "masked_matmul": 0}
+
+
+@pytest.mark.parametrize("name", ["minplus", "masked_matmul"])
+def test_wrappers_take_no_call_without_lists(name):
+    """The lists have no default: a caller cannot leave them out."""
+    d, _, w = _inputs(4, 4, 16)
+    with pytest.raises(TypeError, match="lists"):
+        getattr(ops, name)(torch.from_numpy(d), torch.from_numpy(w),
+                           torch.tensor([0]))
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take():
     d, _, w = _inputs(3, 4, 16)
-    dt, wt = torch.from_numpy(d), torch.from_numpy(w)
+    dt, wt, lists = torch.from_numpy(d), torch.from_numpy(w), _lists(w)
     idx = torch.tensor([0])
     with pytest.raises(ValueError, match="float32"):
-        ops.minplus(dt.double(), wt.double(), idx)
+        ops.minplus(dt.double(), wt.double(), idx, lists)
     with pytest.raises(ValueError, match="int64"):
-        ops.minplus(dt, wt, idx.int())
+        ops.minplus(dt, wt, idx.int(), lists)
     with pytest.raises(ValueError, match="nblk"):
-        ops.minplus(dt, wt[:, :8, :8].contiguous(), idx)
+        ops.minplus(dt, wt[:, :8, :8].contiguous(), idx, lists)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.minplus(dt.t().contiguous().t(), wt, idx)
+        ops.minplus(dt.t().contiguous().t(), wt, idx, lists)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.masked_matmul(dt.to("meta"), wt.to("meta"), idx.to("meta"))
+        ops.masked_matmul(dt.to("meta"), wt.to("meta"), idx.to("meta"),
+                          tuple(a.to("meta") for a in lists))
+
+
+def _bad_lists(case, lists):
+    col_ptr, col_u, col_w = lists
+    return {
+        "col_ptr int64": (col_ptr.long(), col_u, col_w),
+        "col_u int64": (col_ptr, col_u.long(), col_w),
+        "col_w float64": (col_ptr, col_u, col_w.double()),
+        "col_ptr rows": (col_ptr[1:], col_u, col_w),
+        "col_ptr width": (col_ptr[:, 1:].contiguous(), col_u, col_w),
+        "col_w length": (col_ptr, col_u, col_w[1:]),
+        "on another device": (col_ptr, col_u.to("meta"), col_w),
+        "not contiguous": (col_ptr.t().contiguous().t(), col_u, col_w),
+        "two lists": (col_ptr, col_u),
+    }[case]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("col_ptr int64", "int32, int32 and float32"),
+    ("col_u int64", "int32, int32 and float32"),
+    ("col_w float64", "int32, int32 and float32"),
+    ("col_ptr rows", r"blocks must be float32 \[nblk, B, B\] = "
+                     r"\(2, 16, 16\) to match the lists"),
+    ("col_ptr width", r"col_ptr must be \[nblk, B\+1\] with B = 16"),
+    ("col_w length", r"\[nnz\] each"),
+    ("on another device", "share a device"),
+    ("not contiguous", "contiguous"),
+    ("two lists", r"\(col_ptr, col_u, col_w\)"),
+])
+def test_wrappers_reject_lists_the_kernel_does_not_take(case, match):
+    """Checked before the device branch, so the CPU path rejects them
+    too."""
+    d, x, w = _inputs(8, 4, 16)
+    bad = _bad_lists(case, _lists(w))
+    for name, inp in (("minplus", d), ("masked_matmul", x)):
+        with pytest.raises(ValueError, match=match):
+            getattr(ops, name)(torch.from_numpy(inp), torch.from_numpy(w),
+                               torch.tensor([0, -1]), bad)
+
+
+@pytest.mark.parametrize("name", ["minplus", "masked_matmul"])
+def test_cpu_wrappers_need_the_dense_blocks(name):
+    """The plain version contracts the dense blocks; only a card call may
+    leave them out."""
+    d, _, w = _inputs(5, 4, 16)
+    with pytest.raises(ValueError, match="CPU path contracts the dense"):
+        getattr(ops, name)(torch.from_numpy(d), None, torch.tensor([0]),
+                           _lists(w))
+
+
+@pytest.mark.parametrize("density", [0.0, 4.0 / 30, 0.25, 1.0])
+def test_blocks_from_lists_bitwise_equals_blocks(density):
+    """The dense blocks rebuilt from their column lists (what a plain
+    version on the card contracts) are the blocks bit for bit, empty
+    columns and a fully finite block included."""
+    rng = np.random.default_rng(int(density * 100))
+    w = np.where(rng.random((5, 30, 30)) < density,
+                 rng.uniform(0, 10, (5, 30, 30)), np.inf).astype(np.float32)
+    w[1] = np.inf
+    w[3] = rng.uniform(0, 10, (30, 30))
+    got = blocks_from_lists(*_lists(w))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  w.view(np.int32))
 
 
 def _frontier_inputs(seed, q, b):
