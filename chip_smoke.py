@@ -23,13 +23,20 @@ Phases, each of which fails the run on any error:
               bitwise) or K unfused card visits (push bitwise; one visit
               within the tolerance of its plain version), each cluster
               size timed over a CUDA graph of the chunk's launch (and the
-              path's size as one-visit launches and sparse)
+              path's size as one-visit launches and sparse).  3d: both
+              kernels' gathered form (``xrow``) at a baselines round's
+              shape on the main path's graph (every block against its
+              source partition's rows), bitwise as above, timed beside the
+              empty launch
   4. parity   the engine on the card against the engine on the CPU
-              (grid2d(32, 32), B=32, Q=16): sssp and bfs bitwise in values,
-              edges, stats and visit order; ppr at the masked-matmul
-              tolerance; then the fused engine on the card against the
-              unfused one on the card (bitwise, ppr too) and against the
-              fused engine on the CPU
+              (grid2d(32, 32), B=32, Q=16): sssp, bfs, cc and kreach
+              bitwise in values, hops, edges, stats and visit order; ppr
+              at the masked-matmul tolerance; then the fused engine on the
+              card against the unfused one on the card (bitwise, ppr too)
+              and against the fused engine on the CPU; cc and kreach again
+              on erdos_renyi(1024, 1.5) (many components); the baselines
+              backend on the card against the CPU for every kind (bitwise,
+              ppr at the tolerance), one contraction launch a round
   5. path     ``FPPSession(grid2d(SIDE, SIDE), device="cuda")
               .plan(num_queries=64)`` runs sssp, bfs and ppr on 64 seeded
               sources; sssp/bfs are checked against scipy's Dijkstra, ppr
@@ -43,7 +50,17 @@ Phases, each of which fails the run on any error:
               K=64 chunk per algebra and dispatch is timed and traced for
               the card's busy share; a fused chunk's trace must name one
               launch of the cluster kernel, an unfused one the list
-              contraction kernel (its share of the card time)
+              contraction kernel (its share of the card time).  5c: fused
+              cc on the grid and on erdos_renyi(n, 1.5) against scipy's
+              components, fused kreach (k=8) against ``oracles.kreach`` on
+              4 sources, unfused cc and kreach (``UNFUSED_SIDE``) bitwise
+              equal to fused; the baselines backend for sssp, bfs, ppr, cc
+              and kreach, one launch a round, sssp/bfs against scipy's
+              Dijkstra and every minplus kind bitwise equal to the engine
+              (ppr within 4·eps·deg); ``plan(tune=True, fused=True)`` on 8
+              sources; the applications: bc on 16 sources bitwise equal to
+              ``bc_accumulate`` on scipy's levels, landmarks equal to the
+              sssp values, ncp's profile
   6. flash    the flash-attention kernels against their plain version on
               the card at the LM path's shapes (starcoder2-7b: H=36, Hkv=4,
               hd=128; (Sq, Skv, q_offset) = (512, 512, 0), (3000, 3000, 0),
@@ -91,6 +108,12 @@ PEAK_F32_INSTR_PER_S = PEAK_F32_OPS_PER_S / 2
 #: grid side of the main path's graph (a cut of the paper's road graphs,
 #: see PERF.md section 4)
 SIDE = 192
+
+#: grid side of the unfused cc and kreach runs.  kreach has no value
+#: window, so at side 192 it takes ~40,500 visits and ~173,000 relax rounds,
+#: which the host-paced unfused dispatch would need over a minute for; cc
+#: takes 288 visits there (PERF.md section 4)
+UNFUSED_SIDE = {"cc": SIDE, "kreach": 64}
 
 #: the LM serving path (PERF.md section 4): full width and depth, random
 #: weights from a seeded generator on the card
@@ -368,6 +391,96 @@ def phase_kernels(torch, ops, rng) -> dict:
                                  f"give the NaN / identity plane")
         log(f"kernel {name}: index {nblk} (past nblk) gives a NaN plane, "
             f"-1 the identity plane")
+        rows[name] = row
+    return rows
+
+
+def phase_gathered(torch, ops, floor_ms) -> dict:
+    """Phase 3d: the gathered form of both kernels at a baselines round's
+    shape on the main path's graph: every block (S = nblk) against its
+    source partition's rows (X = P, ``xrow = blk_src``), Q = 64, B = 128,
+    a seeded frontier over a third of the cells.  Min-plus bitwise against
+    its plain version; the masked matmul bitwise with the list order and
+    within the tolerance of its plain version.  Timed over a CUDA graph
+    beside the empty launch's ``floor_ms``; the plain version on the host
+    clock (it loops over x's rows)."""
+    from repro_torch.core.engine import DeviceGraph
+    from repro_torch.core.yielding import NO_YIELD
+    from repro_torch.fpp import FPPSession
+    from repro_torch.graphs.generators import grid2d
+    from repro_torch.kernels.minplus.ref import list_contract_ref
+
+    Q = 64
+    bg, _ = FPPSession(grid2d(SIDE, SIDE, seed=0), device="cuda").plan(
+        num_queries=Q).prepared()
+    dg = DeviceGraph.build(bg, NO_YIELD, Q, device="cuda")
+    P, B, S = bg.num_parts, bg.block_size, bg.blocks.shape[0]
+    dev = dg.device
+    idx = torch.arange(S, device=dev)
+    xrow = torch.from_numpy(bg.blk_src.astype(np.int64)).to(dev)
+    rng = np.random.default_rng(17)
+    live = rng.random((P, Q, B)) < 0.3
+    d = torch.tensor(np.where(live, rng.uniform(0.0, 50.0, (P, Q, B)),
+                              np.inf), dtype=torch.float32, device=dev)
+    x = torch.tensor(np.where(live, rng.uniform(0.0, 1e-2, (P, Q, B)), 0.0),
+                     dtype=torch.float32, device=dev)
+    blocks = dg.dense_blocks()
+    wf = torch.isfinite(blocks).float()
+    col_ptr = dg.col_ptr.long()
+    nnz = (col_ptr[:, B] - col_ptr[:, 0]).double()
+    rows = {}
+    for name, inp, fn in (("minplus", d, ops.minplus),
+                          ("masked_matmul", x, ops.masked_matmul)):
+        minplus = name == "minplus"
+        got = fn(inp, blocks, idx, dg.lists, xrow=xrow)
+        want = ops.plain(name, inp, blocks, idx, xrow)
+        torch.cuda.synchronize()
+        err = 0.0
+        if minplus:
+            if not torch.equal(got, want):
+                raise AssertionError("gathered minplus is not bitwise equal "
+                                     "to its plain version")
+        else:
+            torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+            err = float((got - want).abs().max())
+            order = torch.empty_like(got)
+            for r in range(P):
+                sel = torch.nonzero(xrow == r).squeeze(1)
+                order[sel] = list_contract_ref(name, inp[r], *dg.lists,
+                                               idx.index_select(0, sel))
+            if not torch.equal(got, order):
+                raise AssertionError("gathered masked_matmul differs from "
+                                     "the list order's bits")
+        # bytes: x, out, idx and xrow once, each block as the smaller of its
+        # list and its dense tile; operations: the live (q, u, v) pairs
+        tile = 4.0 * B * B
+        lists = float(((8.0 if minplus else 4.0) * nnz + 4.0 * (B + 1))
+                      .clamp(max=tile).sum())
+        nbytes = 4.0 * (P * Q * B + S * Q * B) + 16.0 * S + lists
+        lhs = (torch.isfinite(inp) if minplus else inp != 0).float()
+        pairs = float(torch.bmm(lhs.index_select(0, xrow), wf).sum())
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = pairs * (2.0 if minplus else 1.0) / PEAK_F32_INSTR_PER_S
+        row = {
+            "max_abs_err": err,
+            "ms": device_ms(torch, lambda: fn(inp, blocks, idx, dg.lists,
+                                              xrow=xrow), iters=50),
+            "plain_ms": eager_ms(torch, lambda: ops.plain(
+                name, inp, blocks, idx, xrow), iters=3, warmup=1),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "floor_ms": floor_ms,
+            "S": S, "X": P, "Q": Q, "B": B, "mbytes": nbytes / 1e6,
+            "pairs": pairs,
+        }
+        if not minplus:
+            xg = inp.index_select(0, xrow)
+            row["library_ms"] = device_ms(
+                torch, lambda: torch.bmm(xg, torch.isfinite(blocks).float()),
+                iters=20)
+            row["library_is"] = ("torch.bmm(x[xrow], isfinite(w).float()), "
+                                 "x gathered beforehand")
+        log(f"kernel {name} gathered: " + json.dumps(row))
         rows[name] = row
     return rows
 
@@ -716,68 +829,126 @@ def phase_fused_kernel(torch) -> dict:
     return rows
 
 
-def phase_parity() -> None:
-    """Phase 4: the engine on the card against the engine on the CPU."""
+def _engine_parity(label, bg, srcs, kind, mode, yc, **kw) -> None:
+    """One kind's engine on the card against the engine on the CPU, each
+    unfused and fused, and fused against unfused on the card: bitwise in
+    values, hops, edges, stats and visit order (ppr: the masked-matmul
+    tolerance between devices)."""
     from repro_torch.core.engine import FPPEngine
+
+    res = {}
+    for dev, fused in (("cuda", False), ("cpu", False), ("cuda", True),
+                       ("cpu", True)):
+        eng = FPPEngine(bg, mode=mode, num_queries=len(srcs), yield_config=yc,
+                        eps=PPR_EPS, fused=fused, device=dev, **kw)
+        res[dev, fused] = eng.run(srcs, record_order=True)
+
+    def same(a, b):
+        return (np.array_equal(a.values, b.values)
+                and (a.residual is None) == (b.residual is None)
+                and (a.residual is None
+                     or np.array_equal(a.residual, b.residual))
+                and np.array_equal(a.edges_processed, b.edges_processed))
+
+    for what, a, b in (
+            ("card vs CPU", res["cuda", False], res["cpu", False]),
+            ("fused card vs fused CPU", res["cuda", True], res["cpu", True])):
+        if kind == "ppr":
+            np.testing.assert_allclose(a.values, b.values, rtol=MM_RTOL,
+                                       atol=MM_ATOL,
+                                       err_msg=f"ppr values, {what}")
+            np.testing.assert_allclose(a.residual, b.residual,
+                                       rtol=MM_RTOL, atol=MM_ATOL,
+                                       err_msg=f"ppr residual, {what}")
+            log(f"parity ppr {label} {what}: max diff "
+                f"{np.abs(a.values - b.values).max():.3e} (rtol "
+                f"{MM_RTOL}, atol {MM_ATOL}), visits {a.stats.visits} "
+                f"vs {b.stats.visits}")
+            continue
+        if not (same(a, b) and a.stats == b.stats
+                and a.visit_order == b.visit_order):
+            raise AssertionError(f"{kind} {label} {what}: runs differ "
+                                 f"({a.stats} vs {b.stats})")
+        log(f"parity {kind} {label} {what}: bitwise equal, {a.stats}")
+    # the fused kernel against the unfused megastep, both on the card:
+    # bitwise for every kind (ppr's spread sums in one order on both)
+    a, b = res["cuda", True], res["cuda", False]
+    if not (same(a, b) and a.visit_order == b.visit_order
+            and (a.stats.visits, a.stats.rounds) == (b.stats.visits,
+                                                     b.stats.rounds)
+            and a.stats.device_syncs == a.stats.host_syncs):
+        raise AssertionError(f"{kind} {label}: fused card run differs from "
+                             f"the unfused card run ({a.stats} vs "
+                             f"{b.stats})")
+    log(f"parity {kind} {label} fused card vs unfused card: bitwise equal, "
+        f"{a.stats}")
+
+
+def _check_baselines_launches(kind, counts, rounds) -> None:
+    """A baselines run launches its contraction once a round, and nothing
+    else."""
+    need = "masked_matmul" if kind == "ppr" else "minplus"
+    if counts[need] != rounds or sum(counts.values()) != rounds:
+        raise AssertionError(f"baselines {kind}: launches {counts}, want "
+                             f"{need} once per round ({rounds})")
+
+
+def phase_parity(counters) -> None:
+    """Phase 4: the engine on the card against the engine on the CPU, and
+    the baselines backend on the card against the CPU, on grid2d(32, 32);
+    cc and kreach also on a graph of many components."""
     from repro_torch.core.queries import WEIGHT_VARIANTS
     from repro_torch.fpp import FPPSession, planner
-    from repro_torch.graphs.generators import grid2d
+    from repro_torch.graphs.generators import erdos_renyi, grid2d
 
-    g = grid2d(32, 32, seed=1)
     Q = 16
-    srcs = np.random.default_rng(2).choice(g.n, Q, replace=False)
-    sess = FPPSession(g, device="cpu").plan(num_queries=Q, block_size=32)
-    for kind, mode in (("sssp", "minplus"), ("bfs", "minplus"),
-                       ("ppr", "push")):
-        bg, perm = sess.prepared(weights=WEIGHT_VARIANTS.get(kind,
-                                                             "natural"))
-        yc = planner.default_yield_config(kind, bg)
-        res = {}
-        for dev, fused in (("cuda", False), ("cpu", False), ("cuda", True),
-                           ("cpu", True)):
-            eng = FPPEngine(bg, mode=mode, num_queries=Q, yield_config=yc,
-                            eps=PPR_EPS, fused=fused, device=dev)
-            res[dev, fused] = eng.run(perm[srcs], record_order=True)
-        for label, a, b in (
-                ("card vs CPU", res["cuda", False], res["cpu", False]),
-                ("fused card vs fused CPU", res["cuda", True],
-                 res["cpu", True])):
-            if kind == "ppr":
-                np.testing.assert_allclose(a.values, b.values, rtol=MM_RTOL,
-                                           atol=MM_ATOL,
-                                           err_msg=f"ppr values, {label}")
-                np.testing.assert_allclose(a.residual, b.residual,
-                                           rtol=MM_RTOL, atol=MM_ATOL,
-                                           err_msg=f"ppr residual, {label}")
-                log(f"parity ppr {label}: max diff "
-                    f"{np.abs(a.values - b.values).max():.3e} (rtol "
-                    f"{MM_RTOL}, atol {MM_ATOL}), visits {a.stats.visits} "
-                    f"vs {b.stats.visits}")
-                continue
-            same = (np.array_equal(a.values, b.values)
-                    and np.array_equal(a.edges_processed, b.edges_processed)
-                    and a.stats == b.stats
-                    and a.visit_order == b.visit_order)
-            if not same:
-                raise AssertionError(f"{kind} {label}: runs differ "
-                                     f"({a.stats} vs {b.stats})")
-            log(f"parity {kind} {label}: bitwise equal, {a.stats}")
-        # the fused kernel against the unfused megastep, both on the card:
-        # bitwise for every kind (ppr's spread sums in one order on both)
-        a, b = res["cuda", True], res["cuda", False]
-        same = (np.array_equal(a.values, b.values)
-                and (kind != "ppr" or np.array_equal(a.residual, b.residual))
-                and np.array_equal(a.edges_processed, b.edges_processed)
-                and a.visit_order == b.visit_order
-                and (a.stats.visits, a.stats.rounds) == (b.stats.visits,
-                                                         b.stats.rounds)
-                and a.stats.device_syncs == a.stats.host_syncs)
-        if not same:
-            raise AssertionError(f"{kind}: fused card run differs from the "
-                                 f"unfused card run ({a.stats} vs "
-                                 f"{b.stats})")
-        log(f"parity {kind} fused card vs unfused card: bitwise equal, "
-            f"{a.stats}")
+    srcs = np.random.default_rng(2).choice(1024, Q, replace=False)
+    graphs = {"grid2d(32, 32)": grid2d(32, 32, seed=1),
+              "erdos_renyi(1024, 1.5)": erdos_renyi(1024, avg_deg=1.5,
+                                                    seed=1)}
+    for label, g in graphs.items():
+        sess = FPPSession(g, device="cpu").plan(num_queries=Q, block_size=32)
+        kinds = (("sssp", "minplus"), ("bfs", "minplus"), ("ppr", "push"),
+                 ("cc", "cc"), ("kreach", "kreach"))
+        if label != "grid2d(32, 32)":
+            kinds = kinds[3:]
+        for kind, mode in kinds:
+            bg, perm = sess.prepared(weights=WEIGHT_VARIANTS.get(kind,
+                                                                 "natural"))
+            _engine_parity(label, bg, perm[srcs], kind, mode,
+                           planner.default_yield_config(kind, bg),
+                           hop_budget=8, hop_stride=sess.kreach_stride)
+
+    # the baselines backend: one gathered launch a round on the card
+    g = graphs["grid2d(32, 32)"]
+    for kind in ("sssp", "bfs", "ppr", "cc", "kreach"):
+        res, counts = {}, {}
+        for dev in ("cuda", "cpu"):
+            counters.reset()
+            res[dev] = FPPSession(g, device=dev).plan(
+                num_queries=Q, block_size=32).run(kind, srcs, eps=PPR_EPS,
+                                                  backend="baselines")
+            counts[dev] = counters.read()
+        a, b = res["cuda"], res["cpu"]
+        _check_baselines_launches(kind, counts["cuda"], a.stats["rounds"])
+        if a.stats != b.stats or not np.array_equal(a.edges_processed,
+                                                     b.edges_processed):
+            raise AssertionError(f"baselines {kind}: card {a.stats} vs CPU "
+                                 f"{b.stats}")
+        if kind == "ppr":
+            np.testing.assert_allclose(a.values, b.values, rtol=MM_RTOL,
+                                       atol=MM_ATOL,
+                                       err_msg="baselines ppr, card vs CPU")
+        elif not (np.array_equal(a.values, b.values)
+                  and (a.residual is None
+                       or np.array_equal(a.residual, b.residual))):
+            raise AssertionError(f"baselines {kind}: card and CPU differ")
+        if any(counts["cpu"].values()):
+            raise AssertionError(f"baselines {kind} on the CPU counted "
+                                 f"launches: {counts['cpu']}")
+        log(f"parity baselines {kind} card vs CPU: "
+            + ("within the masked-matmul tolerance" if kind == "ppr"
+               else "bitwise equal") + f", {a.stats}")
 
 
 def phase_path(torch, counters) -> dict:
@@ -801,7 +972,7 @@ def phase_path(torch, counters) -> dict:
                         shape=(g.n, g.n))
     deg = np.maximum(g.out_degree(), 1)
     launches = {}      # per kernel, summed over the path's runs
-    unfused = {}
+    unfused, answers = {}, {}
     runs = [(kind, sess, "dense") for kind in ("sssp", "bfs", "ppr")]
     runs += [(kind, fsess, "dense") for kind in ("sssp", "bfs", "ppr")]
     runs += [("sssp", fsess, "sparse")]
@@ -861,6 +1032,8 @@ def phase_path(torch, counters) -> dict:
                 raise AssertionError(f"fused {kind} ({fmode}): visits, "
                                      f"rounds or chunks differ from the "
                                      f"unfused run")
+            if fmode == "dense":
+                answers[kind] = res
             if kind != "ppr":
                 if not (np.array_equal(res.values, ref.values)
                         and np.array_equal(res.edges_processed,
@@ -887,7 +1060,204 @@ def phase_path(torch, counters) -> dict:
         f"{plan.block_size}, method={plan.method}")
     bg, perm = sess.prepared()
     phase_profile(torch, bg, perm[srcs])
-    return launches
+    return launches, {"sess": sess, "fsess": fsess, "srcs": srcs,
+                      "csr": csr, "answers": answers}
+
+
+def _canonical_cc(g) -> np.ndarray:
+    """scipy's weak components of ``g`` as min-vertex-id labels (the port's
+    canonical cc labels)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    csr = sp.csr_matrix((np.ones(g.m), g.indices, g.indptr),
+                        shape=(g.n, g.n))
+    ncomp, lab = connected_components(csr, directed=False)
+    mins = np.full(ncomp, g.n, dtype=np.int64)
+    np.minimum.at(mins, lab, np.arange(g.n))
+    return mins[lab].astype(np.float32)
+
+
+def _launched(kind, counts, st, fused) -> dict:
+    """Check one engine run's launches (fused: one launch per chunk and no
+    contraction; unfused: one contraction launch per relax round and one
+    per visit) and return what they add to the kernel table's counts."""
+    if fused:
+        if (counts["fused_visit"] != st["host_syncs"]
+                or counts["minplus"] or counts["masked_matmul"]
+                or st["device_syncs"] != st["host_syncs"]):
+            raise AssertionError(f"fused {kind}: launches {counts}, stats "
+                                 f"{st}; want one fused launch per chunk")
+        tile = "ppr_push" if kind == "ppr" else "frontier"
+        return {**counts, tile + "_in_fused": counts["fused_visit"]}
+    need = "masked_matmul" if kind == "ppr" else "minplus"
+    if counts[need] != st["rounds"] + st["visits"]:
+        raise AssertionError(f"{kind}: launched {need} {counts[need]} "
+                             f"times, want one per round and one per visit")
+    return counts
+
+
+def phase_kinds(torch, counters, ctx, launches) -> None:
+    """Phase 5c: this slice's paths at 64 queries on the main path's graph:
+    fused cc (the grid and a graph of many components) against scipy's
+    components, fused kreach against the sequential oracle, unfused cc and
+    kreach at :data:`UNFUSED_SIDE` against their fused runs, the
+    baselines backend for every kind (one launch a round) against scipy
+    and the engine, ``plan(tune=True, fused=True)``, and the applications
+    (bc, landmarks, ncp).  Each run's counts are reset just before it and
+    read just after, and added to ``launches``."""
+    from scipy.sparse.csgraph import dijkstra
+
+    from repro_torch.core import oracles
+    from repro_torch.core.applications import bc_accumulate
+    from repro_torch.fpp import FPPSession
+    from repro_torch.graphs.generators import erdos_renyi, grid2d
+
+    Q, K_HOPS = 64, 8
+    sess, fsess, srcs = ctx["sess"], ctx["fsess"], ctx["srcs"]
+    answers, csr, g = ctx["answers"], ctx["csr"], fsess.graph
+
+    def add(counts):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    def drive(label, ss, kind, sources, **kw):
+        counters.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ss.run(kind, sources, eps=PPR_EPS, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = counters.read()
+        bg, _ = ss.prepared()
+        log(f"path {label}: " + json.dumps({
+            "n": ss.graph.n, "m": ss.graph.m, "P": bg.num_parts,
+            "B": bg.block_size, "Q": len(sources),
+            "dmax": int(bg.nbr_blk.shape[1]), **res.stats, "wall_s": wall,
+            "launches": counts}))
+        return res, counts
+
+    # cc, fused, on the grid and on a graph of many components
+    ge = erdos_renyi(g.n, avg_deg=1.5, seed=0)
+    esess = FPPSession(ge, device="cuda").plan(num_queries=Q, fused=True)
+    for label, ss in (("grid", fsess), ("erdos_renyi(n, 1.5)", esess)):
+        res, counts = drive(f"fused cc {label}", ss, "cc", srcs)
+        add(_launched("cc", counts, res.stats, True))
+        if ss is fsess:
+            answers["cc"] = res
+        want = _canonical_cc(ss.graph)
+        if not (res.values == want[None]).all():
+            raise AssertionError(f"fused cc ({label}) differs from scipy's "
+                                 f"components")
+        log(f"fused cc ({label}): {np.unique(want).size} components, equal "
+            f"to scipy's in every lane")
+    # kreach, fused, against the sequential oracle on four sources
+    res, counts = drive("fused kreach", fsess, "kreach", srcs, k=K_HOPS)
+    add(_launched("kreach", counts, res.stats, True))
+    answers["kreach"] = res
+    for i in range(4):
+        vals, hops, _ = oracles.kreach(g, int(srcs[i]), K_HOPS)
+        if not (np.array_equal(res.values[i], vals)
+                and np.array_equal(res.residual[i], hops)):
+            raise AssertionError(f"fused kreach source {srcs[i]} differs "
+                                 f"from oracles.kreach")
+    log(f"fused kreach k={K_HOPS}: values and hops bitwise equal to "
+        f"oracles.kreach on 4 sources")
+
+    # cc and kreach unfused, against their fused runs on the same graph
+    for kind, side in UNFUSED_SIDE.items():
+        gu = g if side == SIDE else grid2d(side, side, seed=0)
+        su = srcs if side == SIDE else np.random.default_rng(0).choice(
+            gu.n, Q, replace=False)
+        usess = sess if side == SIDE else FPPSession(
+            gu, device="cuda").plan(num_queries=Q)
+        side = f"side {side}"
+        ures, counts = drive(f"{kind} {side}", usess, kind, su, k=K_HOPS)
+        add(_launched(kind, counts, ures.stats, False))
+        fres, counts = drive(f"fused {kind} {side}", usess, kind, su,
+                             k=K_HOPS, fused=True)
+        add(_launched(kind, counts, fres.stats, True))
+        if not (np.array_equal(ures.values, fres.values)
+                and (kind == "cc" or np.array_equal(ures.residual,
+                                                    fres.residual))
+                and np.array_equal(ures.edges_processed,
+                                   fres.edges_processed)
+                and (ures.stats["visits"], ures.stats["rounds"])
+                == (fres.stats["visits"], fres.stats["rounds"])):
+            raise AssertionError(f"{kind} ({side}): unfused and fused runs "
+                                 f"differ")
+        log(f"{kind} {side}: unfused bitwise equal to fused")
+
+    # the baselines backend, one gathered launch a round
+    for kind in ("sssp", "bfs", "ppr", "cc", "kreach"):
+        res, counts = drive(f"baselines {kind}", sess, kind, srcs, k=K_HOPS,
+                            backend="baselines")
+        _check_baselines_launches(kind, counts, res.stats["rounds"])
+        add(counts)
+        if kind == "ppr":
+            deg = np.maximum(g.out_degree(), 1)
+            diff = np.abs(res.values - answers["ppr"].values) / deg
+            if diff.max() > 4 * PPR_EPS:
+                raise AssertionError(f"baselines ppr is {diff.max()} per "
+                                     f"unit of degree from the engine's")
+            continue
+        if kind in ("sssp", "bfs"):
+            want = dijkstra(csr, indices=srcs, unweighted=(kind == "bfs"))
+            got = res.values.astype(np.float64)
+            ok = (np.array_equal(got, want) if kind == "bfs" else
+                  np.array_equal(np.isinf(got), np.isinf(want))
+                  and np.allclose(got[np.isfinite(want)],
+                                  want[np.isfinite(want)], rtol=1e-5))
+            if not ok:
+                raise AssertionError(f"baselines {kind} disagrees with "
+                                     f"dijkstra")
+        ref = answers[kind]
+        same = (np.array_equal(res.values, ref.values)
+                and (kind != "kreach"
+                     or np.array_equal(res.residual, ref.residual)))
+        if not same:
+            raise AssertionError(f"baselines {kind} is not bitwise equal to "
+                                 f"the engine's answer")
+
+    # plan(tune=True): every block size the memory model admits, measured
+    t = time.perf_counter()
+    tsess = FPPSession(g, device="cuda").plan(
+        num_queries=Q, fused=True, tune=True, tune_sources=srcs[:8])
+    tp = tsess.current_plan
+    for row in tp.tuning_rows:
+        log("tune row: " + json.dumps(dict(row)))
+    log(f"tune: chose B={tp.block_size} (model B="
+        f"{fsess.current_plan.block_size}) in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # the applications, through the fused plan
+    counters.reset()
+    t = time.perf_counter()
+    bc, res = fsess.bc(srcs[:16])
+    wall = time.perf_counter() - t
+    add(_launched("bfs", counters.read(), res.stats, True))
+    levels = dijkstra(csr, indices=srcs[:16], unweighted=True)
+    if not np.array_equal(bc, bc_accumulate(g, srcs[:16], levels)):
+        raise AssertionError("bc differs from bc_accumulate on scipy's "
+                             "levels")
+    log(f"app bc (16 sources): {wall:.3f} s, bitwise equal to "
+        f"bc_accumulate on scipy's levels; max {bc.max():.1f}")
+    counters.reset()
+    t = time.perf_counter()
+    ll, res = fsess.landmarks(srcs)
+    wall = time.perf_counter() - t
+    add(_launched("sssp", counters.read(), res.stats, True))
+    if not np.array_equal(ll.dists, answers["sssp"].values):
+        raise AssertionError("landmarks differ from the sssp values")
+    log(f"app landmarks (64): {wall:.3f} s, equal to the sssp values")
+    counters.reset()
+    t = time.perf_counter()
+    prof, res = fsess.ncp(srcs, eps=PPR_EPS)
+    wall = time.perf_counter() - t
+    add(_launched("ppr", counters.read(), res.stats, True))
+    log(f"app ncp (64 seeds): {wall:.3f} s, profile "
+        + json.dumps([None if not np.isfinite(v) else float(v)
+                      for v in prof]))
 
 
 #: the fused visit's kernels in a profiler trace (one per algebra, each
@@ -1472,26 +1842,33 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
 
+    phase_s = {"build": round(time.perf_counter() - t_start, 1)}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        log(f"phase {name}: {phase_s[name]} s")
+        return out
+
     rng = np.random.default_rng(0)
-    krows = {name: row["single"]
-             for name, row in phase_kernels(torch, ops, rng).items()}
-    krows.update(phase_tiles(torch, rng))
-    t = time.perf_counter()
-    fused_rows = phase_fused_kernel(torch)
+    krows = {name: row["single"] for name, row in timed(
+        "3 kernels", phase_kernels, torch, ops, rng).items()}
+    for name, row in timed("3d gathered", phase_gathered, torch, ops,
+                           krows["minplus"]["floor_ms"]).items():
+        krows[name]["gathered"] = row
+    krows.update(timed("3b tiles", phase_tiles, torch, rng))
+    fused_rows = timed("3c fused kernel", phase_fused_kernel, torch)
     krows["fused_visit"] = {**fused_rows["sssp"], "push": fused_rows["ppr"]}
-    log(f"fused kernel phase: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    phase_parity()
-    log(f"parity: {time.perf_counter() - t:.1f} s")
-    launches = phase_path(torch, Counters())
+    timed("4 parity", phase_parity, Counters())
+    launches, ctx = timed("5 path", phase_path, torch, Counters())
+    timed("5c kinds, baselines, tune, apps", phase_kinds, torch, Counters(),
+          ctx, launches)
+    del ctx
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    krows["flash_attention"] = phase_flash(torch)
-    log(f"flash kernel phase: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    lm = phase_lm(torch, Counters())
+    krows["flash_attention"] = timed("6 flash", phase_flash, torch)
+    lm = timed("7 lm", phase_lm, torch, Counters())
     launches["flash_attention"] = lm["launches"]
-    log(f"lm phase: {time.perf_counter() - t:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = {
@@ -1531,7 +1908,7 @@ def main() -> int:
                             "graph")
             row.update({k: krows[name][k] for k in (
                 "ms_by_density", "bound_ms_by_density", "floor_ms",
-                "dense_tile_bound_ms")})
+                "dense_tile_bound_ms", "gathered")})
         if name == "fused_visit":
             row["ms_is"] = ("card ms per visit (one K=64 chunk's launch, "
                             "CUDA graph), at the path's cluster size")
@@ -1554,6 +1931,7 @@ def main() -> int:
                           **{k: krows[name]["f32"][k] for k in keys}}
         table.append(row)
     log(json.dumps({"kernels": table}))
+    log("phase seconds: " + json.dumps(phase_s))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
 """The buffered execution engine — Algorithm 2 of the paper, on one device.
 
 The port of the JAX package's ``repro.core.engine`` for modes ``minplus``
-(sssp/bfs) and ``push`` (ppr).  ``FPPEngine.run`` dispatches K-visit
+(sssp/bfs), ``push`` (ppr), ``cc`` and ``kreach``.  cc and kreach are
+minplus instantiations over transformed weights (zero weights and a label
+plane of every vertex's own id; hop-shifted weights), so only the state
+init and the host-side finalize differ.  ``FPPEngine.run`` dispatches K-visit
 megasteps (``core/visit.make_megastep``) whose scheduler decision is made on
 the device, so the host harvests stats once per K visits
 (``host_loop=True`` keeps the per-visit loop with the host scheduler as the
@@ -20,12 +23,13 @@ import torch
 
 from repro_torch.core import visit as _visit
 from repro_torch.core.graph import BlockGraph
+from repro_torch.core.oracles import decode_kreach
 from repro_torch.core.scheduler import PartitionScheduler
 from repro_torch.core.visit import (VisitAlgebra, VisitState, minplus_algebra,
                                     push_algebra)
 from repro_torch.core.yielding import YieldConfig
 
-MODES = ("minplus", "push")
+MODES = ("minplus", "push", "cc", "kreach")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -189,7 +193,9 @@ class EngineResult:
 class FPPEngine:
     """Single-device ForkGraph engine.
 
-    mode: "minplus" (SSSP/BFS) or "push" (PPR); ``device`` defaults to
+    mode: "minplus" (SSSP/BFS), "push" (PPR), "cc" (over the zero-weight
+    variant) or "kreach" (over the hop-shifted variant, ``hop_stride`` its
+    shift S and ``hop_budget`` the hop limit k); ``device`` defaults to
     CUDA (see :func:`resolve_device`).
     """
 
@@ -198,17 +204,20 @@ class FPPEngine:
                  schedule: str = "priority", num_queries: int = 1,
                  alpha: float = 0.15, eps: float = 1e-4,
                  k_visits: int = 64, fused: bool = False,
-                 frontier_mode: str = "dense", device=None):
-        if mode in ("cc", "kreach"):
-            raise NotImplementedError(
-                f"engine mode {mode!r} is not ported yet (ROADMAP A6)")
+                 frontier_mode: str = "dense", hop_budget: int = 8,
+                 hop_stride: float = 1.0, device=None):
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r}; one of {MODES}")
         if k_visits < 1:
             raise ValueError(f"k_visits must be >= 1, got {k_visits}")
+        if mode == "cc" and bg.n >= (1 << 24):
+            raise ValueError(
+                f"cc labels ride the f32 minplus planes, exact only below "
+                f"2^24 vertices; got n={bg.n}")
         self.bg = bg
         self.mode = mode
         self.num_queries = num_queries
+        self.hop_budget, self.hop_stride = int(hop_budget), float(hop_stride)
         self.k_visits = int(k_visits)
         self.fused = bool(fused)
         self.frontier_mode = frontier_mode
@@ -221,7 +230,10 @@ class FPPEngine:
         if mode == "push":
             self.algebra: VisitAlgebra = push_algebra(alpha, eps)
         else:
-            self.algebra = minplus_algebra(yield_config.window())
+            # cc propagates over zero weights, where an equal re-sent label
+            # would pend (and re-emit) forever under the default <= rule
+            self.algebra = minplus_algebra(yield_config.window(),
+                                           strict=(mode == "cc"))
         # the host loop keeps the unfused visit: it is the oracle of both
         # megastep arms
         self._visit = _visit.make_visit(self.dg, self.algebra, max_rounds)
@@ -238,6 +250,14 @@ class FPPEngine:
         self._visit_blocks = (1 + out_blocks).astype(np.int64)
 
     def init_state(self, sources: np.ndarray) -> VisitState:
+        if self.mode == "cc":
+            # cc is one computation per graph: every vertex is a source and
+            # every lane converges to the same label plane, so the one-hot
+            # injection becomes a full init plane (sources set the lanes)
+            return _visit.init_engine_state(
+                self.algebra, self.dg, np.empty(0, dtype=np.int64),
+                num_queries=self.num_queries,
+                init_ops=_visit.cc_label_plane(self.bg))
         return _visit.init_engine_state(self.algebra, self.dg, sources)
 
     def run(self, sources: np.ndarray, max_visits: int | None = None,
@@ -329,6 +349,12 @@ class FPPEngine:
         def vertex_major(plane):               # [P, Q, B] -> [Q, n]
             return plane.cpu().numpy().transpose(1, 0, 2).reshape(Q, -1)[:, :n]
 
+        if self.mode == "kreach":
+            # the packed lex-(hops, dist) plane unpacks on the host; the hop
+            # plane rides the residual slot of the result
+            vals, hops = decode_kreach(vertex_major(state.planes[0]),
+                                       self.hop_stride, self.hop_budget)
+            return EngineResult(vals, hops, edges, stats, order)
         if self.mode != "push":
             return EngineResult(vertex_major(state.planes[0]), None, edges,
                                 stats, order)

@@ -46,7 +46,7 @@ Where eager PyTorch differs from the traced reference:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -247,17 +247,25 @@ class VisitState(NamedTuple):
 
 
 def init_dense_state(algebra: VisitAlgebra, num_parts: int, num_queries: int,
-                     block_size: int, sources: np.ndarray):
+                     block_size: int, sources: np.ndarray,
+                     init_ops: Optional[np.ndarray] = None):
     """Host-side (planes, buf) with one source op buffered per query lane.
 
     ``sources``: [k] reordered vertex ids, k <= num_queries — lane ``i``
     gets ``sources[i]``; remaining lanes start empty.  ``buf`` carries the
     trash row ``P``.
+
+    ``init_ops``: optional ``[P, B]`` plane of buffered ops broadcast to
+    every query lane before the sources are injected — cc starts from its
+    label plane (:func:`cc_label_plane`) instead of a one-hot source.
+    Cells holding ``algebra.identity`` stay empty.
     """
     P, Q, B = num_parts, num_queries, block_size
     planes = tuple(np.full((P, Q, B), v, dtype=np.float32)
                    for v in algebra.plane_init)
     buf = np.full((P + 1, Q, B), algebra.identity, dtype=np.float32)
+    if init_ops is not None:
+        buf[:P] = np.asarray(init_ops, dtype=np.float32)[:, None, :]
     sources = np.asarray(sources)
     if sources.size:
         parts, locs = np.divmod(sources, B)
@@ -276,12 +284,26 @@ def state_meta(algebra: VisitAlgebra, planes, buf, deg):
             torch.cat([stamp, stamp.new_full((1,), _BIG_STAMP)]))
 
 
-def init_engine_state(algebra: VisitAlgebra, dg,
-                      sources: np.ndarray) -> VisitState:
+def cc_label_plane(bg) -> np.ndarray:
+    """[P, B] initial cc label ops: every real vertex seeds its own
+    reordered id as an f32 minplus op; padding slots hold the identity
+    (+inf).  Shared by every cc backend, so the propagated fixpoint is the
+    same plane bit for bit (integer-valued f32 mins, exact below 2^24
+    vertices)."""
+    P, B = bg.num_parts, bg.block_size
+    ids = np.arange(P * B, dtype=np.float32).reshape(P, B)
+    return np.where(np.asarray(bg.vmask), ids, np.float32(np.inf))
+
+
+def init_engine_state(algebra: VisitAlgebra, dg, sources: np.ndarray,
+                      num_queries: Optional[int] = None,
+                      init_ops: Optional[np.ndarray] = None) -> VisitState:
     """Device state for the engine, on ``dg.device``: one query lane per
-    source."""
+    source, or ``num_queries`` lanes (``init_ops``: see
+    :func:`init_dense_state`)."""
+    Q = int(num_queries if num_queries is not None else len(sources))
     planes_np, buf_np = init_dense_state(
-        algebra, dg.num_parts, len(sources), dg.block_size, sources)
+        algebra, dg.num_parts, Q, dg.block_size, sources, init_ops=init_ops)
     planes = tuple(torch.from_numpy(x).to(dg.device) for x in planes_np)
     buf = torch.from_numpy(buf_np).to(dg.device)
     prio, ops, stamp = state_meta(algebra, planes, buf, dg.deg)

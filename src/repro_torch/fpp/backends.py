@@ -1,11 +1,13 @@
 """Backend dispatch behind one result contract.
 
-The port of the JAX package's ``repro.fpp.backends``.  This slice runs the
-``engine`` backend for sssp, bfs and ppr; every other (backend, kind) pair
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
-Whatever the backend, ``values`` is float32 ``[Q, n]`` in the *reordered* id
-space (the session maps back to original ids) and ``edges_processed`` is
-float64 ``[Q]`` holding exact integral counts.
+The port of the JAX package's ``repro.fpp.backends``.  This slice runs
+sssp, bfs, ppr, cc and kreach on the ``engine`` backend (the buffered
+engine, ``core/engine.py``) and on ``baselines`` (the global-frontier
+engines, ``core/baselines.py``); every other (backend, kind) pair raises
+``NotImplementedError`` naming the ROADMAP item that ports it.  Whatever
+the backend, ``values`` is float32 ``[Q, n]`` in the *reordered* id space
+(the session maps back to original ids) and ``edges_processed`` is float64
+``[Q]`` holding exact integral counts.
 """
 from __future__ import annotations
 
@@ -14,19 +16,22 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core.baselines import global_minplus, global_push
 from repro_torch.core.engine import FPPEngine
 from repro_torch.core.graph import BlockGraph
+from repro_torch.core.oracles import decode_kreach
+from repro_torch.core.visit import cc_label_plane
 from repro_torch.core.yielding import YieldConfig
 
 BACKENDS = ("engine", "distributed", "baselines")
 KINDS = ("sssp", "bfs", "ppr", "cc", "kreach", "rw")
 
 #: engine mode per ported kind
-_ENGINE_MODE = {"sssp": "minplus", "bfs": "minplus", "ppr": "push"}
+_ENGINE_MODE = {"sssp": "minplus", "bfs": "minplus", "ppr": "push",
+                "cc": "cc", "kreach": "kreach"}
 
 #: where the pairs this slice does not run are queued
-_ROADMAP = {"baselines": "A5", "distributed": "A10", "cc": "A6",
-            "kreach": "A6", "rw": "A8"}
+_ROADMAP = {"distributed": "A10", "rw": "A8"}
 
 
 @dataclasses.dataclass
@@ -46,13 +51,39 @@ def _normalize(values, residual, edges, stats) -> BackendResult:
         stats=stats)
 
 
+def canonicalize_cc(values: np.ndarray) -> np.ndarray:
+    """Rewrite raw cc label rows (reordered-rep ids) into the canonical
+    min-original-id-per-component labels.
+
+    ``values``: [Q, n] rows in the ORIGINAL vertex order whose cells hold
+    the backend's reordered representative ids.  Two vertices share a
+    label iff they share a cell value, so grouping by value and taking the
+    min row index (= min original id) gives labels independent of the
+    partitioning permutation — the form union-find
+    (``oracles.connected_components``) produces on symmetric input.
+    """
+    values = np.asarray(values)
+    n = values.shape[1]
+    out = np.empty_like(values, dtype=np.float32)
+    done: dict = {}
+    for q in range(values.shape[0]):
+        key = values[q].tobytes()       # cc lanes are identical; decode once
+        if key not in done:
+            reps = values[q].astype(np.int64)
+            min_orig = np.full(n, n, dtype=np.int64)
+            np.minimum.at(min_orig, reps, np.arange(n))
+            done[key] = min_orig[reps].astype(np.float32)
+        out[q] = done[key]
+    return out
+
+
 def check_supported(backend: str, kind: str) -> None:
     """Raise unless this slice runs ``kind`` on ``backend``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if kind not in KINDS:
         raise ValueError(f"unknown query kind {kind!r}; one of {KINDS}")
-    if backend != "engine":
+    if backend == "distributed":
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet "
             f"(ROADMAP {_ROADMAP[backend]})")
@@ -67,27 +98,57 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
               alpha: float = 0.15, eps: float = 1e-4,
               max_visits: Optional[int] = None,
               fused: bool = False, frontier_mode: str = "dense",
+              k: int = 8, hop_stride: float = 1.0,
               device=None) -> BackendResult:
     """Run one query batch (sources in reordered ids) on one backend.
-    bfs expects ``bg`` built from the unit-weight variant (the session's
-    ``prepared`` does this).  ``fused=True`` (engine backend only) runs
-    each K-visit chunk as one launch of the fused visit kernel;
-    ``frontier_mode="sparse"`` (minplus kinds) lets it skip query rows whose
-    sources are all +inf."""
+
+    ``fused=True`` (engine backend only) runs each K-visit chunk as one
+    launch of the fused visit kernel; ``frontier_mode="sparse"`` (minplus
+    kinds) lets it skip query rows whose sources are all +inf.
+
+    The transformed-weight kinds expect ``bg`` already built from the
+    matching weight variant (the session's ``prepared`` does this): bfs a
+    unit-weight graph, cc a zero-weight one, kreach the hop-shifted
+    weights with ``hop_stride`` = the shift S (``oracles.kreach_stride``)
+    and ``k`` the hop budget.  Raw cc values are reordered-rep labels —
+    callers canonicalize with :func:`canonicalize_cc` after mapping back
+    to original ids.  kreach's residual is its hop plane.
+    """
     if fused and backend != "engine":
         raise ValueError(
             f"fused=True is an engine-backend flag; backend={backend!r} "
             f"runs its own visit bodies")
     check_supported(backend, kind)
     sources = np.asarray(sources)
-    eng = FPPEngine(bg, mode=_ENGINE_MODE[kind], num_queries=len(sources),
-                    yield_config=yield_config or YieldConfig(),
-                    schedule=schedule, alpha=alpha, eps=eps, fused=fused,
-                    frontier_mode=frontier_mode, device=device)
-    res = eng.run(sources, max_visits=max_visits)
-    return _normalize(res.values, res.residual, res.edges_processed, {
-        "visits": res.stats.visits, "rounds": res.stats.rounds,
-        "blocks_loaded": res.stats.blocks_loaded,
-        "modeled_bytes": res.stats.modeled_bytes,
-        "host_syncs": res.stats.host_syncs,
-        "device_syncs": res.stats.device_syncs})
+    if backend == "engine":
+        eng = FPPEngine(bg, mode=_ENGINE_MODE[kind],
+                        num_queries=len(sources),
+                        yield_config=yield_config or YieldConfig(),
+                        schedule=schedule, alpha=alpha, eps=eps, fused=fused,
+                        frontier_mode=frontier_mode, hop_budget=k,
+                        hop_stride=hop_stride, device=device)
+        res = eng.run(sources, max_visits=max_visits)
+        return _normalize(res.values, res.residual, res.edges_processed, {
+            "visits": res.stats.visits, "rounds": res.stats.rounds,
+            "blocks_loaded": res.stats.blocks_loaded,
+            "modeled_bytes": res.stats.modeled_bytes,
+            "host_syncs": res.stats.host_syncs,
+            "device_syncs": res.stats.device_syncs})
+
+    # baselines: the global-frontier engines
+    if kind == "ppr":
+        res = global_push(bg, sources, alpha=alpha, eps=eps, device=device)
+        residual = np.zeros_like(res.values)  # Jacobi push drains below eps
+    elif kind == "cc":
+        res = global_minplus(bg, sources, init_plane=cc_label_plane(bg),
+                             device=device)
+        residual = None
+    else:
+        res = global_minplus(bg, sources, device=device)
+        residual = None
+    values = res.values
+    if kind == "kreach":
+        values, residual = decode_kreach(values, hop_stride, k)
+    return _normalize(values, residual, res.edges_processed, {
+        "rounds": res.rounds, "modeled_bytes": res.modeled_bytes,
+        "modeled_bytes_shared": res.modeled_bytes_shared})

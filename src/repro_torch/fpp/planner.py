@@ -15,12 +15,15 @@ At Q = 64 that gives B = 128 (2·128²·4 + 2·64·128·4 = 196,608 bytes of
 kernel's shared-memory layout (:meth:`MemoryModel.fused_working_set`, the
 bytes each CTA of its cluster asks for at launch); at Q = 64 that still
 gives B = 128.
-Measuring the candidates (the reference's ``tune=True``) waits for a later
-slice.
+
+``FPPSession.plan(tune=True)`` measures the candidates the model admits on
+a query sample instead (:func:`autotune_block_size`, through
+:func:`measure_run`) and keeps the one with the least modeled traffic.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -138,6 +141,10 @@ class Plan:
     #: visit kernel, "auto" = per kind from the yardsticks
     #: (:func:`auto_fused`)
     fused: object = False
+    #: True when ``block_size`` was measured (``plan(tune=True)``); the
+    #: rows of that sweep, each a sorted tuple of (key, value) pairs
+    tuned: bool = False
+    tuning_rows: tuple = ()
 
     def resolve_fused(self, kind: str, k_visits: int = 64,
                       dmax: Optional[int] = None) -> bool:
@@ -234,6 +241,62 @@ def make_plan(g: CSRGraph, num_queries: int, *,
     return Plan(block_size=int(block_size), method=method, schedule=schedule,
                 backend=backend, num_queries=int(num_queries), mem=mem,
                 yield_config=yield_config, fused=fused)
+
+
+def measure_run(session, kind: str, sources: np.ndarray,
+                **overrides) -> dict:
+    """Run one configuration through the session and report the sweep
+    row: host wall seconds (the card synchronised by the run's read back),
+    visits, host syncs, modeled traffic and mean edges per query.
+    Partitioning is warmed outside the timed window — it is a one-time
+    per-graph cost, not part of the execution being compared."""
+    from repro_torch.core.queries import WEIGHT_VARIANTS
+    session.prepared(block_size=overrides.get("block_size"),
+                     method=overrides.get("method"),
+                     weights=WEIGHT_VARIANTS.get(kind, "natural"))
+    t0 = time.perf_counter()
+    res = session.run(kind, sources, **overrides)
+    secs = time.perf_counter() - t0
+    return {
+        "runtime_s": secs,
+        "visits": res.stats.get("visits", 0),
+        "host_syncs": res.stats.get("host_syncs", 0),
+        "traffic_bytes": res.stats.get("modeled_bytes", 0.0),
+        "edges_per_q": float(np.mean(res.edges_processed)),
+    }
+
+
+def autotune_block_size(session, kind: str, sources: np.ndarray,
+                        mem: MemoryModel,
+                        candidates: Sequence[int] = CANDIDATE_BLOCK_SIZES,
+                        objective: str = "traffic_bytes",
+                        num_queries: Optional[int] = None,
+                        fused: bool = False):
+    """Measure each memory-feasible candidate; return (best_B, rows).
+
+    The objective defaults to modeled traffic — deterministic across
+    machines, and the paper's Fig. 16 shows it tracks the runtime U-shape
+    (visits x bytes per visit).  Ties break toward measured runtime.
+
+    Feasibility is :meth:`MemoryModel.fits` at ``num_queries`` (the plan's
+    real batch width) with the ``fused`` flag :func:`make_plan` passes,
+    while measurement runs on the (smaller) ``sources`` sample.
+    """
+    g = session.graph
+    nq = num_queries if num_queries is not None else len(sources)
+    feasible = [b for b in candidates
+                if b < max(2, g.n) and mem.fits(b, nq, g.n, fused=fused)]
+    if not feasible:
+        raise ValueError(
+            f"no candidate block size fits the memory model for Q={nq}; "
+            f"shrink the query batch")
+    rows = []
+    for b in feasible:
+        row = measure_run(session, kind, sources, block_size=b)
+        row["block_size"] = b
+        rows.append(row)
+    best = min(rows, key=lambda r: (r[objective], r["runtime_s"]))
+    return int(best["block_size"]), rows
 
 
 def default_yield_config(kind: str, bg) -> YieldConfig:

@@ -6,12 +6,19 @@ The port of the JAX package's ``repro.fpp.session`` for this slice:
     sess.plan(num_queries=64)                  # Hopper memory-model plan
     res = sess.run("sssp", sources)            # original ids in AND out
     sess.plan(num_queries=64, fused=True)      # one kernel launch per chunk
+    res = sess.run("cc", sources)              # canonical component labels
+    res = sess.run("kreach", sources, k=8)     # residual = hop counts
+    res = sess.run("sssp", sources, backend="baselines")   # same contract
+    sess.plan(num_queries=64, tune=True)       # measured block size
+    bc, res = sess.bc(sources)                 # the paper's applications
+    labels, res = sess.landmarks(landmarks)
+    profile, res = sess.ncp(seeds)
 
 The session runs on CUDA unless it is given ``device="cpu"``; with no card
 and no explicit CPU device it raises.  Everything downstream (engine,
 backends) speaks the *reordered* id space and partition-major state; the
-session is the only layer that owns ``perm`` and hides it.  ``stream``,
-``bc``, ``landmarks``, ``ncp`` and ``random_walks`` wait for later slices.
+session is the only layer that owns ``perm`` and hides it.  ``stream`` and
+``random_walks`` wait for later slices (ROADMAP A9, A8).
 """
 from __future__ import annotations
 
@@ -21,8 +28,11 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.applications import (LandmarkLabels, bc_accumulate,
+                                           ncp_profile)
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.graph import BlockGraph, CSRGraph
+from repro_torch.core.oracles import kreach_stride
 from repro_torch.core.partition import partition
 from repro_torch.core.queries import WEIGHT_VARIANTS, reweight
 from repro_torch.core.yielding import YieldConfig
@@ -54,7 +64,20 @@ class FPPSession:
         self._plan: Optional[Plan] = None
         # (block_size, method, weight_variant) -> (BlockGraph, perm)
         self._prepared: Dict[tuple, Tuple[BlockGraph, np.ndarray]] = {}
+        self._kreach_stride: Optional[float] = None
         self._prepare_lock = threading.Lock()
+
+    @property
+    def kreach_stride(self) -> float:
+        """The hop shift S of this graph's kreach packing (a per-graph
+        constant: ``oracles.kreach_stride`` of n and the max weight),
+        shared by the "shift" weight variant and the result decode so they
+        cannot disagree."""
+        if self._kreach_stride is None:
+            g = self.graph
+            self._kreach_stride = kreach_stride(
+                g.n, float(g.weights.max()) if g.m else 1.0)
+        return self._kreach_stride
 
     # ------------------------------------------------------------------ plan
 
@@ -64,16 +87,37 @@ class FPPSession:
              schedule: str = "priority",
              backend: str = "engine",
              yield_config: Optional[YieldConfig] = None,
-             fused: object = False) -> "FPPSession":
+             fused: object = False,
+             tune: bool = False,
+             tune_sources: Optional[np.ndarray] = None,
+             tune_kind: str = "sssp") -> "FPPSession":
         """Resolve the execution plan from the memory model; chainable.
 
         ``fused`` may be True/False (a blanket visit-body choice) or
         ``"auto"``: each run then picks the body per kind from the
-        committed dispatch yardsticks (``planner.auto_fused``)."""
-        self._plan = _planner.make_plan(
+        committed dispatch yardsticks (``planner.auto_fused``).
+
+        ``tune=True`` (without ``block_size``) runs ``tune_kind`` on a
+        query sample (``tune_sources``, default: the first 8 vertices
+        with out-edges) at every block size the memory model
+        admits for this plan, and keeps the one with the least modeled
+        traffic (``planner.autotune_block_size``); the plan records the
+        rows."""
+        p = _planner.make_plan(
             self.graph, num_queries, mem=self.mem, block_size=block_size,
             method=method, schedule=schedule, backend=backend,
             yield_config=yield_config, fused=fused)
+        self._plan = p
+        if tune and block_size is None:
+            if tune_sources is None:
+                cand = np.flatnonzero(self.graph.out_degree() > 0)
+                tune_sources = cand[:min(8, cand.size)]
+            best, rows = _planner.autotune_block_size(
+                self, tune_kind, np.asarray(tune_sources), self.mem,
+                num_queries=num_queries, fused=fused is True)
+            self._plan = dataclasses.replace(
+                p, block_size=best, tuned=True,
+                tuning_rows=tuple(tuple(sorted(r.items())) for r in rows))
         return self
 
     @property
@@ -98,7 +142,8 @@ class FPPSession:
         key = (bs, meth, variant)
         with self._prepare_lock:
             if key not in self._prepared:
-                g = reweight(self.graph, variant)
+                stride = self.kreach_stride if variant == "shift" else None
+                g = reweight(self.graph, variant, stride=stride)
                 self._prepared[key] = partition(g, bs, method=meth)
             return self._prepared[key]
 
@@ -113,13 +158,22 @@ class FPPSession:
             alpha: float = 0.15, eps: float = 1e-4,
             max_visits: Optional[int] = None,
             fused: Optional[bool] = None,
-            frontier_mode: str = "dense") -> SessionResult:
+            frontier_mode: str = "dense", k: int = 8) -> SessionResult:
         """Execute one query batch.  Sources and values use original ids.
 
         ``fused`` defaults to the plan's setting (``plan(fused=True)``);
         pass it explicitly to override per run.  ``frontier_mode="sparse"``
         lets the fused kernel skip all-+inf source columns (minplus kinds
         only).
+
+        The session resolves each kind's weight variant and decode: ``cc``
+        values come back as canonical min-original-id component labels
+        (identical across every lane and backend), ``kreach`` takes the hop
+        budget ``k`` (values = dist of the hop-minimal path within the
+        budget; residual = hop counts).  cc computes what the reference
+        computes on every graph; it is the weak components only on
+        symmetric input (on directed input it regroups forward min
+        labels).
         """
         sources = np.asarray(sources)
         p = self.current_plan
@@ -138,10 +192,35 @@ class FPPSession:
         out = _backends.run_query(
             bk, kind, bg, perm[sources], schedule=schedule or p.schedule,
             yield_config=yc, alpha=alpha, eps=eps, max_visits=max_visits,
-            fused=bool(fused), frontier_mode=frontier_mode,
+            fused=bool(fused), frontier_mode=frontier_mode, k=k,
+            hop_stride=(self.kreach_stride if kind == "kreach" else 1.0),
             device=self.device)
+        values = out.values[:, perm]          # back to original vertex ids
+        if kind == "cc":
+            values = _backends.canonicalize_cc(values)
         residual = None if out.residual is None else out.residual[:, perm]
-        return SessionResult(kind=kind, backend=bk,
-                             values=out.values[:, perm], residual=residual,
+        return SessionResult(kind=kind, backend=bk, values=values,
+                             residual=residual,
                              edges_processed=out.edges_processed,
                              stats=out.stats, sources=sources)
+
+    # --------------------------------------------------- paper applications
+
+    def bc(self, sources: np.ndarray, **run_kw):
+        """Approximate betweenness centrality from sampled BFS roots:
+        (bc [n] float64, the bfs run)."""
+        res = self.run("bfs", sources, **run_kw)
+        return bc_accumulate(self.graph, np.asarray(sources),
+                             res.values), res
+
+    def landmarks(self, landmarks: np.ndarray, **run_kw):
+        """Landmark labeling: one sssp per landmark, labels in original
+        ids."""
+        res = self.run("sssp", landmarks, **run_kw)
+        return LandmarkLabels(np.asarray(landmarks), res.values), res
+
+    def ncp(self, seeds: np.ndarray, *, alpha: float = 0.15,
+            eps: float = 1e-4, max_size: Optional[int] = None, **run_kw):
+        """Network community profile from a fleet of pprs."""
+        res = self.run("ppr", seeds, alpha=alpha, eps=eps, **run_kw)
+        return ncp_profile(self.graph, res.values, max_size=max_size), res

@@ -21,6 +21,19 @@
 // identity plane (+inf / 0); an index past nblk yields NaN so a corrupt
 // index cannot pass for a result.
 //
+// The gathered form: with xrow [S] (int64) given, x is [X, Q, B] and block
+// idx[s] contracts x[xrow[s]].  A baselines round contracts every block of
+// the graph against its source partition's rows in one launch this way
+// (xrow = blk_src); an xrow outside [0, X) yields NaN like an index past
+// nblk.  With xrow null every s reads the one x [Q, B].  A launch has at
+// most 65,535 s-slices of CTAs (gridDim.z); in the gathered form each CTA
+// walks s = blockIdx.z, blockIdx.z + gridDim.z, ... so a graph of more
+// blocks still runs in one launch.  The form is a template flag: the
+// visit's ungathered launches (S = 1 and S = dmax) keep a loop-free body
+// with no xrow test (the loop and the test each cost those launches time,
+// PERF.md section 6), and the wrapper sends an ungathered S past 65,535
+// through the gathered form.
+//
 // Design.  On the road graphs the port serves a 128 x 128 block holds ~4
 // finite entries per column, so the work is a few list entries per output
 // column, and a launch is a short chain of dependent loads:
@@ -69,7 +82,11 @@
 // 700.00 W limit: one min-plus launch takes 0.0023 ms at the road density
 // (S = 1 and S = 5 alike), 0.0033 ms with 25 % of the entries finite and
 // 0.0049 ms on fully finite blocks; the masked matmul 0.0022 / 0.0030 /
-// 0.0043 ms; an empty launch 0.0009 ms.
+// 0.0043 ms; an empty launch 0.0009 ms.  The gathered form at a baselines
+// round's shape (every block of the side-192 grid, S = 1,182, against its
+// source partition's rows, X = 288) moves ~50 MB: a bound of ~0.015 ms,
+// and ~37,800 CTAs of which ~6 fit an SM (each stages up to 4,096 entries);
+// its time is in PERF.md (chip_smoke.py phase 3d).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -85,6 +102,7 @@ constexpr int kRows = kWarps * kWarpRows;   // query rows per CTA
 constexpr int kThreads = kCols * kWarps;
 constexpr int kSegCap = 4096;    // list entries a CTA may stage
 constexpr int kSmemDefault = 48 * 1024;
+constexpr int kMaxGridZ = 65535;  // the largest gridDim.z a launch takes
 
 // Shared-memory slot of staged entry j: one padding word per 128 entries,
 // so the 32 columns of a fully finite 128-wide block start on 32 banks.
@@ -120,14 +138,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <bool kMinPlus>
-__global__ void __launch_bounds__(kThreads)
-list_contract_kernel(const float* __restrict__ x,
-                     const int64_t* __restrict__ idx,
-                     const int* __restrict__ col_ptr,
-                     const int* __restrict__ col_u,
-                     const float* __restrict__ col_w, float* __restrict__ out,
-                     int Q, int B, int64_t nblk, int seg_cap) {
+// One s-slice of a CTA's work: output rows [q0, q0 + kRows) and columns
+// [v0, v0 + kCols) of out[s].  Every return is taken by the whole CTA or
+// comes after its one __syncthreads.
+template <bool kMinPlus, bool kGather>
+__device__ __forceinline__ void contract_slice(
+    const float* __restrict__ x,
+    const int64_t* __restrict__ xrow, const int64_t* __restrict__ idx,
+    const int* __restrict__ col_ptr, const int* __restrict__ col_u,
+    const float* __restrict__ col_w, float* __restrict__ out, int s, int Q,
+    int B, int64_t X, int64_t nblk, int seg_cap) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                                          // [kRows, B]
   int* su = reinterpret_cast<int*>(smem + kRows * B);        // staged u
@@ -137,12 +157,17 @@ list_contract_kernel(const float* __restrict__ x,
   const int v0 = blockIdx.x * kCols, v = v0 + lane;
   const int nv = min(kCols, B - v0);
   const int q0 = blockIdx.y * kRows, nq = min(kRows, Q - q0);
-  const int s = blockIdx.z;
-  const int64_t k = __ldg(reinterpret_cast<const long long*>(idx) + s);
+  int64_t k = __ldg(reinterpret_cast<const long long*>(idx) + s);
+  int64_t xr = 0;
+  if (kGather) {
+    xr = __ldg(reinterpret_cast<const long long*>(xrow) + s);
+    if (k >= 0 && (xr < 0 || xr >= X)) k = nblk;  // a NaN plane, as past nblk
+    if (xr < 0 || xr >= X) xr = 0;                // and no read out of x
+  }
 
   // this CTA's rows of x, in flight while the block index and the bounds
   // load
-  const float* xq = x + static_cast<int64_t>(q0) * B;
+  const float* xq = x + (xr * Q + q0) * static_cast<int64_t>(B);
   const int n = nq * B;
   if (((reinterpret_cast<uintptr_t>(x) & 15) | (B & 3)) == 0) {
     for (int i = 4 * tid; i < n; i += 4 * kThreads)
@@ -200,59 +225,88 @@ list_contract_kernel(const float* __restrict__ x,
   }
 }
 
+template <bool kMinPlus, bool kGather>
+__global__ void __launch_bounds__(kThreads)
+list_contract_kernel(const float* __restrict__ x,
+                     const int64_t* __restrict__ xrow,
+                     const int64_t* __restrict__ idx,
+                     const int* __restrict__ col_ptr,
+                     const int* __restrict__ col_u,
+                     const float* __restrict__ col_w, float* __restrict__ out,
+                     int S, int Q, int B, int64_t X, int64_t nblk,
+                     int seg_cap) {
+  if (!kGather) {
+    contract_slice<kMinPlus, false>(x, xrow, idx, col_ptr, col_u, col_w, out,
+                                    blockIdx.z, Q, B, X, nblk, seg_cap);
+    return;
+  }
+  for (int s = blockIdx.z; s < S; s += gridDim.z) {
+    contract_slice<kMinPlus, true>(x, xrow, idx, col_ptr, col_u, col_w, out,
+                                   s, Q, B, X, nblk, seg_cap);
+    __syncthreads();   // the next slice's copies overwrite shared memory
+  }
+}
+
 template <bool kMinPlus>
-int launch(const void* x, const void* idx, const void* col_ptr,
-           const void* col_u, const void* col_w, void* out, int S, int Q,
-           int B, long long nblk, long long nnz, void* stream) {
+int launch(const void* x, const void* xrow, const void* idx,
+           const void* col_ptr, const void* col_u, const void* col_w,
+           void* out, int S, int Q, int B, long long X, long long nblk,
+           long long nnz, void* stream) {
   if (S <= 0 || Q <= 0 || B <= 0) return 0;
   // stage no more than the lists hold (a small graph's CTAs stay small)
   const int cap = static_cast<int>(
       nnz < kSegCap ? (nnz + kCols - 1) / kCols * kCols : kSegCap);
   const size_t smem = sizeof(float) * (static_cast<size_t>(kRows) * B +
                                        slot(cap) * (kMinPlus ? 2 : 1));
+  const bool gather = xrow != nullptr;
+  if (!gather && S > kMaxGridZ) return cudaErrorInvalidConfiguration;
+  auto kernel = gather ? list_contract_kernel<kMinPlus, true>
+                       : list_contract_kernel<kMinPlus, false>;
   // ask for the largest shared-memory carveout once, so several CTAs share
   // an SM when a launch has more CTAs than the card has SMs
-  static bool carveout_set = false;
-  if (!carveout_set) {
+  static bool carveout_set[2] = {false, false};
+  if (!carveout_set[gather]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        list_contract_kernel<kMinPlus>,
-        cudaFuncAttributePreferredSharedMemoryCarveout,
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
-    carveout_set = true;
+    carveout_set[gather] = true;
   }
   if (smem > kSmemDefault) {
     const cudaError_t e = cudaFuncSetAttribute(
-        list_contract_kernel<kMinPlus>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((B + kCols - 1) / kCols, (Q + kRows - 1) / kRows, S);
-  list_contract_kernel<kMinPlus>
-      <<<grid, dim3(kCols, kWarps), smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(x), static_cast<const int64_t*>(idx),
-          static_cast<const int*>(col_ptr), static_cast<const int*>(col_u),
-          static_cast<const float*>(col_w), static_cast<float*>(out), Q, B,
-          static_cast<int64_t>(nblk), cap);
+  const dim3 grid((B + kCols - 1) / kCols, (Q + kRows - 1) / kRows,
+                  S < kMaxGridZ ? S : kMaxGridZ);
+  kernel<<<grid, dim3(kCols, kWarps), smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int64_t*>(xrow),
+      static_cast<const int64_t*>(idx), static_cast<const int*>(col_ptr),
+      static_cast<const int*>(col_u), static_cast<const float*>(col_w),
+      static_cast<float*>(out), S, Q, B, static_cast<int64_t>(X),
+      static_cast<int64_t>(nblk), cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int fg_minplus(const void* x, const void* idx, const void* col_ptr,
-                          const void* col_u, const void* col_w, void* out,
-                          int S, int Q, int B, long long nblk, long long nnz,
+// xrow may be null (every s reads the one x [Q, B]); else x is [X, Q, B].
+extern "C" int fg_minplus(const void* x, const void* xrow, const void* idx,
+                          const void* col_ptr, const void* col_u,
+                          const void* col_w, void* out, int S, int Q, int B,
+                          long long X, long long nblk, long long nnz,
                           void* stream) {
-  return launch<true>(x, idx, col_ptr, col_u, col_w, out, S, Q, B, nblk, nnz,
-                      stream);
+  return launch<true>(x, xrow, idx, col_ptr, col_u, col_w, out, S, Q, B, X,
+                      nblk, nnz, stream);
 }
 
-extern "C" int fg_masked_matmul(const void* x, const void* idx,
-                                const void* col_ptr, const void* col_u,
-                                const void* col_w, void* out, int S, int Q,
-                                int B, long long nblk, long long nnz,
-                                void* stream) {
-  return launch<false>(x, idx, col_ptr, col_u, col_w, out, S, Q, B, nblk,
-                       nnz, stream);
+extern "C" int fg_masked_matmul(const void* x, const void* xrow,
+                                const void* idx, const void* col_ptr,
+                                const void* col_u, const void* col_w,
+                                void* out, int S, int Q, int B, long long X,
+                                long long nblk, long long nnz, void* stream) {
+  return launch<false>(x, xrow, idx, col_ptr, col_u, col_w, out, S, Q, B, X,
+                       nblk, nnz, stream);
 }

@@ -10,6 +10,13 @@ with block ``idx[s]``, or the identity plane (+inf / 0) where ``idx[s] <
 0``.  The visit's relax is ``S = 1``; its emission is one call over the
 partition's neighbour list.
 
+The gathered form, ``xrow=`` an int64 ``[S]``: ``x`` is ``[X, Q, B]`` and
+block ``idx[s]`` contracts ``x[xrow[s]]``.  A baselines round is one such
+call over every block of the graph (``xrow = blk_src``).  On the card an
+``xrow`` outside ``[0, X)`` gives a NaN plane, as an index past nblk does;
+on the CPU :func:`_check` rejects it (a range test on the card would read
+the device back, which a CUDA graph's capture does not allow).
+
 On a CUDA tensor a wrapper launches its hand-written kernel
 (``csrc/minplus.cu``), which walks the lists, on the current stream and
 adds one to its count in :data:`LAUNCHES`; the dense blocks are not read
@@ -35,6 +42,10 @@ from repro_torch.kernels.minplus.ref import masked_matmul_ref, minplus_ref
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {"minplus": 0, "masked_matmul": 0}
 
+#: s-slices one launch of the ungathered form takes (gridDim.z); past it
+#: the wrapper runs the gathered form, whose CTAs loop over s
+MAX_GRID_Z = 65_535
+
 _SYMBOLS = {"minplus": "fg_minplus", "masked_matmul": "fg_masked_matmul"}
 _fns: dict = {}
 
@@ -49,21 +60,31 @@ def _kernel(name: str):
     if fn is None:
         fn = getattr(_build.library("minplus"), _SYMBOLS[name])
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, ll, ll, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, ll, ll, ll, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
 def _check(x: torch.Tensor, blocks: Optional[torch.Tensor],
-           idx: torch.Tensor, lists) -> None:
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(f"x must be a float32 [Q, B]; got "
+           idx: torch.Tensor, lists,
+           xrow: Optional[torch.Tensor] = None) -> None:
+    want_dim, form = (2, "[Q, B]") if xrow is None else (3, "[X, Q, B]")
+    if x.dim() != want_dim or x.dtype != torch.float32:
+        raise ValueError(f"x must be a float32 {form}; got "
                          f"{tuple(x.shape)} {x.dtype}")
-    b = x.shape[1]
+    b = x.shape[-1]
     if idx.dim() != 1 or idx.dtype != torch.int64:
         raise ValueError(f"idx must be a 1-d int64 tensor; got "
                          f"{tuple(idx.shape)} {idx.dtype}")
+    if xrow is not None:
+        if xrow.dtype != torch.int64 or xrow.shape != idx.shape:
+            raise ValueError(f"xrow must be int64 {tuple(idx.shape)} like "
+                             f"idx; got {tuple(xrow.shape)} {xrow.dtype}")
+        if xrow.device.type == "cpu" and xrow.numel() and bool(
+                ((xrow < 0) | (xrow >= x.shape[0])).any()):
+            raise ValueError(f"xrow must lie in [0, {x.shape[0]}) (x's "
+                             f"rows); got {xrow.min()}..{xrow.max()}")
     if len(lists) != 3:
         raise ValueError("lists must be (col_ptr, col_u, col_w)")
     col_ptr, col_u, col_w = lists
@@ -78,6 +99,8 @@ def _check(x: torch.Tensor, blocks: Optional[torch.Tensor],
         raise ValueError(f"col_u and col_w must be [nnz] each; got "
                          f"{tuple(col_u.shape)} and {tuple(col_w.shape)}")
     tensors = [x, idx, col_ptr, col_u, col_w]
+    if xrow is not None:
+        tensors.append(xrow)
     if blocks is None:
         if x.device.type == "cpu":
             raise ValueError("the CPU path contracts the dense blocks; "
@@ -90,17 +113,28 @@ def _check(x: torch.Tensor, blocks: Optional[torch.Tensor],
                              f"{tuple(blocks.shape)} {blocks.dtype}")
         tensors.append(blocks)
     if len({t.device for t in tensors}) != 1:
-        raise ValueError(f"x, idx, the lists and blocks must share a "
-                         f"device; got {[str(t.device) for t in tensors]}")
+        raise ValueError(f"x, idx, xrow, the lists and blocks must share "
+                         f"a device; got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("x, idx, the lists and blocks must be contiguous")
+        raise ValueError("x, idx, xrow, the lists and blocks must be "
+                         "contiguous")
 
 
 def plain(name: str, x: torch.Tensor, blocks: torch.Tensor,
-          idx: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of kernel ``name``'s batched entry, on the
-    dense blocks, on any device: what the CPU path runs and what the
-    kernels are held against."""
+          idx: torch.Tensor,
+          xrow: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of kernel ``name``'s batched entry (and of
+    its gathered form, ``xrow``), on the dense blocks, on any device: what
+    the CPU path runs and what the kernels are held against."""
+    if xrow is not None:
+        # one slice per distinct row of x, each the ungathered entry on the
+        # blocks that read that row
+        out = torch.empty((idx.shape[0], *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        for r in torch.unique(xrow).tolist():
+            sel = torch.nonzero(xrow == r).squeeze(1)
+            out[sel] = plain(name, x[r], blocks, idx.index_select(0, sel))
+        return out
     w = blocks.index_select(0, idx.clamp(min=0))
     if name == "minplus":
         out, ident = minplus_ref(x, w), float("inf")
@@ -109,10 +143,10 @@ def plain(name: str, x: torch.Tensor, blocks: torch.Tensor,
     return torch.where((idx >= 0)[:, None, None], out, ident)
 
 
-def _run(name: str, x, blocks, idx, lists) -> torch.Tensor:
-    _check(x, blocks, idx, lists)
+def _run(name: str, x, blocks, idx, lists, xrow=None) -> torch.Tensor:
+    _check(x, blocks, idx, lists, xrow)
     if x.device.type == "cpu":
-        return plain(name, x, blocks, idx)
+        return plain(name, x, blocks, idx, xrow)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.device.index != torch.cuda.current_device():
@@ -120,12 +154,15 @@ def _run(name: str, x, blocks, idx, lists) -> torch.Tensor:
                          f"device is cuda:{torch.cuda.current_device()}")
     fn = _kernel(name)
     col_ptr, col_u, col_w = lists
-    (q, b), s = x.shape, idx.shape[0]
+    (q, b), s = x.shape[-2:], idx.shape[0]
+    if xrow is None and s > MAX_GRID_Z:
+        x, xrow = x[None], torch.zeros_like(idx)
     out = torch.empty((s, q, b), dtype=x.dtype, device=x.device)
-    rc = fn(x.data_ptr(), idx.data_ptr(), col_ptr.data_ptr(),
-            col_u.data_ptr(), col_w.data_ptr(), out.data_ptr(), s, q, b,
-            col_ptr.shape[0], col_u.shape[0],
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = fn(x.data_ptr(), None if xrow is None else xrow.data_ptr(),
+            idx.data_ptr(), col_ptr.data_ptr(), col_u.data_ptr(),
+            col_w.data_ptr(), out.data_ptr(), s, q, b,
+            1 if xrow is None else x.shape[0], col_ptr.shape[0],
+            col_u.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc}")
@@ -134,12 +171,16 @@ def _run(name: str, x, blocks, idx, lists) -> torch.Tensor:
 
 
 def minplus(x: torch.Tensor, blocks: Optional[torch.Tensor],
-            idx: torch.Tensor, lists) -> torch.Tensor:
-    """``out[s, q, v] = min_u x[q, u] + blocks[idx[s], u, v]``."""
-    return _run("minplus", x, blocks, idx, lists)
+            idx: torch.Tensor, lists,
+            xrow: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[s, q, v] = min_u x[q, u] + blocks[idx[s], u, v]`` (``x`` read
+    as ``x[xrow[s]]`` in the gathered form)."""
+    return _run("minplus", x, blocks, idx, lists, xrow)
 
 
 def masked_matmul(x: torch.Tensor, blocks: Optional[torch.Tensor],
-                  idx: torch.Tensor, lists) -> torch.Tensor:
-    """``out[s] = x @ isfinite(blocks[idx[s]])``, for finite ``x``."""
-    return _run("masked_matmul", x, blocks, idx, lists)
+                  idx: torch.Tensor, lists,
+                  xrow: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[s] = x @ isfinite(blocks[idx[s]])``, for finite ``x`` (read as
+    ``x[xrow[s]]`` in the gathered form)."""
+    return _run("masked_matmul", x, blocks, idx, lists, xrow)

@@ -283,6 +283,106 @@ def test_fused_on_card_equals_fused_on_cpu(card, kind):
     assert got.stats == want.stats
 
 
+@pytest.mark.parametrize("q,b,s", [(64, 128, 40), (7, 32, 9),
+                                   (1, 16, 70_000)])
+def test_gathered_kernels_match_plain_versions(card, q, b, s):
+    """The gathered form (``xrow``: block idx[s] contracts x[xrow[s]]),
+    one launch each, against its plain version: min-plus bitwise, the
+    masked matmul bitwise with the list order; past 65,535 slices the CTAs
+    walk s in a loop; an xrow outside [0, X) gives a NaN plane."""
+    rng = np.random.default_rng(s)
+    X, nblk = 6, 5
+    d = np.where(rng.random((X, q, b)) < 0.4, np.inf,
+                 rng.uniform(0, 10, (X, q, b)))
+    x = np.where(rng.random((X, q, b)) < 0.4, 0.0,
+                 rng.uniform(0, 1, (X, q, b)))
+    w = np.where(rng.random((nblk, b, b)) < 4.0 / b,
+                 rng.uniform(1, 5, (nblk, b, b)), np.inf)
+    d, x, w = (torch.tensor(a, dtype=torch.float32) for a in (d, x, w))
+    lists = tuple(torch.from_numpy(a) for a in column_lists(w.numpy()))
+    on_card = tuple(a.to(card) for a in lists)
+    idx = torch.from_numpy(rng.integers(-1, nblk, s))
+    xrow = torch.from_numpy(rng.integers(0, X, s))
+    ops.reset_launches()
+    got = ops.minplus(d.to(card), None, idx.to(card), on_card,
+                      xrow=xrow.to(card))
+    if s < 1000:
+        assert torch.equal(got.cpu(), ops.minplus(d, w, idx, lists,
+                                                  xrow=xrow))
+    else:
+        # the plain version's per-row loop, on the first and last slices
+        for t in (0, 1, s - 2, s - 1):
+            assert torch.equal(got[t].cpu(), ops.minplus(
+                d[xrow[t]], w, idx[t:t + 1], lists)[0])
+    got = ops.masked_matmul(x.to(card), None, idx.to(card), on_card,
+                            xrow=xrow.to(card))
+    for t in (range(s) if s < 1000 else (0, 1, s - 2, s - 1)):
+        assert torch.equal(got[t].cpu(), list_contract_ref(
+            "masked_matmul", x[xrow[t]], *lists, idx[t:t + 1])[0])
+    assert ops.LAUNCHES == {"minplus": 1, "masked_matmul": 1}
+    if s > ops.MAX_GRID_Z:
+        # the ungathered form past gridDim.z's limit: the wrapper sends it
+        # through the gathered form, still one launch
+        got = ops.minplus(d[0].to(card), None, idx.to(card), on_card)
+        for t in (0, s - 1):
+            assert torch.equal(got[t].cpu(), ops.minplus(
+                d[0], w, idx[t:t + 1], lists)[0])
+        assert ops.LAUNCHES["minplus"] == 2
+    bad = torch.tensor([0, X, -1], device=card)
+    out = ops.minplus(d.to(card), None, torch.tensor([0, 1, 2], device=card),
+                      on_card, xrow=bad)
+    assert out[1].isnan().all() and not out[0].isnan().any()
+
+
+@pytest.mark.parametrize("kind", ["sssp", "bfs", "ppr", "cc", "kreach"])
+def test_baselines_on_card_equal_cpu(card, kind):
+    """One gathered launch per round; the minplus kinds bitwise equal to
+    the CPU and to the engine, ppr at the masked-matmul tolerance."""
+    from repro_torch.fpp import FPPSession
+    from repro_torch.kernels.minplus import ops as mops
+    g = grid2d(16, 16, seed=2)
+    srcs = np.array([0, 17, 130, 255])
+    runs, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        sess = FPPSession(g, device=dev).plan(num_queries=4, block_size=32)
+        mops.reset_launches()
+        runs[dev] = sess.run(kind, srcs, backend="baselines")
+        launches[dev] = dict(mops.LAUNCHES)
+    a, b = runs["cuda"], runs["cpu"]
+    assert a.stats == b.stats
+    need = "masked_matmul" if kind == "ppr" else "minplus"
+    assert launches["cuda"][need] == a.stats["rounds"]
+    assert sum(launches["cuda"].values()) == a.stats["rounds"]
+    assert launches["cpu"] == {"minplus": 0, "masked_matmul": 0}
+    np.testing.assert_array_equal(a.edges_processed, b.edges_processed)
+    if kind == "ppr":
+        np.testing.assert_allclose(a.values, b.values, **MM_TOL)
+        return
+    np.testing.assert_array_equal(a.values, b.values)
+    eng = FPPSession(g, device=card).plan(num_queries=4,
+                                          block_size=32).run(kind, srcs)
+    np.testing.assert_array_equal(a.values, eng.values)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kind", ["cc", "kreach"])
+def test_cc_kreach_on_card_bitwise_equal_cpu(card, kind, fused):
+    """cc (on a graph of many components) and kreach on the card equal the
+    CPU run in values, hops, edges and stats, unfused and fused."""
+    from repro_torch.fpp import FPPSession
+    from repro_torch.graphs.generators import erdos_renyi
+    g = erdos_renyi(400, avg_deg=1.5, seed=3)
+    srcs = np.array([0, 17, 130, 255])
+    a, b = (FPPSession(g, device=dev).plan(num_queries=4, block_size=32,
+                                           fused=fused).run(kind, srcs, k=5)
+            for dev in (card, "cpu"))
+    np.testing.assert_array_equal(a.values, b.values)
+    if kind == "kreach":
+        np.testing.assert_array_equal(a.residual, b.residual)
+    np.testing.assert_array_equal(a.edges_processed, b.edges_processed)
+    assert a.stats == b.stats
+
+
 #: flash attention on the card against its plain version on the card.
 #: bf16 (tensor-core kernel): p rounded to bf16 for p.v moves an output by
 #: at most 2^-9 max|v|, on top of one bf16 ulp of the unit-scale output (a

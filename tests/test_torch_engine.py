@@ -183,10 +183,10 @@ def test_convert_mid_run_state_one_megastep_chunk():
 
 
 @pytest.mark.parametrize("call,roadmap", [
-    (lambda s: s.run("cc", SRCS), "A6"),
-    (lambda s: s.run("kreach", SRCS), "A6"),
+    (lambda s: s.run("rw", SRCS, backend="baselines"), "A8"),
+    (lambda s: s.run("cc", SRCS, backend="distributed"), "A10"),
     (lambda s: s.run("rw", SRCS), "A8"),
-    (lambda s: s.run("sssp", SRCS, backend="baselines"), "A5"),
+    (lambda s: s.run("sssp", SRCS, schedule="random", fused=True), "A8"),
     (lambda s: s.run("sssp", SRCS, backend="distributed"), "A10"),
     (lambda s: s.run("sssp", SRCS, schedule="random"), "A8"),
 ])

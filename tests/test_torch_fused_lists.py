@@ -207,9 +207,9 @@ def test_unfused_visit_hands_the_lists_to_both_contractions(kind,
     calls = []
     run = mops._run
 
-    def spy(name, x, blocks, idx, lists):
+    def spy(name, x, blocks, idx, lists, xrow=None):
         calls.append((name, idx.shape[0]))
-        assert blocks is eng.dg.blocks
+        assert blocks is eng.dg.blocks and xrow is None
         assert all(a is b for a, b in zip(lists, eng.dg.lists))
         return run(name, x, blocks, idx, lists)
 
