@@ -27,7 +27,12 @@ Phases, each of which fails the run on any error:
               kernels' gathered form (``xrow``) at a baselines round's
               shape on the main path's graph (every block against its
               source partition's rows), bitwise as above, timed beside the
-              empty launch
+              empty launch.  3c also runs the fused visit's random policy
+              over the chunk (the threefry key split in the kernel),
+              bitwise against its plain version or the unfused card
+              megastep, key included, and times it.  3e: ``fg_threefry``
+              over 2^20 counters and at the walk tape's and the split's
+              shapes, bitwise against its plain version, timed
   4. parity   the engine on the card against the engine on the CPU
               (grid2d(32, 32), B=32, Q=16): sssp, bfs, cc and kreach
               bitwise in values, hops, edges, stats and visit order; ppr
@@ -60,7 +65,15 @@ Phases, each of which fails the run on any error:
               (ppr within 4·eps·deg); ``plan(tune=True, fused=True)`` on 8
               sources; the applications: bc on 16 sources bitwise equal to
               ``bc_accumulate`` on scipy's levels, landmarks equal to the
-              sssp values, ncp's profile
+              sssp values, ncp's profile.  5d: rw (length 32) on the engine
+              and baselines backends, bitwise equal to each other, to the
+              CPU and (8 walkers) to ``oracles.random_walk``, one threefry
+              launch a step round; the random schedule fused (sssp bitwise
+              the priority run's, ppr within 4·eps·deg, one launch and one
+              read a chunk) and unfused at RANDOM_SIDE (the fused kernel's
+              visit order); staggered streams (24 sources, 3 chunks, 40
+              more: fused sssp and ppr, unfused sssp at RANDOM_SIDE, rw
+              through 16 lanes) against the one-shot runs
   6. flash    the flash-attention kernels against their plain version on
               the card at the LM path's shapes (starcoder2-7b: H=36, Hkv=4,
               hd=128; (Sq, Skv, q_offset) = (512, 512, 0), (3000, 3000, 0),
@@ -79,7 +92,9 @@ Phases, each of which fails the run on any error:
               card against the CPU (float32 compute, same tokens), and each
               prompt's prefill traced for the flash kernel's share: every
               attention kernel there must be the tensor-core one
-  8. report   the kernel table as one JSON line, then the result line
+  8. report   fg_threefry's line and the kernel table as JSON lines (each
+              kernel launched at least once on the paths), then the
+              result line
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
 result line when there is no CUDA device or the port is not beside it.
@@ -104,6 +119,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_F32_INSTR_PER_S = PEAK_F32_OPS_PER_S / 2
+#: int32 rate: an H100 SM has 64 INT32 lanes against 128 FP32 ones
+#: (NVIDIA's Hopper architecture white paper)
+PEAK_INT32_OPS_PER_S = PEAK_F32_INSTR_PER_S / 2
+#: integer operations of one threefry-2x32 hash: the key schedule's two
+#: xors, two initial adds, 20 rounds of add, rotate (one funnel shift) and
+#: xor, five injections of three adds; and of jax's uniform from its words
+#: (xor, shift, or, subtract)
+THREEFRY_OPS, UNIFORM_OPS = 79, 4
+#: counters of phase 3's threefry check and timing
+THREEFRY_N = 1 << 20
 
 #: grid side of the main path's graph (a cut of the paper's road graphs,
 #: see PERF.md section 4)
@@ -114,6 +139,10 @@ SIDE = 192
 #: which the host-paced unfused dispatch would need over a minute for; cc
 #: takes 288 visits there (PERF.md section 4)
 UNFUSED_SIDE = {"cc": SIDE, "kreach": 64}
+#: grid side of phase 5d's unfused random-schedule and streaming runs:
+#: unfused sssp takes 77-104 s at side 192 under priority, and the random
+#: schedule ~2.2 times priority's visits (PERF.md section 5)
+RANDOM_SIDE = 64
 
 #: the LM serving path (PERF.md section 4): full width and depth, random
 #: weights from a seeded generator on the card
@@ -142,6 +171,8 @@ PEAK_BF16_FLOPS_PER_S = 989e12
 
 #: ppr's eps on every path of this script
 PPR_EPS = 1e-4
+#: the seed of every random schedule and random walk of this script
+RANDOM_SEED = 0
 #: masked-matmul tolerance against float32 matmul: sums reassociate.  The
 #: card-vs-CPU ppr comparison uses it too: both sides run the port's code,
 #: and only the spread's summation order differs between them
@@ -565,6 +596,50 @@ def phase_tiles(torch, rng) -> dict:
     return rows
 
 
+def phase_threefry(torch) -> dict:
+    """Phase 3e: ``fg_threefry`` over THREEFRY_N counters (``prng.uniform``
+    of one key, the random policy's draw at a larger shape) against its
+    plain version on the card, bitwise, and timed; then the walk tape's
+    draw (two fold_ins and a uniform per element) and ``split`` at the
+    shapes the paths give them (64 walkers, one key)."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry.ref import draw_ref
+
+    dev = torch.device("cuda")
+    key = prng.PRNGKey(0, dev)
+    got = prng.uniform(key, (THREEFRY_N,))
+    want = draw_ref(key, THREEFRY_N, uniform=True)
+    if not torch.equal(got, want):
+        raise AssertionError("fg_threefry's uniform differs from the plain "
+                             "version")
+    src = torch.arange(0, 64 * 571, 571, device=dev)
+    step = torch.arange(64, device=dev) % 32
+    if not torch.equal(prng.tape_uniform(key, src, step),
+                       draw_ref(key, 64, folds=(src, step), iota=False,
+                                uniform=True)):
+        raise AssertionError("fg_threefry's tape draw differs from the "
+                             "plain version")
+    if not torch.equal(prng.split(key), torch.stack(draw_ref(key, 2), 1)):
+        raise AssertionError("fg_threefry's split differs from the plain "
+                             "version")
+    ms = device_ms(torch, lambda: prng.uniform(key, (THREEFRY_N,)), iters=50)
+    plain_ms = eager_ms(torch, lambda: draw_ref(key, THREEFRY_N,
+                                                uniform=True), iters=5,
+                        warmup=2)
+    t_bytes = (4.0 * THREEFRY_N + 16) / PEAK_BYTES_PER_S
+    t_ops = (THREEFRY_OPS + UNIFORM_OPS) * THREEFRY_N / PEAK_INT32_OPS_PER_S
+    row = {"name": "threefry", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/threefry.cu",
+           "replaces": None, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "n": THREEFRY_N,
+           "ms_is": f"card ms per launch, uniform over {THREEFRY_N} "
+                    f"counters, CUDA graph"}
+    log("kernel threefry: " + json.dumps(row))
+    return row
+
+
 def _clone_state(state):
     from repro_torch.core.visit import VisitState
     return VisitState(tuple(x.clone() for x in state.planes),
@@ -617,6 +692,7 @@ def phase_fused_kernel(torch) -> dict:
     captured in a CUDA graph and replayed between CUDA events at each
     cluster size (card ms per visit), and at the path's cluster size as
     K one-visit launches and, for min-plus, with the sparse frontier."""
+    from repro_torch.core import prng
     from repro_torch.core.engine import FPPEngine
     from repro_torch.core.visit import make_megastep, minplus_algebra
     from repro_torch.fpp import FPPSession, planner
@@ -774,6 +850,57 @@ def phase_fused_kernel(torch) -> dict:
                 torch, lambda: fvs.launch(static, stats, counter, K, path_c),
                 reset, lambda: int(stats[0]))
             extra["ms_sparse"] = total_ms / visits
+
+        # the random policy over the same chunk at the path's cluster size
+        # (the threefry key split in the kernel, once a visit): bitwise
+        # against K visits of its plain version (min-plus) or of the
+        # unfused card megastep (push), the carried key included; timed
+        fvr = make_fused_visit(dg, eng.algebra, eng.max_rounds, K=K,
+                               policy="random")
+        key0 = prng.PRNGKey(RANDOM_SEED, "cuda")
+        want, wkey = _clone_state(state), key0.clone()
+        wstats = fvr.new_stats(want)
+        if mode == "minplus":
+            for _ in range(K):
+                fvr.ref(want, wstats, counter, wkey)
+        else:
+            mega = make_megastep(dg, eng.algebra, eng.max_rounds,
+                                 policy="random", K=K)
+            want, ms = mega(want, counter, K, key0)
+            wkey = ms.key
+            wstats[0], wstats[1] = ms.visits, ms.rounds
+            wstats[-K:] = ms.order
+        got, gkey = _clone_state(state), key0.clone()
+        gstats = fvr.new_stats(got)
+        fvr.launch(got, gstats, counter, K, path_c, gkey)
+        torch.cuda.synchronize()
+        P = dg.num_parts
+        planes = (lambda x: (*x.planes, x.buf[:P], x.prio[:P],
+                             x.ops_count[:P], x.stamp[:P]))
+        if not (int(gstats[0]) == K and torch.equal(gkey, wkey)
+                and same(planes(got), planes(want))
+                and torch.equal(gstats[:2], wstats[:2])
+                and torch.equal(gstats[-K:], wstats[-K:])):
+            raise AssertionError(f"fused {kind} random: one chunk's launch "
+                                 f"differs from "
+                                 + ("its plain version" if mode == "minplus"
+                                    else "the unfused card megastep"))
+        log(f"kernel fused_visit {kind} random: one chunk launch (cluster "
+            f"{path_c}) bitwise equal to "
+            + ("its plain version" if mode == "minplus" else
+               "the unfused card megastep")
+            + ", order " + json.dumps(gstats[-K:][:8].tolist()) + "...")
+        rkey = key0.clone()
+
+        def reset_random():
+            reset()
+            rkey.copy_(key0)
+
+        total_ms, visits = replay_ms(
+            torch, lambda: fvr.launch(static, stats, counter, K, path_c,
+                                      rkey),
+            reset_random, lambda: int(stats[0]))
+        extra["ms_random"] = total_ms / visits
 
         # the plain version over the same chunk, host clock
         reset()
@@ -1258,6 +1385,194 @@ def phase_kinds(torch, counters, ctx, launches) -> None:
     log(f"app ncp (64 seeds): {wall:.3f} s, profile "
         + json.dumps([None if not np.isfinite(v) else float(v)
                       for v in prof]))
+
+
+def phase_random(torch, counters, ctx, launches) -> None:
+    """Phase 5d: rw, the random policy and streaming at 64 queries on the
+    main path's graph.  rw (length 32, the session's default) on the
+    engine and baselines backends: bitwise equal to each other, to the
+    CPU and, on 8 walkers, to ``oracles.random_walk``; one threefry launch
+    a step round.  The random schedule, fused: sssp bitwise equal to the
+    priority run, ppr within 4·eps·deg; unfused at :data:`RANDOM_SIDE`:
+    the fused run's visit order.  Streaming: 24 sources, 3
+    chunks, 40 more; fused sssp bitwise and ppr within 4·eps·deg of the
+    one-shot union, one launch and one read per chunk; unfused sssp at
+    side 64 bitwise; rw through 16 lanes bitwise equal to ``run("rw")``.
+    Each run's counts are reset just before it and read just after, and
+    added to ``launches``."""
+    from repro_torch.core import oracles
+    from repro_torch.core.engine import FPPEngine
+    from repro_torch.fpp import FPPSession, planner
+    from repro_torch.graphs.generators import grid2d
+
+    Q, K, LEN = 64, 64, 32
+    sess, fsess, srcs = ctx["sess"], ctx["fsess"], ctx["srcs"]
+    answers, g = ctx["answers"], fsess.graph
+    deg = np.maximum(g.out_degree(), 1)
+
+    def add(counts):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    def drive(label, fn):
+        counters.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = counters.read()
+        add(counts)
+        return out, counts, wall
+
+    def only(counts, **want):
+        got = {k: v for k, v in counts.items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"launches {got}, want {want}")
+
+    # rw on both backends, card against CPU and against the oracle replay
+    csess = FPPSession(g, device="cpu").plan(num_queries=Q)
+    runs = {}
+    for bk in ("engine", "baselines"):
+        res, counts, wall = drive(f"rw {bk}", lambda: sess.run(
+            "rw", srcs, backend=bk, length=LEN, seed=RANDOM_SEED))
+        st = res.stats
+        only(counts, threefry=st["rounds"])
+        runs[bk] = res
+        log(f"path rw {bk}: " + json.dumps({
+            "Q": Q, "length": LEN, **st, "wall_s": wall,
+            "launches": counts}))
+        cpu = csess.run("rw", srcs, backend=bk, length=LEN,
+                        seed=RANDOM_SEED)
+        if not (np.array_equal(res.values, cpu.values)
+                and np.array_equal(res.edges_processed,
+                                   cpu.edges_processed)
+                and res.stats == cpu.stats):
+            raise AssertionError(f"rw {bk}: card and CPU differ")
+    a, b = runs["engine"], runs["baselines"]
+    if not (np.array_equal(a.values, b.values)
+            and np.array_equal(a.edges_processed, b.edges_processed)):
+        raise AssertionError("rw: engine and baselines walks differ")
+    if not (a.values.sum(axis=1) == LEN + 1).all():
+        raise AssertionError("rw: an occupancy row does not count the "
+                             "start and every step")
+    walks = sess.random_walks(srcs, LEN, seed=RANDOM_SEED)
+    cwalks = csess.random_walks(srcs, LEN, seed=RANDOM_SEED)
+    for f in ("positions", "steps", "trajectory_hash", "occupancy"):
+        if not np.array_equal(getattr(walks, f), getattr(cwalks, f)):
+            raise AssertionError(f"random_walks {f}: card and CPU differ")
+    bg, perm = sess.prepared()
+    for i in range(8):
+        path = oracles.random_walk(bg, int(perm[srcs[i]]), LEN,
+                                   seed=RANDOM_SEED)
+        if not (np.array_equal(np.bincount(path, minlength=g.n),
+                               walks.occupancy[i])
+                and path[-1] == perm[walks.positions[i]]):
+            raise AssertionError(f"rw walker {i} differs from "
+                                 f"oracles.random_walk")
+    log("rw: engine and baselines bitwise equal, card equal to the CPU "
+        "(positions, steps, hashes, occupancy), 8 walkers equal to "
+        "oracles.random_walk")
+
+    # the random schedule, fused, against the priority runs
+    for kind in ("sssp", "ppr"):
+        res, counts, wall = drive(f"fused random {kind}", lambda: fsess.run(
+            kind, srcs, eps=PPR_EPS, schedule="random"))
+        st = res.stats
+        add({"ppr_push_in_fused" if kind == "ppr" else "frontier_in_fused":
+             counts["fused_visit"]})
+        only(counts, fused_visit=st["host_syncs"])
+        if st["device_syncs"] != st["host_syncs"]:
+            raise AssertionError(f"fused random {kind}: more than one read "
+                                 f"a chunk")
+        ref = answers[kind]
+        if kind == "sssp" and not np.array_equal(res.values, ref.values):
+            raise AssertionError("fused random sssp differs from the "
+                                 "priority run")
+        if kind == "ppr" and (np.abs(res.values - ref.values)
+                              / deg).max() > 4 * PPR_EPS:
+            raise AssertionError("fused random ppr is more than 4 eps deg "
+                                 "from the priority run")
+        log(f"path fused random {kind}: " + json.dumps({
+            "Q": Q, **st, "wall_s": wall, "priority_visits":
+            ref.stats["visits"], "launches": counts}))
+
+    # unfused random sssp, its visit order against the fused one
+    side = RANDOM_SIDE
+    gu = grid2d(side, side, seed=0)
+    su = np.random.default_rng(0).choice(gu.n, Q, replace=False)
+    usess = FPPSession(gu, device="cuda").plan(num_queries=Q)
+    bgu, permu = usess.prepared()
+    yc = planner.default_yield_config("sssp", bgu)
+    orders = {}
+    for fused in (False, True):
+        res, counts, wall = drive(
+            f"random sssp side {side}", lambda: FPPEngine(
+                bgu, num_queries=Q, yield_config=yc, schedule="random",
+                seed=RANDOM_SEED, fused=fused, device="cuda").run(
+                    permu[su], record_order=True))
+        st = res.stats._asdict()
+        orders[fused] = res
+        if fused:
+            add({"frontier_in_fused": counts["fused_visit"]})
+            only(counts, fused_visit=st["host_syncs"])
+        else:
+            only(counts, minplus=st["rounds"] + st["visits"],
+                 threefry=2 * st["visits"])
+        log(f"path {'fused ' if fused else ''}random sssp side {side}: "
+            + json.dumps({"Q": Q, **st, "wall_s": wall,
+                          "launches": counts}))
+    a, b = orders[False], orders[True]
+    if not (a.visit_order == b.visit_order
+            and np.array_equal(a.values, b.values)):
+        raise AssertionError(f"random sssp side {side}: the unfused order "
+                             f"or values differ from the fused run's")
+    log(f"random sssp side {side}: unfused visit order ({len(a.visit_order)}"
+        f" visits) bitwise equal to the fused kernel's")
+
+    # streaming: 24 sources, three chunks, 40 more
+    def staggered(ex, sources):
+        qids = ex.submit(sources[:24])
+        ex.pump(3 * K)
+        qids += ex.submit(sources[24:])
+        out = ex.run()
+        return ex, np.stack([out[q] for q in qids])
+
+    cases = [("sssp", fsess, True, srcs, answers["sssp"].values),
+             ("ppr", fsess, True, srcs, answers["ppr"].values),
+             ("sssp", usess, False, su, None)]
+    for kind, ss, fused, sources, want in cases:
+        (ex, got), counts, wall = drive(
+            f"stream {kind}", lambda: staggered(ss.stream(
+                kind, capacity=Q, eps=PPR_EPS, fused=fused, k_visits=K),
+                sources))
+        label = f"stream {'fused ' if fused else ''}{kind}" + (
+            "" if ss is fsess else f" side {side}")
+        if ex.host_syncs > -(-ex.visits // K) + 4:
+            raise AssertionError(f"{label}: {ex.host_syncs} host syncs for "
+                                 f"{ex.visits} visits")
+        if fused:
+            tile = "ppr_push" if kind == "ppr" else "frontier"
+            add({tile + "_in_fused": counts["fused_visit"]})
+            only(counts, fused_visit=ex.host_syncs)
+        if want is None:
+            want = ss.run(kind, sources).values
+        if kind == "ppr":
+            ok = (np.abs(got - want) / deg).max() <= 4 * PPR_EPS
+        else:
+            ok = np.array_equal(got, want)
+        if not ok:
+            raise AssertionError(f"{label} differs from the one-shot run")
+        log(f"path {label}: " + json.dumps({
+            "Q": Q, "visits": ex.visits, "host_syncs": ex.host_syncs,
+            "wall_s": wall, "launches": counts}))
+    (ex, got), counts, wall = drive("stream rw", lambda: staggered(
+        sess.stream("rw", capacity=16, length=LEN, seed=RANDOM_SEED), srcs))
+    if not np.array_equal(got, runs["engine"].values):
+        raise AssertionError("stream rw differs from run('rw')")
+    log("path stream rw (16 lanes): " + json.dumps({
+        "Q": Q, "visits": ex.visits, "host_syncs": ex.host_syncs,
+        "wall_s": wall, "launches": counts}))
 
 
 #: the fused visit's kernels in a profiler trace (one per algebra, each
@@ -1798,7 +2113,8 @@ class Counters:
         from repro_torch.kernels.fused_visit import ops as fvops
         from repro_torch.kernels.minplus import ops as mops
         from repro_torch.kernels.ppr_push import ops as pops
-        self.mods = (mops, fops, pops, fvops, faops)
+        from repro_torch.kernels.threefry import ops as tfops
+        self.mods = (mops, fops, pops, fvops, faops, tfops)
 
     def reset(self) -> None:
         for m in self.mods:
@@ -1860,10 +2176,13 @@ def main() -> int:
     krows.update(timed("3b tiles", phase_tiles, torch, rng))
     fused_rows = timed("3c fused kernel", phase_fused_kernel, torch)
     krows["fused_visit"] = {**fused_rows["sssp"], "push": fused_rows["ppr"]}
+    threefry = timed("3e threefry", phase_threefry, torch)
     timed("4 parity", phase_parity, Counters())
     launches, ctx = timed("5 path", phase_path, torch, Counters())
     timed("5c kinds, baselines, tune, apps", phase_kinds, torch, Counters(),
           ctx, launches)
+    timed("5d rw, random, streaming", phase_random, torch, Counters(), ctx,
+          launches)
     del ctx
     torch.cuda.empty_cache()
     krows["flash_attention"] = timed("6 flash", phase_flash, torch)
@@ -1914,7 +2233,7 @@ def main() -> int:
                             "CUDA graph), at the path's cluster size")
             row["launches_of"] = "one per K-visit chunk (= host_syncs)"
             extra = ("cluster", "ms_by_cluster", "ms_one_launch_per_visit",
-                     "bytes_per_visit",
+                     "ms_random", "bytes_per_visit",
                      "dense_tile_bytes_per_visit", "dense_tile_bound_ms")
             row.update({k: krows[name][k] for k in extra})
             row["ms_sparse"] = krows[name]["ms_sparse"]
@@ -1930,6 +2249,16 @@ def main() -> int:
             row["f32"] = {"kernel": "flash_fp32_kernel", "launches": 0,
                           **{k: krows[name]["f32"][k] for k in keys}}
         table.append(row)
+    # fg_threefry is no port of a Pallas kernel (the reference leaves
+    # threefry to XLA): its own line, beside the table
+    threefry["launches"] = launches.get("threefry", 0)
+    threefry["launches_of"] = ("rw's step rounds (engine, baselines, "
+                               "streaming lanes) and the unfused random "
+                               "schedule's split and draw, 5d")
+    idle = [r["name"] for r in table + [threefry] if not r["launches"]]
+    if idle:
+        raise AssertionError(f"kernels of the path launched no time: {idle}")
+    log(json.dumps({"threefry": threefry}))
     log(json.dumps({"kernels": table}))
     log("phase seconds: " + json.dumps(phase_s))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

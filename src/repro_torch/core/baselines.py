@@ -1,8 +1,8 @@
 """GPS baselines the paper compares against, on the same block substrate.
 
-The port of the JAX package's ``repro.core.baselines`` (``global_minplus``
-and ``global_push``; ``global_random_walks`` waits for the threefry port,
-ROADMAP A8).  Both are synchronous global-frontier engines: every round
+The port of the JAX package's ``repro.core.baselines``: ``global_minplus``,
+``global_push`` and ``global_random_walks``.  The first two are
+synchronous global-frontier engines: every round
 streams *every* active block of the whole graph — the behaviour of
 Ligra/Gemini/GraphIt-style systems.  Two accounting modes mirror the
 paper's threading schemes:
@@ -25,7 +25,10 @@ the destination partitions: ``index_reduce_(..., "amin")`` for min-plus
 (order-free, so exact) and ``index_add_`` for push (its float sums
 reorder on the card, so baselines ppr is held at a tolerance).  Per round
 the host reads only the ``[P, Q]`` partition-activity plane the traffic
-model needs.
+model needs.  ``global_random_walks`` steps every live walker once per
+round for ``length`` rounds, on the same tape as the engine's walks
+(``core/randomwalk.py``), so its trajectories are the engine's bit for
+bit; it reads nothing back until the end.
 """
 from __future__ import annotations
 
@@ -37,6 +40,9 @@ import torch
 
 from repro_torch.core.engine import DeviceGraph
 from repro_torch.core.graph import BlockGraph
+from repro_torch.core.randomwalk import (WalkGraph, WalkResult,
+                                         init_walk_state, make_walk_stepper,
+                                         walk_result)
 from repro_torch.core.yielding import NO_YIELD
 from repro_torch.kernels.minplus import ops as minplus_ops
 
@@ -209,3 +215,29 @@ def global_push(bg: BlockGraph, sources: np.ndarray, alpha: float = 0.15,
     vals = p.cpu().numpy().transpose(1, 0, 2).reshape(Q, -1)[:, :bg.n]
     return BaselineResult(vals, edges.cpu().numpy().astype(np.float64),
                           rounds, traffic.unshared, traffic.shared)
+
+
+def make_walk_round(wg: WalkGraph, length: int, seed: int):
+    """The synchronous random-walk round: one tape entry for every live
+    walker at once (Ligra-style bulk stepping, no partition residency).
+    Same per-(source, step) tape as the engine's walks, so trajectories
+    are bitwise identical."""
+    step = make_walk_stepper(wg, length, seed)
+
+    def round_fn(pos, steps, part, src, thash, occ):
+        return step(pos, steps, part, src, thash, occ, steps < length)
+
+    return round_fn
+
+
+def global_random_walks(bg: BlockGraph, sources: np.ndarray, length: int,
+                        seed: int = 0, device=None) -> WalkResult:
+    """Synchronous bulk random walks: every live walker steps once per round
+    for ``length`` rounds — the inter-query baseline for the rw kind."""
+    wg = WalkGraph.build(bg, device)
+    round_fn = make_walk_round(wg, length, seed)
+    pos, steps, part, src, thash, occ = init_walk_state(wg, sources)
+    for _ in range(length):
+        pos, steps, part, thash = round_fn(pos, steps, part, src, thash, occ)
+    return walk_result(pos, steps, thash, occ, bg.n, visits=length,
+                       rounds=length, syncs=0)

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core import visit as _visit
 from repro_torch.core.graph import BlockGraph
 from repro_torch.core.oracles import decode_kreach
@@ -196,13 +197,16 @@ class FPPEngine:
     mode: "minplus" (SSSP/BFS), "push" (PPR), "cc" (over the zero-weight
     variant) or "kreach" (over the hop-shifted variant, ``hop_stride`` its
     shift S and ``hop_budget`` the hop limit k); ``device`` defaults to
-    CUDA (see :func:`resolve_device`).
+    CUDA (see :func:`resolve_device`).  ``seed`` seeds the ``random``
+    schedule: the megastep's threefry key ``PRNGKey(seed)``, carried
+    across chunks, and the host loop's numpy stream (the two differ, as in
+    the reference; scheduling never changes results).
     """
 
     def __init__(self, bg: BlockGraph, mode: str = "minplus",
                  yield_config: YieldConfig = YieldConfig(),
                  schedule: str = "priority", num_queries: int = 1,
-                 alpha: float = 0.15, eps: float = 1e-4,
+                 alpha: float = 0.15, eps: float = 1e-4, seed: int = 0,
                  k_visits: int = 64, fused: bool = False,
                  frontier_mode: str = "dense", hop_budget: int = 8,
                  hop_stride: float = 1.0, device=None):
@@ -218,12 +222,13 @@ class FPPEngine:
         self.mode = mode
         self.num_queries = num_queries
         self.hop_budget, self.hop_stride = int(hop_budget), float(hop_stride)
+        self.seed = int(seed)
         self.k_visits = int(k_visits)
         self.fused = bool(fused)
         self.frontier_mode = frontier_mode
         self.dg = DeviceGraph.build(bg, yield_config, num_queries, device)
         self.device = self.dg.device
-        self.scheduler = PartitionScheduler(schedule, bg.num_parts)
+        self.scheduler = PartitionScheduler(schedule, bg.num_parts, seed)
         max_rounds = yield_config.max_rounds or (
             bg.block_size if mode != "push" else 64)
         self.max_rounds = max_rounds
@@ -286,14 +291,16 @@ class FPPEngine:
         # edge counts leave the device as an exact (hi, lo) int32 pair per
         # chunk and accumulate here in float64
         edges = np.zeros(self.num_queries, dtype=np.float64)
+        key = prng.PRNGKey(self.seed, self.device)
         while visits < max_visits:
             limit = min(self.k_visits, max_visits - visits)
-            state, ms = self._megastep(state, visits, limit)
+            state, ms = self._megastep(state, visits, limit, key)
             syncs += 1
             dsyncs += ms.device_syncs
             v = ms.visits
             if v == 0:
                 break
+            key = ms.key
             edges += _visit.harvest_edges(ms.eq_hi.cpu().numpy(),
                                           ms.eq_lo.cpu().numpy())
             counts += ms.visit_counts.cpu().numpy().astype(np.int64)

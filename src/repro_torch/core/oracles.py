@@ -4,9 +4,9 @@ A numpy copy of the JAX package's ``repro.core.oracles`` (the port imports
 nothing of that package): Dijkstra (binary heap) for sssp, deque BFS (and
 its shortest-path counts for betweenness), Andersen-Chung-Lang push for
 ppr, union-find and min-label propagation for cc, and the hop-shifted
-Dijkstra with its decode for kreach.  Each also reports
-``edges_processed``.  The random-walk replay waits for the threefry port
-(ROADMAP A8).
+Dijkstra with its decode for kreach; each also reports
+``edges_processed``.  The random-walk replay (:func:`random_walk`) draws
+through the port's threefry stream (``core/prng``) on the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from repro_torch.core import prng
 from repro_torch.core.graph import CSRGraph
 
 
@@ -209,6 +210,43 @@ def kreach(g: CSRGraph, src: int, k: int,
                 heapq.heappush(heap, (nd, v))
     values, hops = decode_kreach(dist, stride, k)
     return values, hops, edges
+
+
+def random_walk(bg, src: int, length: int, seed: int = 0) -> np.ndarray:
+    """Sequential replay of one walker's tape over the block layout.
+
+    The randomness contract of the ``rw`` kind: at (source ``src``, step
+    ``t``) the walker draws ``u = uniform(fold_in(fold_in(PRNGKey(seed),
+    src), t))`` and takes the ``min(floor(u * deg), deg - 1)``-th finite
+    entry of its block-layout adjacency row (diagonal columns first, then
+    the ``nbr_blk`` slots in order).  Returns the visited positions (start
+    included, at most ``length + 1``; a walk parked on a sink ends there,
+    as the runtimes' occupancy planes count each visited position once).
+    """
+    base = prng.fold_in(prng.PRNGKey(seed), int(src))
+    B = bg.block_size
+    pos = int(src)
+    out = [pos]
+    for t in range(length):
+        p, loc = pos // B, pos % B
+        row = np.concatenate(
+            [bg.blocks[bg.diag_blk[p]][loc]]
+            + [np.where(bg.nbr_part[p, j] >= 0,
+                        bg.blocks[bg.nbr_blk[p, j]][loc], np.inf)
+               for j in range(bg.nbr_part.shape[1])])
+        finite = np.isfinite(row)
+        deg = int(finite.sum())
+        if deg == 0:
+            break
+        u = np.float32(prng.uniform(prng.fold_in(base, t)).item())
+        # f32 product, as the stepper computes it
+        idx = min(int(np.floor(u * np.float32(deg))), deg - 1)
+        col = int(np.flatnonzero(finite)[idx])
+        slot, local = col // B, col % B
+        dest_part = p if slot == 0 else int(bg.nbr_part[p, slot - 1])
+        pos = dest_part * B + local
+        out.append(pos)
+    return np.asarray(out, dtype=np.int64)
 
 
 def batch(fn, g: CSRGraph, sources) -> Dict[int, tuple]:

@@ -7,8 +7,8 @@ hop-shifted weights (lexicographic (hops, dist) packing, see
 ``oracles.kreach_stride``).  Every function takes sources in the
 *reordered* vertex id space of ``bg`` (``perm[old_id]`` from
 ``partition``); the weight-variant kinds expect ``bg`` built from the
-matching :func:`reweight` of the CSR.  ``run_rw`` waits for the threefry
-port (ROADMAP A8).
+matching :func:`reweight` of the CSR.  rw has its own buffered walker
+loop (``core/randomwalk.py``) over the natural graph.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import numpy as np
 from repro_torch.core.engine import EngineResult, FPPEngine
 from repro_torch.core.graph import BlockGraph, CSRGraph
 from repro_torch.core.oracles import kreach_stride
+from repro_torch.core.randomwalk import WalkResult, run_random_walks
 from repro_torch.core.yielding import YieldConfig, default_delta
 
 #: weight variant per kind; every other kind runs the natural weights
@@ -115,3 +116,9 @@ def run_kreach(bg_shift: BlockGraph, sources: np.ndarray, k: int,
                     schedule=schedule, hop_budget=k, hop_stride=stride,
                     device=device)
     return eng.run(np.asarray(sources), **run_kwargs)
+
+
+def run_rw(bg: BlockGraph, sources: np.ndarray, length: int = 32,
+           seed: int = 0, device=None) -> WalkResult:
+    return run_random_walks(bg, np.asarray(sources), length, seed=seed,
+                            device=device)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import prng
+
 POLICIES = ("priority", "fifo", "random", "max_ops")
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -58,13 +60,18 @@ class PartitionScheduler:
 
 
 def device_select(policy: str, prio: torch.Tensor, stamp: torch.Tensor,
-                  ops_count: torch.Tensor) -> torch.Tensor:
+                  ops_count: torch.Tensor,
+                  key: torch.Tensor | None = None) -> torch.Tensor:
     """On-device mirror of ``PartitionScheduler.select`` (the host oracle).
 
     Takes the ``[P]`` metadata (no trash slot) and returns the selected
     partition as a ``[1]`` int64 tensor.  The caller guarantees at least one
     finite-priority partition.  The deterministic policies reproduce the
-    host argmin/argmax bit for bit, first-index tie-breaking included.
+    host argmin/argmax bit for bit, first-index tie-breaking included;
+    ``random`` draws a uniform per partition under the threefry ``key``
+    (``core/prng``, the caller's sub-key) and takes the first argmax over
+    the non-empty ones, as the reference does.  The host scheduler's numpy
+    stream differs, but scheduling never changes results.
     """
     if policy == "priority":
         return torch.argmin(prio).view(1)
@@ -74,6 +81,9 @@ def device_select(policy: str, prio: torch.Tensor, stamp: torch.Tensor,
     if policy == "max_ops":
         return torch.argmax(torch.where(nonempty, ops_count, -1)).view(1)
     if policy == "random":
-        raise NotImplementedError(
-            "the random policy needs the threefry port (ROADMAP A8)")
+        if key is None:
+            raise ValueError("the random policy draws from a threefry key; "
+                             "pass key=")
+        u = prng.uniform(key, tuple(prio.shape))
+        return torch.argmax(torch.where(nonempty, u, -1.0)).view(1)
     raise ValueError(f"unknown scheduling policy {policy!r}")

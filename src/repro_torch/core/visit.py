@@ -51,6 +51,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.scheduler import POLICIES, device_select
 from repro_torch.kernels.fused_visit.ops import make_fused_visit
 from repro_torch.kernels.fused_visit.ref import split_stats
@@ -401,21 +402,46 @@ class MegastepStats(NamedTuple):
     eq_lo: torch.Tensor         # [Q] i32: low lane (< 2**EDGE_SHIFT)
     visit_counts: torch.Tensor  # [P] i32: visits per partition
     order: torch.Tensor         # [K] i32 visit-order ring (-1 = unused slot)
-    device_syncs: int           # exit-test reads this chunk
+    device_syncs: int           # reads back to the host this chunk
+    lane_pending: Optional[torch.Tensor]  # [Q] bool on the host: the query
+    #                             lane still has a pending op anywhere
+    #                             (harvest_mask=True only, else None)
+    key: Optional[torch.Tensor]  # threefry key to carry into the next chunk
+
+
+def _lane_pending(dg, algebra: VisitAlgebra, state: VisitState):
+    """[Q] bool on the state's device: lanes with a pending op anywhere."""
+    P = dg.num_parts
+    return algebra.pending(state.buf[:P], state.planes, dg.deg).any(
+        dim=2).any(dim=0)
 
 
 def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
-                  policy: str = "priority", K: int = 64, fused: bool = False,
+                  policy: str = "priority", K: int = 64,
+                  harvest_mask: bool = False, fused: bool = False,
                   frontier_mode: str = "dense") -> Callable:
     """Scheduling loop: up to K visits per host dispatch, the scheduler's
     choice made on the device from the ``[P]`` prio/stamp/ops planes.
 
-    Returns ``megastep(state, counter, limit) -> (state, stats)``:
-    ``counter`` is the global visit counter at chunk start, ``limit`` caps
-    this chunk at ``min(limit, K)`` visits, and the loop exits early when no
-    partition holds a pending op — ``stats.visits < limit`` is the host's
-    termination signal.  Edge counters carry an exact ``(hi, lo)`` int32
-    pair per query.
+    Returns ``megastep(state, counter, limit, key=None) -> (state,
+    stats)``: ``counter`` is the global visit counter at chunk start,
+    ``limit`` caps this chunk at ``min(limit, K)`` visits, and the loop
+    exits early when no partition holds a pending op — ``stats.visits <
+    limit`` is the host's termination signal.  Edge counters carry an exact
+    ``(hi, lo)`` int32 pair per query.
+
+    ``key`` is the threefry key (``core/prng``, int64 ``[2]`` on the
+    state's device) the ``random`` policy draws from; it is split once per
+    visit, and only under ``random`` (``key, sub = split(key)``, as the
+    reference's loop body), so a chunk that finds nothing pending leaves
+    it as it was and the order does not depend on K.  ``stats.key`` is the
+    key to carry into the next chunk; the argument is not changed.  Other
+    policies ignore it.
+
+    ``harvest_mask=True`` also reduces the per-query pending-lane mask of
+    the chunk-end state into ``stats.lane_pending`` (the streaming
+    executor's harvest): on the fused path it is read back in the same
+    transfer as the chunk's stats.
 
     ``fused=True`` runs the whole loop as one launch of the fused visit
     kernel (``kernels/fused_visit``): selection, up to ``min(limit, K)``
@@ -430,22 +456,24 @@ def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
     if policy not in POLICIES:
         raise ValueError(f"unknown scheduling policy {policy!r}; "
                          f"one of {POLICIES}")
-    if policy == "random":
-        raise NotImplementedError(
-            "the random policy needs the threefry port (ROADMAP A8)")
     if K < 1:
         raise ValueError(f"megastep chunk size K must be >= 1, got {K}")
     P = dg.num_parts
     if fused:
         return _make_fused_megastep(dg, algebra, max_rounds, policy, K,
-                                    frontier_mode)
+                                    frontier_mode, harvest_mask)
     if frontier_mode != "dense":
         raise ValueError(
             "frontier_mode is a fused-kernel switch; the unfused megastep "
             "always runs the dense frontier math")
     visit = make_visit(dg, algebra, max_rounds)
+    rand = policy == "random"
 
-    def megastep(state: VisitState, counter: int, limit: int):
+    def megastep(state: VisitState, counter: int, limit: int,
+                 key: Optional[torch.Tensor] = None):
+        if rand and key is None:
+            raise ValueError("the random policy draws from a threefry key; "
+                             "pass key=")
         limit_k = min(int(limit), K)
         Q, dev = state.buf.shape[1], state.buf.device
         hi = torch.zeros(Q, dtype=torch.int32, device=dev)
@@ -455,11 +483,14 @@ def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
         order = torch.full((K,), -1, dtype=torch.int32, device=dev)
         prio, stamp, ops = state.prio[:P], state.stamp[:P], state.ops_count[:P]
         k = rounds = syncs = 0
+        sub = None
         while k < limit_k:
             syncs += 1                     # the K-loop exit test, read back
             if not bool(torch.isfinite(prio).any()):
                 break
-            p = device_select(policy, prio, stamp, ops)
+            if rand:                       # only the random policy
+                key, sub = prng.split(key)  # consumes entropy
+            p = device_select(policy, prio, stamp, ops, sub)
             state, (r, eq, s) = visit(state, p, counter + k)
             rounds += r
             syncs += s
@@ -470,29 +501,45 @@ def make_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
             counts.index_add_(0, p, one)
             order[k:k + 1].copy_(p)
             k += 1
+        pending = None
+        if harvest_mask:
+            pending = _lane_pending(dg, algebra, state).cpu()
+            syncs += 1
         return state, MegastepStats(visits=k, rounds=rounds, eq_hi=hi,
                                     eq_lo=lo, visit_counts=counts,
-                                    order=order, device_syncs=syncs)
+                                    order=order, device_syncs=syncs,
+                                    lane_pending=pending, key=key)
 
     return megastep
 
 
 def _make_fused_megastep(dg, algebra: VisitAlgebra, max_rounds: int,
-                         policy: str, K: int,
-                         frontier_mode: str) -> Callable:
+                         policy: str, K: int, frontier_mode: str,
+                         harvest_mask: bool) -> Callable:
     """The fused arm of :func:`make_megastep`: one kernel launch and one
-    stats read per chunk."""
+    read per chunk (the stats, with the pending-lane mask behind them)."""
     P = dg.num_parts
     fv = make_fused_visit(dg, algebra, max_rounds, policy=policy,
                           frontier_mode=frontier_mode, K=K)
 
-    def megastep(state: VisitState, counter: int, limit: int):
+    def megastep(state: VisitState, counter: int, limit: int,
+                 key: Optional[torch.Tensor] = None):
         Q = state.buf.shape[1]
-        stats = fv.chunk(state, counter, min(int(limit), K)).cpu()
+        # the kernel's carry (fv.chunk rejects a missing key under random)
+        key = None if key is None else key.clone()
+        stats = fv.chunk(state, counter, min(int(limit), K), key=key)
+        pending = None
+        if harvest_mask:
+            stats = torch.cat([stats, _lane_pending(dg, algebra, state).to(
+                torch.int32)])
+        stats = stats.cpu()                # the chunk's one read
+        if harvest_mask:
+            stats, pending = stats[:-Q], stats[-Q:].bool()
         hi, lo, counts, order = split_stats(stats, Q, P)
         return state, MegastepStats(
             visits=int(stats[0]), rounds=int(stats[1]), eq_hi=hi, eq_lo=lo,
-            visit_counts=counts, order=order, device_syncs=1)
+            visit_counts=counts, order=order, device_syncs=1,
+            lane_pending=pending, key=key)
 
     return megastep
 

@@ -1,9 +1,10 @@
 """Backend dispatch behind one result contract.
 
-The port of the JAX package's ``repro.fpp.backends``.  This slice runs
-sssp, bfs, ppr, cc and kreach on the ``engine`` backend (the buffered
-engine, ``core/engine.py``) and on ``baselines`` (the global-frontier
-engines, ``core/baselines.py``); every other (backend, kind) pair raises
+The port of the JAX package's ``repro.fpp.backends``.  Every kind (sssp,
+bfs, ppr, cc, kreach, rw) runs on the ``engine`` backend (the buffered
+engine, ``core/engine.py``; rw the buffered walker loop,
+``core/randomwalk.py``) and on ``baselines`` (the global-frontier engines,
+``core/baselines.py``); the ``distributed`` backend raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.  Whatever
 the backend, ``values`` is float32 ``[Q, n]`` in the *reordered* id space
 (the session maps back to original ids) and ``edges_processed`` is float64
@@ -16,10 +17,12 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.baselines import global_minplus, global_push
+from repro_torch.core.baselines import (global_minplus, global_push,
+                                       global_random_walks)
 from repro_torch.core.engine import FPPEngine
 from repro_torch.core.graph import BlockGraph
 from repro_torch.core.oracles import decode_kreach
+from repro_torch.core.randomwalk import run_random_walks
 from repro_torch.core.visit import cc_label_plane
 from repro_torch.core.yielding import YieldConfig
 
@@ -30,8 +33,8 @@ KINDS = ("sssp", "bfs", "ppr", "cc", "kreach", "rw")
 _ENGINE_MODE = {"sssp": "minplus", "bfs": "minplus", "ppr": "push",
                 "cc": "cc", "kreach": "kreach"}
 
-#: where the pairs this slice does not run are queued
-_ROADMAP = {"distributed": "A10", "rw": "A8"}
+#: where the backends not ported yet are queued
+_ROADMAP = {"distributed": "A10"}
 
 
 @dataclasses.dataclass
@@ -78,18 +81,22 @@ def canonicalize_cc(values: np.ndarray) -> np.ndarray:
 
 
 def check_supported(backend: str, kind: str) -> None:
-    """Raise unless this slice runs ``kind`` on ``backend``."""
+    """Raise unless the port runs ``kind`` on ``backend``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if kind not in KINDS:
         raise ValueError(f"unknown query kind {kind!r}; one of {KINDS}")
-    if backend == "distributed":
+    if backend in _ROADMAP:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet "
             f"(ROADMAP {_ROADMAP[backend]})")
-    if kind not in _ENGINE_MODE:
-        raise NotImplementedError(
-            f"kind {kind!r} is not ported yet (ROADMAP {_ROADMAP[kind]})")
+
+
+def _rw_result(res, stats: dict) -> BackendResult:
+    """WalkResult -> the uniform backend contract: values = occupancy
+    counts [Q, n] (start + each step's position), edges = steps taken."""
+    return _normalize(res.occupancy, None,
+                      np.asarray(res.steps, dtype=np.float64), stats)
 
 
 def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
@@ -99,6 +106,7 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
               max_visits: Optional[int] = None,
               fused: bool = False, frontier_mode: str = "dense",
               k: int = 8, hop_stride: float = 1.0,
+              length: int = 32, seed: int = 0,
               device=None) -> BackendResult:
     """Run one query batch (sources in reordered ids) on one backend.
 
@@ -112,7 +120,10 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
     weights with ``hop_stride`` = the shift S (``oracles.kreach_stride``)
     and ``k`` the hop budget.  Raw cc values are reordered-rep labels —
     callers canonicalize with :func:`canonicalize_cc` after mapping back
-    to original ids.  kreach's residual is its hop plane.
+    to original ids.  kreach's residual is its hop plane.  ``rw`` takes
+    the natural graph plus ``length``/``seed``; its values are occupancy
+    counts and its walks are the same on both backends (the tape contract
+    of ``core/randomwalk.py``); ``fused`` does not apply to it.
     """
     if fused and backend != "engine":
         raise ValueError(
@@ -120,6 +131,16 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
             f"runs its own visit bodies")
     check_supported(backend, kind)
     sources = np.asarray(sources)
+    if kind == "rw":
+        if backend == "engine":
+            res = run_random_walks(bg, sources, length, seed=seed,
+                                   device=device)
+            return _rw_result(res, {"visits": res.visits,
+                                    "rounds": res.rounds,
+                                    "device_syncs": res.device_syncs})
+        res = global_random_walks(bg, sources, length, seed=seed,
+                                  device=device)
+        return _rw_result(res, {"rounds": res.visits})
     if backend == "engine":
         eng = FPPEngine(bg, mode=_ENGINE_MODE[kind],
                         num_queries=len(sources),

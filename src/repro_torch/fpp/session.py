@@ -8,17 +8,20 @@ The port of the JAX package's ``repro.fpp.session`` for this slice:
     sess.plan(num_queries=64, fused=True)      # one kernel launch per chunk
     res = sess.run("cc", sources)              # canonical component labels
     res = sess.run("kreach", sources, k=8)     # residual = hop counts
+    res = sess.run("rw", sources, length=32, seed=0)       # occupancy
     res = sess.run("sssp", sources, backend="baselines")   # same contract
     sess.plan(num_queries=64, tune=True)       # measured block size
     bc, res = sess.bc(sources)                 # the paper's applications
     labels, res = sess.landmarks(landmarks)
     profile, res = sess.ncp(seeds)
+    walks = sess.random_walks(sources, 32, seed=0)         # WalkResult
+    ex = sess.stream("sssp", capacity=64)      # queries arriving over time
+    qids = ex.submit(batch); ex.pump(64); answers = ex.run()
 
 The session runs on CUDA unless it is given ``device="cpu"``; with no card
 and no explicit CPU device it raises.  Everything downstream (engine,
-backends) speaks the *reordered* id space and partition-major state; the
-session is the only layer that owns ``perm`` and hides it.  ``stream`` and
-``random_walks`` wait for later slices (ROADMAP A9, A8).
+backends, streaming) speaks the *reordered* id space and partition-major
+state; the session is the only layer that owns ``perm`` and hides it.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.core.graph import BlockGraph, CSRGraph
 from repro_torch.core.oracles import kreach_stride
 from repro_torch.core.partition import partition
-from repro_torch.core.queries import WEIGHT_VARIANTS, reweight
+from repro_torch.core.queries import WEIGHT_VARIANTS, reweight, run_rw
 from repro_torch.core.yielding import YieldConfig
 from repro_torch.fpp import backends as _backends
 from repro_torch.fpp import planner as _planner
@@ -158,7 +161,8 @@ class FPPSession:
             alpha: float = 0.15, eps: float = 1e-4,
             max_visits: Optional[int] = None,
             fused: Optional[bool] = None,
-            frontier_mode: str = "dense", k: int = 8) -> SessionResult:
+            frontier_mode: str = "dense", k: int = 8, length: int = 32,
+            seed: int = 0) -> SessionResult:
         """Execute one query batch.  Sources and values use original ids.
 
         ``fused`` defaults to the plan's setting (``plan(fused=True)``);
@@ -170,10 +174,14 @@ class FPPSession:
         values come back as canonical min-original-id component labels
         (identical across every lane and backend), ``kreach`` takes the hop
         budget ``k`` (values = dist of the hop-minimal path within the
-        budget; residual = hop counts).  cc computes what the reference
-        computes on every graph; it is the weak components only on
-        symmetric input (on directed input it regroups forward min
-        labels).
+        budget; residual = hop counts), ``rw`` takes ``length``/``seed``
+        (values = occupancy counts; ``fused`` does not apply to it and is
+        ignored: the walker loop has no megastep to fuse).  cc computes
+        what the reference computes on every graph; it is the weak
+        components only on symmetric input (on directed input it regroups
+        forward min labels).  The ``random`` schedule draws from the
+        engine's default seed, as the reference's session does; ``seed``
+        is rw's.
         """
         sources = np.asarray(sources)
         p = self.current_plan
@@ -185,16 +193,16 @@ class FPPSession:
             # the plan's default applies only where it can: other backends
             # run their own visit bodies (an explicit fused=True raises);
             # "auto" keeps the unfused megastep past the dmax budget
-            fused = bk == "engine" and p.resolve_fused(
+            fused = bk == "engine" and kind != "rw" and p.resolve_fused(
                 kind, dmax=bg.nbr_blk.shape[1])
         yc = (yield_config if yield_config is not None else
               (p.yield_config or _planner.default_yield_config(kind, bg)))
         out = _backends.run_query(
             bk, kind, bg, perm[sources], schedule=schedule or p.schedule,
             yield_config=yc, alpha=alpha, eps=eps, max_visits=max_visits,
-            fused=bool(fused), frontier_mode=frontier_mode, k=k,
-            hop_stride=(self.kreach_stride if kind == "kreach" else 1.0),
-            device=self.device)
+            fused=bool(fused) and kind != "rw", frontier_mode=frontier_mode,
+            k=k, hop_stride=(self.kreach_stride if kind == "kreach" else 1.0),
+            length=length, seed=seed, device=self.device)
         values = out.values[:, perm]          # back to original vertex ids
         if kind == "cc":
             values = _backends.canonicalize_cc(values)
@@ -203,6 +211,47 @@ class FPPSession:
                              residual=residual,
                              edges_processed=out.edges_processed,
                              stats=out.stats, sources=sources)
+
+    # --------------------------------------------------------------- stream
+
+    def stream(self, kind: str = "sssp", capacity: int = 16, *,
+               schedule: Optional[str] = None,
+               yield_config: Optional[YieldConfig] = None,
+               alpha: float = 0.15, eps: float = 1e-4,
+               harvest_every: int = 1, k_visits: int = 64,
+               fused: Optional[bool] = None, k: int = 8, length: int = 32,
+               seed: int = 0):
+        """A streaming executor (``fpp/streaming.py``): submit query batches
+        as they arrive; the answers equal the one-shot run of the union.
+        ``k_visits`` is the chunk size: admission and harvest happen at
+        chunk boundaries, so it is also the lane-recycling latency.
+        ``harvest_every`` only sets the per-visit ``step()`` path's
+        cadence.  ``fused`` defaults to the plan's (per kind under
+        ``fused="auto"``).  ``length`` and ``seed`` are rw's; the other
+        kinds' ``random`` schedule draws from the executor's default seed,
+        as in the reference.
+
+        ``kind="rw"`` returns a :class:`~repro_torch.fpp.streaming.
+        WalkExecutor` (the same submit/pump/take_finished surface) whose
+        walks are bit for bit those of ``run("rw", ...)`` at the
+        executor's ``length`` and ``seed``; ``kind="kreach"`` streams at
+        hop budget ``k``.
+        """
+        from repro_torch.fpp.streaming import StreamingExecutor, WalkExecutor
+        if kind == "rw":
+            return WalkExecutor(self, capacity=capacity, length=length,
+                                seed=seed, k_visits=k_visits)
+        if fused is None:
+            bg, _ = self.prepared(
+                weights=WEIGHT_VARIANTS.get(kind, "natural"))
+            fused = self.current_plan.resolve_fused(
+                kind, k_visits, dmax=bg.nbr_blk.shape[1])
+        return StreamingExecutor(
+            self, kind=kind, capacity=capacity,
+            schedule=schedule or self.current_plan.schedule,
+            yield_config=yield_config, alpha=alpha, eps=eps,
+            harvest_every=harvest_every, k_visits=k_visits,
+            fused=bool(fused), k=k)
 
     # --------------------------------------------------- paper applications
 
@@ -224,3 +273,19 @@ class FPPSession:
         """Network community profile from a fleet of pprs."""
         res = self.run("ppr", seeds, alpha=alpha, eps=eps, **run_kw)
         return ncp_profile(self.graph, res.values, max_size=max_size), res
+
+    def random_walks(self, sources: np.ndarray, length: int = 32, *,
+                     seed: int = 0, block_size: Optional[int] = None,
+                     method: Optional[str] = None):
+        """Buffered random walks (``core/randomwalk.py``), original ids in
+        and out: the final ``positions`` map back through the inverse
+        permutation; ``steps`` and ``trajectory_hash`` do not depend on the
+        id space and pass through (the occupancy stays in the reordered
+        padded space, as the reference's does)."""
+        sources = np.asarray(sources)
+        bg, perm = self.prepared(block_size=block_size, method=method)
+        res = run_rw(bg, perm[sources], length, seed=seed,
+                     device=self.device)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        return dataclasses.replace(res, positions=inv[res.positions])

@@ -2,8 +2,8 @@
 // chunk of partition visits.
 //
 //   fg_fused_visit  for k = stats[0] .. min(K, stats[0] + launches) - 1:
-//                   select the partition (priority / fifo / max_ops, first
-//                   index on ties), consolidate its buffer, relax until no
+//                   select the partition (priority / fifo / max_ops /
+//                   random, first index on ties), consolidate its buffer, relax until no
 //                   op is active or max_rounds, emit into every neighbour's
 //                   buffer row, refresh the scheduler metadata of every row
 //                   it touched and update the chunk's stats -- with no
@@ -38,6 +38,16 @@
 //     crosses CTAs: the partial (best, count) of each metadata refresh and
 //     each CTA's relax rounds.  Each CTA selects the partition itself from
 //     prio / stamp / ops.
+//   * The random policy.  The reference splits its threefry key once per
+//     visit (key, sub = split(key)) and takes the first argmax of
+//     uniform(sub, [P]) over the non-empty partitions.  Every thread of
+//     every CTA holds the key in registers (read once per launch), hashes
+//     the split's two counters itself and draws the uniforms of its own
+//     partitions (fg::threefry2x32, threefry.cuh; ~2 hashes a thread at
+//     P = 288), so every CTA picks the same partition with no exchange.
+//     The key is split only when a partition is pending, as the reference
+//     does, and rank 0 writes it back after the launch: the next chunk
+//     continues the stream.
 //   * Rounds.  Each CTA relaxes until its own rows hold no active op.  A
 //     row with no active op in a round is unchanged by it, bit for bit
 //     (min-plus: all its sources are +inf, so d = fminf(d, +inf) and no
@@ -82,6 +92,7 @@
 // by chip_smoke.py (PERF.md).
 #include <limits.h>
 
+#include "threefry.cuh"
 #include "visit_tiles.cuh"
 
 // Mirrors the ctypes Structure in kernels/fused_visit/ops.py field by
@@ -107,6 +118,7 @@ struct FusedArgs {
   const int64_t* diag_blk;   // [P]
   const int* deg;            // [P, B]
   const float* budget;       // [P]
+  int64_t* key;              // [2] threefry key (random policy), or null
   int P, Q, B, dmax, K, launches, max_rounds, counter, strict;
   float window, alpha, c1, eps;
   int smem_bytes;
@@ -127,7 +139,8 @@ constexpr int kStages = 3;        // neighbour chunks in flight or in use
 constexpr int kTaskRows = 4;      // query rows one contraction task covers
 
 enum { kMinplus = 0, kPush = 1 };
-enum { kPriority = 0, kFifo = 1, kMaxOps = 2 };
+enum { kPriority = 0, kFifo = 1, kMaxOps = 2, kRandom = 3 };
+constexpr int kPolicies = 4;
 
 // Shared-memory layout of one CTA, in 4-byte words then bytes.
 // kernels/fused_visit/ops.py asks fg_fused_visit_smem for the total, and
@@ -429,13 +442,19 @@ __device__ __forceinline__ void pair_read(Cta& c, const int* pair, float& b,
 
 // The partition to visit (device_select in core/visit.py over prio/stamp/
 // ops [0, P)), or -1 when no priority is finite.  Every CTA computes it
-// from the same values.
+// from the same values.  kRandom: `key` is the thread's copy of the
+// carried threefry key; it is split (it becomes the hash of the counter
+// (0, 0), the draw's sub-key that of (0, 1)) only when a partition is
+// pending.
 template <int kPolicy>
 __device__ int select_partition(const FusedArgs& a, float* redf, int* redi,
-                                const Cta& c) {
+                                const Cta& c, uint2& key) {
   bool any = false;
   float bf = INFINITY;
   int bk = INT_MAX, bi = INT_MAX;
+  const uint2 sub = kPolicy == kRandom
+                        ? fg::threefry2x32(key.x, key.y, 0u, 1u)
+                        : make_uint2(0u, 0u);
   for (int i = c.tid; i < a.P; i += kThreads) {
     const float pr = ld_meta(a.prio + i);
     const bool fin = isfinite(pr);
@@ -443,12 +462,38 @@ __device__ int select_partition(const FusedArgs& a, float* redf, int* redi,
     if (kPolicy == kPriority) take(bf, bi, pr, i);
     else if (kPolicy == kFifo)
       take(bk, bi, fin ? ld_meta(a.stamp + i) : INT_MAX, i);
-    else take(bk, bi, fin ? -ld_meta(a.ops + i) : 1, i);  // argmax of ops
+    else if (kPolicy == kMaxOps)
+      take(bk, bi, fin ? -ld_meta(a.ops + i) : 1, i);  // argmax of ops
+    else {  // first argmax of where(finite, u, -1): argmin of -u / +1
+      const float u = fg::uniform_from_bits(fg::threefry2x32(
+          sub.x, sub.y, 0u, static_cast<uint32_t>(i)));
+      take(bf, bi, fin ? -u : 1.0f, i);
+    }
   }
   if (!__syncthreads_or(any)) return -1;
-  if (kPolicy == kPriority)
+  if (kPolicy == kRandom) key = fg::threefry2x32(key.x, key.y, 0u, 0u);
+  if (kPolicy == kPriority || kPolicy == kRandom)
     return block_argmin(bf, bi, redf, redi, c.lane, c.warp);
   return block_argmin(bk, bi, redi + kWarps, redi, c.lane, c.warp);
+}
+
+// The carried threefry key: read by every thread at the launch's start
+// (before any CTA can finish), written back by rank 0 after the last
+// cluster barrier (kRandom only).
+template <int kPolicy>
+__device__ __forceinline__ uint2 load_key(const FusedArgs& a) {
+  if (kPolicy != kRandom) return make_uint2(0u, 0u);
+  return make_uint2(static_cast<uint32_t>(a.key[0]),
+                    static_cast<uint32_t>(a.key[1]));
+}
+
+template <int kPolicy>
+__device__ __forceinline__ void store_key(const FusedArgs& a, const Cta& c,
+                                          uint2 key) {
+  if (kPolicy == kRandom && c.rank == 0 && c.tid == 0) {
+    a.key[0] = static_cast<int64_t>(key.x);
+    a.key[1] = static_cast<int64_t>(key.y);
+  }
 }
 
 // Rows [r0, r0 + nr) of N planes into shared memory: one bulk copy each,
@@ -820,6 +865,7 @@ __global__ void __launch_bounds__(kThreads)
 fused_minplus_kernel(const FusedArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int k0 = a.stats[0];
+  uint2 key = load_key<kPolicy>(a);
   const Layout L = layout(kMinplus, a.Q, a.B, C);
   float* sf = reinterpret_cast<float*>(smem);
   int* si = reinterpret_cast<int*>(smem);
@@ -849,7 +895,7 @@ fused_minplus_kernel(const FusedArgs a) {
   const int64_t QB = static_cast<int64_t>(a.Q) * B;
   const int kend = min(a.K, k0 + a.launches);
   for (int k = k0; k < kend; ++k) {
-    const int p = select_partition<kPolicy>(a, REDF, REDI, c);
+    const int p = select_partition<kPolicy>(a, REDF, REDI, c, key);
     if (p < 0) break;
     const int cnt = a.counter + k;
     const int64_t kd = a.diag_blk[p];
@@ -992,6 +1038,7 @@ fused_minplus_kernel(const FusedArgs a) {
   }
   edge_counters(a, c, ELO, EHI, false);
   finish<C>(c);
+  store_key<kPolicy>(a, c, key);
 }
 
 template <int kPolicy, int C>
@@ -999,6 +1046,7 @@ __global__ void __launch_bounds__(kThreads)
 fused_push_kernel(const FusedArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int k0 = a.stats[0];
+  uint2 key = load_key<kPolicy>(a);
   const Layout L = layout(kPush, a.Q, a.B, C);
   float* sf = reinterpret_cast<float*>(smem);
   int* si = reinterpret_cast<int*>(smem);
@@ -1028,7 +1076,7 @@ fused_push_kernel(const FusedArgs a) {
   const int64_t QB = static_cast<int64_t>(a.Q) * B;
   const int kend = min(a.K, k0 + a.launches);
   for (int k = k0; k < kend; ++k) {
-    const int p = select_partition<kPolicy>(a, REDF, REDI, c);
+    const int p = select_partition<kPolicy>(a, REDF, REDI, c, key);
     if (p < 0) break;
     const int cnt = a.counter + k;
     const int64_t kd = a.diag_blk[p];
@@ -1149,22 +1197,26 @@ fused_push_kernel(const FusedArgs a) {
   }
   edge_counters(a, c, ELO, EHI, false);
   finish<C>(c);
+  store_key<kPolicy>(a, c, key);
 }
 
 using Kernel = void (*)(FusedArgs);
 
 template <int C>
 Kernel pick_for(int algebra, int policy, int sparse) {
-  static const Kernel minplus[3][2] = {
+  static const Kernel minplus[kPolicies][2] = {
       {fused_minplus_kernel<kPriority, false, C>,
        fused_minplus_kernel<kPriority, true, C>},
       {fused_minplus_kernel<kFifo, false, C>,
        fused_minplus_kernel<kFifo, true, C>},
       {fused_minplus_kernel<kMaxOps, false, C>,
-       fused_minplus_kernel<kMaxOps, true, C>}};
-  static const Kernel push[3] = {fused_push_kernel<kPriority, C>,
-                                 fused_push_kernel<kFifo, C>,
-                                 fused_push_kernel<kMaxOps, C>};
+       fused_minplus_kernel<kMaxOps, true, C>},
+      {fused_minplus_kernel<kRandom, false, C>,
+       fused_minplus_kernel<kRandom, true, C>}};
+  static const Kernel push[kPolicies] = {fused_push_kernel<kPriority, C>,
+                                         fused_push_kernel<kFifo, C>,
+                                         fused_push_kernel<kMaxOps, C>,
+                                         fused_push_kernel<kRandom, C>};
   if (algebra == kMinplus) return minplus[policy][sparse];
   if (algebra == kPush && !sparse) return push[policy];
   return nullptr;
@@ -1180,7 +1232,8 @@ int cluster_index(int cluster) {
 }
 
 Kernel pick(int algebra, int policy, int sparse, int cluster) {
-  if (policy < 0 || policy > 2 || sparse < 0 || sparse > 1) return nullptr;
+  if (policy < 0 || policy >= kPolicies || sparse < 0 || sparse > 1)
+    return nullptr;
   switch (cluster) {
     case 1: return pick_for<1>(algebra, policy, sparse);
     case 4: return pick_for<4>(algebra, policy, sparse);
@@ -1212,7 +1265,8 @@ extern "C" int fg_fused_visit(const FusedArgs* a, int algebra, int policy,
   if (a->P <= 0 || a->Q <= 0 || a->B <= 0 || a->K <= 0 || a->launches < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Kernel k = pick(algebra, policy, sparse, cluster);
-  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == nullptr || (policy == kRandom && a->key == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<size_t>(a->smem_bytes) <
       layout(algebra, a->Q, a->B, cluster).total)
     return kErrSmem;
@@ -1222,7 +1276,7 @@ extern "C" int fg_fused_visit(const FusedArgs* a, int algebra, int policy,
                   ? 1
                   : 0;
   // raise the kernel's dynamic shared-memory cap once per size
-  static int configured[3][2][3][2] = {};
+  static int configured[3][2][kPolicies][2] = {};
   int& cap = configured[cluster_index(cluster)][algebra][policy][sparse];
   if (a->smem_bytes > cap) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -101,7 +101,7 @@ class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "plane0", "plane1", "buf", "prio", "ops", "stamp", "stats",
         "col_ptr", "col_u", "col_w", "row_nnz", "nbr_blk", "nbr_dst",
-        "nbr_nnz", "diag_blk", "deg", "budget")]
+        "nbr_nnz", "diag_blk", "deg", "budget", "key")]
         + [(n, ctypes.c_int) for n in (
             "P", "Q", "B", "dmax", "K", "launches", "max_rounds", "counter",
             "strict")]
@@ -166,17 +166,27 @@ class FusedVisit:
         return new_stats(state.buf.shape[1], self.dg.num_parts, self.spec.K,
                          state.buf.device)
 
-    def ref(self, state, stats: torch.Tensor, counter: int) -> None:
+    def ref(self, state, stats: torch.Tensor, counter: int,
+            key: torch.Tensor | None = None) -> None:
         """One visit's plain version, on any device."""
-        fused_step_ref(self.dg, self.spec, state, stats, counter)
+        fused_step_ref(self.dg, self.spec, state, stats, counter, key=key)
 
     def step(self, state, stats: torch.Tensor, counter: int) -> None:
         """One visit (one launch of the kernel on a CUDA tensor, the plain
         version on a CPU tensor)."""
         self.chunk(state, counter, 1, stats=stats)
 
+    def _check_key(self, key) -> None:
+        if self.spec.policy != "random":
+            return
+        if (key is None or key.dtype != torch.int64 or key.shape != (2,)
+                or not key.is_contiguous() or key.device != self.dg.device):
+            raise ValueError(
+                "fused visit: the random policy needs its threefry key, a "
+                f"contiguous int64 [2] on {self.dg.device} (core/prng)")
+
     def _args(self, state, stats: torch.Tensor, counter: int,
-              launches: int, nbytes: int) -> _Args:
+              launches: int, nbytes: int, key=None) -> _Args:
         dg, sp = self.dg, self.spec
         P, (Q, B) = dg.num_parts, state.buf.shape[1:]
         tensors = (*state.planes, state.buf, state.prio, state.ops_count,
@@ -206,7 +216,9 @@ class FusedVisit:
             row_nnz=dg.row_nnz.data_ptr(), nbr_blk=dg.nbr_blk.data_ptr(),
             nbr_dst=dg.nbr_dst.data_ptr(), nbr_nnz=dg.nbr_nnz.data_ptr(),
             diag_blk=dg.diag_blk.data_ptr(), deg=dg.deg.data_ptr(),
-            budget=dg.edge_budget.data_ptr(), P=P, Q=Q, B=B, dmax=dg.nbr_blk.shape[1], K=sp.K,
+            budget=dg.edge_budget.data_ptr(),
+            key=None if key is None else key.data_ptr(), P=P, Q=Q, B=B,
+            dmax=dg.nbr_blk.shape[1], K=sp.K,
             launches=int(launches), max_rounds=sp.max_rounds,
             counter=int(counter), strict=int(params.get("strict", 0.0)),
             window=params.get("window", 0.0), alpha=alpha,
@@ -214,7 +226,8 @@ class FusedVisit:
             bulk=0)
 
     def launch(self, state, stats: torch.Tensor, counter: int,
-               launches: int, cluster: int) -> None:
+               launches: int, cluster: int,
+               key: torch.Tensor | None = None) -> None:
         """One launch of the kernel as a cluster of ``cluster`` CTAs (one of
         :data:`CLUSTER_SIZES`): up to ``launches`` visits on the card.
         :meth:`chunk` picks the cluster from Q; this entry lets a
@@ -222,9 +235,10 @@ class FusedVisit:
         if state.buf.device.type != "cuda":
             raise ValueError(f"fused visit: no kernel for device "
                              f"{state.buf.device}")
+        self._check_key(key)
         Q, B = state.buf.shape[1:]
         block = self._args(state, stats, counter, launches,
-                           smem_bytes(self.num_planes, Q, B, cluster))
+                           smem_bytes(self.num_planes, Q, B, cluster), key)
         rc = _library()["launch"](
             ctypes.byref(block), _ALGEBRAS[self.spec.algebra.name],
             POLICIES.index(self.spec.policy), int(self.spec.sparse),
@@ -239,22 +253,26 @@ class FusedVisit:
         LAUNCHES["fused_visit"] += 1
 
     def chunk(self, state, counter: int, launches: int,
-              stats: torch.Tensor | None = None) -> torch.Tensor:
+              stats: torch.Tensor | None = None,
+              key: torch.Tensor | None = None) -> torch.Tensor:
         """Up to ``launches`` visits (the loop stops early once no partition
         holds a pending op); returns the chunk's stats (``ref.split_stats``
-        reads them).  On the card this is one launch; nothing is read back
-        here."""
+        reads them).  Under the ``random`` policy ``key`` is the threefry
+        key, split once per visit in place: the chunk leaves the key to
+        carry into the next one there.  On the card this is one launch;
+        nothing is read back here."""
         if stats is None:
             stats = self.new_stats(state)
         if state.buf.device.type == "cpu":
+            self._check_key(key)
             for _ in range(launches):
                 k = int(stats[0])
-                self.ref(state, stats, counter)
+                self.ref(state, stats, counter, key)
                 if int(stats[0]) == k:    # no pending op: the chunk is
                     break                 # complete
             return stats
         self.launch(state, stats, counter, launches,
-                    cluster_size(state.buf.shape[1]))
+                    cluster_size(state.buf.shape[1]), key)
         return stats
 
 

@@ -27,6 +27,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.scheduler import device_select
 from repro_torch.kernels.frontier.ref import frontier_ref
 from repro_torch.kernels.minplus import ops as minplus_ops
@@ -37,7 +38,7 @@ INF = float("inf")
 #: (core.visit imports this package, so it cannot be imported here)
 _BIG_STAMP = np.iinfo(np.int32).max - 1
 EDGE_SHIFT = 20
-POLICIES = ("priority", "fifo", "max_ops")
+POLICIES = ("priority", "fifo", "max_ops", "random")
 
 
 class FusedSpec(NamedTuple):
@@ -68,12 +69,16 @@ def split_stats(stats: torch.Tensor, num_queries: int, num_parts: int):
 
 
 def fused_step_ref(dg, spec: FusedSpec, state, stats: torch.Tensor,
-                   counter: int, on_contract=None) -> None:
+                   counter: int, key: torch.Tensor | None = None,
+                   on_contract=None) -> None:
     """One visit, in place on ``state`` and ``stats``.
 
     ``dg`` is the engine's ``DeviceGraph`` (duck-typed), ``counter`` the
     global visit counter at the chunk's start; the visit stamps
-    ``counter + k``.  ``on_contract(x, idx)``, if given, sees every
+    ``counter + k``.  Under the ``random`` policy ``key`` (int64 ``[2]``,
+    ``core/prng``) is split in place when a partition is pending: it
+    becomes the split's first key and the draw takes the second, as the
+    kernel carries it.  ``on_contract(x, idx)``, if given, sees every
     contraction's sources and block indices (a work count for a bound).
     """
     P = dg.num_parts
@@ -82,8 +87,13 @@ def fused_step_ref(dg, spec: FusedSpec, state, stats: torch.Tensor,
     k = int(stats[0])
     if k >= spec.K or not bool(torch.isfinite(state.prio[:P]).any()):
         return
+    sub = None
+    if spec.policy == "random":
+        keys = prng.split(key)
+        key.copy_(keys[0])
+        sub = keys[1]
     p = int(device_select(spec.policy, state.prio[:P], state.stamp[:P],
-                          state.ops_count[:P]))
+                          state.ops_count[:P], sub))
     cnt = counter + k
     kd = dg.diag_blk[p:p + 1]
     nnz = dg.row_nnz[int(kd)]

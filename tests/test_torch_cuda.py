@@ -428,3 +428,81 @@ def test_flash_kernel_matches_plain_version(card, dtype, B, Sq, Skv, H, Hkv,
     torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
     again = faops.flash_attention(q, k.contiguous(), v.contiguous(), **kw)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**32 + 5])
+def test_threefry_kernel_matches_plain_version(card, seed):
+    """fg_threefry, one launch per draw, bitwise against the plain version
+    on the CPU: the raw hash, fold_in, split, uniform over 2^16 counters
+    and over a batch of keys, and the walk tape's draw."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry import ops as tfops
+    rng = np.random.default_rng(seed % 1000)
+    words = [torch.from_numpy(rng.integers(0, 2**32, 1000)) for _ in range(4)]
+    src = torch.from_numpy(rng.integers(0, 40_000, 300))
+    step = torch.from_numpy(rng.integers(0, 64, 300))
+    k = prng.PRNGKey(seed)
+    kc = k.to(card)
+    tfops.reset_launches()
+    pairs = [
+        (prng.threefry2x32(*(w.to(card) for w in words)),
+         prng.threefry2x32(*words)),
+        (prng.fold_in(kc, 12345), prng.fold_in(k, 12345)),
+        (prng.split(kc, 3), prng.split(k, 3)),
+        (prng.uniform(kc, (1 << 16,)), prng.uniform(k, (1 << 16,))),
+        (prng.uniform(prng.fold_in(kc.expand(300, 2), src.to(card))),
+         prng.uniform(prng.fold_in(k.expand(300, 2), src))),
+        (prng.tape_uniform(kc, src.to(card), step.to(card)),
+         prng.tape_uniform(k, src, step)),
+    ]
+    torch.cuda.synchronize()
+    assert tfops.LAUNCHES == {"threefry": 7}
+    for got, want in pairs:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("kind", ["sssp", "ppr"])
+def test_fused_random_policy_on_card_equals_unfused(card, kind):
+    """The fused kernel's random selection (threefry in the kernel, the key
+    carried across launches) visits in the unfused card run's order, with
+    its bits, at K = 8 and K = 64; sssp's order is also the CPU's."""
+    bg, srcs, yc = _fused_setup(kind)
+
+    def run(dev, fused, K):
+        return FPPEngine(bg, mode="push" if kind == "ppr" else "minplus",
+                         num_queries=len(srcs), yield_config=yc, eps=1e-3,
+                         schedule="random", seed=11, k_visits=K,
+                         fused=fused, device=dev).run(srcs,
+                                                      record_order=True)
+
+    runs = {(f, k): run(card, f, k) for f in (False, True) for k in (8, 64)}
+    want = runs[False, 8]
+    if kind == "sssp":      # ppr's CPU spread sums in another order (C2)
+        assert want.visit_order == run("cpu", False, 8).visit_order
+    for got in runs.values():
+        assert got.visit_order == want.visit_order
+        np.testing.assert_array_equal(got.values, want.values)
+        np.testing.assert_array_equal(got.edges_processed,
+                                      want.edges_processed)
+
+
+def test_random_walks_on_card_equal_cpu(card):
+    """rw on the engine and baselines backends: positions, steps, hashes
+    and occupancy bitwise equal on the card and the CPU, one threefry
+    launch per step round."""
+    from repro_torch.core.baselines import global_random_walks
+    from repro_torch.core.randomwalk import run_random_walks
+    from repro_torch.kernels.threefry import ops as tfops
+    g = grid2d(16, 16, seed=2)
+    bg, perm = partition(g, 32)
+    srcs = perm[np.array([0, 17, 130, 255, 40, 99])]
+    for fn in (run_random_walks, global_random_walks):
+        tfops.reset_launches()
+        a = fn(bg, srcs, 20, seed=4, device=card)
+        b = fn(bg, srcs, 20, seed=4, device="cpu")
+        assert tfops.LAUNCHES["threefry"] == (a.rounds or a.visits)
+        for f in ("positions", "steps", "trajectory_hash", "occupancy"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))

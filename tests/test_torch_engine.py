@@ -183,12 +183,12 @@ def test_convert_mid_run_state_one_megastep_chunk():
 
 
 @pytest.mark.parametrize("call,roadmap", [
-    (lambda s: s.run("rw", SRCS, backend="baselines"), "A8"),
+    (lambda s: s.run("rw", SRCS, backend="distributed"), "A10"),
     (lambda s: s.run("cc", SRCS, backend="distributed"), "A10"),
-    (lambda s: s.run("rw", SRCS), "A8"),
-    (lambda s: s.run("sssp", SRCS, schedule="random", fused=True), "A8"),
+    (lambda s: s.run("ppr", SRCS, backend="distributed"), "A10"),
+    (lambda s: s.run("kreach", SRCS, backend="distributed"), "A10"),
     (lambda s: s.run("sssp", SRCS, backend="distributed"), "A10"),
-    (lambda s: s.run("sssp", SRCS, schedule="random"), "A8"),
+    (lambda s: s.run("bfs", SRCS, backend="distributed"), "A10"),
 ])
 def test_unported_paths_raise_naming_their_roadmap_item(call, roadmap):
     _, g = _graphs("grid")
