@@ -73,7 +73,24 @@ Phases, each of which fails the run on any error:
               read a chunk) and unfused at RANDOM_SIDE (the fused kernel's
               visit order); staggered streams (24 sources, 3 chunks, 40
               more: fused sssp and ppr, unfused sssp at RANDOM_SIDE, rw
-              through 16 lanes) against the one-shot runs
+              through 16 lanes) against the one-shot runs.  5e: graph
+              serving (``serve/``) on the same graph and fused session:
+              ``GraphServer(capacity=64, fused=True).serve()`` of phase
+              5's sources bitwise equal to its fused sssp and ppr runs
+              ("serve sync" lines); 384 requests of the six kinds from two
+              tenants (3 of 4 from tenant0), Zipf-skewed sources, in six
+              batches 0.5 s apart through ``serve_forever``, every one
+              ``ok`` and equal to a synchronous replay and to one-shot
+              runs (ppr within 4·eps·deg), hits ``cached`` and unbilled,
+              one B5 launch a chunk, no contraction, threefry for rw
+              ("serve mixed": q/s, p50/p99 latency per kind, host syncs
+              per request, cache and dedup counters, the capacities the
+              autoscaler built); an unfused pool at side 64 bitwise equal
+              to the fused one (B1); the warm cache ("serve warm cache":
+              each pool's first request cold and prewarmed, the cold
+              build split into ``column_lists``, ``DeviceGraph.build``,
+              chunks and the copy back); ``launch/serve.py --workload
+              graph`` at road-ca ("serve cli")
   6. flash    the flash-attention kernels against their plain version on
               the card at the LM path's shapes (starcoder2-7b: H=36, Hkv=4,
               hd=128; (Sq, Skv, q_offset) = (512, 512, 0), (3000, 3000, 0),
@@ -1575,6 +1592,324 @@ def phase_random(torch, counters, ctx, launches) -> None:
         "wall_s": wall, "launches": counts}))
 
 
+#: phase 5e's mixed traffic: requests, arrival batches (one every
+#: SERVE_GAP_S seconds, an open loop), the Zipf exponent over
+#: SERVE_CANDIDATES sources, and the kinds in turn (kreach at k = 8, rw at
+#: length 32 and seed 0, the server's defaults)
+SERVE_REQUESTS, SERVE_BATCH, SERVE_GAP_S = 384, 64, 0.5
+SERVE_ZIPF, SERVE_CANDIDATES = 1.1, 2048
+SERVE_KINDS = ("sssp", "bfs", "ppr", "cc", "kreach", "rw")
+
+
+def _serve_stream(g, seed: int = 0):
+    """Phase 5e's arrival stream: (kind, source, tenant) per request,
+    sources Zipf-skewed over a seeded candidate set, tenant0 sending 3 of
+    every 4 requests."""
+    rng = np.random.default_rng(seed)
+    cand = rng.choice(np.flatnonzero(g.out_degree() > 0), SERVE_CANDIDATES,
+                      replace=False)
+    p = np.arange(1, SERVE_CANDIDATES + 1, dtype=np.float64) ** -SERVE_ZIPF
+    picks = rng.choice(SERVE_CANDIDATES, SERVE_REQUESTS, p=p / p.sum())
+    return [(SERVE_KINDS[i % len(SERVE_KINDS)], int(cand[j]),
+             "tenant0" if i % 4 else "tenant1")
+            for i, j in enumerate(picks)]
+
+
+def phase_serve(torch, counters, ctx, launches) -> dict:
+    """Phase 5e: graph serving on the card (``serve/``), on the main path's
+    graph and its fused session (Q = 64, B = 128, P = 288).
+
+    Synchronous parity: ``GraphServer(capacity=64, fused=True).serve()`` of
+    phase 5's 64 sources, sssp and ppr, bitwise equal to phase 5's fused
+    ``session.run`` (ppr's residual too), edges included, one B5 launch a
+    chunk.  Mixed traffic: :data:`SERVE_REQUESTS` requests of the six
+    kinds from two tenants through ``serve_forever`` in arrival batches,
+    every response ``ok`` and equal to a synchronous ``serve()`` of the
+    same stream on a fresh server and to a one-shot ``session.run`` of its
+    source (bitwise; ppr within 4·eps·deg: its lanes share visits with
+    other lanes, and the visit order follows them); hits ``cached`` with
+    nothing billed; one B5 launch a chunk of the fused pools, no
+    contraction, threefry for rw.  One unfused pool at ``UNFUSED_SIDE``
+    (sssp, B1), bitwise equal to the fused pool there.  The warm cache:
+    each pool's first request cold and prewarmed, and the cold build's
+    split.  Then ``launch/serve.py --workload graph`` at road-ca.  Each
+    run's counts are reset just before it and read just after, and added
+    to ``launches``."""
+    from repro_torch.core import engine as _engine
+    from repro_torch.fpp import FPPSession, planner
+    from repro_torch.fpp.streaming import build_stream_bundle
+    from repro_torch.graphs.generators import grid2d
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import GraphRequest, GraphServer, MegastepCache
+    from repro_torch.serve.dispatch import load_kernels
+
+    load_kernels()          # every library loaded before any lane starts
+    Q, K = 64, 64
+    fsess, srcs, answers = ctx["fsess"], ctx["srcs"], ctx["answers"]
+    g = fsess.graph
+    deg = np.maximum(g.out_degree(), 1)
+    out = {}
+
+    def add(counts):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    def drive(fn):
+        counters.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = counters.read()
+        add(counts)
+        return res, counts, wall
+
+    def server(**kw):
+        return GraphServer(capacity=Q, k_visits=K, fused=True,
+                           eps=PPR_EPS, **kw)
+
+    def pool_syncs(srv):
+        """Chunks of the server's fused pools (one host sync each)."""
+        return sum(p.totals[1] for p in srv._pool_order if p.fused)
+
+    def add_tiles(srv):
+        """The frontier tile runs in every min-plus B5 launch, the push
+        round in every push launch."""
+        for tile, push in (("frontier", False), ("ppr_push", True)):
+            add({tile + "_in_fused": sum(
+                p.totals[1] for p in srv._pool_order
+                if p.fused and (p.kind == "ppr") == push)})
+
+    def only(label, counts, **want):
+        got = {k: v for k, v in counts.items() if v}
+        if set(got) != {k for k, v in want.items() if v} or any(
+                v is not True and got.get(k, 0) != v
+                for k, v in want.items()):
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+
+    # synchronous parity with phase 5's fused runs
+    for kind in ("sssp", "ppr"):
+        srv = server()
+        srv.register_graph("grid", fsess)
+        rids = [srv.submit(GraphRequest(kind=kind, source=int(s),
+                                        graph="grid")) for s in srcs]
+        resp, counts, wall = drive(srv.serve)
+        want = answers[kind]
+        for i, rid in enumerate(rids):
+            r = resp[rid]
+            if not (r.status == "ok"
+                    and np.array_equal(r.values, want.values[i])
+                    and (kind != "ppr" or np.array_equal(r.residual,
+                                                         want.residual[i]))
+                    and r.stats["edges"] == want.edges_processed[i]):
+                raise AssertionError(f"serve {kind}: request {i} differs "
+                                     f"from phase 5's fused run")
+        only(f"serve {kind}", counts, fused_visit=pool_syncs(srv))
+        add_tiles(srv)
+        log(f"serve sync {kind}: " + json.dumps({
+            "requests": Q, "rounds": srv.rounds, "wall_s": wall,
+            "launches": counts}))
+    log("serve sync: sssp and ppr bitwise equal to phase 5's fused "
+        "session.run (values, residual, edges)")
+
+    # mixed traffic through the running lanes
+    stream = _serve_stream(g)
+    reqs = [GraphRequest(kind=k, source=s, graph="grid", tenant=t)
+            for k, s, t in stream]
+    batches = [reqs[i:i + SERVE_BATCH]
+               for i in range(0, len(reqs), SERVE_BATCH)]
+    conc = server()
+    conc.register_graph("grid", fsess)
+
+    def arrivals():
+        for i, b in enumerate(batches):
+            if i:
+                time.sleep(SERVE_GAP_S)
+            yield b
+
+    resp, counts, wall = drive(lambda: conc.serve_forever(arrivals()))
+    cstats = conc.stats()
+    rids = sorted(resp)
+    if len(rids) != len(reqs) or any(resp[r].status != "ok" for r in rids):
+        raise AssertionError("serve mixed: a request got no ok response")
+    only("serve mixed", counts, fused_visit=pool_syncs(conc),
+         threefry=True, minplus=0, masked_matmul=0)
+    add_tiles(conc)
+    for r in rids:
+        st = resp[r].stats
+        if st.get("cached") and (st["visits"], st["edges"],
+                                 st["host_syncs"]) != (0, 0.0, 0):
+            raise AssertionError("serve mixed: a cache hit was billed")
+    if not (cstats["cache_hits"] and cstats["coalesced"]):
+        raise AssertionError(f"serve mixed: the result cache or dedup never "
+                             f"fired: {cstats}")
+    # the same stream, synchronously, on a fresh server sharing the bundles
+    sync = server(cache=conc.cache)
+    sync.register_graph("grid", fsess)
+
+    def replay():
+        for b in batches:
+            sync.submit_all(b)
+            sync.serve()
+        return sync.responses
+
+    sresp, scounts, swall = drive(replay)
+    only("serve replay", scounts, fused_visit=pool_syncs(sync),
+         threefry=True, minplus=0, masked_matmul=0)
+    add_tiles(sync)
+    # one-shot runs of every distinct source of each kind
+    one = {}
+    for kind in SERVE_KINDS:
+        uniq = np.array(sorted({s for k, s, _ in stream if k == kind}))
+        res, _, _ = drive(lambda: fsess.run(kind, uniq, eps=PPR_EPS, k=8,
+                                            length=32, seed=0))
+        one[kind] = {int(s): (res.values[i], None if res.residual is None
+                              else res.residual[i])
+                     for i, s in enumerate(uniq)}
+    for r in rids:
+        a, b = resp[r], sresp[r]
+        v, res = one[a.kind][a.source]
+        if a.kind == "ppr":
+            ok = ((np.abs(a.values - b.values) / deg).max() <= 4 * PPR_EPS
+                  and (np.abs(a.values - v) / deg).max() <= 4 * PPR_EPS)
+        else:
+            ok = (np.array_equal(a.values, b.values)
+                  and np.array_equal(a.values, v)
+                  and (res is None or np.array_equal(a.residual, res)))
+        if not (b.status == "ok" and ok):
+            raise AssertionError(f"serve mixed: request {r} ({a.kind}) "
+                                 f"differs from the synchronous serve or "
+                                 f"the one-shot run")
+    lat = {k: [resp[r].stats["latency_s"] for r in rids
+               if resp[r].kind == k] for k in SERVE_KINDS}
+    caps = {}
+    for key in conc.cache._cache:
+        caps.setdefault(key[1], []).append(key[3])
+    out["mixed"] = {
+        "requests": len(reqs), "batches": len(batches),
+        "gap_s": SERVE_GAP_S, "wall_s": wall,
+        "requests_per_s": len(reqs) / wall,
+        "latency_ms": {k: {"p50": float(np.percentile(v, 50)) * 1e3,
+                           "p99": float(np.percentile(v, 99)) * 1e3}
+                       for k, v in lat.items()},
+        "host_syncs_per_request": float(np.mean(
+            [resp[r].stats["host_syncs"] for r in rids])),
+        "rounds": conc.rounds, "launches": counts,
+        "capacities_built": {k: sorted(v) for k, v in caps.items()},
+        "pools": cstats["pools"],
+        "stats": {k: cstats[k] for k in (
+            "cache_hits", "cache_misses", "cache_evictions", "cache_bytes",
+            "coalesced", "fanout", "compile_cache")},
+        "replay": {"wall_s": swall, "rounds": sync.rounds,
+                   "launches": scounts}}
+    log("serve mixed: " + json.dumps(out["mixed"]))
+    log(f"serve mixed: {len(reqs)} requests ok, bitwise equal to the "
+        f"synchronous replay and the one-shot runs (ppr within 4 eps deg)")
+
+    # one unfused pool at side 64: B1 through serving, against fused
+    side = UNFUSED_SIDE["kreach"]
+    gu = grid2d(side, side, seed=0)
+    usess = FPPSession(gu, device="cuda").plan(num_queries=Q)
+    su = np.random.default_rng(0).choice(gu.n, Q, replace=False)
+    vals = {}
+    for fused in (False, True):
+        srv = GraphServer(capacity=Q, k_visits=K, fused=fused)
+        srv.register_graph("small", usess)
+        ids = [srv.submit(GraphRequest(kind="sssp", source=int(s),
+                                       graph="small")) for s in su]
+        resp_u, counts, wall = drive(srv.serve)
+        vals[fused] = np.stack([resp_u[i].values for i in ids])
+        if fused:
+            only("serve fused side 64", counts, fused_visit=pool_syncs(srv))
+            add_tiles(srv)
+        else:
+            only("serve unfused side 64", counts, minplus=True)
+        log(f"serve {'fused' if fused else 'unfused'} sssp side {side}: "
+            + json.dumps({"requests": Q, "rounds": srv.rounds,
+                          "wall_s": wall, "launches": counts}))
+    if not np.array_equal(vals[False], vals[True]):
+        raise AssertionError("serve side 64: the unfused pool differs from "
+                             "the fused pool")
+
+    # the warm cache: each pool's first request cold and prewarmed, and
+    # the cold build split into the engine build, chunks and the copy back
+    warm = {}
+    src0 = int(srcs[0])
+    for kind in ("sssp", "ppr"):
+        row = {}
+        for label, pre in (("cold", ()), ("prewarmed", ("sssp", "ppr"))):
+            srv = server(autoscaler=None, cache=MegastepCache(),
+                         prewarm=pre)
+            srv.register_graph("grid", fsess)
+            if pre:
+                srv.cache.warm_async(fsess, "grid", kind, Q,
+                                     **srv._warm_params(fsess, kind)).join()
+            srv.start()
+            try:
+                t = time.perf_counter()
+                r = srv.result(srv.submit(GraphRequest(
+                    kind=kind, source=src0, graph="grid")), timeout=120)
+                row[label + "_s"] = time.perf_counter() - t
+            finally:
+                srv.shutdown()
+            row[label + "_build_s"] = srv.cache.stats()["compile_s"]
+            want = answers[kind].values[0]
+            if r.status != "ok" or not (
+                    np.array_equal(r.values, want) if kind != "ppr" else
+                    (np.abs(r.values - want) / deg).max() <= 4 * PPR_EPS):
+                raise AssertionError(f"serve warm {kind}: wrong answer")
+        bg, _ = fsess.prepared()
+        yc = planner.default_yield_config(kind, bg)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _engine.column_lists(np.ascontiguousarray(bg.blocks,
+                                                  dtype=np.float32))
+        row["column_lists_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _engine.DeviceGraph.build(bg, yc, Q, "cuda")
+        torch.cuda.synchronize()
+        row["device_graph_build_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        bundle = build_stream_bundle(fsess, kind, Q, k_visits=K, fused=True,
+                                     eps=PPR_EPS)
+        torch.cuda.synchronize()
+        row["bundle_build_s"] = time.perf_counter() - t
+        ex = fsess.stream(kind, capacity=Q, k_visits=K, fused=True,
+                          eps=PPR_EPS, megastep=bundle)
+        times = {"chunk": 0.0, "harvest": 0.0}
+
+        def timed(name, fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    times[name] += time.perf_counter() - t0
+            return wrapper
+
+        ex._megastep = timed("chunk", ex._megastep)
+        ex._harvest = timed("harvest", ex._harvest)
+        (_, counts, wall) = drive(lambda: (ex.submit([src0]), ex.run()))
+        add({("ppr_push" if kind == "ppr" else "frontier") + "_in_fused":
+             counts["fused_visit"]})
+        row.update({"chunks": ex.host_syncs, "chunk_s": times["chunk"],
+                    "harvest_s": times["harvest"], "run_s": wall})
+        warm[kind] = row
+    out["warm"] = warm
+    log("serve warm cache: " + json.dumps(warm))
+
+    # the CLI, once, at road-ca (fused="auto": the unfused megastep)
+    res, counts, wall = drive(lambda: launch_serve.main([
+        "--workload", "graph", "--graph", "road-ca", "--kind", "mixed",
+        "--requests", "8", "--batch", "4"]))
+    if len(res) != 8 or any(r.status != "ok" for r in res.values()):
+        raise AssertionError("launch/serve.py --workload graph failed")
+    out["cli"] = {"wall_s": wall, "launches": counts}
+    log("serve cli road-ca: " + json.dumps(out["cli"]))
+    return out
+
+
 #: the fused visit's kernels in a profiler trace (one per algebra, each
 #: instantiated per cluster size: the last template argument)
 FUSED_NAMES = {"minplus": "fused_minplus_kernel", "push": "fused_push_kernel"}
@@ -2183,6 +2518,7 @@ def main() -> int:
           ctx, launches)
     timed("5d rw, random, streaming", phase_random, torch, Counters(), ctx,
           launches)
+    timed("5e serve", phase_serve, torch, Counters(), ctx, launches)
     del ctx
     torch.cuda.empty_cache()
     krows["flash_attention"] = timed("6 flash", phase_flash, torch)
@@ -2254,7 +2590,8 @@ def main() -> int:
     threefry["launches"] = launches.get("threefry", 0)
     threefry["launches_of"] = ("rw's step rounds (engine, baselines, "
                                "streaming lanes) and the unfused random "
-                               "schedule's split and draw, 5d")
+                               "schedule's split and draw, 5d; the rw "
+                               "serving pools, 5e")
     idle = [r["name"] for r in table + [threefry] if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels of the path launched no time: {idle}")

@@ -16,6 +16,7 @@ kernel (``kernels/fused_visit``), with no read back to the host inside it.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -31,6 +32,9 @@ from repro_torch.core.visit import (VisitAlgebra, VisitState, minplus_algebra,
 from repro_torch.core.yielding import YieldConfig
 
 MODES = ("minplus", "push", "cc", "kreach")
+
+#: guards the one lazy field of a :class:`DeviceGraph` (``dense_blocks``)
+_DENSE_LOCK = threading.Lock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -136,9 +140,12 @@ class DeviceGraph:
     def dense_blocks(self) -> torch.Tensor:
         """The dense blocks, for a plain version: the staged ones on the
         CPU; on the card rebuilt from the lists at the first call (only a
-        comparison with a plain version asks) and kept."""
+        comparison with a plain version asks) and kept.  The rebuild holds
+        a lock: one device graph may serve several executors' threads."""
         if self.blocks is None:
-            self.blocks = blocks_from_lists(*self.lists)
+            with _DENSE_LOCK:
+                if self.blocks is None:
+                    self.blocks = blocks_from_lists(*self.lists)
         return self.blocks
 
     @staticmethod

@@ -13,6 +13,14 @@ In the hot path selection is on the device (:func:`device_select`, inside
 the K-visit megastep and the fused visit's plain version); the host
 implementation is the *oracle* the device policies are held against and
 what ``FPPEngine.run(host_loop=True)`` calls.
+
+The same selector arbitrates one level up: ``serve/graph_server.py``
+treats its per-(graph, kind) lane pools as "partitions" (pool priority is
+the best queued or in-flight request priority, the stamp the round the
+pool last became non-empty or was served, ops its backlog).  Serving
+breaks priority ties toward the *oldest* pool; ``prefer_older_ties=True``
+opts into that host-only refinement without touching the device-oracle
+contract.
 """
 from __future__ import annotations
 
@@ -34,7 +42,8 @@ class PartitionScheduler:
         self._rng = np.random.default_rng(seed)
 
     def select(self, prio: np.ndarray, stamp: np.ndarray,
-               ops_count: np.ndarray) -> int | None:
+               ops_count: np.ndarray, *,
+               prefer_older_ties: bool = False) -> int | None:
         """prio: [P] float32, lower=more urgent, +inf empty.  stamp: [P]
         int32 visit counter at which the buffer last became non-empty
         (empty rows carry the int32-max-1 sentinel from core/visit.py).
@@ -42,11 +51,20 @@ class PartitionScheduler:
         when every buffer is drained (run complete).
 
         Deterministic policies here and in :func:`device_select`
-        must agree bit-for-bit, first-index ties included."""
+        must agree bit-for-bit, first-index ties included.
+
+        ``prefer_older_ties`` (default off, so the device contract is
+        untouched) refines the ``priority`` policy only: among rows tied
+        at the best priority, pick the smallest stamp (the serving
+        tie-break of ``GraphServer``'s pool arbitration)."""
         nonempty = np.isfinite(prio)
         if not nonempty.any():
             return None
         if self.policy == "priority":
+            if prefer_older_ties:
+                ties = prio == prio[int(np.argmin(prio))]
+                masked = np.where(ties, stamp, np.iinfo(np.int64).max)
+                return int(np.argmin(masked))
             return int(np.argmin(prio))
         if self.policy == "fifo":
             masked = np.where(nonempty, stamp, np.iinfo(np.int32).max)

@@ -19,6 +19,10 @@ gives B = 128.
 ``FPPSession.plan(tune=True)`` measures the candidates the model admits on
 a query sample instead (:func:`autotune_block_size`, through
 :func:`measure_run`) and keeps the one with the least modeled traffic.
+
+The serving layer sizes its lane pools and result cache with the same
+model: :func:`pow2_bucket`, :func:`autoscale_capacity` and
+:func:`result_cache_budget`.
 """
 from __future__ import annotations
 
@@ -65,6 +69,22 @@ def auto_fused(kind: str, k_visits: int = 64,
     fused = DISPATCH_YARDSTICKS.get((yk, "fused", k))
     plain = DISPATCH_YARDSTICKS.get((yk, "megastep", k))
     return fused is not None and plain is not None and fused > plain
+
+
+def pow2_bucket(demand: int, min_capacity: int = 1,
+                max_capacity: int = 1024) -> int:
+    """Snap a lane-count demand to its power-of-two bucket.
+
+    Every capacity the serving layer builds comes through here (initial
+    pool size, autoscale hints), so the set of built engine shapes stays
+    logarithmic in demand and a resize lands on a warm engine bundle in
+    the serving cache (keyed by this bucket) instead of a new build.
+    """
+    demand = max(int(demand), int(min_capacity), 1)
+    cap = 1
+    while cap < demand:
+        cap *= 2
+    return max(int(min_capacity), min(int(max_capacity), cap))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +239,48 @@ def model_block_size(g: CSRGraph, num_queries: int, mem: MemoryModel,
             f"{mem.working_set(candidates[0], num_queries)} B of "
             f"{mem.smem_bytes} B shared memory); shrink the query batch")
     return best
+
+
+#: default serving result-cache budget, in units of one single-lane HBM
+#: plane set (``MemoryModel.state_bytes`` at Q=1).  One cached entry costs
+#: about a third of a plane set (values [n] f32; ppr adds a residual
+#: plane), so 16 plane sets hold on the order of 25-50 hot answers.
+RESULT_CACHE_PLANE_SETS = 16
+
+
+def result_cache_budget(mem: MemoryModel, n_vertices: int, block_size: int,
+                        plane_sets: int = RESULT_CACHE_PLANE_SETS) -> int:
+    """Byte budget for the serving result cache: a small multiple
+    (:data:`RESULT_CACHE_PLANE_SETS`) of one query lane's padded HBM
+    plane set for this graph.  ``GraphServer`` takes the max over its
+    registered graphs; an explicit ``GraphServer(cache_bytes=...)``
+    replaces this default."""
+    return int(plane_sets) * mem.state_bytes(int(n_vertices), 1,
+                                             int(block_size))
+
+
+def autoscale_capacity(queue_depth: int, active: int, *,
+                       mem: MemoryModel, n_vertices: int, block_size: int,
+                       min_capacity: int = 1,
+                       max_capacity: int = 1024) -> int:
+    """Suggest a lane-pool ``capacity`` from observed queue pressure.
+
+    Demand is what is in flight plus what waits; the suggestion is the
+    next power of two covering it, clamped to ``[min_capacity,
+    max_capacity]`` and then halved until :meth:`MemoryModel.fits`
+    accepts the visit working set and the HBM state planes at the pool's
+    block size.  A pure function of its inputs: ``GraphServer`` calls it
+    between chunks and applies a changed suggestion only to an idle pool.
+
+    ``fits`` tests the dense working set (two B×B blocks and two Q×B
+    tiles), which no kernel of the port holds: at B = 128 it caps a pool
+    at 64 lanes (ROADMAP B5(a)).
+    """
+    cap = pow2_bucket(int(queue_depth) + int(active),
+                      min_capacity=min_capacity, max_capacity=max_capacity)
+    while cap > min_capacity and not mem.fits(block_size, cap, n_vertices):
+        cap //= 2
+    return int(cap)
 
 
 def make_plan(g: CSRGraph, num_queries: int, *,

@@ -219,8 +219,8 @@ class FPPSession:
                yield_config: Optional[YieldConfig] = None,
                alpha: float = 0.15, eps: float = 1e-4,
                harvest_every: int = 1, k_visits: int = 64,
-               fused: Optional[bool] = None, k: int = 8, length: int = 32,
-               seed: int = 0):
+               fused: Optional[bool] = None, megastep=None, k: int = 8,
+               length: int = 32, seed: int = 0):
         """A streaming executor (``fpp/streaming.py``): submit query batches
         as they arrive; the answers equal the one-shot run of the union.
         ``k_visits`` is the chunk size: admission and harvest happen at
@@ -229,7 +229,10 @@ class FPPSession:
         cadence.  ``fused`` defaults to the plan's (per kind under
         ``fused="auto"``).  ``length`` and ``seed`` are rw's; the other
         kinds' ``random`` schedule draws from the executor's default seed,
-        as in the reference.
+        as in the reference.  ``megastep`` injects a prebuilt bundle
+        (``fpp/streaming.build_stream_bundle``, served warm by
+        ``serve/compile_cache.py``) so the executor builds no engine and
+        no ``DeviceGraph``; for rw it is the walk bundle.
 
         ``kind="rw"`` returns a :class:`~repro_torch.fpp.streaming.
         WalkExecutor` (the same submit/pump/take_finished surface) whose
@@ -240,7 +243,7 @@ class FPPSession:
         from repro_torch.fpp.streaming import StreamingExecutor, WalkExecutor
         if kind == "rw":
             return WalkExecutor(self, capacity=capacity, length=length,
-                                seed=seed, k_visits=k_visits)
+                                seed=seed, k_visits=k_visits, visit=megastep)
         if fused is None:
             bg, _ = self.prepared(
                 weights=WEIGHT_VARIANTS.get(kind, "natural"))
@@ -251,7 +254,7 @@ class FPPSession:
             schedule=schedule or self.current_plan.schedule,
             yield_config=yield_config, alpha=alpha, eps=eps,
             harvest_every=harvest_every, k_visits=k_visits,
-            fused=bool(fused), k=k)
+            fused=bool(fused), megastep=megastep, k=k)
 
     # --------------------------------------------------- paper applications
 

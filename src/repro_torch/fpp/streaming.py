@@ -28,7 +28,15 @@ exactly at a chunk boundary, the only point where touching lanes is legal.
 Where eager PyTorch differs from the traced reference: admission updates
 the state tensors in place and on the device (the stamp of a partition
 that comes alive is set by a ``where``, not after a read back), and a
-harvest reads the finished lanes' planes in one transfer.
+harvest reads the finished lanes' planes in one transfer.  Nothing is
+traced or compiled, so what the reference's ``megastep=``/``visit=``
+injection hands over (a compiled executable) is here a built bundle: a
+:class:`StreamBundle` (the engine, whose ``DeviceGraph`` holds the staged
+graph and its column lists, and its streaming megastep) or a
+:class:`WalkBundle`.  An executor given one builds nothing; one bundle
+may serve several executors at once (``serve/compile_cache.py``), so an
+executor keeps every mutable array in its own state and lane tensors and
+only reads the bundle.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import abc
 import collections
 import dataclasses
 import threading
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +97,42 @@ def build_stream_megastep(engine: FPPEngine, schedule: str) -> Callable:
         engine.dg, engine.algebra, engine.max_rounds, policy=schedule,
         K=engine.k_visits, harvest_mask=True, fused=engine.fused,
         frontier_mode=engine.frontier_mode)
+
+
+class StreamBundle(NamedTuple):
+    """A built streaming engine and its megastep, as
+    :class:`StreamingExecutor` would build them for the same arguments."""
+    engine: FPPEngine
+    megastep: Callable
+
+
+class WalkBundle(NamedTuple):
+    """The walk lists staged on the device and the walk visit, as
+    :class:`WalkExecutor` would build them for the same arguments."""
+    wg: WalkGraph
+    visit: Callable
+
+
+def build_stream_bundle(session, kind: str, capacity: int, *,
+                        schedule: str = "priority",
+                        yield_config: Optional[YieldConfig] = None,
+                        alpha: float = 0.15, eps: float = 1e-4,
+                        seed: int = 0, k_visits: int = 64,
+                        fused: bool = False, k: int = 8, length: int = 32,
+                        walk_seed: int = 0):
+    """The bundle an executor of these arguments builds: a
+    :class:`WalkBundle` for ``kind="rw"`` (``length`` and ``walk_seed``),
+    else a :class:`StreamBundle`."""
+    if kind == "rw":
+        bg, _ = session.prepared()
+        wg = WalkGraph.build(bg, session.device)
+        return WalkBundle(wg, make_walk_visit(wg, int(length),
+                                              int(walk_seed)))
+    engine, _, _ = build_stream_engine(
+        session, kind, int(capacity), schedule=schedule,
+        yield_config=yield_config, alpha=alpha, eps=eps, seed=seed,
+        k_visits=k_visits, fused=fused, k=k)
+    return StreamBundle(engine, build_stream_megastep(engine, schedule))
 
 
 @dataclasses.dataclass
@@ -218,6 +262,10 @@ class StreamingExecutor(_Lanes):
     chunks of up to ``k_visits``, and ``run`` drains everything submitted
     so far.  Admission and harvest happen only at chunk boundaries, so K
     is both the host-sync amortisation and the lane-recycling latency.
+
+    ``megastep`` injects a prebuilt :class:`StreamBundle` for the same
+    arguments (``serve/compile_cache.py``): the executor then builds no
+    engine, ``DeviceGraph`` or column lists, only its own state.
     """
 
     def __init__(self, session, kind: str = "sssp", capacity: int = 16, *,
@@ -225,7 +273,8 @@ class StreamingExecutor(_Lanes):
                  yield_config: Optional[YieldConfig] = None,
                  alpha: float = 0.15, eps: float = 1e-4,
                  harvest_every: int = 1, seed: int = 0,
-                 k_visits: int = 64, fused: bool = False, k: int = 8):
+                 k_visits: int = 64, fused: bool = False,
+                 megastep: Optional[StreamBundle] = None, k: int = 8):
         if kind not in STREAM_KINDS:
             raise ValueError(f"streaming supports {'/'.join(STREAM_KINDS)} "
                              f"(rw streams via WalkExecutor), got {kind!r}")
@@ -237,13 +286,26 @@ class StreamingExecutor(_Lanes):
         # the per-visit cadence of the step() path; pump()/run() harvest
         # at chunk boundaries instead
         self.harvest_every = max(1, int(harvest_every))
-        self.engine, bg, perm = build_stream_engine(
-            session, kind, self.capacity, schedule=schedule,
-            yield_config=yield_config, alpha=alpha, eps=eps, seed=seed,
-            k_visits=k_visits, fused=fused, k=k)
+        bg, perm = session.prepared(
+            weights=WEIGHT_VARIANTS.get(kind, "natural"))
+        if megastep is None:
+            megastep = build_stream_bundle(
+                session, kind, self.capacity, schedule=schedule,
+                yield_config=yield_config, alpha=alpha, eps=eps, seed=seed,
+                k_visits=k_visits, fused=fused, k=k)
+        eng = megastep.engine
+        if (eng.bg is not bg or eng.mode != _ENGINE_MODE[kind]
+                or eng.num_queries != self.capacity
+                or eng.k_visits != int(k_visits)
+                or eng.fused != bool(fused)):
+            raise ValueError(
+                f"the injected bundle was built for another graph, kind, "
+                f"capacity, chunk size or dispatch than this {kind} "
+                f"executor (capacity {self.capacity}, K {k_visits}, fused "
+                f"{bool(fused)})")
+        self.engine, self._megastep = megastep
         self.bg, self.perm = bg, perm
         self.mode = self.engine.mode
-        self._megastep = build_stream_megastep(self.engine, schedule)
         self.algebra = self.engine.algebra
         self.scheduler = PartitionScheduler(schedule, bg.num_parts, seed)
         self.state = _visit.init_engine_state(
@@ -431,11 +493,14 @@ class WalkExecutor(_Lanes):
     walks, and its occupancy row is the session's bit for bit.
     ``length`` and ``seed`` are executor-wide.  Values are occupancy
     counts ``[n]`` in original ids (start and each step); ``edges`` bills
-    the steps taken.
+    the steps taken.  ``visit`` injects a prebuilt :class:`WalkBundle`
+    for the same ``length`` and ``seed``: the executor then builds no
+    walk lists.
     """
 
     def __init__(self, session, capacity: int = 16, *, length: int = 32,
-                 seed: int = 0, k_visits: int = 64):
+                 seed: int = 0, k_visits: int = 64,
+                 visit: Optional[WalkBundle] = None):
         super().__init__(capacity)
         self.session = session
         self.kind = "rw"
@@ -443,8 +508,16 @@ class WalkExecutor(_Lanes):
         self.k_visits = int(k_visits)
         bg, perm = session.prepared()
         self.bg, self.perm = bg, perm
-        self.wg = WalkGraph.build(bg, session.device)
-        self._visit = make_walk_visit(self.wg, self.length, self.seed)
+        if visit is None:
+            visit = build_stream_bundle(session, "rw", self.capacity,
+                                        length=self.length,
+                                        walk_seed=self.seed)
+        elif (visit.wg.block_size != bg.block_size
+              or visit.wg.num_parts != bg.num_parts
+              or visit.wg.device != session.device):
+            raise ValueError("the injected walk bundle was built for "
+                             "another graph or device")
+        self.wg, self._visit = visit
         B = bg.block_size
         # one visit streams the diagonal block and every boundary block
         self._visit_bytes = float((1 + bg.nbr_blk.shape[1]) * B * B * 4)

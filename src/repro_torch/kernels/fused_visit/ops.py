@@ -28,7 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.fused_visit.ref import (POLICIES, FusedSpec,
                                                  fused_step_ref, new_stats)
 
@@ -121,6 +121,12 @@ def _library():
         need.restype = ctypes.c_longlong
         _fns.update(launch=fn, smem=need)
     return _fns
+
+
+def load() -> None:
+    """Load the kernel's library (building it if needed) and bind its
+    entry points, before several threads may launch it."""
+    _library()
 
 
 def kernel_smem_bytes(algebra: str, num_queries: int, block_size: int,
@@ -250,7 +256,7 @@ class FusedVisit:
                 "layout's need" if rc == -1 else
                 f"fused visit launch (cluster of {cluster}) failed with "
                 f"CUDA error {rc}")
-        LAUNCHES["fused_visit"] += 1
+        count_launch(LAUNCHES, "fused_visit")
 
     def chunk(self, state, counter: int, launches: int,
               stats: torch.Tensor | None = None,

@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.minplus.ref import masked_matmul_ref, minplus_ref
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
@@ -64,6 +64,13 @@ def _kernel(name: str):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def load() -> None:
+    """Load the library (building it if needed) and bind both entry
+    points, before several threads may launch them."""
+    for name in _SYMBOLS:
+        _kernel(name)
 
 
 def _check(x: torch.Tensor, blocks: Optional[torch.Tensor],
@@ -166,7 +173,7 @@ def _run(name: str, x, blocks, idx, lists, xrow=None) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out
 
 

@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.threefry.ref import draw_ref
 
 #: kernel launches since the last :func:`reset_launches`
@@ -46,6 +46,12 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fns["launch"] = fn
     return _fns["launch"]
+
+
+def load() -> None:
+    """Load the kernel's library (building it if needed) and bind its
+    entry point, before several threads may launch it."""
+    _kernel()
 
 
 def _words(t: Optional[torch.Tensor], n: int, dev, what: str):
@@ -100,5 +106,5 @@ def draw(key: torch.Tensor, n: int, *, folds: Sequence[torch.Tensor] = (),
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"threefry launch failed with CUDA error {rc}")
-    LAUNCHES["threefry"] += 1
+    count_launch(LAUNCHES, "threefry")
     return u if uniform else (o1, o2)

@@ -1,17 +1,24 @@
 """End-to-end serving driver: continuous batching over batched requests.
 
-The port of the JAX package's ``repro.launch.serve`` for the ``lm``
-workload: token serving through ``ContinuousBatcher``, on the card unless
-``--device cpu`` is given.
+The port of the JAX package's ``repro.launch.serve``.  Two workloads, on
+the card unless ``--device cpu`` is given:
+
+  lm     token serving through ``ContinuousBatcher``
+  graph  graph-query serving: a multi-tenant ``GraphServer`` multiplexes an
+         arrival stream of requests onto per-(graph, kind) lane pools over
+         the streaming executors
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
         --no-reduced --requests 8 --batch 4 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
         --device cpu --requests 4 --batch 2 --max-new 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload graph \\
+        --graph road-ca --kind mixed --requests 32 --batch 8 --tenants 2
 
 ``--reduced`` (the default) serves the config's CPU-test variant;
-``--no-reduced`` the published widths.  The ``graph`` workload waits for
-the graph server (ROADMAP A11).
+``--no-reduced`` the published widths.  The graph workload's partition size
+is the port's planner's choice unless ``--block-size`` is given (the
+reference's default of 256 was sized for a TPU's memory).
 """
 from __future__ import annotations
 
@@ -57,7 +64,65 @@ def serve_lm(args):
     return out
 
 
+def serve_graph(args):
+    """Multi-tenant graph-query serving through the running lanes; returns
+    the response table.  Raises if a request gets no terminal response."""
+    from repro_torch.core.engine import resolve_device
+    from repro_torch.graphs.generators import build_suite
+    from repro_torch.serve import GraphRequest, GraphServer
+
+    dev = resolve_device(getattr(args, "device", None))
+    g = build_suite(args.graph)
+    rng = np.random.default_rng(args.seed)
+    cand = np.flatnonzero(g.out_degree() > 0)
+    sources = rng.choice(cand, size=args.requests, replace=True)
+    kinds = (("sssp", "ppr") if args.kind == "mixed" else (args.kind,))
+    # tenant 0 is the hot tenant (most of the offered load); equal weights,
+    # so fair admission alone must keep the cold tenants served
+    tenants = [f"tenant{i}" for i in range(args.tenants)]
+
+    server = GraphServer(capacity=args.batch, k_visits=args.pump_visits,
+                         seed=args.seed, device=dev)
+    server.register_graph(args.graph, g, num_queries=args.batch,
+                          block_size=args.block_size)
+
+    def arrivals():
+        # one submission batch per arrival, interleaved with the running
+        # lanes' chunks
+        for lo in range(0, len(sources), args.batch):
+            yield [GraphRequest(kind=kinds[i % len(kinds)], source=int(s),
+                                graph=args.graph,
+                                tenant=(tenants[0] if i % 4 else
+                                        tenants[(i // 4) % len(tenants)]))
+                   for i, s in enumerate(sources[lo: lo + args.batch],
+                                         start=lo)]
+
+    t0 = time.perf_counter()
+    out = server.serve_forever(arrivals())
+    dt = time.perf_counter() - t0
+    ok = [r for r in out.values() if r.status == "ok"]
+    if len(out) != len(sources):
+        raise RuntimeError(
+            f"server answered {len(out)} of {len(sources)} requests — "
+            f"every submitted request must get a terminal response")
+    lat = np.array([r.stats["latency_s"] for r in ok]) * 1e3
+    print(f"[serve] graph={args.graph} |V|={g.n} kinds={'/'.join(kinds)} "
+          f"tenants={args.tenants} on {dev}: {len(ok)}/{len(out)} ok in "
+          f"{server.rounds} rounds, {dt:.2f}s "
+          f"({len(ok) / max(dt, 1e-9):.1f} q/s, capacity={args.batch}, "
+          f"B={server._sessions[args.graph].current_plan.block_size}, "
+          f"K={args.pump_visits})")
+    if len(lat):
+        syncs = [r.stats["host_syncs"] for r in ok]
+        print(f"  latency p50/p99: {np.percentile(lat, 50):.1f}/"
+              f"{np.percentile(lat, 99):.1f} ms; per-request host syncs "
+              f"p50: {np.percentile(syncs, 50):.0f}")
+    return out
+
+
 def main(argv=None):
+    from repro_torch.graphs.generators import SUITES
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("lm", "graph"), default="lm")
     # lm workload
@@ -70,14 +135,23 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    # graph workload
+    ap.add_argument("--graph", default="road-ca", choices=sorted(SUITES))
+    ap.add_argument("--kind", choices=("sssp", "bfs", "ppr", "mixed"),
+                    default="sssp")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="partition size (default: the planner's choice)")
+    ap.add_argument("--pump-visits", type=int, default=8,
+                    help="megastep chunk size K: visits per serving round")
+    ap.add_argument("--tenants", type=int, default=2,
+                    help="tenant count for the graph workload (tenant0 hot)")
     # shared
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.workload == "graph":
-        raise NotImplementedError("the graph workload waits for the port of "
-                                  "the graph server (ROADMAP A11)")
+        return serve_graph(args)
     return serve_lm(args)
 
 

@@ -506,3 +506,92 @@ def test_random_walks_on_card_equal_cpu(card):
         assert tfops.LAUNCHES["threefry"] == (a.rounds or a.visits)
         for f in ("positions", "steps", "trajectory_hash", "occupancy"):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def _serve_requests(g, n=12, seed=21):
+    from repro_torch.serve import GraphRequest
+    cand = np.flatnonzero(g.out_degree() > 0)
+    srcs = np.random.default_rng(seed).choice(cand, size=n, replace=False)
+    kinds = ("sssp", "kreach", "rw", "bfs")
+    return [GraphRequest(kind=kinds[i % len(kinds)], source=int(s),
+                         graph="g", tenant=f"t{i % 3}")
+            for i, s in enumerate(srcs)]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_serve_forever_threads_on_card_equal_serve(card, fused):
+    """Three submitter threads against the running lanes on the card: every
+    answer (sssp, kreach, rw, bfs) equals the synchronous ``serve()`` on
+    the card and ``serve()`` on the CPU bit for bit, hop counts too."""
+    import threading
+
+    from repro_torch.fpp import FPPSession
+    from repro_torch.serve import GraphServer
+    g = grid2d(12, 12, seed=3)
+    reqs = _serve_requests(g)
+
+    def server(dev):
+        s = GraphServer(capacity=16, max_capacity=16, k_visits=8,
+                        fused=fused, autoscaler=None, eps=1e-3)
+        s.register_graph("g", FPPSession(g, device=dev).plan(
+            num_queries=16, block_size=32))
+        return s
+
+    sync = {}
+    for dev in ("cuda", "cpu"):
+        s = server(dev)
+        rids = s.submit_all(reqs)
+        out = s.serve()
+        sync[dev] = [out[r] for r in rids]
+    conc = server("cuda").start()
+    try:
+        got, lock = {}, threading.Lock()
+
+        def client(lo):
+            for i in range(lo, len(reqs), 3):
+                rid = conc.submit(reqs[i])
+                with lock:
+                    got[i] = rid
+        threads = [threading.Thread(target=client, args=(lo,))
+                   for lo in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        got = {i: conc.result(rid, timeout=300) for i, rid in got.items()}
+    finally:
+        conc.shutdown()
+    assert len(got) == len(reqs)
+    for i, r in got.items():
+        a, b = sync["cuda"][i], sync["cpu"][i]
+        assert r.status == a.status == b.status == "ok"
+        for x in (a, b):
+            np.testing.assert_array_equal(r.values, x.values)
+            np.testing.assert_array_equal(r.residual, x.residual)
+
+
+def test_pump_lane_exception_on_card_reaches_result(card):
+    """An exception raised in a pump lane on the card halts the lanes and
+    reaches ``result()`` and ``wait_drained()``; nothing is swallowed."""
+    from repro_torch.fpp import FPPSession
+    from repro_torch.serve import GraphRequest, GraphServer
+    g = grid2d(12, 12, seed=3)
+    s = GraphServer(capacity=4, k_visits=8, fused=True, autoscaler=None)
+    s.register_graph("g", FPPSession(g, device=card).plan(
+        num_queries=4, block_size=32))
+    s._ensure_exec(s._pool("g", "sssp"))
+
+    def broken(max_visits):
+        raise FloatingPointError("injected fault")
+
+    s._pools[("g", "sssp")].exec.pump = broken
+    s.start()
+    try:
+        rid = s.submit(GraphRequest(kind="sssp", source=5, graph="g"))
+        with pytest.raises(RuntimeError, match="serving lane failed") as ei:
+            s.result(rid, timeout=120)
+        assert isinstance(ei.value.__cause__, FloatingPointError)
+        with pytest.raises(RuntimeError, match="injected fault"):
+            s.wait_drained(timeout=5)
+    finally:
+        s.shutdown()

@@ -183,12 +183,13 @@ def test_reduced_flag_can_be_turned_off(monkeypatch):
     from repro_torch.launch import serve
     seen = []
     monkeypatch.setattr(serve, "serve_lm", lambda a: seen.append(a.reduced))
+    monkeypatch.setattr(serve, "serve_graph",
+                        lambda a: seen.append(a.workload))
     serve.main(["--no-reduced"])
     serve.main([])
     serve.main(["--reduced"])
-    assert seen == [False, True, True]
-    with pytest.raises(NotImplementedError, match="A11"):
-        serve.main(["--workload", "graph"])
+    serve.main(["--workload", "graph"])
+    assert seen == [False, True, True, "graph"]
 
 
 # ---------------------------------------------------------------------------
