@@ -65,9 +65,11 @@ def state_from_arrays(planes, buf, prio, ops_count, stamp,
 
 def lm_params_from_arrays(tree: dict, cfg: ArchConfig, device=None) -> dict:
     """The reference's LM params (``jax.tree.map(np.asarray, params)`` of
-    ``Model.init``: nested dicts, the ``stack`` leaves ``[L, ...]``) as the
-    port's, on ``device``, each leaf in its storage dtype
-    (``models.transformer.storage_dtype``)."""
+    ``Model.init``: nested dicts, the ``stack`` leaves ``[L, ...]``; the
+    hybrid's ``groups`` of ``rec1``, ``rec2`` and ``attn`` layers ``[L/3,
+    ...]`` and its recurrent ``tail``) as the port's, on ``device``, each
+    leaf in its storage dtype (``models.transformer.storage_dtype``: the
+    recurrences' ``_KEEP_F32`` leaves in float32)."""
     from repro_torch.models.transformer import check_family, storage_dtype
 
     check_family(cfg)

@@ -35,7 +35,10 @@
 // 4 * H * hd * S(S+1)/2 = 154.7 GFLOP against ~84 MB moved (q, k, v read
 // once, out written once), ~1,840 FLOP per byte: operation-bound.  On an
 // H100 SXM (data sheet, 700 W) the bf16 tensor cores need >= 0.156 ms; the
-// FP32 cores (67 TFLOP/s counting an FMA as two) >= 2.3 ms.
+// FP32 cores (67 TFLOP/s counting an FMA as two) >= 2.3 ms.  The hybrid
+// family's window (recurrentgemma-2b: H = 10, Hkv = 1, hd = 256, window
+// 2048) caps each query at 2048 keys, so its work grows linearly in S:
+// about 4 * H * hd * S * 2048 FLOP, operation-bound too.
 //
 // flash_tc_kernel (bf16), shaped after FlashAttention-3 for this card:
 //   - Persistent blocks of 384 threads, one per SM (the shared memory
@@ -46,12 +49,13 @@
 //     (cp.async.bulk.tensor, 4-D maps over (hd, heads, S, B) with the
 //     tensors' own strides, encoded on the host per call): each tile's q
 //     once, into a slot with its own full/empty mbarriers so the next
-//     tile's q lands under this tile's last P V and store, and 128-key K
-//     and V chunks through a ring of 3 stages (2 at hd 160) with
+//     tile's q lands under this tile's last P V and store, and K and V
+//     chunks of KC = 128 keys (64 at hd 256) through a ring of 3 stages (2
+//     at hd 160 and 256) with
 //     full/empty mbarriers, K and V apart, so a stage's K is refilled once
 //     its S is done.  Warpgroups 1 and 2 are consumers with raised
 //     registers, 64 query rows each.
-//   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//   - S = Q K^T is wgmma m64nKCk16 with both operands in shared memory
 //     (K-major, hd split into swizzle-wide column blocks: 64 columns with
 //     the 128-byte swizzle at hd 64/128, 32 with the 64-byte one at hd 160,
 //     16 with the 32-byte one at hd 16, the same mode in the TMA map and
@@ -71,7 +75,10 @@
 //   - Design limits, at hd 128: q (32 KB) plus 3 stages of K+V (3 x 64 KB)
 //     is 224 KB of the 227 KB a block may use, one block per SM; a
 //     consumer holds S (64 floats), O (64) and P (32 bf16 pairs) in
-//     registers.
+//     registers.  At hd 256 a 128-key stage of K+V alone is 128 KB, so the
+//     chunk is 64 keys: q (64 KB) plus 2 stages of K+V (2 x 64 KB) is 192
+//     KB, and a consumer holds S (32 floats), O (128: P V is m64n256k16)
+//     and P (16 pairs), as many as at hd 160.
 // Numerics (bf16): q . k takes the bf16 values exactly and sums in f32 on
 // the tensor cores; 1/sqrt(hd) is applied to S in f32 after the product,
 // folded with log2(e): p = 2^(s * c - m * c) (one fmaf, then the hardware's
@@ -127,8 +134,13 @@ constexpr int smem_floats() {
   // [kKC][HD]; probabilities [kKC][kLD]
   return 2 * HD * kLD + kKC * kLD;
 }
+// blocks per SM the shared memory allows: two, one at hd 256 (156,672 B)
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+constexpr int fp32_blocks_per_sm() {
+  return 2 * (smem_floats<HD>() * 4 + 1024) <= 233472 ? 2 : 1;
+}
+template <int HD>
+__global__ void __launch_bounds__(kThreads, fp32_blocks_per_sm<HD>())
 flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   int Sq, int Skv, int H, int group, long long q_bs,
@@ -294,7 +306,6 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: the tensor-core kernel
 
 constexpr int kTcRows = 128;      // query rows per block (2 consumer WGs)
-constexpr int kTcKC = 128;        // keys per K/V chunk
 constexpr int kTcThreads = 384;   // producer WG + 2 consumer WGs
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -306,12 +317,16 @@ struct TcShape {
   static constexpr int CB = HD % 64 == 0 ? 64 : (HD % 32 == 0 ? 32 : 16);
   static constexpr int NCB = HD / CB;
   static constexpr int RB = CB * 2;                 // bytes per tile row
+  // keys per K/V chunk: 128, or 64 at hd 256, where the q tile (64 KB) and
+  // two stages of 128-key K and V (4 x 64 KB) would not fit; there S is
+  // m64n64 and P V m64n256
+  static constexpr int KC = HD > 160 ? 64 : 128;
   static constexpr int kQBytes = kTcRows * HD * 2;  // q tile
-  static constexpr int kKVBytes = kTcKC * HD * 2;   // one K or V chunk
+  static constexpr int kKVBytes = KC * HD * 2;      // one K or V chunk
   // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64, 3 = 32
   static constexpr int kLayout = CB == 64 ? 1 : (CB == 32 ? 2 : 3);
   // K/V ring depth: 3 stages where they fit beside the q tile (hd <= 128),
-  // else 2
+  // else 2 (hd 160: 40 + 4 x 40 KB; hd 256: 64 + 4 x 32 KB)
   static constexpr int kStages =
       kQBytes + 3 * 2 * kKVBytes + 128 + 1024 <= 232448 ? 3 : 2;
   // q | K stages | V stages | barriers, every tile 1024-byte aligned (the
@@ -449,6 +464,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared
+// memory; scale_d = 0 overwrites D (the 64-key chunks of head dim 256)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 16] += A[64 x 16] . B[16 x 16], A in registers (bf16 pairs),
 // B MN-major in shared memory (transpose bit set)
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
@@ -558,6 +595,60 @@ __device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers (bf16 pairs),
+// B MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38,"
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51,"
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64,"
+      "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77,"
+      "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90,"
+      "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116,"
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
@@ -569,9 +660,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     wgmma_rs_n64(d, a, db);
   } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, db);
-  } else {
-    static_assert(N == 160, "no wgmma wrapper for this head dim");
+  } else if constexpr (N == 160) {
     wgmma_rs_n160(d, a, db);
+  } else {
+    static_assert(N == 256, "no wgmma wrapper for this head dim");
+    wgmma_rs_n256(d, a, db);
+  }
+}
+
+// S (+)= Q K^T over one chunk of N keys (N = 128, or 64 at hd 256)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, da, db, scale_d);
+  } else {
+    static_assert(N == 64, "no wgmma wrapper for this chunk");
+    wgmma_ss_n64(d, da, db, scale_d);
   }
 }
 
@@ -610,11 +715,12 @@ struct RowCtx {
   float c;               // log2(e) / sqrt(hd)
 };
 
-// One chunk's online-softmax step on the scores sc (the m64n128
+// One chunk's online-softmax step on the scores sc (the m64nKC
 // accumulator: slots 4j, 4j+1 are row a, 4j+2, 4j+3 row b, keys c0 + 8j +
 // 2cq + {0, 1}).  Masks when `masked`; leaves p (f32) in sc, updates m
 // and l, and returns the rescale of rows a and b.
-__device__ __forceinline__ void softmax_chunk(float (&sc)[kTcKC / 2],
+template <int KC>
+__device__ __forceinline__ void softmax_chunk(float (&sc)[KC / 2],
                                               const RowCtx& x, int c0,
                                               bool masked, float& m_a,
                                               float& m_b, float& l_a,
@@ -622,7 +728,7 @@ __device__ __forceinline__ void softmax_chunk(float (&sc)[kTcKC / 2],
                                               float& rb) {
   if (masked) {
 #pragma unroll
-    for (int j = 0; j < kTcKC / 8; ++j)
+    for (int j = 0; j < KC / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kp = c0 + 8 * j + 2 * x.cq + (e & 1);
@@ -634,7 +740,7 @@ __device__ __forceinline__ void softmax_chunk(float (&sc)[kTcKC / 2],
   }
   float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-  for (int j = 0; j < kTcKC / 8; ++j) {
+  for (int j = 0; j < KC / 8; ++j) {
     mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
     mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
@@ -648,7 +754,7 @@ __device__ __forceinline__ void softmax_chunk(float (&sc)[kTcKC / 2],
   m_b = mx_b;
   float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
-  for (int j = 0; j < kTcKC / 8; ++j) {
+  for (int j = 0; j < KC / 8; ++j) {
     sc[4 * j] = ex2(fmaf(sc[4 * j], x.c, -mu_a));
     sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], x.c, -mu_a));
     sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], x.c, -mu_b));
@@ -662,10 +768,11 @@ __device__ __forceinline__ void softmax_chunk(float (&sc)[kTcKC / 2],
 
 // P as the register operand of P V: the accumulator layout of keys
 // 16kk..16kk+15 is the A-fragment layout of one k-step.
-__device__ __forceinline__ void pack_p(const float (&sc)[kTcKC / 2],
-                                       uint32_t (&pa)[kTcKC / 16][4]) {
+template <int KC>
+__device__ __forceinline__ void pack_p(const float (&sc)[KC / 2],
+                                       uint32_t (&pa)[KC / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kTcKC / 16; ++kk) {
+  for (int kk = 0; kk < KC / 16; ++kk) {
     pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
     pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
     pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -680,6 +787,7 @@ struct Tile {
   int q0, h, b, c_begin, n_chunks;
 };
 
+template <int KC>
 __device__ __forceinline__ Tile tile_at(int t, int n_qt, int H, int B, int Sq,
                                         int q_offset, int kv_hi, int causal,
                                         int window) {
@@ -690,9 +798,8 @@ __device__ __forceinline__ Tile tile_at(int t, int n_qt, int H, int B, int Sq,
   const int q_last = min(x.q0 + kTcRows, Sq) - 1;
   const int c_end = causal ? min(kv_hi, q_offset + q_last + 1) : kv_hi;
   x.c_begin =
-      window > 0 ? max(0, q_offset + x.q0 - window + 1) / kTcKC * kTcKC : 0;
-  x.n_chunks =
-      c_end > x.c_begin ? (c_end - x.c_begin + kTcKC - 1) / kTcKC : 0;
+      window > 0 ? max(0, q_offset + x.q0 - window + 1) / KC * KC : 0;
+  x.n_chunks = c_end > x.c_begin ? (c_end - x.c_begin + KC - 1) / KC : 0;
   return x;
 }
 
@@ -706,6 +813,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 int window, float c) {
   using Sh = TcShape<HD>;
   constexpr int NS = Sh::kStages;
+  constexpr int KC = Sh::KC;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s0 = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = s0, k_s = s0 + Sh::kOffK, v_s = s0 + Sh::kOffV;
@@ -743,7 +851,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       int ti = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++ti) {
         const Tile x =
-            tile_at(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window);
+            tile_at<KC>(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window);
         const int hk = x.h / group;
         mbar_wait(empty_q, (ti & 1) ^ 1);    // the last tile's q consumed
         mbar_expect_tx(full_q, Sh::kQBytes);
@@ -754,18 +862,18 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int j = 0; j < x.n_chunks; ++j, ++r) {
           const int s = r % NS;
           const uint32_t free_par = ((r / NS) & 1) ^ 1;
-          const int c0 = x.c_begin + j * kTcKC;
+          const int c0 = x.c_begin + j * KC;
           mbar_wait(empty_k + 8 * s, free_par);   // K of the stage consumed
           mbar_expect_tx(full_k + 8 * s, Sh::kKVBytes);
 #pragma unroll
           for (int cb = 0; cb < Sh::NCB; ++cb)
-            tma_load_4d(k_s + s * Sh::kKVBytes + cb * kTcKC * Sh::RB, &kmap,
+            tma_load_4d(k_s + s * Sh::kKVBytes + cb * KC * Sh::RB, &kmap,
                         full_k + 8 * s, cb * Sh::CB, hk, c0, x.b);
           mbar_wait(empty_v + 8 * s, free_par);   // V of the stage consumed
           mbar_expect_tx(full_v + 8 * s, Sh::kKVBytes);
 #pragma unroll
           for (int cb = 0; cb < Sh::NCB; ++cb)
-            tma_load_4d(v_s + s * Sh::kKVBytes + cb * kTcKC * Sh::RB, &vmap,
+            tma_load_4d(v_s + s * Sh::kKVBytes + cb * KC * Sh::RB, &vmap,
                         full_v + 8 * s, cb * Sh::CB, hk, c0, x.b);
         }
       }
@@ -793,8 +901,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_wait(full_v + 8 * s, par);
       mbar_arrive(empty_v + 8 * s);
     };
-    // S = Q K^T over slot r's 128 keys, issued (not waited for)
-    auto issue_s = [&](int r, float (&sc)[kTcKC / 2]) {
+    // S = Q K^T over slot r's KC keys, issued (not waited for)
+    auto issue_s = [&](int r, float (&sc)[KC / 2]) {
       const int s = r % NS;
       mbar_wait(full_k + 8 * s, (r / NS) & 1);
       const uint32_t ks = k_s + s * Sh::kKVBytes;
@@ -803,40 +911,40 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t col = (kk * 16) % Sh::CB * 2;
         const uint32_t blk = (kk * 16) / Sh::CB;
-        wgmma_ss_n128(
+        wgmma_ss<KC>(
             sc,
             make_desc(qa + blk * (kTcRows * Sh::RB) + col, 16, 8 * Sh::RB,
                       Sh::kLayout),
-            make_desc(ks + blk * (kTcKC * Sh::RB) + col, 16, 8 * Sh::RB,
+            make_desc(ks + blk * (KC * Sh::RB) + col, 16, 8 * Sh::RB,
                       Sh::kLayout),
             kk > 0);
       }
       wgmma_commit();
     };
     // O += P V over slot r, V read MN-major (16 keys per k-step, the
-    // column blocks kTcKC * RB bytes apart), issued (not waited for)
+    // column blocks KC * RB bytes apart), issued (not waited for)
     auto issue_pv = [&](int r, float (&o)[HD / 2],
-                        uint32_t (&pa)[kTcKC / 16][4]) {
+                        uint32_t (&pa)[KC / 16][4]) {
       const int s = r % NS;
       mbar_wait(full_v + 8 * s, (r / NS) & 1);
       const uint32_t vs = v_s + s * Sh::kKVBytes;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTcKC / 16; ++kk)
+      for (int kk = 0; kk < KC / 16; ++kk)
         wgmma_rs<HD>(o, pa[kk],
-                     make_desc(vs + kk * 16 * Sh::RB, kTcKC * Sh::RB,
+                     make_desc(vs + kk * 16 * Sh::RB, KC * Sh::RB,
                                8 * Sh::RB, Sh::kLayout));
       wgmma_commit();
     };
 
-    float o[HD / 2], sc[kTcKC / 2];
-    uint32_t pa[kTcKC / 16][4];
+    float o[HD / 2], sc[KC / 2];
+    uint32_t pa[KC / 16][4];
     int r = 0;                               // ring slots consumed so far
     int ti = 0;
     if (wg == 2) your_turn();                // warpgroup 1 goes first
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++ti) {
       const Tile x =
-          tile_at(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window);
+          tile_at<KC>(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window);
       const int row_a = x.q0 + r0 + warp * 16 + lane / 4, row_b = row_a + 8;
       const RowCtx rc = {q_offset + row_a, q_offset + row_b, lane % 4,
                          kv_hi, causal, window, c};
@@ -848,16 +956,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       const int hi = causal ? min(kv_hi, q_offset + w_last + 1) : kv_hi;
       int j_lo = 0, j_hi = 0;
       if (wg_live) {
-        while (j_lo < x.n_chunks && x.c_begin + (j_lo + 1) * kTcKC <= lo)
-          ++j_lo;
+        while (j_lo < x.n_chunks && x.c_begin + (j_lo + 1) * KC <= lo) ++j_lo;
         j_hi = j_lo;
-        while (j_hi < x.n_chunks && x.c_begin + j_hi * kTcKC < hi) ++j_hi;
+        while (j_hi < x.n_chunks && x.c_begin + j_hi * KC < hi) ++j_hi;
       }
       // the chunk needs its mask: a key past kv_len, above the diagonal
       // or below the window for some row of the warpgroup
       auto masked = [&](int c0) {
-        return c0 + kTcKC > kv_hi ||
-               (causal && c0 + kTcKC - 1 > q_offset + w_first) ||
+        return c0 + KC > kv_hi ||
+               (causal && c0 + KC - 1 > q_offset + w_first) ||
                (window > 0 && c0 <= q_offset + w_last - window);
       };
 
@@ -876,13 +983,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         fence_regs(sc);
         mbar_arrive(empty_k + 8 * ((r + j_lo) % NS));
         if (j_lo + 1 == j_hi) mbar_arrive(empty_q);   // q's last use
-        const int c0 = x.c_begin + j_lo * kTcKC;
-        softmax_chunk(sc, rc, c0, masked(c0), m_a, m_b, l_a, l_b, ra, rb);
-        pack_p(sc, pa);
+        const int c0 = x.c_begin + j_lo * KC;
+        softmax_chunk<KC>(sc, rc, c0, masked(c0), m_a, m_b, l_a, l_b, ra, rb);
+        pack_p<KC>(sc, pa);
         // steady state: chunk j's S runs on the tensor cores beside the
         // previous chunk's P V, and its softmax overlaps that P V
         for (int j = j_lo + 1; j < j_hi; ++j) {
-          const int c0 = x.c_begin + j * kTcKC;
+          const int c0 = x.c_begin + j * KC;
           my_turn();
           issue_s(r + j, sc);
           issue_pv(r + j - 1, o, pa);
@@ -891,8 +998,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           fence_regs(sc);
           mbar_arrive(empty_k + 8 * ((r + j) % NS));
           if (j + 1 == j_hi) mbar_arrive(empty_q);    // q's last use
-          softmax_chunk(sc, rc, c0, masked(c0), m_a, m_b, l_a, l_b, ra,
-                        rb);
+          softmax_chunk<KC>(sc, rc, c0, masked(c0), m_a, m_b, l_a, l_b, ra,
+                            rb);
           wgmma_wait<0>();                    // P V of chunk j - 1 is done
           fence_regs(o);
           fence_regs(pa);
@@ -900,7 +1007,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
           for (int i = 0; i < HD / 2; ++i)
             o[i] = __fmul_rn(o[i], (i & 2) ? rb : ra);
-          pack_p(sc, pa);
+          pack_p<KC>(sc, pa);
         }
         issue_pv(r + j_hi - 1, o, pa);
         wgmma_wait<0>();
@@ -1064,9 +1171,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   CUtensorMap qm, km, vm;
   if ((rc = encode_map(&qm, q, B, Sq, H, HD, q_bs, q_ss, Sh::CB, kTcRows)) ||
       (rc = encode_map(&km, k, B, Skv, Hkv, HD, kv_bs, kv_ss, Sh::CB,
-                       kTcKC)) ||
+                       Sh::KC)) ||
       (rc = encode_map(&vm, v, B, Skv, Hkv, HD, kv_bs, kv_ss, Sh::CB,
-                       kTcKC)))
+                       Sh::KC)))
     return rc;
   // c = log2(e) / sqrt(hd): the exponent's scale, folded for ex2
   const float c = static_cast<float>(static_cast<double>(scale) *
@@ -1108,6 +1215,7 @@ extern "C" int fg_flash_attention(const void* q, const void* k,
       FG_HD(64, launch_fp32)
       FG_HD(128, launch_fp32)
       FG_HD(160, launch_fp32)
+      FG_HD(256, launch_fp32)
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1118,6 +1226,7 @@ extern "C" int fg_flash_attention(const void* q, const void* k,
       FG_HD(64, launch_tc)
       FG_HD(128, launch_tc)
       FG_HD(160, launch_tc)
+      FG_HD(256, launch_tc)
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -30,8 +30,9 @@ LAUNCHES = {"flash_attention": 0}
 
 #: head dims the kernels are instantiated for (``csrc/flash_attention.cu``):
 #: the reduced configs (16), the windowed case (64), starcoder2-7b,
-#: qwen2-72b and mistral-large-123b (128), stablelm-12b (160)
-HEAD_DIMS = (16, 64, 128, 160)
+#: qwen2-72b and mistral-large-123b (128), stablelm-12b (160),
+#: recurrentgemma-2b (256; the tensor-core kernel's chunks are 64 keys there)
+HEAD_DIMS = (16, 64, 128, 160, 256)
 #: dtype codes of the C entry
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

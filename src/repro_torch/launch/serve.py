@@ -12,6 +12,8 @@ the card unless ``--device cpu`` is given:
         --no-reduced --requests 8 --batch 4 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
         --device cpu --requests 4 --batch 2 --max-new 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --no-reduced     # also falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --workload graph \\
         --graph road-ca --kind mixed --requests 32 --batch 8 --tenants 2
 
@@ -44,8 +46,11 @@ def serve_lm(args):
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(args.seed)
 
+    # a hybrid's decode reads its whole attention window (ROADMAP C5)
+    max_len = args.max_len or max(96, cfg.hybrid.window if cfg.hybrid
+                                  else 0)
     batcher = ContinuousBatcher(model, params, batch_size=args.batch,
-                                max_len=args.max_len, device=dev)
+                                max_len=max_len, device=dev)
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab,
                               rng.integers(4, 12)).astype(np.int32)
@@ -131,7 +136,9 @@ def main(argv=None):
                     default=True,
                     help="serve the config's reduced variant (default); "
                          "--no-reduced serves the published widths")
-    ap.add_argument("--max-len", type=int, default=96)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="decode cache length (default 96, or the "
+                         "attention window for the hybrid family)")
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")

@@ -1,11 +1,15 @@
-"""Decoder-only LM assembly: prefill and decode of the dense family.
+"""Decoder-only LM assembly: prefill and decode of the dense, ssm and hybrid
+families.
 
-The port of the JAX package's ``repro.models.transformer`` for the
-``dense`` family on one device.  Parameters are nested dictionaries with the
-JAX package's tree and layouts: ``params["stack"]`` holds every layer's
-leaves stacked on a leading ``[L]`` axis, and the layer loops (``lax.scan``
-and ``fori_loop`` there) are Python loops over it.  moe, ssm and hybrid
-raise ``NotImplementedError`` naming their ROADMAP item; the ``rules`` and
+The port of the JAX package's ``repro.models.transformer`` on one device.
+Parameters are nested dictionaries with the JAX package's tree and layouts:
+``params["stack"]`` holds every layer's leaves stacked on a leading ``[L]``
+axis (dense, ssm); the hybrid family (recurrentgemma's 1:2 RG-LRU:attention
+pattern) holds ``params["groups"]`` of (``rec1``, ``rec2``, ``attn``) layers
+stacked on ``[n_layers // 3]`` and ``params["tail"]``, the ``n_layers % 3``
+recurrent layers after them.  The layer loops (``lax.scan`` and
+``fori_loop`` there) are Python loops.  moe, encdec and vlm raise
+``NotImplementedError`` naming their ROADMAP item; the ``rules`` and
 manual-TP arms of the reference (a mesh) have no counterpart here.
 
 Weights are stored as the reference uses them (``storage_dtype``): block
@@ -14,9 +18,18 @@ reference's ``cast_layer_params`` casting the float32 master copy at every
 use — the embedding table in ``cdtype`` (``embed`` casts before the
 gather), and the unembed and every norm in ``cfg.pdtype``: the reference's
 decode reads the norms uncast, its prefill through ``cast_layer_params``.
+So do the ssm block's ``x_proj`` and ``dt_proj``, which the reference's
+decode reads in float32 and its prefill rounded to ``cdtype``.  The
+recurrences' numerics-sensitive leaves (``_KEEP_F32``) stay float32
+everywhere, as in the reference.
 
-The KV cache is updated in place (the reference rebuilds it functionally);
-``decode_step`` consumes the state it is given.
+The KV cache and the recurrent states are updated in place (the reference
+rebuilds them functionally); ``decode_step`` consumes the state it is
+given.  The hybrid's attention layers keep a ring cache of
+``min(max_len, window)`` slots, keyed by absolute position mod window after
+prefill; its decode copies the reference's slot and RoPE position, which
+after a prompt longer than the window are ``length % window`` and
+``length`` with ``length`` clamped to the window (ROADMAP C4).
 """
 from __future__ import annotations
 
@@ -27,81 +40,123 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 
 #: families whose modules wait for a later slice, with their ROADMAP item
 _NOT_PORTED = {
     "moe": "moe.py, ROADMAP A14",
-    "ssm": "ssm.py, ROADMAP A14",
-    "hybrid": "rglru.py and windowed attention, ROADMAP A14",
     "encdec": "encdec.py (whisper), ROADMAP A14",
     "vlm": "the prefix_len mask, ROADMAP A14",
 }
+_PORTED = ("dense", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({_NOT_PORTED[cfg.family]}); the port runs the dense family")
-    if cfg.family != "dense":
+            f"({_NOT_PORTED[cfg.family]}); the port runs the "
+            f"{', '.join(_PORTED)} families")
+    if cfg.family not in _PORTED:
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
 class DecodeState(NamedTuple):
     kv: Optional[KVCache]                     # [n_attn_layers, ...]
-    ssm: Optional[object] = None              # the ssm family (A14)
-    lru: Optional[object] = None              # the hybrid family (A14)
+    ssm: Optional[ssm_lib.SSMState] = None    # [n_ssm_layers, ...]
+    lru: Optional[rglru_lib.LRUState] = None  # [n_rec_layers, ...]
 
 
 def layer_plan(cfg: ArchConfig) -> list:
     check_family(cfg)
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        pat = cfg.hybrid.pattern  # ("recurrent", "recurrent", "attention")
+        kinds = {"recurrent": "rec", "attention": "attn"}
+        return [kinds[pat[i % len(pat)]] for i in range(cfg.n_layers)]
     return ["attn"] * cfg.n_layers
+
+
+def _window(cfg: ArchConfig) -> Optional[int]:
+    return cfg.hybrid.window if cfg.family == "hybrid" else None
+
+
+def check_cache_covers_window(cfg: ArchConfig, slots: int) -> None:
+    """The hybrid's decode reads ``window`` ring slots: a cache of fewer
+    (``max_len < window``) cannot be decoded.  The reference fails there
+    with a broadcasting error (ROADMAP C5); the port raises this."""
+    window = _window(cfg)
+    if window and slots < window:
+        raise ValueError(
+            f"{cfg.name}: a decode cache of {slots} slots (max_len {slots}) "
+            f"is shorter than the attention window {window}; the hybrid's "
+            f"decode needs max_len >= window")
 
 
 # ---------------------------------------------------------------------------
 # params
 
 _NORMS = ("ln1", "ln2")
+#: numerics-sensitive leaves that stay float32 through the recurrences (the
+#: reference's ``_KEEP_F32``: never cast to the compute dtype)
+_KEEP_F32 = {"A_log", "D", "lam", "w_a", "b_a", "w_x", "b_x", "dt_bias"}
+#: leaves the reference's decode reads in float32 and its prefill cast to
+#: the compute dtype: stored in ``pdtype`` and cast at prefill, like a norm
+_DECODE_F32 = {"x_proj", "dt_proj"}
 
 
 def storage_dtype(path: tuple, cfg: ArchConfig) -> torch.dtype:
     """The dtype a parameter leaf is stored in (see the module docstring):
-    ``path`` is its key path, e.g. ``("stack", "attn", "wq")``."""
+    ``path`` is its key path, e.g. ``("stack", "attn", "wq")`` or
+    ``("groups", "rec1", "rec", "lam")``."""
     if path[0] == "embed":
         if path[-1] == "embedding" and not cfg.tie_embeddings:
             return cfg.cdtype
         return cfg.pdtype
-    if path[0] == "final_norm" or path[1] in _NORMS:
+    if path[0] == "final_norm" or path[-2] in _NORMS:
+        return cfg.pdtype
+    if path[-1] in _KEEP_F32:
+        return torch.float32
+    if path[-1] in _DECODE_F32:
         return cfg.pdtype
     return cfg.cdtype
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
-    """One layer's parameters in ``cfg.pdtype``, as the reference draws
-    them."""
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP A14)")
+    """One layer's parameters of ``kind`` (``attn``, ``rec`` or ``ssm``) in
+    ``cfg.pdtype``, as the reference draws them."""
     d, dt = cfg.d_model, cfg.pdtype
-    return {"ln1": L.init_norm(dt, d, cfg.norm, device),
-            "attn": attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+    p = {"ln1": L.init_norm(dt, d, cfg.norm, device)}
+    if kind == "attn":
+        p["attn"] = attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                         cfg.head_dim_, dt, cfg.qkv_bias,
-                                        device),
-            "ln2": L.init_norm(dt, d, cfg.norm, device),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, dt, cfg.gated_mlp, device)}
+                                        device)
+    elif kind == "rec":
+        p["rec"] = rglru_lib.init_rglru(gen, cfg, dt, device)
+    elif kind == "ssm":
+        p["ssm"] = ssm_lib.init_ssm(gen, cfg, dt, device)
+        return p                          # the mamba block has no MLP
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP A14)")
+    p["ln2"] = L.init_norm(dt, d, cfg.norm, device)
+    p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dt, cfg.gated_mlp, device)
+    return p
 
 
-def _stacked_init(gen, cfg, kind, n, device):
-    """``n`` layers stacked on a leading axis in their storage dtypes,
-    drawn one layer at a time so that only one layer's float32 draws are
-    live besides the stack."""
+def _stacked_init(gen, cfg, kind, n, device, prefix=("stack",)):
+    """``n`` layers stacked on a leading axis in their storage dtypes
+    (``prefix`` is the stack's key path), drawn one layer at a time so that
+    only one layer's float32 draws are live besides the stack."""
     stack = None
     for i in range(n):
         lp = init_layer(gen, cfg, kind, device)
         if stack is None:
             stack = {g: {k: torch.empty(
                 (n,) + t.shape, device=device,
-                dtype=storage_dtype(("stack", g, k), cfg))
+                dtype=storage_dtype(prefix + (g, k), cfg))
                 for k, t in leaves.items()} for g, leaves in lp.items()}
         for g, leaves in lp.items():
             for k, t in leaves.items():
@@ -113,15 +168,27 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     """Random parameters with the JAX package's scales and layouts, drawn
     from ``gen`` on ``device`` (different numbers from the reference's),
     each leaf in its storage dtype."""
-    kind = layer_plan(cfg)[0]
+    plan = layer_plan(cfg)
     emb = L.init_embedding(gen, L.pad_vocab(cfg.vocab), cfg.d_model,
                            cfg.pdtype, cfg.tie_embeddings, device)
-    return {
-        "embed": {k: t.to(storage_dtype(("embed", k), cfg))
-                  for k, t in emb.items()},
-        "stack": _stacked_init(gen, cfg, kind, cfg.n_layers, device),
-        "final_norm": L.init_norm(cfg.pdtype, cfg.d_model, cfg.norm, device),
-    }
+    params = {"embed": {k: t.to(storage_dtype(("embed", k), cfg))
+                        for k, t in emb.items()}}
+    if cfg.family == "hybrid":
+        ng = cfg.n_layers // 3
+        params["groups"] = {
+            name: _stacked_init(gen, cfg, kind, ng, device,
+                                ("groups", name))
+            for name, kind in (("rec1", "rec"), ("rec2", "rec"),
+                               ("attn", "attn"))}
+        if cfg.n_layers % 3:
+            params["tail"] = _stacked_init(gen, cfg, "rec", cfg.n_layers % 3,
+                                           device, ("tail",))
+    else:
+        params["stack"] = _stacked_init(gen, cfg, plan[0], cfg.n_layers,
+                                        device)
+    params["final_norm"] = L.init_norm(cfg.pdtype, cfg.d_model, cfg.norm,
+                                       device)
+    return params
 
 
 def _layer(stack: dict, i: int) -> dict:
@@ -132,22 +199,35 @@ def _layer(stack: dict, i: int) -> dict:
 
 def cast_layer_params(lp: dict, cdtype: torch.dtype) -> dict:
     """Cast a layer's float32 leaves to the compute dtype, as the reference
-    does at every full-sequence use: here only the norms are float32 (the
-    matmul weights are stored in ``cdtype`` already)."""
-    return {g: {k: (t.to(cdtype) if t.dtype == torch.float32 else t)
+    does at every full-sequence use, except the ``_KEEP_F32`` leaves: here
+    the norms, ``x_proj`` and ``dt_proj`` are the float32 leaves that cast
+    (the matmul weights are stored in ``cdtype`` already)."""
+    return {g: {k: (t.to(cdtype) if t.dtype == torch.float32
+                    and k not in _KEEP_F32 else t)
                 for k, t in leaves.items()}
             for g, leaves in lp.items()}
+
+
+def _state_at(state, i):
+    """Layer ``i``'s slice of a stacked recurrent state (views)."""
+    return type(state)(*(t[i] for t in state))
+
+
+def _put_state(state, i, new) -> None:
+    """Write one layer's new recurrent state into slot ``i`` of the stack."""
+    for dst, src in zip(state, new):
+        dst[i].copy_(src)
 
 
 # ---------------------------------------------------------------------------
 # layer application (full sequence: prefill)
 
 
-def _apply_attn_layer(lp, cfg, x, positions):
+def _apply_attn_layer(lp, cfg, x, positions, window=None):
     """Returns (x, (k, v)): the layer's keys and values fill the cache."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
     q, k, v = attn.qkv_proj(lp["attn"], h, positions, cfg.rope_theta)
-    o = attn.attend(q, k, v, 0, causal=True)
+    o = attn.attend(q, k, v, 0, causal=True, window=window)
     return x + attn.out_proj(lp["attn"], o), (k, v)
 
 
@@ -156,30 +236,43 @@ def _apply_mlp(lp, cfg, x):
     return x + L.apply_mlp(lp["mlp"], h, cfg.act)
 
 
-def _apply_layer_full(lp, cfg, x, positions):
-    """One attn layer, full sequence.  Returns (x, (k, v))."""
+def _apply_layer_full(lp, cfg, kind, x, positions):
+    """One layer of ``kind``, full sequence.  Returns (x, (k, v) or None,
+    new recurrent state or None)."""
     lp = cast_layer_params(lp, cfg.cdtype)
-    x, kv = _apply_attn_layer(lp, cfg, x, positions)
-    return _apply_mlp(lp, cfg, x), kv
+    if kind == "ssm":
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        y, st = ssm_lib.apply_ssm(lp["ssm"], h, cfg)
+        return x + y, None, st
+    if kind == "rec":
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        y, st = rglru_lib.apply_rglru(lp["rec"], h)
+        return _apply_mlp(lp, cfg, x + y), None, st
+    x, kv = _apply_attn_layer(lp, cfg, x, positions, window=_window(cfg))
+    return _apply_mlp(lp, cfg, x), kv, None
 
 
 # ---------------------------------------------------------------------------
 # prefill: forward + build decode state
 
 PREFILL_CHUNK = 4096
+#: families whose long prompts take the chunked prefill (the reference's;
+#: the recurrent families always take the whole one)
+CHUNKED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def prefill(params, cfg: ArchConfig, tokens, *, max_len=None,
             chunk: int = PREFILL_CHUNK):
-    """tokens: [B,S] int.  Returns (last_logits [B,V] f32, DecodeState with
-    length = S).
+    """tokens: [B,S] int.  Returns (last_logits [B,V] f32, DecodeState).
 
-    A prompt longer than ``chunk`` whose length is a multiple of it is
-    processed in chunks (``_prefill_chunked``); any other prompt in one
-    pass (``_prefill_whole``), as in the reference."""
+    A dense prompt longer than ``chunk`` whose length is a multiple of it
+    is processed in chunks (``_prefill_chunked``); any other prompt, and
+    every ssm and hybrid prompt, in one pass (``_prefill_whole``), as in the
+    reference."""
     check_family(cfg)
     S_tot = tokens.shape[1]
-    if S_tot > chunk and S_tot % chunk == 0 and (max_len or S_tot) >= S_tot:
+    if (cfg.family in CHUNKED_FAMILIES and S_tot > chunk
+            and S_tot % chunk == 0 and (max_len or S_tot) >= S_tot):
         return _prefill_chunked(params, cfg, tokens, max_len=max_len or S_tot,
                                 chunk=chunk)
     return _prefill_whole(params, cfg, tokens, max_len=max_len)
@@ -219,57 +312,151 @@ def _prefill_chunked(params, cfg: ArchConfig, tokens, *, max_len, chunk):
     return last, DecodeState(kv=KVCache(k=kc, v=vc, length=length))
 
 
+def _fill_cache(cache: KVCache, i: int, k, v, window) -> None:
+    """Write one layer's prefill keys and values into cache layer ``i`` of
+    ``C`` slots, as the reference's ``pad_kv``: the last ``min(S, C)``
+    positions, zero-padded when ``S < C``; a windowed cache is a ring
+    keyed by absolute position mod ``C``."""
+    C, S = cache.k.shape[2], k.shape[1]
+    n = min(S, C)
+    for dst, src in ((cache.k, k), (cache.v, v)):
+        last = src[:, S - n:]
+        if window and S >= C:
+            last = torch.roll(last, S % C, dims=1)
+        dst[i, :, :n] = last
+
+
 def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None):
-    """One pass over the prompt; each layer's keys and values are written
-    into a zero cache of ``max_len`` positions (the reference zero-pads
-    them to it; a prompt longer than the cache keeps its last ``max_len``
-    positions)."""
+    """One pass over the prompt.  The attention layers' keys and values go
+    into a zero cache of ``max_len`` positions (``min(max_len, window)``
+    ring slots for the hybrid; a prompt longer than the cache keeps its
+    last positions); the recurrent layers' final states into the stacked
+    ``ssm`` / ``lru`` states.  ``length`` is S, clamped to the ring's size
+    for the hybrid (the reference's; ROADMAP C4)."""
     x = L.embed(params["embed"], tokens, cfg.cdtype)
     B, S, _ = x.shape
+    dev = x.device
     max_len = max_len or S
-    positions = torch.arange(S, device=x.device)
-    cache = KVCache.init(cfg.n_layers, B, max_len, cfg.n_kv_heads,
-                         cfg.head_dim_, cfg.cdtype, device=x.device)
-    n = min(S, max_len)
-    for i in range(cfg.n_layers):
-        x, (k, v) = _apply_layer_full(_layer(params["stack"], i), cfg, x,
-                                      positions)
-        cache.k[i, :, :n] = k[:, S - n:]
-        cache.v[i, :, :n] = v[:, S - n:]
+    positions = torch.arange(S, device=dev)
+    window = _window(cfg)
+    cache_len = min(max_len, window) if window else max_len
+    cache = ssm_st = lru_st = None
+    if cfg.family == "ssm":
+        ssm_st = ssm_lib.init_ssm_state(cfg, B, cfg.cdtype, cfg.n_layers,
+                                        device=dev)
+        for i in range(cfg.n_layers):
+            x, _, st = _apply_layer_full(_layer(params["stack"], i), cfg,
+                                         "ssm", x, positions)
+            _put_state(ssm_st, i, st)
+    elif cfg.family == "hybrid":
+        ng, n_tail = cfg.n_layers // 3, cfg.n_layers % 3
+        cache = KVCache.init(ng, B, cache_len, cfg.n_kv_heads, cfg.head_dim_,
+                             cfg.cdtype, device=dev)
+        lru_st = rglru_lib.init_lru_state(cfg, B, cfg.cdtype,
+                                          cfg.n_layers - ng, device=dev)
+        groups = params["groups"]
+        for i in range(ng):
+            for j, name in enumerate(("rec1", "rec2")):
+                x, _, st = _apply_layer_full(_layer(groups[name], i), cfg,
+                                             "rec", x, positions)
+                _put_state(lru_st, 2 * i + j, st)
+            x, (k, v), _ = _apply_layer_full(_layer(groups["attn"], i), cfg,
+                                             "attn", x, positions)
+            _fill_cache(cache, i, k, v, window)
+        for j in range(n_tail):
+            x, _, st = _apply_layer_full(_layer(params["tail"], j), cfg,
+                                         "rec", x, positions)
+            _put_state(lru_st, 2 * ng + j, st)
+    else:
+        cache = KVCache.init(cfg.n_layers, B, max_len, cfg.n_kv_heads,
+                             cfg.head_dim_, cfg.cdtype, device=dev)
+        for i in range(cfg.n_layers):
+            x, (k, v), _ = _apply_layer_full(_layer(params["stack"], i), cfg,
+                                             "attn", x, positions)
+            _fill_cache(cache, i, k, v, None)
     last = _final_logits(params, cfg, x[:, -1])
-    length = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    return last, DecodeState(kv=cache._replace(length=length))
+    if cache is not None:
+        n = min(S, cache_len) if window else S
+        cache = cache._replace(length=torch.full(
+            (B,), n, dtype=torch.int32, device=dev))
+    return last, DecodeState(kv=cache, ssm=ssm_st, lru=lru_st)
 
 
 # ---------------------------------------------------------------------------
 # decode (one token)
 
 
-def _decode_attn_layer(lp, cfg, x, k_cache, v_cache, length):
+def _decode_attn_layer(lp, cfg, x, k_cache, v_cache, length, window=None):
     """x: [B,1,D].  Returns (x, k_cache, v_cache), the caches updated in
-    place."""
+    place.  With a window the cache is a ring: the new key goes into slot
+    ``length % window`` and the query attends the ``min(length + 1,
+    window)`` first slots, all unmasked by position, as the reference."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
     q, k, v = attn.qkv_proj(lp["attn"], h, length[:, None], cfg.rope_theta)
-    k_cache, v_cache = attn.cache_update_local(k_cache, v_cache, k, v, length)
-    kv_pos = torch.arange(k_cache.shape[1], device=x.device)
-    o = attn.decode_attend_local(q[:, 0], k_cache, v_cache, kv_pos,
-                                 length + 1)
+    if window:
+        k_cache, v_cache = attn.cache_update_local(k_cache, v_cache, k, v,
+                                                   length % window)
+        kv_pos = torch.arange(window, device=x.device)
+        o = attn.decode_attend_local(q[:, 0], k_cache, v_cache, kv_pos,
+                                     torch.clamp(length + 1, max=window))
+    else:
+        k_cache, v_cache = attn.cache_update_local(k_cache, v_cache, k, v,
+                                                   length)
+        kv_pos = torch.arange(k_cache.shape[1], device=x.device)
+        o = attn.decode_attend_local(q[:, 0], k_cache, v_cache, kv_pos,
+                                     length + 1)
     x = x + attn.out_proj(lp["attn"], o[:, None])
     return x, k_cache, v_cache
+
+
+def _decode_rec(lp, cfg, x, lru, i):
+    """One RG-LRU layer's step on lru slot ``i`` (updated in place)."""
+    h = L.apply_norm(lp["ln1"], x, cfg.norm)
+    y, st = rglru_lib.decode_rglru(lp["rec"], h, _state_at(lru, i))
+    _put_state(lru, i, st)
+    return _apply_mlp(lp, cfg, x + y)
 
 
 def decode_step(params, cfg: ArchConfig, tokens, state: DecodeState):
     """tokens: [B,1].  Returns (logits [B,V] f32, new DecodeState).
 
-    The layers' caches are updated in place (views of the stacked cache),
-    so ``state`` is consumed; the new state shares its cache tensors with
-    a length one larger."""
+    The layers' caches and recurrent states are updated in place (views of
+    the stacked state), so ``state`` is consumed; the new state shares its
+    tensors, with a cache length one larger."""
     check_family(cfg)
     x = L.embed(params["embed"], tokens, cfg.cdtype)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            lp = _layer(params["stack"], i)
+            h = L.apply_norm(lp["ln1"], x, cfg.norm)
+            y, st = ssm_lib.decode_ssm(lp["ssm"], h, cfg,
+                                       _state_at(state.ssm, i))
+            _put_state(state.ssm, i, st)
+            x = x + y
+        return _final_logits(params, cfg, x[:, 0]), state
     kc, vc, length = state.kv
-    for i in range(cfg.n_layers):
-        lp = _layer(params["stack"], i)
-        x, _, _ = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length)
-        x = _apply_mlp(lp, cfg, x)
+    if cfg.family == "hybrid":
+        window = cfg.hybrid.window
+        check_cache_covers_window(cfg, kc.shape[2])
+        ng = cfg.n_layers // 3
+        groups = params["groups"]
+        for i in range(ng):
+            x = _decode_rec(_layer(groups["rec1"], i), cfg, x, state.lru,
+                            2 * i)
+            x = _decode_rec(_layer(groups["rec2"], i), cfg, x, state.lru,
+                            2 * i + 1)
+            lp = _layer(groups["attn"], i)
+            x, _, _ = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length,
+                                         window)
+            x = _apply_mlp(lp, cfg, x)
+        for j in range(cfg.n_layers % 3):
+            x = _decode_rec(_layer(params["tail"], j), cfg, x, state.lru,
+                            2 * ng + j)
+    else:
+        for i in range(cfg.n_layers):
+            lp = _layer(params["stack"], i)
+            x, _, _ = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length)
+            x = _apply_mlp(lp, cfg, x)
     logits = _final_logits(params, cfg, x[:, 0])
-    return logits, DecodeState(kv=KVCache(k=kc, v=vc, length=length + 1))
+    return logits, state._replace(
+        kv=KVCache(k=kc, v=vc, length=length + 1))

@@ -41,12 +41,18 @@ def make_decode_step(model: Model):
 
 def insert_slot(state, pstate, slot: int):
     """Write a batch=1 prefill state into batch slot ``slot``, in place
-    (KVCache k/v ``[L,B,S,...]`` on axis 1, length ``[B]`` on axis 0), and
-    return ``state``."""
-    kv, pkv = state.kv, pstate.kv
-    kv.k[:, slot].copy_(pkv.k[:, 0])
-    kv.v[:, slot].copy_(pkv.v[:, 0])
-    kv.length[slot] = pkv.length[0]
+    (KVCache k/v ``[L,B,S,...]`` and the ssm / lru leaves ``[L,B,...]`` on
+    axis 1, length ``[B]`` on axis 0; a family without a cache has
+    ``kv=None``), and return ``state``."""
+    if state.kv is not None:
+        kv, pkv = state.kv, pstate.kv
+        kv.k[:, slot].copy_(pkv.k[:, 0])
+        kv.v[:, slot].copy_(pkv.v[:, 0])
+        kv.length[slot] = pkv.length[0]
+    for st, pst in ((state.ssm, pstate.ssm), (state.lru, pstate.lru)):
+        if st is not None:
+            for dst, src in zip(st, pst):
+                dst[:, slot].copy_(src[:, 0])
     return state
 
 

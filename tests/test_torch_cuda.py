@@ -406,6 +406,12 @@ FLASH_TOL = {torch.bfloat16: dict(rtol=8e-3, atol=8e-3),
     (1, 130, 300, 4, 1, 64, 100, True, None, 290),
     (2, 200, 450, 36, 4, 128, 250, True, None, 400),
     (1, 300, 300, 4, 2, 160, 0, True, None, 190),
+    # head_dim 256 (recurrentgemma-2b: MQA, a group of 10, the window; the
+    # tensor-core kernel's 64-key chunks): window edges mid-chunk, kv_len
+    # mid-chunk with an offset, and the path's full window of 2048
+    (1, 300, 300, 10, 1, 256, 0, True, 100, None),
+    (2, 130, 300, 10, 1, 256, 100, True, None, 290),
+    (1, 2200, 2200, 10, 1, 256, 0, True, 2048, None),
 ])
 def test_flash_kernel_matches_plain_version(card, dtype, B, Sq, Skv, H, Hkv,
                                             hd, q_offset, causal, window,

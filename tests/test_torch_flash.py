@@ -150,8 +150,12 @@ def test_fully_masked_rows_are_zero():
 # flash_tc_kernel), emulated in plain torch: it backs the card's bf16
 # tolerance before any card run
 
-#: keys per chunk of the tensor-core kernel (kTcKC)
-TC_CHUNK = 128
+#: keys per chunk of the tensor-core kernel (TcShape::KC): 128, 64 at hd 256
+def _tc_chunk(hd):
+    return 64 if hd > 160 else 128
+
+
+
 #: the card's bf16 tolerance (chip_smoke.FLASH_TOL, test_torch_cuda): p
 #: rounded to bf16 for p.v moves an output by at most 2^-9 max|v|, on top
 #: of one output ulp
@@ -161,8 +165,8 @@ TC_TOL = dict(rtol=8e-3, atol=8e-3)
 def _tc_emulation(q, k, v, *, causal=True, window=None, q_offset=0,
                   kv_len=None):
     """bf16 q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] -> bf16 [B,Sq,H,hd], as the
-    tensor-core kernel computes it: 128-key chunks with the online-softmax
-    carry; s = q.k from the bf16 values in f32, scaled after the product,
+    tensor-core kernel computes it: chunks of 128 keys (64 at hd 256) with
+    the online-softmax carry; s = q.k from the bf16 values in f32, scaled after the product,
     p = exp2(s c - m c) with c = log2(e)/sqrt(hd); l sums the f32 p; p is
     rounded to bf16 as the operand of p.v; out = acc / max(l, 1e-30)."""
     B, Sq, H, hd = q.shape
@@ -177,16 +181,17 @@ def _tc_emulation(q, k, v, *, causal=True, window=None, q_offset=0,
     m = torch.full((B, H, Sq), -torch.inf)
     l = torch.zeros((B, H, Sq))
     acc = torch.zeros((B, H, Sq, hd))
-    for c0 in range(0, Skv, TC_CHUNK):
-        s = qf @ kf[:, :, c0:c0 + TC_CHUNK].transpose(-1, -2)
-        s = torch.where(mask[:, c0:c0 + TC_CHUNK], s, -torch.inf)
+    kc = _tc_chunk(hd)
+    for c0 in range(0, Skv, kc):
+        s = qf @ kf[:, :, c0:c0 + kc].transpose(-1, -2)
+        s = torch.where(mask[:, c0:c0 + kc], s, -torch.inf)
         m_new = torch.maximum(m, s.amax(-1))
         mu = torch.where(m_new == -torch.inf, 0.0, m_new * c)
         r = torch.exp2(m * c - mu)
         p = torch.exp2(s * c - mu[..., None])
         l = l * r + p.sum(-1)
         acc = acc * r[..., None] + (p.bfloat16().float()
-                                    @ vf[:, :, c0:c0 + TC_CHUNK])
+                                    @ vf[:, :, c0:c0 + kc])
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.bfloat16().transpose(1, 2)
@@ -213,6 +218,8 @@ def test_tensor_core_arithmetic_matches_jax_flash(B, Sq, Skv, H, Hkv, hd,
     (1, 100, 300, 4, 1, 64, 200, True, 32, None),      # window edge
     (2, 77, 300, 4, 4, 16, 0, False, None, 190),       # kv_len mid-chunk
     (1, 130, 130, 2, 2, 160, 0, True, None, None),     # head_dim 160
+    (1, 200, 200, 10, 1, 256, 0, True, 100, None),     # recurrentgemma
+    (2, 90, 250, 10, 1, 256, 160, True, None, 230),    # hd 256, kv_len
 ])
 def test_tensor_core_arithmetic_matches_plain_version(B, Sq, Skv, H, Hkv, hd,
                                                       q_offset, causal,
@@ -231,3 +238,18 @@ def test_tensor_core_arithmetic_matches_plain_version(B, Sq, Skv, H, Hkv, hd,
         v2 = v.clone()
         v2[:, kv_len:] = 1e4
         assert torch.equal(_tc_emulation(q, k, v2, **kw), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 48])
+def test_head_dim_256_mqa_matches_jax_flash(dtype, window):
+    """recurrentgemma-2b's attention shape: head_dim 256, 10 query heads on
+    one key/value head, the local window: the plain version (and so the
+    port's ``attend`` on the CPU) against the JAX flash kernel in
+    interpret mode."""
+    (jq, jk, jv), (q, k, v) = _qkv(256, 1, 96, 96, 10, 1, 256, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                interpret=True)
+    got = tattn.attend(q, k, v, 0, causal=True, window=window)
+    assert got.shape == q.shape
+    _close(got, want, dtype)
