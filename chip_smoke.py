@@ -97,7 +97,9 @@ Phases, each of which fails the run on any error:
               (4096, 4096, 0), (4096, 8192, 4096); bf16 on the tensor-core
               kernel and f32 on the FP32-core one; one windowed case;
               recurrentgemma-2b: H=10, Hkv=1, hd=256, window 2048 at
-              (4096, 4096, 0) and (8192, 8192, 0), bf16 and f32), each
+              (4096, 4096, 0) and (8192, 8192, 0), bf16 and f32;
+              qwen3-moe-30b-a3b: H=32, Hkv=4, hd=128 at (4096, 4096, 0)
+              and (4096, 8192, 4096), bf16 and f32), each
               shape timed over a CUDA graph beside PyTorch's SDPA as a
               yardstick (causal, GQA; a window as the equivalent boolean
               band mask), the plain version timed at (4096, 4096, 0) of
@@ -120,6 +122,15 @@ Phases, each of which fails the run on any error:
               (ssm: no flash and no graph kernel may launch); check c on
               each reduced config with prompts longer than the reduced
               window
+  7c. lm moe  the same path and checks, after 7b's models are freed, for
+              qwen3-moe-30b-a3b (128 experts, top-8; 48 layers launch the
+              flash kernel once a prefill and twice for the 8192-token
+              prompt, 336 in all, every one the tensor-core kernel; no
+              graph kernel), with each prefill's share of entries dropped
+              past capacity, check b's share of routing decisions that
+              agree between the kernel's and the plain attention's
+              prefills; check c also on phi3.5-moe's reduced config;
+              ``launch/serve.py --no-reduced`` serves 4 requests
   8. report   fg_threefry's line and the kernel table as JSON lines (each
               kernel launched at least once on the paths), then the
               result line
@@ -191,10 +202,19 @@ RG_ARCH = LM_RECURRENT[0]
 #: (Sq, Skv, q_offset, window) of recurrentgemma-2b's whole prefills
 #: (H=10, Hkv=1, hd=256, window 2048) in phase 6
 RG_FLASH_CASES = ((4096, 4096, 0, 2048), (8192, 8192, 0, 2048))
+#: phase 7c: the moe family at full width and depth, through the same six
+#: prompts (PERF.md section 4); its attention runs the flash kernel at 32
+#: query heads over 4 key/value heads (groups of 8), hd 128.  phi3.5-moe
+#: (83.75 GB in bf16) does not fit one card: it runs reduced only (check c)
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_REDUCED_ONLY = "phi3.5-moe-42b-a6.6b"
+#: (Sq, Skv, q_offset, window) of qwen3-moe's 4096-token whole prefill and
+#: the 8192-token prompt's second chunk in phase 6
+MOE_FLASH_CASES = ((4096, 4096, 0, None), (4096, 8192, 4096, None))
 #: check b's prompts (tokens) per LM path: the kernel's prefill against the
 #: plain attention's; none for the ssm, which has no attention
 CHECK_B_TOKENS = {LM_ARCH: (512,), "recurrentgemma-2b": (512, 3000),
-                  "falcon-mamba-7b": ()}
+                  "falcon-mamba-7b": (), MOE_ARCH: (512,)}
 #: the ssm's prefills traced for where their time goes: one whose scan
 #: runs in 512-token chunks and one that runs unchunked
 TRACE_SSM_TOKENS = (512, 3000)
@@ -2073,9 +2093,9 @@ def _band_mask(torch, sq, skv, off, window, device):
 def phase_flash(torch) -> dict:
     """Phase 6: the flash kernels against their plain version at the LM
     paths' shapes, each timed beside PyTorch's SDPA (the yardstick, never
-    called by the port): starcoder2-7b's (hd 128) and recurrentgemma-2b's
-    (hd 256, MQA, window 2048); the plain version timed at (4096, 4096, 0)
-    of each."""
+    called by the port): starcoder2-7b's (hd 128), recurrentgemma-2b's
+    (hd 256, MQA, window 2048) and qwen3-moe-30b-a3b's (hd 128, 32 / 4
+    heads); the plain version timed at (4096, 4096, 0) of each."""
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
@@ -2129,7 +2149,8 @@ def phase_flash(torch) -> dict:
 
     rows = {}
     for arch, cases in ((LM_ARCH, FLASH_CASES),
-                        (RG_ARCH, RG_FLASH_CASES)):
+                        (RG_ARCH, RG_FLASH_CASES),
+                        (MOE_ARCH, MOE_FLASH_CASES)):
         heads = heads_of(arch)
         errs, by_shape = {}, []
         for dname, dtype in (("bfloat16", torch.bfloat16),
@@ -2194,10 +2215,11 @@ def phase_flash(torch) -> dict:
             torch.cuda.empty_cache()
         rows[(arch, "ms_by_shape")] = by_shape
     row = {**rows[(LM_ARCH, "bfloat16")], "f32": rows[(LM_ARCH, "float32")],
-           "ms_by_shape": rows[(LM_ARCH, "ms_by_shape")],
-           "hd256": {"arch": RG_ARCH, **rows[(RG_ARCH, "bfloat16")],
-                     "f32": rows[(RG_ARCH, "float32")],
-                     "ms_by_shape": rows[(RG_ARCH, "ms_by_shape")]}}
+           "ms_by_shape": rows[(LM_ARCH, "ms_by_shape")]}
+    for key, arch in (("hd256", RG_ARCH), ("h32", MOE_ARCH)):
+        row[key] = {"arch": arch, **rows[(arch, "bfloat16")],
+                    "f32": rows[(arch, "float32")],
+                    "ms_by_shape": rows[(arch, "ms_by_shape")]}
     log("kernel flash_attention: " + json.dumps(row))
     return row
 
@@ -2319,6 +2341,10 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
     log("lm run: " + json.dumps(run))
 
     decode = lm_decode_profile(torch, model, params, batcher.state)
+    # the share of (token, choice) entries each prefill drops past its
+    # experts' capacity, layer by layer (moe)
+    drops = (lm_moe_drops(torch, model, params, prompts)
+             if cfg.family == "moe" else None)
     # b. the whole model with the kernel against the whole model with the
     # plain attention on the card, on the prefills of CHECK_B_TOKENS
     check_b = [lm_kernel_vs_plain(torch, model, params, prompts[i],
@@ -2336,7 +2362,7 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
     check_c = lm_card_vs_cpu(torch, arch)
     return {"info": info, "prefills": prefills, "run": run,
             "launches": counts["flash_attention"], "decode": decode,
-            "check_b": check_b,
+            "check_b": check_b, "drops": drops,
             "check_c": check_c, "flash_share": shares}
 
 
@@ -2360,6 +2386,89 @@ def phase_lm_recurrent(torch, counters) -> dict:
         log(f"lm cli: {arch} --no-reduced, 4 requests served in "
             f"{time.perf_counter() - t:.2f} s")
     return out
+
+
+def phase_lm_moe(torch, counters) -> dict:
+    """Phase 7c: qwen3-moe-30b-a3b at full width and depth (after 7b has
+    freed its models), then once more through ``launch/serve.py
+    --no-reduced``; check c also on phi3.5-moe's reduced config."""
+    from repro_torch.launch import serve
+
+    out = phase_lm(torch, counters, MOE_ARCH)
+    out["check_c_reduced_only"] = lm_card_vs_cpu(torch, MOE_REDUCED_ONLY)
+    t = time.perf_counter()
+    got = serve.main(["--arch", MOE_ARCH, "--no-reduced", "--requests", "4",
+                      "--batch", "2", "--max-new", "4"])
+    torch.cuda.empty_cache()
+    if sorted(got) != [0, 1, 2, 3] or any(len(x) != 4 for x in got.values()):
+        raise AssertionError(f"lm cli {MOE_ARCH}: {got}")
+    log(f"lm cli: {MOE_ARCH} --no-reduced, 4 requests served in "
+        f"{time.perf_counter() - t:.2f} s")
+    return out
+
+
+class RouteLog:
+    """While active, records every moe layer's routing: the expert ids
+    ``[B, S, K]`` and slots that ``models/moe.route`` returns, with the
+    trash slot ``E * C`` of that call (no host read while recording)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._route = [], moe.route
+
+        def spy(gate_idx, C, E):
+            slot = self._route(gate_idx, C, E)
+            self.calls.append((gate_idx, slot, E * C))
+            return slot
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+    def dropped(self) -> list:
+        """Each call's share of (token, choice) entries dropped."""
+        return [float((slot == trash).float().mean())
+                for _, slot, trash in self.calls]
+
+    def agreement(self, other: "RouteLog") -> dict:
+        """Routing decisions of two runs over the same tokens: the share of
+        (layer, token, chosen expert) picks both made, and of (layer,
+        token) whose whole expert set is the same."""
+        import torch
+        picks = same_sets = n_picks = n_sets = 0
+        for (a, _, _), (b, _, _) in zip(self.calls, other.calls, strict=True):
+            E = int(max(a.max(), b.max())) + 1
+            ha = torch.nn.functional.one_hot(a, E).sum(-2)
+            hb = torch.nn.functional.one_hot(b, E).sum(-2)
+            picks += int((ha * hb).sum())
+            n_picks += a.numel()
+            same_sets += int((ha == hb).all(-1).sum())
+            n_sets += ha[..., 0].numel()
+        return {"picks_agree": picks / n_picks,
+                "sets_agree": same_sets / n_sets,
+                "sets_differ": n_sets - same_sets, "sets": n_sets}
+
+
+def lm_moe_drops(torch, model, params, prompts) -> list:
+    """Each prompt's prefill once more, its routing recorded: the share of
+    (token, choice) entries dropped past capacity, over the whole prefill,
+    in its worst layer and in its first and last (a chunked prompt: of the
+    last chunk)."""
+    rows = []
+    for p in prompts:
+        tok = torch.as_tensor(p[None].astype(np.int64), device="cuda")
+        with RouteLog() as rl:
+            model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+        shares = rl.dropped()
+        rows.append({"tokens": len(p), "calls": len(shares),
+                     "dropped_share": sum(shares) / len(shares),
+                     "dropped_share_worst_layer": max(shares),
+                     "dropped_share_first_layer": shares[0],
+                     "dropped_share_last_layer": shares[-1]})
+        log("lm moe drops: " + json.dumps(rows[-1]))
+    return rows
 
 
 def lm_decode_profile(torch, model, params, state, steps: int = 4) -> dict:
@@ -2410,7 +2519,8 @@ def lm_kernel_vs_plain(torch, model, params, prompt, first_token) -> dict:
     from repro_torch.models import attention
 
     tok = torch.as_tensor(prompt[None].astype(np.int64), device="cuda")
-    kernel, _ = model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+    with RouteLog() as kernel_routes:
+        kernel, _ = model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
     kernel_attend = attention.attend
 
     def plain_attend(q, k, v, q_offset=0, *, causal=True, window=None,
@@ -2420,10 +2530,15 @@ def lm_kernel_vs_plain(torch, model, params, prompt, first_token) -> dict:
 
     attention.attend = plain_attend
     try:
-        plain, _ = model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+        with RouteLog() as plain_routes:
+            plain, _ = model.prefill(params, {"tokens": tok},
+                                     max_len=LM_MAX_LEN)
     finally:
         attention.attend = kernel_attend
     torch.cuda.synchronize()
+    # the true vocab's columns: the padded ones hold -1e9 on both sides
+    V = model.cfg.vocab
+    kernel, plain = kernel[:, :V], plain[:, :V]
     diff = float((kernel - plain).abs().max())
     scale = float(plain.abs().max())
     res = {"arch": model.cfg.name, "tokens": int(tok.shape[1]),
@@ -2433,6 +2548,8 @@ def lm_kernel_vs_plain(torch, model, params, prompt, first_token) -> dict:
            "argmax_kernel": int(kernel.argmax(-1)[0]),
            "argmax_plain": int(plain.argmax(-1)[0]),
            "served_first_token": int(first_token)}
+    if kernel_routes.calls:
+        res["routing"] = kernel_routes.agreement(plain_routes)
     log(f"lm check b (kernel vs plain attention, {res['tokens']}-token "
         f"prefill): " + json.dumps(res))
     if diff > LM_LOGIT_RTOL * scale:
@@ -2639,8 +2756,9 @@ def main() -> int:
     krows["flash_attention"] = timed("6 flash", phase_flash, torch)
     lm = timed("7 lm", phase_lm, torch, Counters())
     lm_rec = timed("7b lm recurrent", phase_lm_recurrent, torch, Counters())
+    lm_moe = timed("7c lm moe", phase_lm_moe, torch, Counters())
     launches["flash_attention"] = lm["launches"] + sum(
-        r["launches"] for r in lm_rec.values())
+        r["launches"] for r in lm_rec.values()) + lm_moe["launches"]
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = {
@@ -2698,22 +2816,26 @@ def main() -> int:
                                   "flash_tc_kernel (bf16, tensor cores)")
             row["launches_by_arch"] = {
                 LM_ARCH: lm["launches"],
-                **{a: r["launches"] for a, r in lm_rec.items()}}
+                **{a: r["launches"] for a, r in lm_rec.items()},
+                MOE_ARCH: lm_moe["launches"]}
             row["timed_at"] = krows[name]["timed_at"]
             # the FP32-core kernel (float32 inputs): not on the main path,
             # which is bf16; check c drives it in the reduced config
             row["f32"] = {"kernel": "flash_fp32_kernel", "launches": 0,
                           **{k: krows[name]["f32"][k] for k in keys}}
-            # recurrentgemma-2b's shape (hd 256, MQA, window 2048): its
-            # bf16 launches are the hybrid's prefills, phase 7b
-            hd256 = krows[name]["hd256"]
-            row["hd256"] = {
-                "arch": RG_ARCH, "timed_at": hd256["timed_at"],
-                "launches": lm_rec[RG_ARCH]["launches"],
-                **{k: hd256[k] for k in keys},
-                "ms_by_shape": hd256["ms_by_shape"],
-                "f32": {"launches": 0,
-                        **{k: hd256["f32"][k] for k in keys}}}
+            # recurrentgemma-2b's shape (hd 256, MQA, window 2048) and
+            # qwen3-moe-30b-a3b's (32 / 4 heads of 128): their bf16
+            # launches are the hybrid's prefills (7b) and the moe's (7c)
+            for key, arch, n in (
+                    ("hd256", RG_ARCH, lm_rec[RG_ARCH]["launches"]),
+                    ("h32", MOE_ARCH, lm_moe["launches"])):
+                at = krows[name][key]
+                row[key] = {
+                    "arch": arch, "timed_at": at["timed_at"], "launches": n,
+                    **{k: at[k] for k in keys},
+                    "ms_by_shape": at["ms_by_shape"],
+                    "f32": {"launches": 0,
+                            **{k: at["f32"][k] for k in keys}}}
         table.append(row)
     # fg_threefry is no port of a Pallas kernel (the reference leaves
     # threefry to XLA): its own line, beside the table

@@ -6,9 +6,9 @@ describes any architecture of the zoo; family-specific fields are optional.
 layers/width/experts/vocab).  ``pdtype``/``cdtype`` are torch dtypes.
 
 The registry holds only the configs whose family the port runs: the four
-``dense`` decoders, the ``hybrid`` recurrentgemma-2b and the ``ssm``
-falcon-mamba-7b.  The other families (moe, encdec, vlm) wait for their
-modules (ROADMAP A14).
+``dense`` decoders, the ``hybrid`` recurrentgemma-2b, the ``ssm``
+falcon-mamba-7b and the ``moe`` qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b.
+The encdec and vlm families wait for their modules (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -164,8 +164,8 @@ def get_config(name: str) -> ArchConfig:
         _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"no config {name!r} in the port (it has "
-                       f"{sorted(_REGISTRY)}); the moe, encdec and vlm "
-                       f"families wait for ROADMAP A14")
+                       f"{sorted(_REGISTRY)}); the encdec and vlm families "
+                       f"wait for ROADMAP A14")
     return _REGISTRY[name]
 
 
@@ -178,5 +178,5 @@ def list_configs() -> list[str]:
 def _load_all():
     # importing the modules registers the configs
     from repro_torch.configs import (  # noqa: F401
-        falcon_mamba_7b, mistral_large_123b, qwen2_72b, recurrentgemma_2b,
-        stablelm_12b, starcoder2_7b)
+        falcon_mamba_7b, mistral_large_123b, phi35_moe, qwen2_72b,
+        qwen3_moe_30b, recurrentgemma_2b, stablelm_12b, starcoder2_7b)

@@ -65,7 +65,8 @@ def state_from_arrays(planes, buf, prio, ops_count, stamp,
 
 def lm_params_from_arrays(tree: dict, cfg: ArchConfig, device=None) -> dict:
     """The reference's LM params (``jax.tree.map(np.asarray, params)`` of
-    ``Model.init``: nested dicts, the ``stack`` leaves ``[L, ...]``; the
+    ``Model.init``: nested dicts, the ``stack`` leaves ``[L, ...]``, a moe
+    layer's ``router`` and experts among them; the
     hybrid's ``groups`` of ``rec1``, ``rec2`` and ``attn`` layers ``[L/3,
     ...]`` and its recurrent ``tail``) as the port's, on ``device``, each
     leaf in its storage dtype (``models.transformer.storage_dtype``: the

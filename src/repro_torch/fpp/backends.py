@@ -64,8 +64,18 @@ def canonicalize_cc(values: np.ndarray) -> np.ndarray:
     min row index (= min original id) gives labels independent of the
     partitioning permutation — the form union-find
     (``oracles.connected_components``) produces on symmetric input.
+
+    A row that still holds +inf (a vertex no label reached yet: a cc run cut
+    by ``max_visits`` before it converged) has no canonical labels; it
+    raises a ``ValueError``.  (The reference casts the +inf to int64 and
+    fails with an ``IndexError`` there, ROADMAP C6; no answer changes.)
     """
     values = np.asarray(values)
+    if not np.isfinite(values).all():
+        raise ValueError(
+            "cc: a label row still holds +inf, so the run stopped before its "
+            "labels converged (cut by max_visits?); cc has canonical labels "
+            "only for a converged run: raise max_visits or leave it unset")
     n = values.shape[1]
     out = np.empty_like(values, dtype=np.float32)
     done: dict = {}

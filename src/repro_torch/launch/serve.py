@@ -14,6 +14,8 @@ the card unless ``--device cpu`` is given:
         --device cpu --requests 4 --batch 2 --max-new 4
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --no-reduced     # also falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-30b-a3b --no-reduced     # phi3.5-moe: reduced only
     PYTHONPATH=src python -m repro_torch.launch.serve --workload graph \\
         --graph road-ca --kind mixed --requests 32 --batch 8 --tenants 2
 

@@ -56,7 +56,8 @@ class Model:
 
     def decode_state_specs(self, batch: int, max_len: int) -> DecodeState:
         """Shapes and dtypes of the decode state, as ``(shape, dtype)``
-        pairs in the state's tree: ssm a stacked ``SSMState`` and no cache;
+        pairs in the state's tree: dense and moe one KV cache of
+        ``n_layers``; ssm a stacked ``SSMState`` and no cache;
         hybrid a ring cache of ``min(max_len, window)`` slots for its
         attention layers and a stacked ``LRUState`` for its recurrent ones
         (``max_len < window`` raises: that cache cannot be decoded, see

@@ -1,0 +1,135 @@
+"""Mixture-of-Experts FFN (phi3.5-moe: 16 experts, top-2; qwen3-moe: 128
+experts, top-8).
+
+The port of the JAX package's ``repro.models.moe``.  Dispatch is the
+reference's expert-centric consolidation: each sequence's (token, choice)
+entries are sorted stably by expert, ranked within their expert, and packed
+into that expert's buffer of C rows (``moe_capacity``); an entry ranked C or
+later is dropped to the residual stream through a trash row whose output is
+zero (Switch semantics).  The expert products are ``torch.bmm`` over
+``[E, rows, D]``, as the reference leaves its einsums to XLA.
+
+Where the obvious torch call would not give the reference's answer:
+
+* top-k: ``torch.topk`` promises no order among ties, and in bf16 the
+  router's K-th and (K+1)-th logits do tie.  ``top_k`` takes the first K of
+  a stable descending sort, so a tie goes to the lower expert, as
+  ``jax.lax.top_k``.
+* Capacity is per sequence: the reference vmaps its routing over the batch,
+  so ``route`` ranks every batch row on its own and each row has its own C
+  rows of each expert.  The rows' products are batched all the same: the
+  buffer is laid out ``[E, B, C]``, so one ``bmm`` per weight reads each
+  expert's weights once for the whole batch (a decode step reads every
+  expert once, not once a row).
+* The combine: the reference scatter-adds a token's K contributions in
+  expert order (``.at[tok].add`` over the expert-sorted entries), rounding
+  in the compute dtype after each add.  ``index_add_`` on CUDA adds in no
+  fixed order; ``apply_moe`` sums the K contributions in ascending expert
+  id, K - 1 plain adds, the same on both devices.  A dropped entry adds 0.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.models.layers import _act, _normal
+
+
+def init_moe(gen, d, cfg: MoEConfig, dtype, gated=True, act="silu",
+             device=None) -> dict:
+    """``router [D, E]``, ``wi``/``wg [E, D, F]``, ``wo [E, F, D]`` with the
+    reference's scales (``act`` is unused, as there)."""
+    E, F_ = cfg.num_experts, cfg.expert_d_ff
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(F_)
+    p = {"router": _normal(gen, (d, E), dtype, s_in, device),
+         "wi": _normal(gen, (E, d, F_), dtype, s_in, device),
+         "wo": _normal(gen, (E, F_, d), dtype, s_out, device)}
+    if gated:
+        p["wg"] = _normal(gen, (E, d, F_), dtype, s_in, device)
+    return p
+
+
+def moe_capacity(S: int, cfg: MoEConfig) -> int:
+    """Rows of each expert's buffer for a sequence of S tokens: the
+    reference's ``ceil(S * top_k / num_experts * capacity_factor)`` (the
+    same float64 expression in the same order), at least 1."""
+    return max(1, math.ceil(S * cfg.top_k / cfg.num_experts
+                            * cfg.capacity_factor))
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """The ``k`` largest values of ``probs`` along the last axis and their
+    indices, descending, a tie to the lower index (``jax.lax.top_k``)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(gate_idx: torch.Tensor, C: int, E: int) -> torch.Tensor:
+    """The consolidation of each batch row on its own.  gate_idx: ``[B, S,
+    K]`` expert ids.  Returns ``slot [B, S, K]`` (int64): the row
+    ``e * C + rank`` of the sequence's ``[E * C]`` expert buffer each
+    entry fills, where ``rank`` counts the sequence's earlier entries of
+    expert ``e`` in (token, choice) order; ``E * C`` (the trash row) for an
+    entry ranked C or later, which is dropped."""
+    B, S, K = gate_idx.shape
+    dev = gate_idx.device
+    eid = gate_idx.reshape(B, S * K)
+    order = torch.argsort(eid, dim=-1, stable=True)
+    eid_s = torch.gather(eid, 1, order)
+    start = torch.searchsorted(
+        eid_s, torch.arange(E, device=dev).expand(B, E).contiguous())
+    pos = torch.arange(S * K, device=dev) - torch.gather(start, 1, eid_s)
+    slot_s = torch.where(pos < C, eid_s * C + pos, E * C)
+    return torch.empty_like(slot_s).scatter_(1, order, slot_s).view(B, S, K)
+
+
+def apply_moe(p, x: torch.Tensor, cfg: MoEConfig,
+              act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: ``[B, S, D]`` -> (y ``[B, S, D]`` in x's dtype, the Switch
+    load-balance aux loss, a float32 scalar).  Router logits in x's dtype,
+    their softmax in float32; the gates renormalised over the top K."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = moe_capacity(S, cfg)
+    dev = x.device
+
+    logits = torch.matmul(x, p["router"].to(x.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)                # [B,S,E]
+    gate_vals, gate_idx = top_k(probs, K)                        # [B,S,K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    slot = route(gate_idx, C, E)
+
+    # the buffer's rows in [E, B, C] order, then one trash row (n)
+    n = E * B * C
+    b = torch.arange(B, device=dev).view(B, 1, 1)
+    dst = torch.where(slot < E * C,
+                      (slot // C * B + b) * C + slot % C, n)     # [B,S,K]
+    src = torch.full((n + 1,), B * S, dtype=torch.long, device=dev)
+    tok = torch.arange(B * S, device=dev).view(B, S, 1).expand(B, S, K)
+    src.scatter_(0, dst.reshape(-1), tok.reshape(-1))  # trash: any token
+    xz = torch.cat([x.reshape(B * S, D), x.new_zeros(1, D)])     # + zero row
+    xe = xz[src[:n]].view(E, B * C, D)
+    h = _act(torch.bmm(xe, p["wi"].to(x.dtype)), act)
+    if "wg" in p:
+        h = h * torch.bmm(xe, p["wg"].to(x.dtype))
+    ye = x.new_empty((n + 1, D))
+    ye[n] = 0                                                    # trash = 0
+    torch.bmm(h, p["wo"].to(x.dtype), out=ye[:n].view(E, B * C, D))
+
+    # each token's K contributions in ascending expert id
+    asc = torch.argsort(gate_idx, dim=-1)
+    contrib = ye[torch.gather(dst, -1, asc)] * torch.gather(
+        gate_vals, -1, asc).to(x.dtype)[..., None]               # [B,S,K,D]
+    y = contrib[:, :, 0]
+    for j in range(1, K):
+        y = y + contrib[:, :, j]
+
+    # load-balance aux loss (Switch): E * sum_e f_e * P_e
+    frac = F.one_hot(gate_idx, E).float().sum(2).mean((0, 1)) / K
+    aux = E * torch.sum(frac * probs.mean((0, 1)))
+    return y, aux

@@ -1,16 +1,19 @@
-"""Decoder-only LM assembly: prefill and decode of the dense, ssm and hybrid
-families.
+"""Decoder-only LM assembly: prefill and decode of the dense, moe, ssm and
+hybrid families.
 
 The port of the JAX package's ``repro.models.transformer`` on one device.
 Parameters are nested dictionaries with the JAX package's tree and layouts:
 ``params["stack"]`` holds every layer's leaves stacked on a leading ``[L]``
-axis (dense, ssm); the hybrid family (recurrentgemma's 1:2 RG-LRU:attention
-pattern) holds ``params["groups"]`` of (``rec1``, ``rec2``, ``attn``) layers
-stacked on ``[n_layers // 3]`` and ``params["tail"]``, the ``n_layers % 3``
-recurrent layers after them.  The layer loops (``lax.scan`` and
-``fori_loop`` there) are Python loops.  moe, encdec and vlm raise
-``NotImplementedError`` naming their ROADMAP item; the ``rules`` and
-manual-TP arms of the reference (a mesh) have no counterpart here.
+axis (dense, moe, ssm); the hybrid family (recurrentgemma's 1:2
+RG-LRU:attention pattern) holds ``params["groups"]`` of (``rec1``,
+``rec2``, ``attn``) layers stacked on ``[n_layers // 3]`` and
+``params["tail"]``, the ``n_layers % 3`` recurrent layers after them.
+The layer loops (``lax.scan`` and ``fori_loop`` there) are Python loops.
+A moe layer is an attention layer whose MLP is ``models/moe.apply_moe``;
+its router and expert weights are stored in ``cdtype`` like any block
+matmul weight.  encdec and vlm raise ``NotImplementedError`` naming their
+ROADMAP item; the ``rules`` and manual-TP arms of the reference (a mesh)
+have no counterpart here.
 
 Weights are stored as the reference uses them (``storage_dtype``): block
 matmul weights and biases in ``cfg.cdtype`` — bit-identical to the
@@ -40,17 +43,17 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 
 #: families whose modules wait for a later slice, with their ROADMAP item
 _NOT_PORTED = {
-    "moe": "moe.py, ROADMAP A14",
     "encdec": "encdec.py (whisper), ROADMAP A14",
     "vlm": "the prefix_len mask, ROADMAP A14",
 }
-_PORTED = ("dense", "ssm", "hybrid")
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -71,6 +74,8 @@ class DecodeState(NamedTuple):
 
 def layer_plan(cfg: ArchConfig) -> list:
     check_family(cfg)
+    if cfg.family == "moe":
+        return ["moe"] * cfg.n_layers
     if cfg.family == "ssm":
         return ["ssm"] * cfg.n_layers
     if cfg.family == "hybrid":
@@ -110,8 +115,8 @@ _DECODE_F32 = {"x_proj", "dt_proj"}
 
 def storage_dtype(path: tuple, cfg: ArchConfig) -> torch.dtype:
     """The dtype a parameter leaf is stored in (see the module docstring):
-    ``path`` is its key path, e.g. ``("stack", "attn", "wq")`` or
-    ``("groups", "rec1", "rec", "lam")``."""
+    ``path`` is its key path, e.g. ``("stack", "attn", "wq")``, ``("stack",
+    "moe", "wi")`` or ``("groups", "rec1", "rec", "lam")``."""
     if path[0] == "embed":
         if path[-1] == "embedding" and not cfg.tie_embeddings:
             return cfg.cdtype
@@ -126,11 +131,11 @@ def storage_dtype(path: tuple, cfg: ArchConfig) -> torch.dtype:
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
-    """One layer's parameters of ``kind`` (``attn``, ``rec`` or ``ssm``) in
-    ``cfg.pdtype``, as the reference draws them."""
+    """One layer's parameters of ``kind`` (``attn``, ``moe``, ``rec`` or
+    ``ssm``) in ``cfg.pdtype``, as the reference draws them."""
     d, dt = cfg.d_model, cfg.pdtype
     p = {"ln1": L.init_norm(dt, d, cfg.norm, device)}
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         p["attn"] = attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                         cfg.head_dim_, dt, cfg.qkv_bias,
                                         device)
@@ -142,7 +147,11 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
     else:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP A14)")
     p["ln2"] = L.init_norm(dt, d, cfg.norm, device)
-    p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dt, cfg.gated_mlp, device)
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, d, cfg.moe, dt, cfg.gated_mlp,
+                                    cfg.act, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dt, cfg.gated_mlp, device)
     return p
 
 
@@ -232,13 +241,20 @@ def _apply_attn_layer(lp, cfg, x, positions, window=None):
 
 
 def _apply_mlp(lp, cfg, x):
+    """The MLP half of a layer: the dense MLP, or the moe layer's experts
+    (whose aux loss serving never reads: it is dropped here, the one place
+    the serving path calls ``apply_moe``)."""
     h = L.apply_norm(lp["ln2"], x, cfg.norm)
+    if "moe" in lp:
+        y, _ = moe_lib.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
+        return x + y
     return x + L.apply_mlp(lp["mlp"], h, cfg.act)
 
 
 def _apply_layer_full(lp, cfg, kind, x, positions):
-    """One layer of ``kind``, full sequence.  Returns (x, (k, v) or None,
-    new recurrent state or None)."""
+    """One layer of ``kind``, full sequence (``attn`` and ``moe`` differ
+    only in their MLP).  Returns (x, (k, v) or None, new recurrent state or
+    None)."""
     lp = cast_layer_params(lp, cfg.cdtype)
     if kind == "ssm":
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
@@ -265,10 +281,11 @@ def prefill(params, cfg: ArchConfig, tokens, *, max_len=None,
             chunk: int = PREFILL_CHUNK):
     """tokens: [B,S] int.  Returns (last_logits [B,V] f32, DecodeState).
 
-    A dense prompt longer than ``chunk`` whose length is a multiple of it
-    is processed in chunks (``_prefill_chunked``); any other prompt, and
-    every ssm and hybrid prompt, in one pass (``_prefill_whole``), as in the
-    reference."""
+    A dense or moe prompt longer than ``chunk`` whose length is a multiple
+    of it is processed in chunks (``_prefill_chunked``); any other prompt,
+    and every ssm and hybrid prompt, in one pass (``_prefill_whole``), as in
+    the reference.  A moe layer's expert capacity follows each call's own
+    length: a chunk's, not the prompt's."""
     check_family(cfg)
     S_tot = tokens.shape[1]
     if (cfg.family in CHUNKED_FAMILIES and S_tot > chunk
@@ -370,9 +387,10 @@ def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None):
     else:
         cache = KVCache.init(cfg.n_layers, B, max_len, cfg.n_kv_heads,
                              cfg.head_dim_, cfg.cdtype, device=dev)
+        kind = layer_plan(cfg)[0]
         for i in range(cfg.n_layers):
             x, (k, v), _ = _apply_layer_full(_layer(params["stack"], i), cfg,
-                                             "attn", x, positions)
+                                             kind, x, positions)
             _fill_cache(cache, i, k, v, None)
     last = _final_logits(params, cfg, x[:, -1])
     if cache is not None:

@@ -412,6 +412,10 @@ FLASH_TOL = {torch.bfloat16: dict(rtol=8e-3, atol=8e-3),
     (1, 300, 300, 10, 1, 256, 0, True, 100, None),
     (2, 130, 300, 10, 1, 256, 100, True, None, 290),
     (1, 2200, 2200, 10, 1, 256, 0, True, 2048, None),
+    # qwen3-moe-30b-a3b: 32 query heads over 4 key/value heads (groups of
+    # 8), whole and as a second chunk of a strided cache
+    (1, 300, 300, 32, 4, 128, 0, True, None, None),
+    (2, 130, 390, 32, 4, 128, 260, True, None, None),
 ])
 def test_flash_kernel_matches_plain_version(card, dtype, B, Sq, Skv, H, Hkv,
                                             hd, q_offset, causal, window,
@@ -601,3 +605,63 @@ def test_pump_lane_exception_on_card_reaches_result(card):
             s.wait_drained(timeout=5)
     finally:
         s.shutdown()
+
+
+@pytest.mark.parametrize("B,S,cf", [(3, 40, 0.5), (4, 1, 1.25), (1, 96, 1.25)])
+def test_apply_moe_on_card_equals_cpu(card, B, S, cf):
+    """The MoE layer on the card against its CPU result in float32 at a
+    reduced width (16 experts, top-4): the same routing and dropped entries
+    (exactly), y and the aux loss within 1e-5 (cuBLAS sums in another
+    order).  S = 1 at batch 4 is a decode step's shape."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    cfg = MoEConfig(num_experts=16, top_k=4, expert_d_ff=64,
+                    capacity_factor=cf)
+    gen = torch.Generator().manual_seed(B * S)
+    p = moe.init_moe(gen, 64, cfg, torch.float32)
+    x = torch.randn((B, S, 64), generator=gen)
+    got = moe.apply_moe({k: v.to(card) for k, v in p.items()}, x.to(card),
+                        cfg)
+    want = moe.apply_moe(p, x, cfg)
+    C = moe.moe_capacity(S, cfg)
+    idx = [moe.top_k(torch.softmax(xx @ pp["router"], -1), 4)[1]
+           for xx, pp in ((x.to(card), {"router": p["router"].to(card)}),
+                          (x, p))]
+    slots = [moe.route(i, C, 16).cpu() for i in idx]
+    assert torch.equal(slots[0], slots[1])
+    if cf < 1:
+        assert (slots[1] == 16 * C).any()
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=1e-5)
+
+
+def test_moe_model_on_card_serves_the_cpu_tokens(card):
+    """Reduced qwen3-moe-30b-a3b in float32 through ContinuousBatcher on the
+    card and on the CPU from the same weights: the same tokens, and every
+    prefill attention call launched the flash kernel."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(2), "cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, T) for T in (9, 30, 17)]
+    out = {}
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    for dev in (card, torch.device("cpu")):
+        b = ContinuousBatcher(model, to(cpu, dev), 2, 64, device=dev)
+        for rid, p in enumerate(prompts):
+            b.submit(Request(rid=rid, prompt=p, max_new_tokens=6))
+        faops.reset_launches()
+        out[dev.type] = b.run()
+        if dev.type == "cuda":
+            assert faops.LAUNCHES == {"flash_attention": 3 * cfg.n_layers}
+    assert out["cuda"] == out["cpu"]

@@ -118,6 +118,25 @@ def test_cc_on_directed_input_equals_reference():
     _same_run(got, want)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_cc_cut_by_max_visits_raises_a_value_error(fused):
+    """C6: five visits leave cc's labels unconverged (+inf cells), which have
+    no canonical form.  The port raises a ValueError naming cc and
+    max_visits; the reference fails in ``canonicalize_cc`` with an
+    IndexError (the +inf cast to int64).  Neither returns an answer."""
+    srcs = np.array([0, 40, 98])
+    kw = dict(num_queries=3, block_size=16, fused=fused)
+    with pytest.raises(IndexError):
+        JSession(jgen.grid2d(9, 11)).plan(**kw).run("cc", srcs, max_visits=5)
+    sess = FPPSession(gen.grid2d(9, 11), device="cpu").plan(**kw)
+    with pytest.raises(ValueError, match="cc.*max_visits"):
+        sess.run("cc", srcs, max_visits=5)
+    got = sess.run("cc", srcs)
+    np.testing.assert_array_equal(
+        got.values, JSession(jgen.grid2d(9, 11)).plan(**kw).run(
+            "cc", srcs).values)
+
+
 def test_cc_refuses_graphs_of_2_24_vertices():
     bg, _ = partition(gen.grid2d(6, 6), 16)
     with pytest.raises(ValueError, match="2\\^24"):

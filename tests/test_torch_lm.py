@@ -325,6 +325,7 @@ def test_storage_dtypes_and_family_guard():
     assert tp["embed"]["embedding"].dtype == torch.bfloat16
     assert tp["embed"]["unembed"].dtype == torch.float32
     assert tp["final_norm"]["scale"].dtype == torch.float32
-    moe = dataclasses.replace(tcfg, family="moe")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tbuild(moe).init(device="cpu")
+    for family in ("encdec", "vlm"):
+        unported = dataclasses.replace(tcfg, family=family)
+        with pytest.raises(NotImplementedError, match="A14"):
+            tbuild(unported).init(device="cpu")
