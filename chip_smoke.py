@@ -43,15 +43,17 @@ Phases, each of which fails the run on any error:
               backend on the card against the CPU for every kind (bitwise,
               ppr at the tolerance), one contraction launch a round
   5. path     ``FPPSession(grid2d(SIDE, SIDE), device="cuda")
-              .plan(num_queries=64)`` runs sssp, bfs and ppr on 64 seeded
-              sources; sssp/bfs are checked against scipy's Dijkstra, ppr
-              against mass conservation and the residual bound; each kind
-              must launch its kernel once per relax round and once per
-              visit.  Then ``plan(fused=True)`` runs
-              sssp, bfs, ppr and sssp with the sparse frontier: sssp/bfs
-              bitwise equal to the unfused runs, visits, rounds and chunks
-              equal to theirs, one fused launch per chunk and no
-              contraction launch, one device read per chunk.  Then one
+              .plan(num_queries=64, fused=True)`` runs sssp, bfs, ppr and
+              sssp with the sparse frontier on 64 seeded sources; sssp/bfs
+              are checked against scipy's Dijkstra, ppr against mass
+              conservation and the residual bound; one fused launch per
+              chunk and no contraction launch, one device read per chunk;
+              the sparse sssp bitwise equal to the dense one.  On
+              grid2d(UNFUSED_PATH_SIDE) the unfused ``plan(num_queries=64)``
+              runs the three kinds (each must launch its kernel once per
+              relax round and once per visit) and the fused plan again:
+              sssp/bfs bitwise equal, visits, rounds and chunks equal
+              (ppr too), both against the oracles above.  Then one
               K=64 chunk per algebra and dispatch is timed and traced for
               the card's busy share; a fused chunk's trace must name one
               launch of the cluster kernel, an unfused one the list
@@ -99,11 +101,16 @@ Phases, each of which fails the run on any error:
               recurrentgemma-2b: H=10, Hkv=1, hd=256, window 2048 at
               (4096, 4096, 0) and (8192, 8192, 0), bf16 and f32;
               qwen3-moe-30b-a3b: H=32, Hkv=4, hd=128 at (4096, 4096, 0)
-              and (4096, 8192, 4096), bf16 and f32), each
-              shape timed over a CUDA graph beside PyTorch's SDPA as a
-              yardstick (causal, GQA; a window as the equivalent boolean
-              band mask), the plain version timed at (4096, 4096, 0) of
-              each model
+              and (4096, 8192, 4096), bf16 and f32; paligemma-3b: H=8,
+              Hkv=1, hd=256, causal with a 256-key prefix at (512, 512)
+              and (4096, 4096); whisper-base: H=Hkv=8, hd=64, the encoder
+              (1536, 1536) and the cross-attention (224, 1536) non-causal
+              with kv_len 1500, the decoder (224, 224) causal; bf16 and
+              f32), each shape timed over a CUDA graph beside PyTorch's
+              SDPA as a yardstick (causal, GQA; a window, a prefix or
+              padded keys as the equivalent boolean mask), the plain
+              version timed at each model's timed shape
+              (``FLASH_TIMED``)
   7. lm       the LM serving path: ``build_model(starcoder2-7b)`` at full
               width and depth, ``Model.init`` from a seeded generator on the
               card, six prompts (512 to 8192 tokens) through
@@ -131,6 +138,16 @@ Phases, each of which fails the run on any error:
               agree between the kernel's and the plain attention's
               prefills; check c also on phi3.5-moe's reduced config;
               ``launch/serve.py --no-reduced`` serves 4 requests
+  7d. lm vlm, encdec  the same path and checks, after 7c's model is
+              freed, for paligemma-3b (vlm: 256 seeded image embeddings a
+              request before its text, 272 to 8192 positions, the
+              prefix-LM mask in B6; 18 flash launches a prefill and 36 for
+              the chunked 8192, 126 in all) and whisper-base (encdec: 1,500
+              seeded frames a request, prompts of 4 to 224 tokens,
+              max_len 448; 18 launches a prefill: 6 encoder, 6 self, 6
+              cross; 108 in all), each request's extras through
+              ``ContinuousBatcher``; check b and c with the extras; each
+              ``launch/serve.py --no-reduced``
   8. report   fg_threefry's line and the kernel table as JSON lines (each
               kernel launched at least once on the paths), then the
               result line
@@ -182,6 +199,10 @@ UNFUSED_SIDE = {"cc": SIDE, "kreach": 64}
 #: unfused sssp takes 77-104 s at side 192 under priority, and the random
 #: schedule ~2.2 times priority's visits (PERF.md section 5)
 RANDOM_SIDE = 64
+#: grid side of phase 5's unfused sssp, bfs and ppr runs, held against the
+#: fused runs on the same grid: at side 192 the host-paced unfused sssp and
+#: bfs took 90.0 and 111.2 s (PERF.md section 5); the fused runs stay at SIDE
+UNFUSED_PATH_SIDE = 64
 
 #: the LM serving path (PERF.md section 4): full width and depth, random
 #: weights from a seeded generator on the card
@@ -211,10 +232,43 @@ MOE_REDUCED_ONLY = "phi3.5-moe-42b-a6.6b"
 #: (Sq, Skv, q_offset, window) of qwen3-moe's 4096-token whole prefill and
 #: the 8192-token prompt's second chunk in phase 6
 MOE_FLASH_CASES = ((4096, 4096, 0, None), (4096, 8192, 4096, None))
-#: check b's prompts (tokens) per LM path: the kernel's prefill against the
-#: plain attention's; none for the ssm, which has no attention
+#: phase 7d: the last two families at full width and depth.  paligemma-3b
+#: (vlm: 256 image embeddings before each prompt, the prefix-LM mask):
+#: text brings the positions to 272 (a captioning request) up to 8192 (the
+#: chunked prefill, the image in its first chunk).  whisper-base (encdec:
+#: 1,500 frames a request, 30 s of audio after the stub frontend): decoder
+#: prompts up to 224 tokens, half its 448-token text context
+VLM_ARCH, ENCDEC_ARCH = "paligemma-3b", "whisper-base"
+VLM_IMAGE_TOKENS = 256
+LM_SPECS = {
+    VLM_ARCH: (tuple(T - VLM_IMAGE_TOKENS
+                     for T in (272, 512, 1000, 2048, 4096, 8192)), LM_MAX_LEN),
+    ENCDEC_ARCH: ((4, 32, 64, 128, 224, 224), 448),
+}
+#: (Sq, Skv, q_offset, window, causal, kv_len, prefix_len) of phase 6 per
+#: model (the first four fields alone: causal, every key seen)
+FLASH_SHAPES = {
+    LM_ARCH: FLASH_CASES, RG_ARCH: RG_FLASH_CASES, MOE_ARCH: MOE_FLASH_CASES,
+    # paligemma's whole prefills of 512 and 4096 positions
+    VLM_ARCH: ((512, 512, 0, None, True, None, VLM_IMAGE_TOKENS),
+               (4096, 4096, 0, None, True, None, VLM_IMAGE_TOKENS)),
+    # whisper's encoder, cross-attention and decoder self-attention
+    ENCDEC_ARCH: ((1536, 1536, 0, None, False, 1500, None),
+                  (224, 1536, 0, None, False, 1500, None),
+                  (224, 224, 0, None, True, None, None)),
+}
+#: the shape each model's kernel row is timed at (its plain version too)
+FLASH_TIMED = {LM_ARCH: (4096, 4096), RG_ARCH: (4096, 4096, 0, 2048),
+               MOE_ARCH: (4096, 4096), VLM_ARCH: FLASH_SHAPES[VLM_ARCH][1],
+               ENCDEC_ARCH: FLASH_SHAPES[ENCDEC_ARCH][0]}
+#: the flash row's sub-rows (kernel table rows 6c/6d, 6e, 6f, 6g)
+FLASH_ROW_KEYS = {"hd256": RG_ARCH, "h32": MOE_ARCH, "prefix": VLM_ARCH,
+                  "hd64": ENCDEC_ARCH}
+#: check b's prompts (text tokens) per LM path: the kernel's prefill against
+#: the plain attention's; none for the ssm, which has no attention
 CHECK_B_TOKENS = {LM_ARCH: (512,), "recurrentgemma-2b": (512, 3000),
-                  "falcon-mamba-7b": (), MOE_ARCH: (512,)}
+                  "falcon-mamba-7b": (), MOE_ARCH: (512,),
+                  VLM_ARCH: (16, 3840), ENCDEC_ARCH: (224,)}
 #: the ssm's prefills traced for where their time goes: one whose scan
 #: runs in 512-token chunks and one that runs unchunked
 TRACE_SSM_TOKENS = (512, 3000)
@@ -1142,32 +1196,30 @@ def phase_parity(counters) -> None:
 
 
 def phase_path(torch, counters) -> dict:
-    """Phase 5: the main path at 64 queries, unfused, then fused."""
+    """Phase 5: the main path at 64 queries, fused on the side-SIDE grid
+    (sssp/bfs against scipy's Dijkstra, ppr's mass and residual); then
+    unfused at :data:`UNFUSED_PATH_SIDE` against fused on that grid."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import dijkstra
 
     from repro_torch.fpp import FPPSession
     from repro_torch.graphs.generators import grid2d
 
-    g = grid2d(SIDE, SIDE, seed=0)
     Q = 64
     t0 = time.perf_counter()
-    sess = FPPSession(g, device="cuda").plan(num_queries=Q)
-    fsess = FPPSession(g, device="cuda").plan(num_queries=Q, fused=True)
-    srcs = np.random.default_rng(0).choice(g.n, Q, replace=False)
-    plan = sess.current_plan
-    if fsess.current_plan.block_size != plan.block_size:
-        raise AssertionError("the fused plan picked another block size")
-    csr = sp.csr_matrix((g.weights.astype(np.float64), g.indices, g.indptr),
-                        shape=(g.n, g.n))
-    deg = np.maximum(g.out_degree(), 1)
     launches = {}      # per kernel, summed over the path's runs
-    unfused, answers = {}, {}
-    runs = [(kind, sess, "dense") for kind in ("sssp", "bfs", "ppr")]
-    runs += [(kind, fsess, "dense") for kind in ("sssp", "bfs", "ppr")]
-    runs += [("sssp", fsess, "sparse")]
-    for kind, ss, fmode in runs:
-        fused = ss is fsess
+
+    def setup(side):
+        g = grid2d(side, side, seed=0)
+        csr = sp.csr_matrix((g.weights.astype(np.float64), g.indices,
+                             g.indptr), shape=(g.n, g.n))
+        srcs = np.random.default_rng(0).choice(g.n, Q, replace=False)
+        return (g, csr, srcs, FPPSession(g, device="cuda").plan(num_queries=Q),
+                FPPSession(g, device="cuda").plan(num_queries=Q, fused=True))
+
+    def run(kind, ss, fmode, g, csr, srcs, side):
+        """One run, checked against its oracle and for its launches."""
+        fused = ss.current_plan.fused is True
         bg, _ = ss.prepared(weights={"bfs": "unit"}.get(kind, "natural"))
         counters.reset()
         torch.cuda.synchronize()
@@ -1178,6 +1230,7 @@ def phase_path(torch, counters) -> dict:
         counts = counters.read()
         st = res.stats
         if kind == "ppr":
+            deg = np.maximum(g.out_degree(), 1)
             mass = res.values.sum(1) + res.residual.sum(1)
             if np.abs(mass - 1.0).max() > 1e-3:
                 raise AssertionError(f"ppr mass {mass}")
@@ -1193,52 +1246,13 @@ def phase_path(torch, counters) -> dict:
                       and np.allclose(got[np.isfinite(want)],
                                       want[np.isfinite(want)], rtol=1e-5))
             if not (ok and np.isfinite(got).all()):
-                raise AssertionError(f"{kind} disagrees with dijkstra")
-        if not fused:
-            unfused[kind] = res
-            # one launch per relax round and one per visit's emission
-            need = "masked_matmul" if kind == "ppr" else "minplus"
-            if counts[need] != st["rounds"] + st["visits"]:
-                raise AssertionError(f"{kind} launched {need} "
-                                     f"{counts[need]} times, want one per "
-                                     f"round and one per visit")
-        else:
-            # one launch per K-visit chunk, the final empty chunk included
-            if counts["fused_visit"] != st["host_syncs"]:
-                raise AssertionError(f"fused {kind}: {counts['fused_visit']} "
-                                     f"fused launches, want one per chunk "
-                                     f"({st['host_syncs']})")
-            if counts["minplus"] or counts["masked_matmul"]:
-                raise AssertionError(f"fused {kind} launched a contraction "
-                                     f"kernel")
-            if st["device_syncs"] != st["host_syncs"]:
-                raise AssertionError(f"fused {kind}: device_syncs "
-                                     f"{st['device_syncs']} != host_syncs "
-                                     f"{st['host_syncs']}")
-            ref = unfused[kind]
-            if (st["visits"], st["rounds"], st["host_syncs"]) != (
-                    ref.stats["visits"], ref.stats["rounds"],
-                    ref.stats["host_syncs"]):
-                raise AssertionError(f"fused {kind} ({fmode}): visits, "
-                                     f"rounds or chunks differ from the "
-                                     f"unfused run")
-            if fmode == "dense":
-                answers[kind] = res
-            if kind != "ppr":
-                if not (np.array_equal(res.values, ref.values)
-                        and np.array_equal(res.edges_processed,
-                                           ref.edges_processed)):
-                    raise AssertionError(f"fused {kind} ({fmode}) is not "
-                                         f"bitwise equal to the unfused run")
-            # the frontier tile runs in every minplus launch, the push
-            # round in every push launch
-            tile = "ppr_push" if kind == "ppr" else "frontier"
-            launches[tile + "_in_fused"] = (
-                launches.get(tile + "_in_fused", 0) + counts["fused_visit"])
-        for name, c in counts.items():
+                raise AssertionError(f"{kind} (side {side}) disagrees with "
+                                     f"dijkstra")
+        for name, c in _launched(kind, counts, st, fused).items():
             launches[name] = launches.get(name, 0) + c
         label = ("fused " if fused else "") + kind + (
-            "-sparse" if fmode == "sparse" else "")
+            "-sparse" if fmode == "sparse" else "") + (
+            f" side {side}" if side != SIDE else "")
         log(f"path {label}: " + json.dumps({
             "n": g.n, "m": g.m, "P": bg.num_parts, "B": bg.block_size,
             "Q": Q, "dmax": int(bg.nbr_blk.shape[1]),
@@ -1246,6 +1260,40 @@ def phase_path(torch, counters) -> dict:
             "host_syncs": st["host_syncs"],
             "device_syncs": st["device_syncs"], "wall_s": wall,
             "visits_per_s": st["visits"] / wall, "launches": counts}))
+        return res
+
+    def same_run(a, b, kind, what):
+        """Bitwise equal answers (ppr: its stats only) and equal visits,
+        rounds and chunks."""
+        st, ref = a.stats, b.stats
+        if (st["visits"], st["rounds"], st["host_syncs"]) != (
+                ref["visits"], ref["rounds"], ref["host_syncs"]):
+            raise AssertionError(f"{what} {kind}: visits, rounds or chunks "
+                                 f"differ")
+        if kind != "ppr" and not (
+                np.array_equal(a.values, b.values)
+                and np.array_equal(a.edges_processed, b.edges_processed)):
+            raise AssertionError(f"{what} {kind}: not bitwise equal")
+
+    # fused on the main path's graph: each kind once, sssp also sparse
+    g, csr, srcs, sess, fsess = setup(SIDE)
+    plan = sess.current_plan
+    if fsess.current_plan.block_size != plan.block_size:
+        raise AssertionError("the fused plan picked another block size")
+    answers = {kind: run(kind, fsess, "dense", g, csr, srcs, SIDE)
+               for kind in ("sssp", "bfs", "ppr")}
+    same_run(run("sssp", fsess, "sparse", g, csr, srcs, SIDE),
+             answers["sssp"], "sssp", "fused sparse against fused dense")
+    # unfused against fused on the smaller grid (the unfused dispatch is
+    # host-paced: 90-111 s for sssp and bfs at side 192)
+    side = UNFUSED_PATH_SIDE
+    gu, csru, su, usess, ufsess = setup(side)
+    for kind in ("sssp", "bfs", "ppr"):
+        ures = run(kind, usess, "dense", gu, csru, su, side)
+        fres = run(kind, ufsess, "dense", gu, csru, su, side)
+        same_run(fres, ures, kind, f"side {side}: fused against unfused")
+    log(f"path side {side}: fused sssp and bfs bitwise equal to unfused, "
+        f"ppr's visits, rounds and chunks equal")
     log(f"path setup+runs: {time.perf_counter() - t0:.1f} s, plan B="
         f"{plan.block_size}, method={plan.method}")
     bg, perm = sess.prepared()
@@ -2082,46 +2130,63 @@ def phase_profile(torch, bg, srcs) -> None:
                                for us, k, n in rows[:6]]}))
 
 
-def _band_mask(torch, sq, skv, off, window, device):
-    """``[Sq, Skv]`` bool: query ``off + i`` sees key ``j`` when ``j <=
-    off + i`` and ``j > off + i - window`` (the kernel's causal window)."""
-    qp = off + torch.arange(sq, device=device)[:, None]
-    kp = torch.arange(skv, device=device)[None, :]
-    return (kp <= qp) & (kp > qp - window)
+def _fcase(sq, skv, off=0, window=None, causal=True, kv_len=None,
+           prefix_len=None) -> dict:
+    """One flash shape of phase 6: the kernel's keyword arguments and the
+    (Sq, Skv) it runs at."""
+    return {"Sq": sq, "Skv": skv, "q_offset": off, "window": window,
+            "causal": causal, "kv_len": kv_len, "prefix_len": prefix_len}
+
+
+def _fkw(case) -> dict:
+    return {k: case[k] for k in ("q_offset", "window", "causal", "kv_len",
+                                 "prefix_len")}
 
 
 def phase_flash(torch) -> dict:
     """Phase 6: the flash kernels against their plain version at the LM
     paths' shapes, each timed beside PyTorch's SDPA (the yardstick, never
     called by the port): starcoder2-7b's (hd 128), recurrentgemma-2b's
-    (hd 256, MQA, window 2048) and qwen3-moe-30b-a3b's (hd 128, 32 / 4
-    heads); the plain version timed at (4096, 4096, 0) of each."""
+    (hd 256, MQA, window 2048), qwen3-moe-30b-a3b's (hd 128, 32 / 4
+    heads), paligemma-3b's (hd 256, 8 / 1 heads, causal with a 256-key
+    prefix) and whisper-base's (hd 64, 8 / 8 heads: the encoder and the
+    cross-attention non-causal over 1,536 padded frames of which 1,500 are
+    seen, the decoder causal); the plain version timed at each model's
+    timed shape (:data:`FLASH_TIMED`)."""
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as faops
-    from repro_torch.kernels.flash_attention.ref import \
-        flash_attention_gqa_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_mask, flash_attention_gqa_ref)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def inputs(heads, sq, skv, dtype):
+    def inputs(heads, case, dtype):
         H, Hkv, hd = heads
+        sq, skv = case["Sq"], case["Skv"]
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for shape in ((1, sq, H, hd), (1, skv, Hkv, hd),
                                    (1, skv, Hkv, hd)))
 
-    def library_ms(q, k, v, off, window):
+    def mask_of(case):
+        return attention_mask(case["Sq"], case["Skv"], device=dev,
+                              **_fkw(case))
+
+    def library_ms(q, k, v, case):
         """SDPA on the same inputs in its [B, H, S, hd] layout, GQA: causal
         (bottom-right aligned when the queries sit at the end of the keys,
-        as the chunked prefill's do), or with the equivalent boolean band
-        mask for a window."""
-        sq, skv = q.shape[1], k.shape[1]
+        as the chunked prefill's do), or with the equivalent boolean mask
+        (a window, a prefix, padded keys)."""
+        sq, skv, off = case["Sq"], case["Skv"], case["q_offset"]
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        if window is not None:
-            mask = _band_mask(torch, sq, skv, off, window, dev)
+        plain_causal = (case["causal"] and case["window"] is None
+                        and case["kv_len"] is None
+                        and case["prefix_len"] is None)
+        if not plain_causal:
+            mask = mask_of(case)
         elif off == skv - sq:
             # at sq == skv this is SDPA's plain is_causal=True call
             mask = causal_lower_right(sq, skv)
@@ -2131,15 +2196,14 @@ def phase_flash(torch) -> dict:
         return device_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=20)
 
-    def flops_bytes(heads, sq, skv, off, window, dtype):
-        # (query, key) pairs each query sees (causal, within the window),
-        # each 2*hd FMAs per head (q.k and p.v), two operations per FMA;
-        # bytes: q, k, v read once, out written once
+    def flops_bytes(heads, case, dtype):
+        # the (query, key) pairs the mask lets through, each 2*hd FMAs per
+        # head (q.k and p.v), two operations per FMA; bytes: q, k, v read
+        # once, out written once
         H, Hkv, hd = heads
-        pairs = sum(min(skv, off + i + 1)
-                    - (0 if window is None else max(0, off + i + 1 - window))
-                    for i in range(sq))
+        pairs = int(mask_of(case).sum())
         size = torch.tensor([], dtype=dtype).element_size()
+        sq, skv = case["Sq"], case["Skv"]
         return (4.0 * H * hd * pairs,
                 size * (2 * sq * H * hd + 2 * skv * Hkv * hd))
 
@@ -2148,57 +2212,50 @@ def phase_flash(torch) -> dict:
         return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
 
     rows = {}
-    for arch, cases in ((LM_ARCH, FLASH_CASES),
-                        (RG_ARCH, RG_FLASH_CASES),
-                        (MOE_ARCH, MOE_FLASH_CASES)):
+    for arch, cases in FLASH_SHAPES.items():
         heads = heads_of(arch)
         errs, by_shape = {}, []
         for dname, dtype in (("bfloat16", torch.bfloat16),
                              ("float32", torch.float32)):
-            for sq, skv, off, window in cases:
-                if (window is not None and dtype != torch.bfloat16
+            for case in map(lambda c: _fcase(*c), cases):
+                if (case["window"] is not None and dtype != torch.bfloat16
                         and arch == LM_ARCH):
                     continue
-                q, k, v = inputs(heads, sq, skv, dtype)
-                got = faops.flash_attention(q, k, v, q_offset=off,
-                                            window=window)
-                want = flash_attention_gqa_ref(q, k, v, q_offset=off,
-                                               window=window)
+                q, k, v = inputs(heads, case, dtype)
+                kw = _fkw(case)
+                got = faops.flash_attention(q, k, v, **kw)
+                want = flash_attention_gqa_ref(q, k, v, **kw)
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, **FLASH_TOL[dname])
                 err = float((got.float() - want.float()).abs().max())
                 errs[dname] = max(errs.get(dname, 0.0), err)
                 ms = device_ms(torch, lambda: faops.flash_attention(
-                    q, k, v, q_offset=off, window=window), iters=20)
-                lib = library_ms(q, k, v, off, window)
-                flops, nbytes = flops_bytes(heads, sq, skv, off, window,
-                                            dtype)
+                    q, k, v, **kw), iters=20)
+                lib = library_ms(q, k, v, case)
+                flops, nbytes = flops_bytes(heads, case, dtype)
                 shape = {"dtype": dname, "H": heads[0], "Hkv": heads[1],
-                         "hd": heads[2], "Sq": sq, "Skv": skv,
-                         "q_offset": off, "window": window,
-                         "max_abs_err": err, "ms": ms, "library_ms": lib,
+                         "hd": heads[2], **case, "max_abs_err": err,
+                         "ms": ms, "library_ms": lib,
                          "tflop_per_s": flops / ms / 1e9}
                 by_shape.append(shape)
-                log(f"kernel flash_attention {dname} hd={heads[2]} Sq={sq} "
-                    f"Skv={skv} q_offset={off} window={window}: max |err| "
-                    f"{err:.3e} (tol {FLASH_TOL[dname]}), {ms:.4f} ms, SDPA "
-                    f"{lib:.4f} ms")
+                log(f"kernel flash_attention {dname} hd={heads[2]} "
+                    + " ".join(f"{k}={v}" for k, v in case.items())
+                    + f": max |err| {err:.3e} (tol {FLASH_TOL[dname]}), "
+                    f"{ms:.4f} ms, SDPA {lib:.4f} ms")
                 del q, k, v, got, want
                 torch.cuda.empty_cache()
 
-        S = 4096
-        at_window = cases[0][3] if arch == RG_ARCH else None
+        at_case = _fcase(*FLASH_TIMED[arch])
         for dname, dtype, peak in (("bfloat16", torch.bfloat16,
                                     PEAK_BF16_FLOPS_PER_S),
                                    ("float32", torch.float32,
                                     PEAK_F32_OPS_PER_S)):
-            q, k, v = inputs(heads, S, S, dtype)
+            q, k, v = inputs(heads, at_case, dtype)
             plain_ms = device_ms(torch, lambda: flash_attention_gqa_ref(
-                q, k, v, window=at_window), iters=3)
+                q, k, v, **_fkw(at_case)), iters=3)
             at = next(x for x in by_shape if x["dtype"] == dname
-                      and (x["Sq"], x["Skv"], x["q_offset"], x["window"])
-                      == (S, S, 0, at_window))
-            flops, nbytes = flops_bytes(heads, S, S, 0, at_window, dtype)
+                      and all(x[key] == val for key, val in at_case.items()))
+            flops, nbytes = flops_bytes(heads, at_case, dtype)
             t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
             rows[(arch, dname)] = {
                 "max_abs_err": errs[dname], "ms": at["ms"],
@@ -2206,17 +2263,15 @@ def phase_flash(torch) -> dict:
                 "bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": at["library_ms"],
-                "timed_at": {"Sq": S, "Skv": S, "q_offset": 0,
-                             "H": heads[0], "Hkv": heads[1], "hd": heads[2],
-                             "dtype": dname, "causal": True,
-                             "window": at_window},
+                "timed_at": {**at_case, "H": heads[0], "Hkv": heads[1],
+                             "hd": heads[2], "dtype": dname},
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
             del q, k, v
             torch.cuda.empty_cache()
         rows[(arch, "ms_by_shape")] = by_shape
     row = {**rows[(LM_ARCH, "bfloat16")], "f32": rows[(LM_ARCH, "float32")],
            "ms_by_shape": rows[(LM_ARCH, "ms_by_shape")]}
-    for key, arch in (("hd256", RG_ARCH), ("h32", MOE_ARCH)):
+    for key, arch in FLASH_ROW_KEYS.items():
         row[key] = {"arch": arch, **rows[(arch, "bfloat16")],
                     "f32": rows[(arch, "float32")],
                     "ms_by_shape": rows[(arch, "ms_by_shape")]}
@@ -2233,26 +2288,64 @@ def _tree_leaves(tree):
 
 
 def _prefill_launches(T: int, cfg) -> int:
-    """Flash launches of one prompt's prefill: one per attention layer and
-    chunk (only the dense family chunks; the ssm has no attention)."""
+    """Flash launches of one prefill of ``T`` positions (a vlm's image
+    included): one per attention layer and chunk (the dense, moe and vlm
+    families chunk; the ssm has no attention), and for encdec one per
+    encoder layer and two per decoder layer (self and cross)."""
     from repro_torch.models.factory import build_model
     from repro_torch.models.transformer import (CHUNKED_FAMILIES,
                                                 PREFILL_CHUNK)
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers
     chunked = (cfg.family in CHUNKED_FAMILIES and T > PREFILL_CHUNK
                and T % PREFILL_CHUNK == 0)
     return build_model(cfg).n_attn_layers() * (
         T // PREFILL_CHUNK if chunked else 1)
 
 
-def _state_bytes(torch, specs) -> int:
-    """Bytes of a decode state from its ``(shape, dtype)`` specs."""
-    return sum(int(np.prod(shape)) * torch.tensor([], dtype=dt).element_size()
-               for part in specs if part is not None for shape, dt in part)
+def _state_bytes(torch, spec) -> int:
+    """Bytes of a decode state from its tree of ``(shape, dtype)`` specs."""
+    if spec is None:
+        return 0
+    if isinstance(spec[1], torch.dtype):
+        return int(np.prod(spec[0])) * torch.tensor(
+            [], dtype=spec[1]).element_size()
+    return sum(_state_bytes(torch, part) for part in spec)
+
+
+def lm_extras(cfg, rng):
+    """A request's extra inputs, seeded: a vlm's image embeddings and an
+    encdec's frames (``0.1 * N(0, 1)``, the stub frontends' outputs), or
+    None."""
+    from repro_torch.models.encdec import N_FRAMES
+    n = {"vlm": cfg.num_image_tokens, "encdec": N_FRAMES}.get(cfg.family)
+    if n is None:
+        return None
+    key = "image_embeds" if cfg.family == "vlm" else "frames"
+    return {key: (0.1 * rng.normal(size=(n, cfg.d_model))).astype(
+        np.float32)}
+
+
+def lm_batch(torch, prompt, extras, device) -> dict:
+    """A batch-1 prefill batch of ``prompt`` and its extras on ``device``,
+    as ``ContinuousBatcher`` builds it."""
+    batch = {"tokens": torch.as_tensor(prompt[None].astype(np.int64),
+                                       device=device)}
+    for k, v in (extras or {}).items():
+        batch[k] = torch.as_tensor(v[None], device=device)
+    return batch
+
+
+def _positions(cfg, T: int) -> int:
+    """Positions of a prefill of ``T`` tokens (a vlm's image included)."""
+    return T + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
 
 
 def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
-    """Phase 7 (starcoder2-7b) and 7b (the recurrent families): one LM
-    serving path at full width and depth, then its checks."""
+    """Phase 7 (starcoder2-7b), 7b (the recurrent families), 7c (moe) and
+    7d (vlm, encdec): one LM serving path at full width and depth, then its
+    checks.  The prompts and the cache length are :data:`LM_SPECS`'s for
+    the arch, else :data:`LM_PROMPTS` and :data:`LM_MAX_LEN`."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.factory import build_model
     from repro_torch.serve.engine import (ContinuousBatcher, Request,
@@ -2262,6 +2355,7 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch)
+    lengths, max_len = LM_SPECS.get(arch, (LM_PROMPTS, LM_MAX_LEN))
     model = build_model(cfg)
     t = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -2269,21 +2363,22 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
     init_s = time.perf_counter() - t
     leaves = list(_tree_leaves(params))
     state_bytes = _state_bytes(torch, model.decode_state_specs(LM_BATCH,
-                                                               LM_MAX_LEN))
+                                                               max_len))
     info = {"arch": cfg.name, "family": cfg.family,
             "n_layers": cfg.n_layers, "d_model": cfg.d_model,
             "num_params": cfg.num_params(),
             "param_elements": sum(x.numel() for x in leaves),
             "weight_bytes": sum(x.numel() * x.element_size() for x in leaves),
             "decode_state_bytes": state_bytes, "batch": LM_BATCH,
-            "max_len": LM_MAX_LEN, "max_new_tokens": LM_NEW,
+            "max_len": max_len, "max_new_tokens": LM_NEW,
             "init_s": init_s}
     log("lm config: " + json.dumps(info))
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, T).astype(np.int32)
-               for T in LM_PROMPTS]
-    step = make_prefill_step(model, max_len=LM_MAX_LEN)
+               for T in lengths]
+    extras = [lm_extras(cfg, rng) for _ in lengths]
+    step = make_prefill_step(model, max_len=max_len)
     prefills, t_run = [], [0.0]
 
     def timed_prefill(p, batch):
@@ -2292,15 +2387,17 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
         out = step(p, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        prefills.append({"arch": cfg.name,
-                         "tokens": int(batch["tokens"].shape[1]),
+        T = int(batch["tokens"].shape[1])
+        prefills.append({"arch": cfg.name, "tokens": T,
+                         "positions": _positions(cfg, T),
                          "prefill_s": t1 - t0, "ttft_s": t1 - t_run[0]})
         return out
 
-    batcher = ContinuousBatcher(model, params, LM_BATCH, LM_MAX_LEN,
+    batcher = ContinuousBatcher(model, params, LM_BATCH, max_len,
                                 device=dev, prefill_fn=timed_prefill)
-    for rid, p in enumerate(prompts):
-        batcher.submit(Request(rid=rid, prompt=p, max_new_tokens=LM_NEW))
+    for rid, (p, ex) in enumerate(zip(prompts, extras)):
+        batcher.submit(Request(rid=rid, prompt=p, max_new_tokens=LM_NEW,
+                               extras=ex))
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     torch.cuda.synchronize()
@@ -2312,7 +2409,7 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
 
     # the path went through the kernel: one launch per attention layer and
     # chunk (none for the ssm), and no other kernel of the port
-    want = sum(_prefill_launches(T, cfg) for T in LM_PROMPTS)
+    want = sum(_prefill_launches(_positions(cfg, T), cfg) for T in lengths)
     if counts["flash_attention"] != want:
         raise AssertionError(f"lm {arch}: {counts['flash_attention']} flash "
                              f"launches, want {want}")
@@ -2328,34 +2425,38 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
     prefill_s = sum(p["prefill_s"] for p in prefills)
     decode_tokens = batcher.tokens_out - len(prompts)
     for p in prefills:
-        p["prefill_tok_per_s"] = p["tokens"] / p["prefill_s"]
+        p["prefill_tok_per_s"] = p["positions"] / p["prefill_s"]
         log("lm prefill: " + json.dumps(p))
     run = {"arch": cfg.name, "requests": len(prompts),
            "tokens_out": batcher.tokens_out,
            "decode_steps": batcher.steps, "decode_tokens": decode_tokens,
            "prefill_s": prefill_s, "decode_s": wall - prefill_s,
            "decode_tok_per_s": decode_tokens / (wall - prefill_s),
-           "prefill_tok_per_s": sum(LM_PROMPTS) / prefill_s,
+           "prefill_tok_per_s": sum(_positions(cfg, T)
+                                    for T in lengths) / prefill_s,
            "wall_s": wall, "launches": counts,
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     log("lm run: " + json.dumps(run))
 
     decode = lm_decode_profile(torch, model, params, batcher.state)
+    batches = [lm_batch(torch, p, ex, dev) for p, ex in zip(prompts, extras)]
     # the share of (token, choice) entries each prefill drops past its
     # experts' capacity, layer by layer (moe)
-    drops = (lm_moe_drops(torch, model, params, prompts)
+    drops = (lm_moe_drops(torch, model, params, batches, max_len)
              if cfg.family == "moe" else None)
     # b. the whole model with the kernel against the whole model with the
     # plain attention on the card, on the prefills of CHECK_B_TOKENS
-    check_b = [lm_kernel_vs_plain(torch, model, params, prompts[i],
-                                  out[i][0])
-               for i, T in enumerate(LM_PROMPTS)
-               if T in CHECK_B_TOKENS[arch]]
+    check_b = [lm_kernel_vs_plain(torch, model, params, batches[i],
+                                  out[i][0], max_len)
+               for i in sorted({lengths.index(T)
+                                for T in CHECK_B_TOKENS[arch]})]
     # the flash kernel's share of each prefill and the prefill's top
     # kernels (traced, after the counts); the ssm, which launches no
     # kernel of the port, only at TRACE_SSM_TOKENS
     shares = lm_flash_share(torch, model, params, [
-        p for p in prompts if want or len(p) in TRACE_SSM_TOKENS], cfg)
+        b for b, p in zip(batches, prompts)
+        if want or len(p) in TRACE_SSM_TOKENS], cfg, max_len)
+    del batches
     del params, batcher
     torch.cuda.empty_cache()
     # c. the reduced config on the card against the CPU
@@ -2407,6 +2508,27 @@ def phase_lm_moe(torch, counters) -> dict:
     return out
 
 
+def phase_lm_vlm_encdec(torch, counters) -> dict:
+    """Phase 7d: paligemma-3b (vlm) and whisper-base (encdec) at full width
+    and depth, one after the other (after 7c has freed its model), each
+    then once more through ``launch/serve.py --no-reduced``."""
+    from repro_torch.launch import serve
+
+    out = {}
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        out[arch] = phase_lm(torch, counters, arch)
+        t = time.perf_counter()
+        got = serve.main(["--arch", arch, "--no-reduced", "--requests", "4",
+                          "--batch", "2", "--max-new", "4"])
+        torch.cuda.empty_cache()
+        if sorted(got) != [0, 1, 2, 3] or any(len(x) != 4
+                                              for x in got.values()):
+            raise AssertionError(f"lm cli {arch}: {got}")
+        log(f"lm cli: {arch} --no-reduced, 4 requests served in "
+            f"{time.perf_counter() - t:.2f} s")
+    return out
+
+
 class RouteLog:
     """While active, records every moe layer's routing: the expert ids
     ``[B, S, K]`` and slots that ``models/moe.route`` returns, with the
@@ -2451,18 +2573,18 @@ class RouteLog:
                 "sets_differ": n_sets - same_sets, "sets": n_sets}
 
 
-def lm_moe_drops(torch, model, params, prompts) -> list:
+def lm_moe_drops(torch, model, params, batches, max_len) -> list:
     """Each prompt's prefill once more, its routing recorded: the share of
     (token, choice) entries dropped past capacity, over the whole prefill,
     in its worst layer and in its first and last (a chunked prompt: of the
     last chunk)."""
     rows = []
-    for p in prompts:
-        tok = torch.as_tensor(p[None].astype(np.int64), device="cuda")
+    for batch in batches:
         with RouteLog() as rl:
-            model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+            model.prefill(params, batch, max_len=max_len)
         shares = rl.dropped()
-        rows.append({"tokens": len(p), "calls": len(shares),
+        rows.append({"tokens": int(batch["tokens"].shape[1]),
+                     "calls": len(shares),
                      "dropped_share": sum(shares) / len(shares),
                      "dropped_share_worst_layer": max(shares),
                      "dropped_share_first_layer": shares[0],
@@ -2473,9 +2595,10 @@ def lm_moe_drops(torch, model, params, prompts) -> list:
 
 def lm_decode_profile(torch, model, params, state, steps: int = 4) -> dict:
     """Where a decode step's time goes: ``steps`` steps at batch 4 over the
-    full 8,224-slot state, each ending in a host read of the sampled
-    tokens as in ``ContinuousBatcher``, timed on the host clock; then one
-    more step under torch.profiler for the card's kernel time."""
+    served state (all its ``max_len`` slots), each ending in a host read of
+    the sampled tokens as in ``ContinuousBatcher``, timed on the host
+    clock; then one more step under torch.profiler for the card's kernel
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import make_decode_step
@@ -2511,28 +2634,29 @@ def lm_decode_profile(torch, model, params, state, steps: int = 4) -> dict:
     return res
 
 
-def lm_kernel_vs_plain(torch, model, params, prompt, first_token) -> dict:
+def lm_kernel_vs_plain(torch, model, params, batch, first_token,
+                       max_len) -> dict:
     """Check b: the prefill logits with the flash kernel and with its plain
-    version in every layer (same weights, same prompt)."""
+    version in every layer (same weights, same prompt and extras)."""
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_gqa_ref
     from repro_torch.models import attention
 
-    tok = torch.as_tensor(prompt[None].astype(np.int64), device="cuda")
+    tok = batch["tokens"]
     with RouteLog() as kernel_routes:
-        kernel, _ = model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+        kernel, _ = model.prefill(params, batch, max_len=max_len)
     kernel_attend = attention.attend
 
     def plain_attend(q, k, v, q_offset=0, *, causal=True, window=None,
-                     kv_len=None):
+                     kv_len=None, prefix_len=None):
         return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset, kv_len=kv_len)
+                                       q_offset=q_offset, kv_len=kv_len,
+                                       prefix_len=prefix_len)
 
     attention.attend = plain_attend
     try:
         with RouteLog() as plain_routes:
-            plain, _ = model.prefill(params, {"tokens": tok},
-                                     max_len=LM_MAX_LEN)
+            plain, _ = model.prefill(params, batch, max_len=max_len)
     finally:
         attention.attend = kernel_attend
     torch.cuda.synchronize()
@@ -2567,20 +2691,20 @@ def lm_kernel_vs_plain(torch, model, params, prompt, first_token) -> dict:
 FLASH_TC_NAME, FLASH_FP32_NAME = "flash_tc_kernel", "flash_fp32_kernel"
 
 
-def lm_flash_share(torch, model, params, prompts, cfg) -> list:
+def lm_flash_share(torch, model, params, batches, cfg, max_len) -> list:
     """Each prompt's prefill once more under torch.profiler: the flash
     kernel's card time against the prefill's card time and wall time.
     Every attention launch of the bf16 path must be the tensor-core kernel,
-    one per attention layer and chunk, and the FP32-core kernel must not
-    appear."""
+    one per attention layer and chunk (:func:`_prefill_launches`), and the
+    FP32-core kernel must not appear."""
     rows = []
-    for p in prompts:
-        tok = torch.as_tensor(p[None].astype(np.int64), device="cuda")
+    for batch in batches:
+        T = int(batch["tokens"].shape[1])
         torch.cuda.synchronize()
-        want = _prefill_launches(len(p), cfg)
+        want = _prefill_launches(_positions(cfg, T), cfg)
 
         def prefill():
-            return model.prefill(params, {"tokens": tok}, max_len=LM_MAX_LEN)
+            return model.prefill(params, batch, max_len=max_len)
 
         for attempt in range(1, TRACE_TRIES + 1):
             events, wall_ms, _ = trace_once(torch, prefill, prefill)
@@ -2596,16 +2720,16 @@ def lm_flash_share(torch, model, params, prompts, cfg) -> list:
             if n_tc == want and not n_fp32:
                 break
             if n_fp32 or n_tc > want or attempt == TRACE_TRIES:
-                raise AssertionError(f"lm: the {len(p)}-token prefill ran "
+                raise AssertionError(f"lm: the {T}-token prefill ran "
                                      f"{n_tc} {FLASH_TC_NAME} (want {want}) "
                                      f"and {n_fp32} {FLASH_FP32_NAME} (want "
                                      f"0)")
-            log(f"lm prefill trace: {len(p)} tokens, trace {attempt} holds "
+            log(f"lm prefill trace: {T} tokens, trace {attempt} holds "
                 f"{n_tc} of {want} {FLASH_TC_NAME} events (the tracer "
                 f"dropped some); tracing again")
         top = sorted(((_device_us(e), e.key, e.count) for e in events),
                      reverse=True)[:5]
-        row = {"arch": cfg.name, "tokens": len(p), "wall_ms": wall_ms,
+        row = {"arch": cfg.name, "tokens": T, "wall_ms": wall_ms,
                "device_ms": dev_us / 1e3, "flash_ms": flash_us / 1e3,
                "flash_tc_launches": n_tc,
                "flash_share_of_device": flash_us / dev_us if dev_us else None,
@@ -2625,7 +2749,8 @@ def lm_card_vs_cpu(torch, arch: str = LM_ARCH) -> dict:
     dense configs' |max| ~3.5: rows of N(0, 1) with no 1/sqrt(d) scale
     make the logits ~10 times as large, and their sums' rounding with
     them.  The prompts are longer than the hybrid's reduced window of
-    16."""
+    16; a vlm's and an encdec's requests bring their extras
+    (:func:`lm_extras`)."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -2646,15 +2771,17 @@ def lm_card_vs_cpu(torch, arch: str = LM_ARCH) -> dict:
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, T).astype(np.int32)
                for T in (40, 100, 64)]
+    extras = [lm_extras(cfg, rng) for _ in prompts]
     tokens, logits = {}, {}
     for dev in ("cuda", "cpu"):
         p = lm_params_from_arrays(tree, cfg, dev)
         b = ContinuousBatcher(model, p, 2, 128, device=dev)
-        for rid, pr in enumerate(prompts):
-            b.submit(Request(rid=rid, prompt=pr, max_new_tokens=8))
+        for rid, (pr, ex) in enumerate(zip(prompts, extras)):
+            b.submit(Request(rid=rid, prompt=pr, max_new_tokens=8,
+                             extras=ex))
         tokens[dev] = b.run()
-        tok = torch.as_tensor(prompts[1][None].astype(np.int64), device=dev)
-        logits[dev] = model.prefill(p, {"tokens": tok}, max_len=128)[0].cpu()
+        batch = lm_batch(torch, prompts[1], extras[1], dev)
+        logits[dev] = model.prefill(p, batch, max_len=128)[0].cpu()
     diff = float((logits["cuda"] - logits["cpu"]).abs().max())
     tol = LM_F32_TOL
     if cfg.tie_embeddings:
@@ -2757,8 +2884,11 @@ def main() -> int:
     lm = timed("7 lm", phase_lm, torch, Counters())
     lm_rec = timed("7b lm recurrent", phase_lm_recurrent, torch, Counters())
     lm_moe = timed("7c lm moe", phase_lm_moe, torch, Counters())
+    lm_last = timed("7d lm vlm, encdec", phase_lm_vlm_encdec, torch,
+                    Counters())
     launches["flash_attention"] = lm["launches"] + sum(
-        r["launches"] for r in lm_rec.values()) + lm_moe["launches"]
+        r["launches"] for r in lm_rec.values()) + lm_moe["launches"] + sum(
+        r["launches"] for r in lm_last.values())
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = {
@@ -2817,18 +2947,21 @@ def main() -> int:
             row["launches_by_arch"] = {
                 LM_ARCH: lm["launches"],
                 **{a: r["launches"] for a, r in lm_rec.items()},
-                MOE_ARCH: lm_moe["launches"]}
+                MOE_ARCH: lm_moe["launches"],
+                **{a: r["launches"] for a, r in lm_last.items()}}
             row["timed_at"] = krows[name]["timed_at"]
             # the FP32-core kernel (float32 inputs): not on the main path,
             # which is bf16; check c drives it in the reduced config
             row["f32"] = {"kernel": "flash_fp32_kernel", "launches": 0,
                           **{k: krows[name]["f32"][k] for k in keys}}
-            # recurrentgemma-2b's shape (hd 256, MQA, window 2048) and
-            # qwen3-moe-30b-a3b's (32 / 4 heads of 128): their bf16
-            # launches are the hybrid's prefills (7b) and the moe's (7c)
-            for key, arch, n in (
-                    ("hd256", RG_ARCH, lm_rec[RG_ARCH]["launches"]),
-                    ("h32", MOE_ARCH, lm_moe["launches"])):
+            # recurrentgemma-2b's shape (hd 256, MQA, window 2048),
+            # qwen3-moe-30b-a3b's (32 / 4 heads of 128), paligemma-3b's
+            # (hd 256, 8 / 1, the prefix) and whisper-base's (hd 64, the
+            # padded frames): their bf16 launches are the hybrid's
+            # prefills (7b), the moe's (7c) and the vlm's and encdec's (7d)
+            by_arch = row["launches_by_arch"]
+            for key, arch in FLASH_ROW_KEYS.items():
+                n = by_arch[arch]
                 at = krows[name][key]
                 row[key] = {
                     "arch": arch, "timed_at": at["timed_at"], "launches": n,

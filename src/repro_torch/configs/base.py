@@ -5,10 +5,10 @@ describes any architecture of the zoo; family-specific fields are optional.
 ``reduced()`` produces the CPU-test variant of the same family (small
 layers/width/experts/vocab).  ``pdtype``/``cdtype`` are torch dtypes.
 
-The registry holds only the configs whose family the port runs: the four
-``dense`` decoders, the ``hybrid`` recurrentgemma-2b, the ``ssm``
-falcon-mamba-7b and the ``moe`` qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b.
-The encdec and vlm families wait for their modules (ROADMAP A14).
+The registry holds every config of the reference: the four ``dense``
+decoders, the ``hybrid`` recurrentgemma-2b, the ``ssm`` falcon-mamba-7b,
+the ``moe`` qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b, the ``vlm``
+paligemma-3b and the ``encdec`` whisper-base.
 """
 from __future__ import annotations
 
@@ -164,8 +164,7 @@ def get_config(name: str) -> ArchConfig:
         _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"no config {name!r} in the port (it has "
-                       f"{sorted(_REGISTRY)}); the encdec and vlm families "
-                       f"wait for ROADMAP A14")
+                       f"{sorted(_REGISTRY)})")
     return _REGISTRY[name]
 
 
@@ -178,5 +177,6 @@ def list_configs() -> list[str]:
 def _load_all():
     # importing the modules registers the configs
     from repro_torch.configs import (  # noqa: F401
-        falcon_mamba_7b, mistral_large_123b, phi35_moe, qwen2_72b,
-        qwen3_moe_30b, recurrentgemma_2b, stablelm_12b, starcoder2_7b)
+        falcon_mamba_7b, mistral_large_123b, paligemma_3b, phi35_moe,
+        qwen2_72b, qwen3_moe_30b, recurrentgemma_2b, stablelm_12b,
+        starcoder2_7b, whisper_base)

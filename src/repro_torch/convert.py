@@ -68,12 +68,13 @@ def lm_params_from_arrays(tree: dict, cfg: ArchConfig, device=None) -> dict:
     ``Model.init``: nested dicts, the ``stack`` leaves ``[L, ...]``, a moe
     layer's ``router`` and experts among them; the
     hybrid's ``groups`` of ``rec1``, ``rec2`` and ``attn`` layers ``[L/3,
-    ...]`` and its recurrent ``tail``) as the port's, on ``device``, each
-    leaf in its storage dtype (``models.transformer.storage_dtype``: the
-    recurrences' ``_KEEP_F32`` leaves in float32)."""
-    from repro_torch.models.transformer import check_family, storage_dtype
+    ...]`` and its recurrent ``tail``; encdec's ``encoder`` and ``decoder``
+    stacks, a decoder layer's ``ln_x`` and ``xattn``, its ``enc_norm``) as
+    the port's, on ``device``, each leaf in its storage dtype
+    (``models.transformer.storage_dtype``: the recurrences' ``_KEEP_F32``
+    leaves in float32, every norm in ``pdtype``)."""
+    from repro_torch.models.transformer import storage_dtype
 
-    check_family(cfg)
     dev = resolve_device(device)
 
     def put(node, path):

@@ -16,17 +16,21 @@
 // tensor-core kernel cannot take returns an error; nothing falls back.
 //
 // Masks, by absolute position (both kernels): query i sits at q_offset + i,
-// key j at j.  Key j is seen when j < kv_len, and j <= q_pos when causal,
-// and j > q_pos - window when window > 0.  Masked keys take exactly zero
+// key j at j.  Key j is seen when j < kv_len and either j < prefix_len (the
+// prefix-LM mask: a vlm's image positions, seen by every query) or both
+// j <= q_pos when causal and j > q_pos - window when window > 0 (the
+// reference's ((causal and window) or prefix) and kv_len; prefix_len 0 is
+// none).  Masked keys take exactly zero
 // probability and a query that sees no key writes 0.  The TPU kernel fixes
 // q_offset = 0; the chunked prefill attends its second chunk against the
 // cache filled so far, so the offset is an argument here.  k and v may be
 // strided views (a prefix of a KV cache); the ragged Sq and Skv edges need
-// no host padding.  Chunks that lie wholly above the causal diagonal, below
-// the window or past kv_len are skipped: for a query row a fully masked
-// chunk leaves m, l and acc bit-unchanged (r = 1 exactly, p = 0), so
-// skipping is exact.  q tiles are issued heaviest first (causal work grows
-// with the tile index), so the last wave is light.  One launch per call,
+// no host padding.  Chunks that lie wholly above the causal diagonal (and
+// past prefix_len), below the window (with no prefix) or past kv_len are
+// skipped: for a query row a fully masked chunk leaves m, l and acc
+// bit-unchanged (r = 1 exactly, p = 0), so skipping is exact.  q tiles are
+// issued heaviest first (causal work grows with the tile index), so the
+// last wave is light.  One launch per call,
 // all of GQA in it; no split over the keys and no atomics, so a call's
 // bits do not depend on scheduling or on the strides of k and v.
 //
@@ -146,7 +150,7 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   int Sq, int Skv, int H, int group, long long q_bs,
                   long long q_ss, long long kv_bs, long long kv_ss,
                   int q_offset, int kv_len, int causal, int window,
-                  float scale) {
+                  int prefix_len, float scale) {
   static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
   constexpr int NG = (HD / 4 + 15) / 16;   // float4 column groups / thread
   constexpr int kLoads = kKC * HD / kThreads;
@@ -172,12 +176,15 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     qT[d * kLD + r] = x;
   }
 
-  // the chunks this tile needs
+  // the chunks this tile needs: a causal tile also walks the prefix
   const int q_last = min(q0 + kQT, Sq) - 1;
-  int kv_end = min(kv_len, Skv);
-  if (causal) kv_end = min(kv_end, q_offset + q_last + 1);
+  const int kv_hi = min(kv_len, Skv);
+  int kv_end = kv_hi;
+  if (causal)
+    kv_end = max(min(kv_hi, q_offset + q_last + 1), min(prefix_len, kv_hi));
   int c_begin = 0;
-  if (window > 0) c_begin = max(0, q_offset + q0 - window + 1) / kKC * kKC;
+  if (window > 0 && prefix_len <= 0)
+    c_begin = max(0, q_offset + q0 - window + 1) / kKC * kKC;
 
   float m[4], l[4], acc[4][NG * 4];
 #pragma unroll
@@ -227,8 +234,9 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = c0 + tx * 4 + j;
-        ok[j] = kp < kv_len && (!causal || kp <= qp) &&
-                (window <= 0 || kp > qp - window);
+        ok[j] = kp < kv_len &&
+                (kp < prefix_len || ((!causal || kp <= qp) &&
+                                     (window <= 0 || kp > qp - window)));
         if (!ok[j]) s[i][j] = kNeg;
         mj = fmaxf(mj, s[i][j]);
       }
@@ -711,7 +719,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 struct RowCtx {
   int qp_a, qp_b;        // absolute positions of the thread's rows a, b
   int cq;                // the thread's column pair in each 8-key block
-  int kv_hi, causal, window;
+  int kv_hi, causal, window, prefix_len;
   float c;               // log2(e) / sqrt(hd)
 };
 
@@ -733,8 +741,10 @@ __device__ __forceinline__ void softmax_chunk(float (&sc)[KC / 2],
       for (int e = 0; e < 4; ++e) {
         const int kp = c0 + 8 * j + 2 * x.cq + (e & 1);
         const int qp = e < 2 ? x.qp_a : x.qp_b;
-        const bool ok = kp < x.kv_hi && (!x.causal || kp <= qp) &&
-                        (x.window <= 0 || kp > qp - x.window);
+        const bool ok =
+            kp < x.kv_hi &&
+            (kp < x.prefix_len || ((!x.causal || kp <= qp) &&
+                                   (x.window <= 0 || kp > qp - x.window)));
         if (!ok) sc[4 * j + e] = -INFINITY;
       }
   }
@@ -790,15 +800,19 @@ struct Tile {
 template <int KC>
 __device__ __forceinline__ Tile tile_at(int t, int n_qt, int H, int B, int Sq,
                                         int q_offset, int kv_hi, int causal,
-                                        int window) {
+                                        int window, int prefix_len) {
   Tile x;
   x.q0 = (n_qt - 1 - t / (H * B)) * kTcRows;
   x.h = t % H;
   x.b = t / H % B;
   const int q_last = min(x.q0 + kTcRows, Sq) - 1;
-  const int c_end = causal ? min(kv_hi, q_offset + q_last + 1) : kv_hi;
-  x.c_begin =
-      window > 0 ? max(0, q_offset + x.q0 - window + 1) / KC * KC : 0;
+  // a causal tile also walks the chunks below prefix_len
+  const int c_end = causal ? max(min(kv_hi, q_offset + q_last + 1),
+                                 min(prefix_len, kv_hi))
+                           : kv_hi;
+  x.c_begin = window > 0 && prefix_len <= 0
+                  ? max(0, q_offset + x.q0 - window + 1) / KC * KC
+                  : 0;
   x.n_chunks = c_end > x.c_begin ? (c_end - x.c_begin + KC - 1) / KC : 0;
   return x;
 }
@@ -810,7 +824,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap vmap,
                 __nv_bfloat16* __restrict__ out, int B, int Sq, int Skv,
                 int H, int group, int q_offset, int kv_len, int causal,
-                int window, float c) {
+                int window, int prefix_len, float c) {
   using Sh = TcShape<HD>;
   constexpr int NS = Sh::kStages;
   constexpr int KC = Sh::KC;
@@ -851,7 +865,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       int ti = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++ti) {
         const Tile x =
-            tile_at<KC>(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window);
+            tile_at<KC>(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window,
+                        prefix_len);
         const int hk = x.h / group;
         mbar_wait(empty_q, (ti & 1) ^ 1);    // the last tile's q consumed
         mbar_expect_tx(full_q, Sh::kQBytes);
@@ -944,16 +959,21 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (wg == 2) your_turn();                // warpgroup 1 goes first
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++ti) {
       const Tile x =
-          tile_at<KC>(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window);
+          tile_at<KC>(t, n_qt, H, B, Sq, q_offset, kv_hi, causal, window,
+                      prefix_len);
       const int row_a = x.q0 + r0 + warp * 16 + lane / 4, row_b = row_a + 8;
       const RowCtx rc = {q_offset + row_a, q_offset + row_b, lane % 4,
-                         kv_hi, causal, window, c};
+                         kv_hi, causal, window, prefix_len, c};
       // the keys any live row of this warpgroup sees, [lo, hi), and the
       // chunks [j_lo, j_hi) that hold them; the others are only drained
       const int w_first = x.q0 + r0, w_last = min(x.q0 + r0 + 63, Sq - 1);
       const bool wg_live = w_first < Sq;
-      const int lo = window > 0 ? q_offset + w_first - window + 1 : 0;
-      const int hi = causal ? min(kv_hi, q_offset + w_last + 1) : kv_hi;
+      const int lo = window > 0 && prefix_len <= 0
+                         ? q_offset + w_first - window + 1
+                         : 0;
+      const int hi = causal ? max(min(kv_hi, q_offset + w_last + 1),
+                                  min(prefix_len, kv_hi))
+                            : kv_hi;
       int j_lo = 0, j_hi = 0;
       if (wg_live) {
         while (j_lo < x.n_chunks && x.c_begin + (j_lo + 1) * KC <= lo) ++j_lo;
@@ -961,7 +981,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         while (j_hi < x.n_chunks && x.c_begin + j_hi * KC < hi) ++j_hi;
       }
       // the chunk needs its mask: a key past kv_len, above the diagonal
-      // or below the window for some row of the warpgroup
+      // or below the window for some row of the warpgroup (a prefix only
+      // unmasks keys, so a chunk this passes needs no mask with one)
       auto masked = [&](int c0) {
         return c0 + KC > kv_hi ||
                (causal && c0 + KC - 1 > q_offset + w_first) ||
@@ -1070,7 +1091,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
                 int B, int Sq, int Skv, int H, int Hkv, long long q_bs,
                 long long q_ss, long long kv_bs, long long kv_ss,
                 int q_offset, int kv_len, int causal, int window,
-                float scale, cudaStream_t stream) {
+                int prefix_len, float scale, cudaStream_t stream) {
   constexpr int kSmem = smem_floats<HD>() * static_cast<int>(sizeof(float));
   static bool configured[64] = {};
   const int rc = allow_smem(flash_fp32_kernel<HD>, kSmem, configured);
@@ -1080,7 +1101,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
       H / Hkv, q_bs, q_ss, kv_bs, kv_ss, q_offset, kv_len, causal, window,
-      scale);
+      prefix_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1147,7 +1168,7 @@ template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Skv, int H, int Hkv, long long q_bs,
               long long q_ss, long long kv_bs, long long kv_ss, int q_offset,
-              int kv_len, int causal, int window, float scale,
+              int kv_len, int causal, int window, int prefix_len, float scale,
               cudaStream_t stream) {
   using Sh = TcShape<HD>;
   static bool configured[64] = {};
@@ -1184,7 +1205,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   const int grid = min(n_tiles, sm_count[dev]);
   flash_tc_kernel<HD><<<grid, kTcThreads, Sh::kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), B, Sq, Skv, H, H / Hkv,
-      q_offset, kv_len, causal, window, c);
+      q_offset, kv_len, causal, window, prefix_len, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1200,7 +1221,8 @@ extern "C" int fg_flash_attention(const void* q, const void* k,
                                   long long q_bs, long long q_ss,
                                   long long kv_bs, long long kv_ss,
                                   int q_offset, int kv_len, int causal,
-                                  int window, float scale, void* stream) {
+                                  int window, int prefix_len, float scale,
+                                  void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1208,7 +1230,8 @@ extern "C" int fg_flash_attention(const void* q, const void* k,
 #define FG_HD(N, LAUNCH)                                                   \
   case N:                                                                  \
     return LAUNCH<N>(q, k, v, out, B, Sq, Skv, H, Hkv, q_bs, q_ss, kv_bs,  \
-                     kv_ss, q_offset, kv_len, causal, window, scale, s);
+                     kv_ss, q_offset, kv_len, causal, window, prefix_len,  \
+                     scale, s);
   if (dtype == 0) {
     switch (hd) {
       FG_HD(16, launch_fp32)

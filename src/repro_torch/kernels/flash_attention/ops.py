@@ -1,10 +1,12 @@
 """Wrapper of the flash-attention kernel: GQA, masks and CPU/CUDA dispatch.
 
-``flash_attention(q, k, v, causal=, window=, q_offset=, kv_len=)`` takes
-q ``[B, Sq, H, hd]`` and k, v ``[B, Skv, Hkv, hd]`` (the JAX package's
-layouts) and returns ``[B, Sq, H, hd]``.  Query ``i`` sits at position
-``q_offset + i`` and key ``j`` at position ``j``; keys ``j >= kv_len`` are
-padding.  GQA is handled in the kernel: one launch per call, the block of
+``flash_attention(q, k, v, causal=, window=, q_offset=, kv_len=,
+prefix_len=)`` takes q ``[B, Sq, H, hd]`` and k, v ``[B, Skv, Hkv, hd]``
+(the JAX package's layouts) and returns ``[B, Sq, H, hd]``.  Query ``i``
+sits at position ``q_offset + i`` and key ``j`` at position ``j``; keys
+``j >= kv_len`` are padding; keys ``j < prefix_len`` are seen by every
+query whatever ``causal`` and ``window`` say (the prefix-LM mask of a vlm's
+image positions).  GQA is handled in the kernel: one launch per call, the block of
 query head ``h`` reading key/value head ``h // (H // Hkv)``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
@@ -49,7 +51,7 @@ def _kernel():
         fn = _build.library("flash_attention").fg_flash_attention
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, ll, i, i,
-                       i, i, ctypes.c_float, p]
+                       i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -86,8 +88,8 @@ def _rows(x, name):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, kv_len: Optional[int] = None
-                    ) -> torch.Tensor:
+                    q_offset: int = 0, kv_len: Optional[int] = None,
+                    prefix_len: Optional[int] = None) -> torch.Tensor:
     """Blocked online-softmax attention, output in the input dtype.  k and v
     may be strided views (a prefix of a KV cache) as long as their (heads,
     hd) dims are contiguous and their strides agree; for bf16 (read by the
@@ -98,7 +100,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be positive; got {window}")
     if q.device.type == "cpu":
         return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset, kv_len=kv_len)
+                                       q_offset=q_offset, kv_len=kv_len,
+                                       prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.device.index != torch.cuda.current_device():
@@ -132,7 +135,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, hd, q_bs, q_ss,
                    *kv_strides, int(q_offset), kv_len, int(bool(causal)),
-                   0 if window is None else int(window), 1.0 / (hd ** 0.5),
+                   0 if window is None else int(window),
+                   0 if prefix_len is None else max(0, int(prefix_len)),
+                   1.0 / (hd ** 0.5),
                    torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "

@@ -16,23 +16,29 @@ NEG = -1e9
 
 def attention_mask(sq: int, skv: int, *, causal: bool = True,
                    window: Optional[int] = None, q_offset: int = 0,
-                   kv_len: Optional[int] = None, device=None) -> torch.Tensor:
+                   kv_len: Optional[int] = None,
+                   prefix_len: Optional[int] = None,
+                   device=None) -> torch.Tensor:
     """``[Sq, Skv]`` bool: query ``i`` at position ``q_offset + i`` may see
-    key ``j`` at position ``j``.  ``kv_len`` masks the padded keys
-    ``j >= kv_len``; ``causal`` keeps ``j <= q_pos``; ``window`` keeps
-    ``j > q_pos - window``."""
+    key ``j`` at position ``j``.  ``causal`` keeps ``j <= q_pos``;
+    ``window`` keeps ``j > q_pos - window``; ``prefix_len`` then adds every
+    ``j < prefix_len`` (the prefix-LM mask); ``kv_len`` masks the padded
+    keys ``j >= kv_len`` last: the reference's ``((causal & window) |
+    prefix) & valid``."""
     q_pos = q_offset + torch.arange(sq, device=device)[:, None]
     kv_pos = torch.arange(skv, device=device)[None, :]
-    mask = kv_pos < (skv if kv_len is None else kv_len)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
         mask = mask & (kv_pos <= q_pos)
     if window is not None:
         mask = mask & (kv_pos > q_pos - window)
-    return mask
+    if prefix_len is not None:
+        mask = mask | (kv_pos < prefix_len)
+    return mask & (kv_pos < (skv if kv_len is None else kv_len))
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0,
-                        kv_len=None):
+                        kv_len=None, prefix_len=None):
     """q: [BH, Sq, hd]; k, v: [BH, Skv, hd] -> [BH, Sq, hd].
 
     float32 math on inputs of any dtype (q pre-scaled by ``1/sqrt(hd)``, as
@@ -43,7 +49,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0,
     scale = 1.0 / (hd ** 0.5)
     s = torch.matmul(q.float() * scale, k.float().transpose(1, 2))
     mask = attention_mask(sq, skv, causal=causal, window=window,
-                          q_offset=q_offset, kv_len=kv_len, device=q.device)
+                          q_offset=q_offset, kv_len=kv_len,
+                          prefix_len=prefix_len, device=q.device)
     s = torch.where(mask[None], s, NEG)
     p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
     p = torch.where(mask[None], p, 0.0)

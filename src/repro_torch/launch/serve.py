@@ -16,11 +16,16 @@ the card unless ``--device cpu`` is given:
         --arch recurrentgemma-2b --no-reduced     # also falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-moe-30b-a3b --no-reduced     # phi3.5-moe: reduced only
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch paligemma-3b --no-reduced          # also whisper-base
     PYTHONPATH=src python -m repro_torch.launch.serve --workload graph \\
         --graph road-ca --kind mixed --requests 32 --batch 8 --tenants 2
 
 ``--reduced`` (the default) serves the config's CPU-test variant;
-``--no-reduced`` the published widths.  The graph workload's partition size
+``--no-reduced`` the published widths.  A vlm request brings
+``num_image_tokens`` random image embeddings and an encdec request 1,500
+random frames (the stub frontends' outputs), as the reference's
+``launch/serve.py`` makes them.  The graph workload's partition size
 is the port's planner's choice unless ``--block-size`` is given (the
 reference's default of 256 was sized for a TPU's memory).
 """
@@ -32,11 +37,16 @@ import time
 import numpy as np
 import torch
 
+#: prompts are 4 to MAX_PROMPT - 1 random tokens, as in the reference's
+#: ``launch/serve.py``
+MAX_PROMPT = 12
+
 
 def serve_lm(args):
     """Serve ``args.requests`` random prompts; returns ``{rid: tokens}``."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.engine import resolve_device
+    from repro_torch.models.encdec import N_FRAMES
     from repro_torch.models.factory import build_model
     from repro_torch.serve.engine import ContinuousBatcher, Request
 
@@ -48,16 +58,25 @@ def serve_lm(args):
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(args.seed)
 
-    # a hybrid's decode reads its whole attention window (ROADMAP C5)
-    max_len = args.max_len or max(96, cfg.hybrid.window if cfg.hybrid
-                                  else 0)
+    # a hybrid's decode reads its whole attention window (ROADMAP C5); a
+    # vlm's cache holds the image prefix, the prompt and the new tokens
+    max_len = args.max_len or max(
+        96, cfg.hybrid.window if cfg.hybrid else 0,
+        cfg.num_image_tokens + MAX_PROMPT + args.max_new)
     batcher = ContinuousBatcher(model, params, batch_size=args.batch,
                                 max_len=max_len, device=dev)
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab,
-                              rng.integers(4, 12)).astype(np.int32)
+                              rng.integers(4, MAX_PROMPT)).astype(np.int32)
+        extras = None
+        if cfg.family == "vlm":
+            extras = {"image_embeds": rng.normal(size=(
+                cfg.num_image_tokens, cfg.d_model)).astype(np.float32)}
+        if cfg.family == "encdec":
+            extras = {"frames": 0.1 * rng.normal(size=(
+                N_FRAMES, cfg.d_model)).astype(np.float32)}
         batcher.submit(Request(rid=rid, prompt=prompt,
-                               max_new_tokens=args.max_new))
+                               max_new_tokens=args.max_new, extras=extras))
     t0 = time.perf_counter()
     out = batcher.run()
     if dev.type == "cuda":
@@ -140,7 +159,9 @@ def main(argv=None):
                          "--no-reduced serves the published widths")
     ap.add_argument("--max-len", type=int, default=None,
                     help="decode cache length (default 96, or the "
-                         "attention window for the hybrid family)")
+                         "attention window for the hybrid family, or what "
+                         "a vlm's image prefix, prompt and new tokens "
+                         "need)")
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")

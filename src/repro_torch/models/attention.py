@@ -82,17 +82,21 @@ def out_proj(p, o):
 
 
 def attend(q, k, v, q_offset: int = 0, *, causal=True,
-           window: Optional[int] = None,
-           kv_len: Optional[int] = None) -> torch.Tensor:
+           window: Optional[int] = None, kv_len: Optional[int] = None,
+           prefix_len: Optional[int] = None) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k,v: [B,Skv,Hkv,hd] -> [B,Sq,H,hd].
 
-    The JAX package's ``attend(q, k, v, q_pos, kv_pos, causal=, window=)``
-    for the positions the dense path passes: ``q_pos = q_offset +
-    arange(Sq)`` and ``kv_pos = arange(Skv)``; keys ``>= kv_len`` are
-    padding.  float32 math, masked scores at -1e9, output in q's dtype.
-    k and v may be strided views of a KV cache."""
+    The JAX package's ``attend(q, k, v, q_pos, kv_pos, causal=, window=,
+    kv_mask=, prefix_len=)`` for the positions the LM paths pass: ``q_pos
+    = q_offset + arange(Sq)`` and ``kv_pos = arange(Skv)``; keys ``>=
+    kv_len`` are padding (a ``kv_mask`` that is ``arange(Skv) < kv_len`` in
+    every row, as encdec's padded frames); keys ``< prefix_len`` are seen
+    by every query (the vlm's image prefix).  float32 math, masked scores
+    at -1e9, output in q's dtype.  k and v may be strided views of a KV
+    cache."""
     return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, kv_len=kv_len)
+                                     q_offset=q_offset, kv_len=kv_len,
+                                     prefix_len=prefix_len)
 
 
 # ---------------------------------------------------------------------------

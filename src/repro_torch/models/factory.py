@@ -3,7 +3,11 @@
 The port of the JAX package's ``repro.models.factory`` for serving:
 ``build_model(cfg)`` returns a ``Model`` whose ``init`` draws parameters on
 a device and whose ``prefill``/``decode`` are functions of (params,
-batch/state).  ``logits``, ``loss`` and ``cross_entropy`` wait for the
+batch/state), for every family: the decoder-only ones through
+``models/transformer.py`` (a vlm batch adds ``image_embeds [B, P, D]``,
+attended with the prefix-LM mask over ``cfg.num_image_tokens``
+positions), encdec through ``models/encdec.py`` (a batch adds ``frames
+[B, F, D]``).  ``logits``, ``loss`` and ``cross_entropy`` wait for the
 training slice (ROADMAP A14).
 """
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
@@ -34,19 +39,35 @@ class Model:
         the params tree (the reference also returns logical axes, which
         only its sharding reads)."""
         dev = resolve_device(device)
-        tfm.check_family(self.cfg)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
+        if self.cfg.family == "encdec":
+            return encdec_lib.init_encdec(generator, self.cfg, dev)
+        tfm.check_family(self.cfg)
         return tfm.init_params(generator, self.cfg, dev)
 
     # -- serve --------------------------------------------------------------
     def prefill(self, params, batch, *, max_len=None):
-        return tfm.prefill(params, self.cfg, batch["tokens"], max_len=max_len)
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return encdec_lib.prefill(params, cfg, batch["tokens"],
+                                      batch["frames"], max_len=max_len)
+        if cfg.family == "vlm":
+            return tfm.prefill(params, cfg, batch["tokens"], max_len=max_len,
+                               prefix_embeds=batch["image_embeds"],
+                               prefix_len=cfg.num_image_tokens)
+        return tfm.prefill(params, cfg, batch["tokens"], max_len=max_len)
 
     def decode(self, params, tokens, state):
+        if self.cfg.family == "encdec":
+            return encdec_lib.decode_step(params, self.cfg, tokens, state)
         return tfm.decode_step(params, self.cfg, tokens, state)
 
     def n_attn_layers(self) -> int:
+        """Attention layers that hold a self-attention KV cache (encdec:
+        the decoder's)."""
+        if self.cfg.family == "encdec":
+            return self.cfg.n_layers
         tfm.check_family(self.cfg)
         if self.cfg.family == "hybrid":
             return self.cfg.n_layers // 3
@@ -54,16 +75,20 @@ class Model:
             return 0
         return self.cfg.n_layers
 
-    def decode_state_specs(self, batch: int, max_len: int) -> DecodeState:
+    def decode_state_specs(self, batch: int, max_len: int):
         """Shapes and dtypes of the decode state, as ``(shape, dtype)``
-        pairs in the state's tree: dense and moe one KV cache of
+        pairs in the state's tree: dense, moe and vlm one KV cache of
         ``n_layers``; ssm a stacked ``SSMState`` and no cache;
         hybrid a ring cache of ``min(max_len, window)`` slots for its
         attention layers and a stacked ``LRUState`` for its recurrent ones
         (``max_len < window`` raises: that cache cannot be decoded, see
-        ``transformer.check_cache_covers_window``)."""
+        ``transformer.check_cache_covers_window``); encdec an
+        ``EncDecState``: the decoder's cache of ``max_len`` and the cross
+        keys and values of ``N_FRAMES_PAD`` frames."""
         cfg = self.cfg
         dt = cfg.cdtype
+        if cfg.family == "encdec":
+            return encdec_lib.state_specs(cfg, batch, max_len, dt)
         kv = ssm = lru = None
         cache_len = max_len
         if cfg.family == "ssm":
@@ -81,19 +106,21 @@ class Model:
         return DecodeState(kv=kv, ssm=ssm, lru=lru)
 
     def decode_state_init(self, batch: int, max_len: int, *, filled=0,
-                          device=None) -> DecodeState:
+                          device=None):
         """Concrete zero state on ``device`` (the card unless asked for the
         CPU), every sequence's cache length ``filled``."""
         dev = resolve_device(device)
-        specs = self.decode_state_specs(batch, max_len)
 
         def zeros(spec):
-            return None if spec is None else type(spec)(
-                *(torch.zeros(shape, dtype=dt, device=dev)
-                  for shape, dt in spec))
-        st = DecodeState(*(zeros(spec) for spec in specs))
-        if st.kv is not None:
-            st.kv.length.fill_(filled)
+            if spec is None:
+                return None
+            if isinstance(spec[1], torch.dtype):     # a (shape, dtype) leaf
+                return torch.zeros(spec[0], dtype=spec[1], device=dev)
+            return type(spec)(*(zeros(s) for s in spec))
+        st = zeros(self.decode_state_specs(batch, max_len))
+        kv = st.self_kv if self.cfg.family == "encdec" else st.kv
+        if kv is not None:
+            kv.length.fill_(filled)
         return st
 
 

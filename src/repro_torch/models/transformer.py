@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly: prefill and decode of the dense, moe, ssm and
-hybrid families.
+"""Decoder-only LM assembly: prefill and decode of the dense, moe, ssm,
+hybrid and vlm families.
 
 The port of the JAX package's ``repro.models.transformer`` on one device.
 Parameters are nested dictionaries with the JAX package's tree and layouts:
@@ -11,9 +11,12 @@ RG-LRU:attention pattern) holds ``params["groups"]`` of (``rec1``,
 The layer loops (``lax.scan`` and ``fori_loop`` there) are Python loops.
 A moe layer is an attention layer whose MLP is ``models/moe.apply_moe``;
 its router and expert weights are stored in ``cdtype`` like any block
-matmul weight.  encdec and vlm raise ``NotImplementedError`` naming their
-ROADMAP item; the ``rules`` and manual-TP arms of the reference (a mesh)
-have no counterpart here.
+matmul weight.  A vlm is a dense decoder whose prefill puts the image
+embeddings (``prefix_embeds``, from the stub frontend) before the tokens'
+and attends with the prefix-LM mask (``prefix_len``: the image positions
+see each other both ways); its decode is the dense decode.  The encdec
+family is ``models/encdec.py``.  The ``rules`` and manual-TP arms of the
+reference (a mesh) have no counterpart here.
 
 Weights are stored as the reference uses them (``storage_dtype``): block
 matmul weights and biases in ``cfg.cdtype`` — bit-identical to the
@@ -48,22 +51,14 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 
-#: families whose modules wait for a later slice, with their ROADMAP item
-_NOT_PORTED = {
-    "encdec": "encdec.py (whisper), ROADMAP A14",
-    "vlm": "the prefix_len mask, ROADMAP A14",
-}
-_PORTED = ("dense", "moe", "ssm", "hybrid")
+#: the families this module assembles (encdec is ``models/encdec.py``)
+_PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({_NOT_PORTED[cfg.family]}); the port runs the "
-            f"{', '.join(_PORTED)} families")
     if cfg.family not in _PORTED:
-        raise ValueError(f"unknown family {cfg.family!r}")
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not one of "
+                         f"the decoder-only families {_PORTED}")
 
 
 class DecodeState(NamedTuple):
@@ -104,7 +99,10 @@ def check_cache_covers_window(cfg: ArchConfig, slots: int) -> None:
 # ---------------------------------------------------------------------------
 # params
 
-_NORMS = ("ln1", "ln2")
+#: norm leaves, stored in ``pdtype`` (``ln_x`` is encdec's cross-attention
+#: norm, ``enc_norm`` its encoder's final norm)
+_NORMS = ("ln1", "ln2", "ln_x")
+_TOP_NORMS = ("final_norm", "enc_norm")
 #: numerics-sensitive leaves that stay float32 through the recurrences (the
 #: reference's ``_KEEP_F32``: never cast to the compute dtype)
 _KEEP_F32 = {"A_log", "D", "lam", "w_a", "b_a", "w_x", "b_x", "dt_bias"}
@@ -116,12 +114,13 @@ _DECODE_F32 = {"x_proj", "dt_proj"}
 def storage_dtype(path: tuple, cfg: ArchConfig) -> torch.dtype:
     """The dtype a parameter leaf is stored in (see the module docstring):
     ``path`` is its key path, e.g. ``("stack", "attn", "wq")``, ``("stack",
-    "moe", "wi")`` or ``("groups", "rec1", "rec", "lam")``."""
+    "moe", "wi")``, ``("groups", "rec1", "rec", "lam")`` or encdec's
+    ``("decoder", "ln_x", "scale")``."""
     if path[0] == "embed":
         if path[-1] == "embedding" and not cfg.tie_embeddings:
             return cfg.cdtype
         return cfg.pdtype
-    if path[0] == "final_norm" or path[-2] in _NORMS:
+    if path[0] in _TOP_NORMS or path[-2] in _NORMS:
         return cfg.pdtype
     if path[-1] in _KEEP_F32:
         return torch.float32
@@ -145,7 +144,7 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
         p["ssm"] = ssm_lib.init_ssm(gen, cfg, dt, device)
         return p                          # the mamba block has no MLP
     else:
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP A14)")
+        raise ValueError(f"unknown layer kind {kind!r}")
     p["ln2"] = L.init_norm(dt, d, cfg.norm, device)
     if kind == "moe":
         p["moe"] = moe_lib.init_moe(gen, d, cfg.moe, dt, cfg.gated_mlp,
@@ -155,13 +154,14 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
     return p
 
 
-def _stacked_init(gen, cfg, kind, n, device, prefix=("stack",)):
-    """``n`` layers stacked on a leading axis in their storage dtypes
-    (``prefix`` is the stack's key path), drawn one layer at a time so that
-    only one layer's float32 draws are live besides the stack."""
+def stacked_init(make_layer, cfg, n, device, prefix=("stack",)):
+    """``n`` layers of ``make_layer()`` stacked on a leading axis in their
+    storage dtypes (``prefix`` is the stack's key path), drawn one layer at
+    a time so that only one layer's float32 draws are live besides the
+    stack."""
     stack = None
     for i in range(n):
-        lp = init_layer(gen, cfg, kind, device)
+        lp = make_layer()
         if stack is None:
             stack = {g: {k: torch.empty(
                 (n,) + t.shape, device=device,
@@ -185,16 +185,18 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     if cfg.family == "hybrid":
         ng = cfg.n_layers // 3
         params["groups"] = {
-            name: _stacked_init(gen, cfg, kind, ng, device,
-                                ("groups", name))
+            name: stacked_init(lambda kind=kind: init_layer(
+                gen, cfg, kind, device), cfg, ng, device, ("groups", name))
             for name, kind in (("rec1", "rec"), ("rec2", "rec"),
                                ("attn", "attn"))}
         if cfg.n_layers % 3:
-            params["tail"] = _stacked_init(gen, cfg, "rec", cfg.n_layers % 3,
-                                           device, ("tail",))
+            params["tail"] = stacked_init(
+                lambda: init_layer(gen, cfg, "rec", device), cfg,
+                cfg.n_layers % 3, device, ("tail",))
     else:
-        params["stack"] = _stacked_init(gen, cfg, plan[0], cfg.n_layers,
-                                        device)
+        params["stack"] = stacked_init(
+            lambda: init_layer(gen, cfg, plan[0], device), cfg, cfg.n_layers,
+            device)
     params["final_norm"] = L.init_norm(cfg.pdtype, cfg.d_model, cfg.norm,
                                        device)
     return params
@@ -232,11 +234,12 @@ def _put_state(state, i, new) -> None:
 # layer application (full sequence: prefill)
 
 
-def _apply_attn_layer(lp, cfg, x, positions, window=None):
+def _apply_attn_layer(lp, cfg, x, positions, window=None, prefix_len=None):
     """Returns (x, (k, v)): the layer's keys and values fill the cache."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
     q, k, v = attn.qkv_proj(lp["attn"], h, positions, cfg.rope_theta)
-    o = attn.attend(q, k, v, 0, causal=True, window=window)
+    o = attn.attend(q, k, v, 0, causal=True, window=window,
+                    prefix_len=prefix_len)
     return x + attn.out_proj(lp["attn"], o), (k, v)
 
 
@@ -251,10 +254,10 @@ def _apply_mlp(lp, cfg, x):
     return x + L.apply_mlp(lp["mlp"], h, cfg.act)
 
 
-def _apply_layer_full(lp, cfg, kind, x, positions):
+def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None):
     """One layer of ``kind``, full sequence (``attn`` and ``moe`` differ
-    only in their MLP).  Returns (x, (k, v) or None, new recurrent state or
-    None)."""
+    only in their MLP; ``prefix_len`` is the vlm's image prefix).  Returns
+    (x, (k, v) or None, new recurrent state or None)."""
     lp = cast_layer_params(lp, cfg.cdtype)
     if kind == "ssm":
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
@@ -264,7 +267,8 @@ def _apply_layer_full(lp, cfg, kind, x, positions):
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
         y, st = rglru_lib.apply_rglru(lp["rec"], h)
         return _apply_mlp(lp, cfg, x + y), None, st
-    x, kv = _apply_attn_layer(lp, cfg, x, positions, window=_window(cfg))
+    x, kv = _apply_attn_layer(lp, cfg, x, positions, window=_window(cfg),
+                              prefix_len=prefix_len)
     return _apply_mlp(lp, cfg, x), kv, None
 
 
@@ -278,33 +282,50 @@ CHUNKED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def prefill(params, cfg: ArchConfig, tokens, *, max_len=None,
+            prefix_embeds=None, prefix_len=None,
             chunk: int = PREFILL_CHUNK):
-    """tokens: [B,S] int.  Returns (last_logits [B,V] f32, DecodeState).
+    """tokens: [B,S] int; prefix_embeds: [B,P,D] or None (the vlm's image
+    embeddings, put before the tokens' in ``cdtype``; ``prefix_len``
+    positions attend bidirectionally).  Returns (last_logits [B,V] f32,
+    DecodeState).
 
-    A dense or moe prompt longer than ``chunk`` whose length is a multiple
-    of it is processed in chunks (``_prefill_chunked``); any other prompt,
-    and every ssm and hybrid prompt, in one pass (``_prefill_whole``), as in
-    the reference.  A moe layer's expert capacity follows each call's own
-    length: a chunk's, not the prompt's."""
+    A dense, moe or vlm sequence (prefix included) longer than ``chunk``
+    whose length is a multiple of it is processed in chunks
+    (``_prefill_chunked``); any other, and every ssm and hybrid prompt, in
+    one pass (``_prefill_whole``), as in the reference.  A moe layer's
+    expert capacity follows each call's own length: a chunk's, not the
+    prompt's."""
     check_family(cfg)
-    S_tot = tokens.shape[1]
+    S_tot = tokens.shape[1] + (prefix_embeds.shape[1]
+                               if prefix_embeds is not None else 0)
+    kw = dict(prefix_embeds=prefix_embeds, prefix_len=prefix_len)
     if (cfg.family in CHUNKED_FAMILIES and S_tot > chunk
             and S_tot % chunk == 0 and (max_len or S_tot) >= S_tot):
         return _prefill_chunked(params, cfg, tokens, max_len=max_len or S_tot,
-                                chunk=chunk)
-    return _prefill_whole(params, cfg, tokens, max_len=max_len)
+                                chunk=chunk, **kw)
+    return _prefill_whole(params, cfg, tokens, max_len=max_len, **kw)
 
 
-def _final_logits(params, cfg, x_last):
+def final_logits(params, cfg, x_last):
+    """The final norm and the unembed of ``x_last [B, D]``, in float32."""
     x = L.apply_norm(params["final_norm"], x_last, cfg.norm)
     return L.unembed(params["embed"], x.float(), cfg.vocab)
 
 
-def _prefill_chunked(params, cfg: ArchConfig, tokens, *, max_len, chunk):
+def _embed_with_prefix(params, cfg, tokens, prefix_embeds):
+    """The tokens' embeddings, after the prefix's (cast to ``cdtype``)."""
+    x = L.embed(params["embed"], tokens, cfg.cdtype)
+    if prefix_embeds is None:
+        return x
+    return torch.cat([prefix_embeds.to(cfg.cdtype), x], dim=1)
+
+
+def _prefill_chunked(params, cfg: ArchConfig, tokens, *, max_len, chunk,
+                     prefix_embeds=None, prefix_len=None):
     """Each chunk attends against the cache filled so far plus itself
     (``attend`` with ``q_offset = off`` on a prefix view of the cache),
     writing its keys and values into the cache in place."""
-    x_all = L.embed(params["embed"], tokens, cfg.cdtype)
+    x_all = _embed_with_prefix(params, cfg, tokens, prefix_embeds)
     B, S_tot, _ = x_all.shape
     cache = KVCache.init(cfg.n_layers, B, max_len, cfg.n_kv_heads,
                          cfg.head_dim_, cfg.cdtype, device=x_all.device)
@@ -321,10 +342,10 @@ def _prefill_chunked(params, cfg: ArchConfig, tokens, *, max_len, chunk):
             kc[i, :, off:off + chunk] = k
             vc[i, :, off:off + chunk] = v
             o = attn.attend(q, kc[i, :, :off + chunk], vc[i, :, :off + chunk],
-                            off, causal=True)
+                            off, causal=True, prefix_len=prefix_len)
             x = _apply_mlp(lp, cfg, x + attn.out_proj(lp["attn"], o))
         last_x = x
-    last = _final_logits(params, cfg, last_x[:, -1])
+    last = final_logits(params, cfg, last_x[:, -1])
     length = torch.full((B,), S_tot, dtype=torch.int32, device=x_all.device)
     return last, DecodeState(kv=KVCache(k=kc, v=vc, length=length))
 
@@ -343,14 +364,15 @@ def _fill_cache(cache: KVCache, i: int, k, v, window) -> None:
         dst[i, :, :n] = last
 
 
-def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None):
+def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None,
+                   prefix_embeds=None, prefix_len=None):
     """One pass over the prompt.  The attention layers' keys and values go
     into a zero cache of ``max_len`` positions (``min(max_len, window)``
     ring slots for the hybrid; a prompt longer than the cache keeps its
     last positions); the recurrent layers' final states into the stacked
     ``ssm`` / ``lru`` states.  ``length`` is S, clamped to the ring's size
     for the hybrid (the reference's; ROADMAP C4)."""
-    x = L.embed(params["embed"], tokens, cfg.cdtype)
+    x = _embed_with_prefix(params, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
     dev = x.device
     max_len = max_len or S
@@ -390,9 +412,9 @@ def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None):
         kind = layer_plan(cfg)[0]
         for i in range(cfg.n_layers):
             x, (k, v), _ = _apply_layer_full(_layer(params["stack"], i), cfg,
-                                             kind, x, positions)
+                                             kind, x, positions, prefix_len)
             _fill_cache(cache, i, k, v, None)
-    last = _final_logits(params, cfg, x[:, -1])
+    last = final_logits(params, cfg, x[:, -1])
     if cache is not None:
         n = min(S, cache_len) if window else S
         cache = cache._replace(length=torch.full(
@@ -451,7 +473,7 @@ def decode_step(params, cfg: ArchConfig, tokens, state: DecodeState):
                                        _state_at(state.ssm, i))
             _put_state(state.ssm, i, st)
             x = x + y
-        return _final_logits(params, cfg, x[:, 0]), state
+        return final_logits(params, cfg, x[:, 0]), state
     kc, vc, length = state.kv
     if cfg.family == "hybrid":
         window = cfg.hybrid.window
@@ -475,6 +497,6 @@ def decode_step(params, cfg: ArchConfig, tokens, state: DecodeState):
             lp = _layer(params["stack"], i)
             x, _, _ = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length)
             x = _apply_mlp(lp, cfg, x)
-    logits = _final_logits(params, cfg, x[:, 0])
+    logits = final_logits(params, cfg, x[:, 0])
     return logits, state._replace(
         kv=KVCache(k=kc, v=vc, length=length + 1))

@@ -40,20 +40,32 @@ def make_decode_step(model: Model):
 
 
 def insert_slot(state, pstate, slot: int):
-    """Write a batch=1 prefill state into batch slot ``slot``, in place
-    (KVCache k/v ``[L,B,S,...]`` and the ssm / lru leaves ``[L,B,...]`` on
-    axis 1, length ``[B]`` on axis 0; a family without a cache has
-    ``kv=None``), and return ``state``."""
-    if state.kv is not None:
-        kv, pkv = state.kv, pstate.kv
-        kv.k[:, slot].copy_(pkv.k[:, 0])
-        kv.v[:, slot].copy_(pkv.v[:, 0])
-        kv.length[slot] = pkv.length[0]
-    for st, pst in ((state.ssm, pstate.ssm), (state.lru, pstate.lru)):
-        if st is not None:
-            for dst, src in zip(st, pst):
-                dst[:, slot].copy_(src[:, 0])
+    """Write a batch=1 prefill state into batch slot ``slot``, in place, and
+    return ``state``.  Every leaf of the state's tree (a ``DecodeState``,
+    whose absent parts are None, or an ``EncDecState``) has the batch on
+    axis 1 (KVCache k/v ``[L,B,S,...]``, the ssm / lru leaves
+    ``[L,B,...]``, encdec's cross k/v ``[L,B,F,...]``) but the lengths
+    ``[B]``, which have it on axis 0."""
+    for dst, src in zip(state, pstate):
+        if dst is None:
+            continue
+        if isinstance(dst, tuple):
+            insert_slot(dst, src, slot)
+        elif dst.dim() == 1:
+            dst[slot] = src[0]
+        else:
+            dst[:, slot].copy_(src[:, 0])
     return state
+
+
+def _extra(value, device) -> torch.Tensor:
+    """A request's extra (``[P, D]`` image embeddings, ``[F, D]`` frames) as
+    a ``[1, ...]`` tensor on ``device``; float64 arrays become float32, as
+    the reference's ``jnp.asarray`` makes them."""
+    x = torch.as_tensor(np.asarray(value))
+    if x.dtype == torch.float64:
+        x = x.float()
+    return x[None].to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +78,7 @@ class Request:
     prompt: np.ndarray            # [T] int32
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
-    extras: Optional[dict] = None  # vlm image_embeds / encdec frames (A14)
+    extras: Optional[dict] = None  # vlm image_embeds / encdec frames
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
 
@@ -106,9 +118,6 @@ class ContinuousBatcher:
         self.tokens_out = 0
 
     def submit(self, req: Request):
-        if req.extras:
-            raise NotImplementedError("request extras (vlm image embeds, "
-                                      "encdec frames) wait for ROADMAP A14")
         self.requests[req.rid] = req
         self.queue.append(req.rid)
 
@@ -120,6 +129,8 @@ class ContinuousBatcher:
                 batch = {"tokens": torch.as_tensor(
                     np.asarray(req.prompt, np.int64)[None, :],
                     device=self.device)}
+                for k, v in (req.extras or {}).items():
+                    batch[k] = _extra(v, self.device)
                 first, pstate = self._prefill(self.params, batch)
                 self.state = insert_slot(self.state, pstate, slot)
                 tok = int(first[0])

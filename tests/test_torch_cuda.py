@@ -440,6 +440,49 @@ def test_flash_kernel_matches_plain_version(card, dtype, B, Sq, Skv, H, Hkv,
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,Hkv,hd,q_offset,causal,kv_len,prefix_len", [
+        # paligemma-3b (8 query heads on one of 256): the prefix-LM mask
+        # ending mid-chunk, and its 256 image positions over two q tiles
+        (1, 300, 300, 8, 1, 256, 0, True, None, 100),
+        (1, 600, 600, 8, 1, 256, 0, True, None, 256),
+        # hd 16: a prefix past the queries' offset, and one covering all
+        (2, 90, 200, 4, 2, 16, 110, True, None, 150),
+        (1, 50, 50, 4, 4, 16, 0, True, None, 50),
+        # whisper-base (8 heads of 64): the encoder and the cross-attention
+        # non-causal over 1,536 padded frames of which 1,500 are seen, and
+        # the decoder's causal self-attention
+        (2, 1536, 1536, 8, 8, 64, 0, False, 1500, None),
+        (2, 224, 1536, 8, 8, 64, 0, False, 1500, None),
+        (1, 224, 224, 8, 8, 64, 0, True, None, None),
+    ])
+def test_flash_kernel_prefix_and_padded_keys_match_plain_version(
+        card, dtype, B, Sq, Skv, H, Hkv, hd, q_offset, causal, kv_len,
+        prefix_len):
+    """The vlm's and encdec's masks: one launch per call against the plain
+    version; a prefix makes the causal tiles walk the keys below it."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_gqa_ref
+    gen = torch.Generator(device=card).manual_seed(Sq + Skv + hd)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=card).to(dtype)
+    k, v = (torch.randn((B, Skv, Hkv, hd), generator=gen,
+                        device=card).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+              prefix_len=prefix_len)
+    faops.reset_launches()
+    got = faops.flash_attention(q, k, v, **kw)
+    assert faops.LAUNCHES == {"flash_attention": 1}
+    torch.testing.assert_close(got, flash_attention_gqa_ref(q, k, v, **kw),
+                               **FLASH_TOL[dtype])
+    if kv_len is not None:
+        # a padded key takes exactly zero probability
+        v2 = v.clone()
+        v2[:, kv_len:] = 1e4
+        assert torch.equal(faops.flash_attention(q, k, v2, **kw), got)
+
+
 @pytest.mark.parametrize("seed", [0, 7, 2**32 + 5])
 def test_threefry_kernel_matches_plain_version(card, seed):
     """fg_threefry, one launch per draw, bitwise against the plain version
@@ -664,4 +707,50 @@ def test_moe_model_on_card_serves_the_cpu_tokens(card):
         out[dev.type] = b.run()
         if dev.type == "cuda":
             assert faops.LAUNCHES == {"flash_attention": 3 * cfg.n_layers}
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-base"])
+def test_vlm_and_encdec_on_card_serve_the_cpu_tokens(card, arch):
+    """Reduced paligemma-3b and whisper-base in float32 through
+    ContinuousBatcher on the card and on the CPU from the same weights and
+    extras (image embeddings, 1,500 frames): the same tokens, and every
+    prefill attention call launched the flash kernel (vlm: one a layer;
+    encdec: the encoder's layers and the decoder's self and cross
+    attention)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(3)
+    if cfg.family == "vlm":
+        shape, key = (cfg.num_image_tokens, cfg.d_model), "image_embeds"
+        per_prefill = cfg.n_layers
+    else:
+        shape, key = (1500, cfg.d_model), "frames"
+        per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    reqs = [(rng.integers(0, cfg.vocab, T),
+             (0.1 * rng.normal(size=shape)).astype(np.float32))
+            for T in (9, 30, 17)]
+    out = {}
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    for dev in (card, torch.device("cpu")):
+        b = ContinuousBatcher(model, to(cpu, dev), 2, 64, device=dev)
+        for rid, (p, x) in enumerate(reqs):
+            b.submit(Request(rid=rid, prompt=p, max_new_tokens=6,
+                             extras={key: x}))
+        faops.reset_launches()
+        out[dev.type] = b.run()
+        if dev.type == "cuda":
+            assert faops.LAUNCHES == {"flash_attention": 3 * per_prefill}
     assert out["cuda"] == out["cpu"]

@@ -112,6 +112,41 @@ def test_window_matches_jax_attend():
     _close(got, want, "float32")
 
 
+@pytest.mark.parametrize("prefix_len", [0, 1, 7, 24])
+@pytest.mark.parametrize("Sq,off,Hkv", [(24, 0, 2), (16, 8, 1)])
+def test_prefix_len_matches_jax_attend(prefix_len, Sq, off, Hkv):
+    """The vlm's prefix-LM mask: causal, keys ``< prefix_len`` seen by every
+    query (a prefix of 0, 1, 7 and the whole of Sq), GQA and MQA, with and
+    without a query offset (a chunk after the first)."""
+    B, H, hd = 2, 4, 16
+    Skv = off + Sq
+    (jq, jk, jv), (q, k, v) = _qkv(prefix_len + Sq, B, Sq, Skv, H, Hkv, hd,
+                                   "float32")
+    want = jattn.attend(jq, jk, jv, off + jnp.arange(Sq), jnp.arange(Skv),
+                        causal=True, chunk=8, prefix_len=prefix_len)
+    got = tattn.attend(q, k, v, off, causal=True, prefix_len=prefix_len)
+    _close(got, want, "float32")
+    if prefix_len > off + 1:
+        # the prefix changes the answer: a query before prefix_len - 1
+        # sees keys past its own position
+        assert not torch.allclose(got, tattn.attend(q, k, v, off,
+                                                    causal=True))
+
+
+@pytest.mark.parametrize("Sq,Skv,kv_len", [(24, 40, 33), (40, 40, 1),
+                                           (8, 48, 47)])
+def test_non_causal_kv_len_matches_jax_kv_mask(Sq, Skv, kv_len):
+    """encdec's encoder and cross-attention: non-causal over padded keys,
+    the reference's ``kv_mask = arange(Skv) < kv_len`` in every row as the
+    plain version's ``kv_len``."""
+    (jq, jk, jv), (q, k, v) = _qkv(kv_len, 2, Sq, Skv, 4, 4, 16, "float32")
+    kv_mask = jnp.broadcast_to(jnp.arange(Skv)[None] < kv_len, (2, Skv))
+    want = jattn.attend(jq, jk, jv, jnp.arange(Sq), jnp.arange(Skv),
+                        causal=False, chunk=16, kv_mask=kv_mask)
+    got = tattn.attend(q, k, v, 0, causal=False, kv_len=kv_len)
+    _close(got, want, "float32")
+
+
 def test_strided_cache_prefix_equals_contiguous_copy():
     """``attend`` on a prefix view of a ``[B, S, Hkv, hd]`` cache (what the
     chunked prefill passes) equals the call on a contiguous copy."""
@@ -163,7 +198,7 @@ TC_TOL = dict(rtol=8e-3, atol=8e-3)
 
 
 def _tc_emulation(q, k, v, *, causal=True, window=None, q_offset=0,
-                  kv_len=None):
+                  kv_len=None, prefix_len=None):
     """bf16 q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] -> bf16 [B,Sq,H,hd], as the
     tensor-core kernel computes it: chunks of 128 keys (64 at hd 256) with
     the online-softmax carry; s = q.k from the bf16 values in f32, scaled after the product,
@@ -177,7 +212,8 @@ def _tc_emulation(q, k, v, *, causal=True, window=None, q_offset=0,
     scale = float(np.float32(1.0 / hd ** 0.5))          # the wrapper's f32
     c = float(np.float32(scale * np.log2(np.e)))
     mask = attention_mask(Sq, Skv, causal=causal, window=window,
-                          q_offset=q_offset, kv_len=kv_len)
+                          q_offset=q_offset, kv_len=kv_len,
+                          prefix_len=prefix_len)
     m = torch.full((B, H, Sq), -torch.inf)
     l = torch.zeros((B, H, Sq))
     acc = torch.zeros((B, H, Sq, hd))
@@ -227,8 +263,27 @@ def test_tensor_core_arithmetic_matches_plain_version(B, Sq, Skv, H, Hkv, hd,
     """What the card compares: the tensor-core arithmetic against the plain
     version (float32 math) on bf16 inputs, within the card's tolerance, at
     ragged tiles, masks that end mid-chunk and every kept head dim."""
+    _tc_against_plain(B, Sq, Skv, H, Hkv, hd, causal=causal, window=window,
+                      q_offset=q_offset, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,hd,causal,kv_len,prefix_len", [
+    (1, 300, 300, 8, 1, 256, True, None, 100),     # paligemma's prefix
+    (2, 100, 300, 8, 8, 64, False, 250, None),     # whisper's padded frames
+])
+def test_tensor_core_arithmetic_with_a_prefix_or_padded_frames(
+        B, Sq, Skv, H, Hkv, hd, causal, kv_len, prefix_len):
+    """The same at the vlm's and encdec's masks: a prefix ending mid-chunk
+    at hd 256, and non-causal keys padded past ``kv_len`` at hd 64."""
+    _tc_against_plain(B, Sq, Skv, H, Hkv, hd, causal=causal, kv_len=kv_len,
+                      prefix_len=prefix_len)
+
+
+def _tc_against_plain(B, Sq, Skv, H, Hkv, hd, **kw):
+    """The emulation against the plain version on seeded bf16 inputs; a
+    key past ``kv_len`` must not reach the output."""
     _, (q, k, v) = _qkv(Sq + Skv + hd, B, Sq, Skv, H, Hkv, hd, "bfloat16")
-    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    kv_len = kw.get("kv_len")
     got = _tc_emulation(q, k, v, **kw)
     want = flash_attention_gqa_ref(q, k, v, **kw)
     torch.testing.assert_close(got, want, **TC_TOL)

@@ -316,8 +316,9 @@ def test_insert_slot_copies_one_slot_in_place():
 
 
 def test_storage_dtypes_and_family_guard():
-    """bf16 block weights and embedding, f32 norms and unembed; the
-    families this slice does not carry raise with their ROADMAP item."""
+    """bf16 block weights and embedding, f32 norms and unembed; a family
+    the port does not know raises a ValueError, in ``Model.init`` and in
+    the decoder-only assembly."""
     _, _, tcfg, tp = _setup("starcoder2-7b", "bfloat16")
     assert tp["stack"]["attn"]["wq"].dtype == torch.bfloat16
     assert tp["stack"]["attn"]["bq"].dtype == torch.bfloat16
@@ -325,7 +326,8 @@ def test_storage_dtypes_and_family_guard():
     assert tp["embed"]["embedding"].dtype == torch.bfloat16
     assert tp["embed"]["unembed"].dtype == torch.float32
     assert tp["final_norm"]["scale"].dtype == torch.float32
-    for family in ("encdec", "vlm"):
-        unported = dataclasses.replace(tcfg, family=family)
-        with pytest.raises(NotImplementedError, match="A14"):
-            tbuild(unported).init(device="cpu")
+    unknown = dataclasses.replace(tcfg, family="diffusion")
+    with pytest.raises(ValueError, match="diffusion"):
+        tbuild(unknown).init(device="cpu")
+    with pytest.raises(ValueError, match="diffusion"):
+        ttfm.layer_plan(unknown)
