@@ -148,7 +148,25 @@ Phases, each of which fails the run on any error:
               cross; 108 in all), each request's extras through
               ``ContinuousBatcher``; check b and c with the extras; each
               ``launch/serve.py --no-reduced``
-  8. report   fg_threefry's line and the kernel table as JSON lines (each
+  8. train    the training path (``train/``, ``launch/train.py``).  8a:
+              B6's gradient (``FlashAttentionFn``: the kernel forward, the
+              plain flash backward) against autograd through the plain
+              version at starcoder2's training shape (1 x 4096, 36 / 4
+              heads of 128, causal, bf16) and at hd 16 in float32, one
+              full-width attention layer's backward (wq, wk, wv, wo get
+              gradients), and the plain backward's time beside SDPA's
+              forward + backward.  8b: one float32 train step of the
+              reduced config, card against CPU (same batch, drawn on each
+              device bit for bit).  8c: a reduced run on the card killed by
+              ``fault_hook`` after its step-4 checkpoint and restarted,
+              bitwise equal to the uninterrupted run.  8d:
+              ``launch/train.py``'s path for starcoder2-7b at full width
+              with TRAIN_LAYERS of its 32 layers, batch 4 x 4096 in 4
+              microbatches, TRAIN_STEPS AdamW steps: losses and grad norms
+              finite, every parameter's moment non-zero, two flash
+              launches per attention layer and microbatch (forward and
+              remat), peak memory and tokens/s printed
+  9. report   fg_threefry's line and the kernel table as JSON lines (each
               kernel launched at least once on the paths), then the
               result line
 
@@ -2798,6 +2816,436 @@ def lm_card_vs_cpu(torch, arch: str = LM_ARCH) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+
+#: phase 8d: ``launch/train.py``'s path for starcoder2-7b at full width, its
+#: depth cut to TRAIN_LAYERS of 32 so that float32 parameters, gradients
+#: and both AdamW moments (16 bytes a parameter: 3.06 B parameters, 48.9
+#: GB) fit one card; batch 4 x 4096 (train_4k's sequence) in the config's 4
+#: microbatches, TRAIN_STEPS steps
+TRAIN_LAYERS = 12
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 4096, 4
+#: 8d's ``--lr``: the CLI's default, 1e-3, is a rate for the reduced
+#: configs.  AdamW's first step moves every parameter by about the rate,
+#: in its gradient's sign; at this width and depth, with no warmup to
+#: speak of, that raises the loss from random weights at any rate from
+#: 1e-5 up, in float32 and through the plain attention alike
+#: (``scripts/train_probe.py``).  At TRAIN_LR the loss must fall.
+TRAIN_LR = 3e-6
+#: threefry launches of one ``batch_for_step`` (fold_in, split, the tokens'
+#: uniform; randint's split and two bit draws)
+TRAIN_DRAWS = 6
+#: 8a: the flash gradient (``FlashAttentionFn``: the kernel's forward, the
+#: plain backward) against autograd through the plain version.  bf16 at
+#: starcoder2's shape, as a share of each gradient's largest entry: both
+#: sum in float32 and round once to bf16 (2^-8), but the kernel's output,
+#: which the backward's ``rowsum(dout * out)`` reads, has p rounded to bf16
+#: for p.v (FLASH_TOL); float32 at hd 16 absolute
+TRAIN_GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: 8b: a float32 train step of the reduced config, card against CPU
+TRAIN_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+#: 8b: of the reduced config's 86,272 parameters, how many may differ by
+#: more than TRAIN_F32_TOL after the step (each within AdamW's own
+#: amplification of its gradient's difference, see train_card_vs_cpu)
+TRAIN_AMPLIFIED_MAX = 16
+
+
+def _state_to(torch, tree, dev):
+    """A copy of a tree of dicts, NamedTuples and tensors on ``dev``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev, copy=True)
+    if isinstance(tree, dict):
+        return {k: _state_to(torch, v, dev) for k, v in tree.items()}
+    return type(tree)(*(_state_to(torch, v, dev) for v in tree))
+
+
+def train_flash_grad(torch) -> dict:
+    """8a: ``FlashAttentionFn`` on the card (one kernel launch, the plain
+    backward) against autograd through the plain version on the same
+    inputs: at starcoder2's training shape (1 x 4096, 36 / 4 heads of 128,
+    causal, bf16) and at hd 16 in float32; then one full-width attention
+    layer's backward, whose ``wq`` must get a gradient; then the plain
+    backward's time at the training shape beside SDPA's forward +
+    backward on the same inputs (the library yardstick; SDPA runs its own
+    flash kernels) and B6's forward."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_gqa_ref)
+    from repro_torch.models import transformer as tfm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cfg = get_config(LM_ARCH)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    out, timed = {}, None
+    for dtype, (S, h, hkv, d) in ((torch.bfloat16, (TRAIN_SEQ, H, Hkv, hd)),
+                                  (torch.float32, (256, 4, 2, 16))):
+        name = str(dtype).split(".")[1]
+        shapes = ((1, S, h, d), (1, S, hkv, d), (1, S, hkv, d), (1, S, h, d))
+        q, k, v, dout = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                         for s in shapes)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        n0 = faops.LAUNCHES["flash_attention"]
+        o = faops.flash_attention(*leaves, causal=True)
+        if type(o.grad_fn).__name__ != "FlashAttentionFnBackward" or \
+                faops.LAUNCHES["flash_attention"] != n0 + 1:
+            raise AssertionError(f"train 8a: the {name} call did not go "
+                                 f"through FlashAttentionFn's launch "
+                                 f"({o.grad_fn})")
+        o.backward(dout)
+        plain = [x.clone().requires_grad_() for x in (q, k, v)]
+        flash_attention_gqa_ref(*plain, causal=True).backward(dout)
+        errs = {}
+        for label, a, b in zip("qkv", leaves, plain):
+            err = float((a.grad.float() - b.grad.float()).abs().max())
+            scale = float(b.grad.float().abs().max())
+            errs["d" + label] = {"max_abs_err": err, "max_abs": scale}
+            bound = TRAIN_GRAD_TOL[name] * (scale if dtype == torch.bfloat16
+                                            else 1.0)
+            if not err <= bound or scale == 0:
+                raise AssertionError(f"train 8a {name}: d{label} differs by "
+                                     f"{err} (bound {bound}, max {scale})")
+        out[name] = {"shape": [1, S, h, hkv, d], "causal": True, **errs,
+                     "tol": TRAIN_GRAD_TOL[name]}
+        if dtype == torch.bfloat16:
+            timed = (q, k, v, o.detach(), dout)
+        del leaves, plain, o
+    # one attention layer at full width: wq, wk and wv get gradients
+    lp = tfm.init_layer(gen, cfg, "attn", dev)
+    for t in lp["attn"].values():
+        t.requires_grad_()
+    x = torch.randn((1, 512, cfg.d_model), generator=gen, device=dev).to(
+        cfg.cdtype)
+    n0 = faops.LAUNCHES["flash_attention"]
+    y, _ = tfm._apply_attn_layer(tfm.cast_layer_params(lp, cfg.cdtype), cfg,
+                                 x, torch.arange(512, device=dev))
+    y.float().square().mean().backward()
+    grads = {k: float(lp["attn"][k].grad.abs().max())
+             for k in ("wq", "wk", "wv", "wo")}
+    if faops.LAUNCHES["flash_attention"] != n0 + 1 or \
+            not all(g > 0 for g in grads.values()):
+        raise AssertionError(f"train 8a: one layer's backward gave {grads}")
+    out["layer_grad_max"] = grads
+    del lp, x, y
+    # times at the training shape (CUDA events around eager calls)
+    q, k, v, o, dout = timed
+    out["bwd_ms"] = eager_ms(torch, lambda: flash_attention_bwd_ref(
+        q, k, v, o, dout, causal=True), iters=5, warmup=1)
+    out["fwd_ms"] = eager_ms(torch, lambda: faops.flash_attention(
+        q, k, v, causal=True), iters=10, warmup=2)
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dos = dout.transpose(1, 2).contiguous()
+
+    def sdpa():
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                       enable_gqa=True).backward(dos)
+    out["sdpa_fwd_bwd_ms"] = eager_ms(torch, sdpa, iters=10, warmup=2)
+    out["plain_fwd_bwd_ms"] = out["fwd_ms"] + out["bwd_ms"]
+    log("train 8a flash gradient: " + json.dumps(out))
+    return out
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """8b: one ``make_train_step`` step (2 microbatches, the CLI's default
+    learning rate 1e-3) of starcoder2-7b ``reduced()`` in float32, on the
+    card and on the CPU from the same state and the same batch (drawn on
+    each device: equal bit for bit).  The loss and grad norm within
+    TRAIN_F32_TOL; the gradients (the first moments, ``(1 - b1) g`` after
+    one step) within TRAIN_F32_TOL; the updated parameters within
+    TRAIN_F32_TOL plus what AdamW's first step makes of the gradients'
+    difference: it moves a parameter by ``lr * g / (|g| + eps)``, so where
+    ``|g|`` is near or below eps = 1e-8 (a sum that cancels) a gradient
+    difference ``dg`` moves it by up to ``lr * eps * dg / (|g| + eps)^2``,
+    capped at the largest move the step can make, ``lr * (1 + wd * |p|)``.
+    The elements that need that term (``amplified``) are at most
+    TRAIN_AMPLIFIED_MAX."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.optimizer import AdamW, constant, tree_leaves
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
+                              compute_dtype="float32")
+    model, opt, lr = build_model(cfg), AdamW(), 1e-3
+    cpu = init_train_state(model, torch.Generator().manual_seed(1), opt,
+                           device="cpu")
+    card = _state_to(torch, cpu, torch.device("cuda"))
+    shape = ShapeConfig("t", "train", 64, 4)
+    step = make_train_step(model, opt, constant(lr), microbatches=2)
+    bc = batch_for_step(cfg, shape, 0, device="cuda")
+    bp = batch_for_step(cfg, shape, 0, device="cpu")
+    for k in bp:
+        if not torch.equal(bc[k].cpu(), bp[k]):
+            raise AssertionError(f"train 8b: the card's batch {k} differs "
+                                 f"from the CPU's")
+    card, mc = step(card, bc)
+    cpu, mp = step(cpu, bp)
+    for k in ("loss", "ce", "grad_norm"):
+        torch.testing.assert_close(mc[k].cpu(), mp[k], **TRAIN_F32_TOL)
+    diff = grad_diff = 0.0
+    amplified = 0
+    tol = TRAIN_F32_TOL
+    for a, b, ma, mb in zip(tree_leaves(card.params), tree_leaves(cpu.params),
+                            tree_leaves(card.opt.mu), tree_leaves(cpu.opt.mu)):
+        a, ma = a.cpu(), ma.cpu()
+        torch.testing.assert_close(ma, mb, **tol)
+        g = mb / (1 - opt.b1)
+        dg = (ma - mb).abs() / (1 - opt.b1)
+        plain = tol["atol"] + tol["rtol"] * b.abs()
+        step_max = lr * (1 + opt.weight_decay * b.abs())
+        bound = plain + torch.minimum(
+            lr * opt.eps * dg / (g.abs() + opt.eps) ** 2, step_max)
+        d = (a - b).abs()
+        if not bool((d <= bound).all()):
+            raise AssertionError(f"train 8b: parameters differ by "
+                                 f"{float(d.max())} beyond the bound")
+        amplified += int((d > plain).sum())
+        diff = max(diff, float(d.max()))
+        grad_diff = max(grad_diff, float(dg.max()))
+    if amplified > TRAIN_AMPLIFIED_MAX:
+        raise AssertionError(f"train 8b: {amplified} parameters differ "
+                             f"beyond TRAIN_F32_TOL (at most "
+                             f"{TRAIN_AMPLIFIED_MAX})")
+    res = {"arch": cfg.name + " reduced, float32", "lr": lr,
+           **{k: float(mp[k]) for k in ("loss", "grad_norm")},
+           "loss_diff": float((mc["loss"].cpu() - mp["loss"]).abs()),
+           "grad_max_diff": grad_diff, "param_max_diff": diff,
+           "amplified": amplified,
+           "amplified_max": TRAIN_AMPLIFIED_MAX, "tol": tol}
+    log("train 8b card vs CPU: " + json.dumps(res))
+    return res
+
+
+def train_resume(torch) -> dict:
+    """8c: a run of the reduced config (bf16 compute) on the card killed by
+    ``fault_hook`` at step 6 after the step-4 checkpoint, then restarted:
+    its loss history and final state equal the uninterrupted run's bit for
+    bit."""
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.models.factory import build_model
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.loop import LoopConfig, run_loop
+    from repro_torch.train.optimizer import AdamW, constant, tree_leaves
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH).reduced()
+    model = build_model(cfg)
+    shape = ShapeConfig("t", "train", 64, 4)
+    step = make_train_step(model, AdamW(), constant(3e-3), microbatches=2)
+
+    def fresh():
+        return init_train_state(model, torch.Generator(device=dev)
+                                .manual_seed(2), AdamW(), device=dev)
+
+    def data(s):
+        return batch_for_step(cfg, shape, s, device=dev)
+
+    def quiet(*a):
+        pass
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    full, fstats = run_loop(step, fresh(), data,
+                            LoopConfig(n_steps=8, log_every=1), log=quiet)
+
+    class Fault(Exception):
+        pass
+
+    def fault(s):
+        if s == 6:
+            raise Fault()
+    lc = LoopConfig(n_steps=8, ckpt_every=4, ckpt_dir=ckdir, log_every=1)
+    try:
+        run_loop(step, fresh(), data, lc, log=quiet, fault_hook=fault)
+        raise AssertionError("train 8c: the injected fault did not stop "
+                             "the run")
+    except Fault:
+        pass
+    if ck.latest_step(ckdir) != 4:
+        raise AssertionError(f"train 8c: newest checkpoint "
+                             f"{ck.latest_step(ckdir)}, want 4")
+    resumed, rstats = run_loop(step, fresh(), data, lc, log=quiet)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    want = [h for h in fstats.history if h["step"] >= 4]
+    if rstats.restored_step != 4 or rstats.history != want:
+        raise AssertionError(f"train 8c: the resumed history "
+                             f"{rstats.history} is not {want}")
+    leaves = list(zip(tree_leaves(full), tree_leaves(resumed)))
+    bad = sum(not torch.equal(a, b) for a, b in leaves)
+    if bad or int(resumed.step) != 8:
+        raise AssertionError(f"train 8c: {bad} of {len(leaves)} state "
+                             f"leaves differ after the resume")
+    res = {"arch": cfg.name + " reduced", "restored_step": 4,
+           "losses": [h["loss"] for h in fstats.history],
+           "leaves_equal": len(leaves)}
+    log("train 8c resume: " + json.dumps(res))
+    return res
+
+
+def _kernel_class(name: str) -> str:
+    """The class of a traced kernel of a train step, by its name."""
+    low = name.lower()
+    if FLASH_TC_NAME in name:
+        return "B6 forward"
+    if "nvjet" in low:           # cuBLASLt's Hopper tensor-core kernels
+        return "bf16 matmul"
+    if "gemm" in low or "xmma" in low or "cutlass" in low:
+        return "bf16 matmul" if "bf16" in low else "float32 matmul"
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise"
+    if "reduce" in low or "softmax" in low or "norm" in low:
+        return "reductions"
+    return "other"
+
+
+def train_step_trace(torch, cfg, state) -> dict:
+    """8d's breakdown: one more step of the same config (lr 1e-5) traced
+    with torch.profiler, its card time by kernel class and its top
+    kernels; then AdamW's update alone over the whole state (zero
+    gradients), timed with CUDA events."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.optimizer import AdamW, constant, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    opt = AdamW()
+    step = make_train_step(build_model(cfg), opt, constant(1e-5),
+                           microbatches=TRAIN_MICRO)
+    batch = batch_for_step(cfg, ShapeConfig("t", "train", TRAIN_SEQ,
+                                            TRAIN_BATCH), TRAIN_STEPS,
+                           device="cuda")
+    x = torch.ones((64, 64), device="cuda")
+    events, wall_ms, (state, _) = trace_once(torch, lambda: x @ x,
+                                             lambda: step(state, batch))
+    classes, total = {}, 0.0
+    for e in events:
+        us = _device_us(e)
+        total += us
+        c = _kernel_class(e.key)
+        classes[c] = classes.get(c, 0.0) + us / 1e3
+    top = sorted(((_device_us(e), e.key, e.count) for e in events),
+                 reverse=True)[:8]
+    grads = tree_map(torch.zeros_like, state.params)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    opt.update(grads, state.opt, state.params,
+               torch.tensor(1e-5, device="cuda"))
+    b.record()
+    b.synchronize()
+    del grads
+    return {"traced_wall_ms": wall_ms, "device_ms": total / 1e3,
+            "device_ms_by_class": classes,
+            "top_kernels_ms": [[k[:70], round(us / 1e3, 3), n]
+                               for us, k, n in top],
+            "adamw_update_ms": a.elapsed_time(b)}
+
+
+def train_full_width(torch, counters) -> dict:
+    """8d: ``launch/train.py``'s path (``parse_args``, ``config_for``,
+    ``run``) for starcoder2-7b at full width and TRAIN_LAYERS layers, at
+    ``--lr`` TRAIN_LR: every step's loss and grad norm finite, the last
+    step's loss below the first's (the bf16 gradients through
+    ``FlashAttentionFn``, the remat and the accumulation over microbatches
+    point downhill), every parameter's first moment non-zero somewhere
+    (each got a gradient), the final norm moved, and the flash kernel
+    launched twice per attention layer and microbatch (the forward and the
+    remat's recompute)."""
+    import dataclasses
+
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train.optimizer import tree_leaves
+
+    args = tlaunch.parse_args([
+        "--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+        str(TRAIN_MICRO), "--lr", str(TRAIN_LR)])
+    cfg = dataclasses.replace(tlaunch.config_for(args), n_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t = time.perf_counter()
+    state, stats = tlaunch.run(args, cfg, log_every=1,
+                               log=lambda m: log("  " + m))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = counters.read()
+    per_step = TRAIN_LAYERS * TRAIN_MICRO * 2
+    want = {"flash_attention": per_step * TRAIN_STEPS,
+            "threefry": TRAIN_DRAWS * TRAIN_STEPS}
+    got = {k: c for k, c in counts.items() if c}
+    if got != want:
+        raise AssertionError(f"train 8d: launches {got}, want {want}")
+    hist = stats.history
+    if len(hist) != TRAIN_STEPS or not all(
+            np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+            for h in hist):
+        raise AssertionError(f"train 8d: history {hist}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"train 8d: the loss did not fall: "
+                             f"{[h['loss'] for h in hist]}")
+    idle = [i for i, m in enumerate(tree_leaves(state.opt.mu))
+            if not bool((m != 0).any())]
+    moved = bool((state.params["final_norm"]["scale"] != 1).any())
+    if idle or not moved:
+        raise AssertionError(f"train 8d: {len(idle)} parameters got no "
+                             f"gradient; final norm moved: {moved}")
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "of_layers": 32,
+           "d_model": cfg.d_model, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+           "loss": [h["loss"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "lr": [h["lr"] for h in hist],
+           "step_s": stats.step_times,
+           "tokens_per_s": [tokens / s for s in stats.step_times],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "flash_launches_per_step": per_step,
+           "launches": counts["flash_attention"], "counts": got,
+           "wall_s": wall}
+    res["trace"] = train_step_trace(torch, cfg, state)
+    res["busy_share"] = res["trace"]["device_ms"] / 1e3 / float(
+        np.mean(stats.step_times))
+    log("train 8d full width: " + json.dumps(res))
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train(torch, counters) -> dict:
+    """Phase 8: training on the card, 8a-8d."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    res = {"grad": train_flash_grad(torch)}
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = train_card_vs_cpu(torch)
+    res["resume"] = train_resume(torch)
+    res["full"] = train_full_width(torch, counters)
+    res["launches"] = res["full"]["launches"]
+    return res
+
+
 class Counters:
     """Every kernel wrapper's launch count, reset and read together."""
 
@@ -2886,9 +3334,12 @@ def main() -> int:
     lm_moe = timed("7c lm moe", phase_lm_moe, torch, Counters())
     lm_last = timed("7d lm vlm, encdec", phase_lm_vlm_encdec, torch,
                     Counters())
+    train = timed("8 train", phase_train, torch, Counters())
     launches["flash_attention"] = lm["launches"] + sum(
         r["launches"] for r in lm_rec.values()) + lm_moe["launches"] + sum(
-        r["launches"] for r in lm_last.values())
+        r["launches"] for r in lm_last.values()) + train["launches"]
+    launches["threefry"] = launches.get("threefry", 0) + \
+        train["full"]["counts"]["threefry"]
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = {
@@ -2942,13 +3393,21 @@ def main() -> int:
         if name == "flash_attention":
             row["ms_is"] = ("card ms per launch at (Sq, Skv, q_offset) = "
                             "(4096, 4096, 0), bf16, CUDA graph")
-            row["launches_of"] = ("the LM paths' prefills, all of them "
+            row["launches_of"] = ("the LM paths' prefills and phase 8's "
+                                  "training forwards and remat "
+                                  "recomputes, all of them "
                                   "flash_tc_kernel (bf16, tensor cores)")
             row["launches_by_arch"] = {
                 LM_ARCH: lm["launches"],
                 **{a: r["launches"] for a, r in lm_rec.items()},
                 MOE_ARCH: lm_moe["launches"],
-                **{a: r["launches"] for a, r in lm_last.items()}}
+                **{a: r["launches"] for a, r in lm_last.items()},
+                LM_ARCH + " train": train["launches"]}
+            # the training path's backward is the plain flash backward
+            # (FlashAttentionFn), timed at the training shape beside SDPA's
+            # forward + backward
+            row["train"] = {k: train["grad"][k] for k in (
+                "fwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "sdpa_fwd_bwd_ms")}
             row["timed_at"] = krows[name]["timed_at"]
             # the FP32-core kernel (float32 inputs): not on the main path,
             # which is bf16; check c drives it in the reduced config
@@ -2976,7 +3435,8 @@ def main() -> int:
     threefry["launches_of"] = ("rw's step rounds (engine, baselines, "
                                "streaming lanes) and the unfused random "
                                "schedule's split and draw, 5d; the rw "
-                               "serving pools, 5e")
+                               "serving pools, 5e; the training batches, "
+                               "8d")
     idle = [r["name"] for r in table + [threefry] if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels of the path launched no time: {idle}")

@@ -3,8 +3,9 @@
 Every function takes numpy arrays (``np.asarray`` of the reference's jax
 arrays), so this module imports neither JAX nor the reference.  The tests
 use them to start both packages from identical inputs: the graph blocks and
-the state planes play the part that weights play in a model port, and
-``lm_params_from_arrays`` carries the weights themselves.
+the state planes play the part that weights play in a model port,
+``lm_params_from_arrays`` carries the weights themselves and
+``train_state_from_arrays`` a whole training state.
 """
 from __future__ import annotations
 
@@ -84,3 +85,38 @@ def lm_params_from_arrays(tree: dict, cfg: ArchConfig, device=None) -> dict:
         return t.to(device=dev, dtype=storage_dtype(path, cfg))
 
     return put(tree, ())
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype (bfloat16, which numpy
+    holds as ``ml_dtypes``'s, through float32: exact)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def train_state_from_arrays(*, params, mu, nu, count, step, master=None,
+                            ef=None, device=None):
+    """The reference's ``TrainState`` (``jax.tree.map(np.asarray, ...)`` of
+    its ``params``, ``opt.mu``, ``opt.nu``, ``opt.count``, ``opt.master``,
+    ``ef`` and ``step``) as the port's ``train_step.TrainState`` on
+    ``device``, every leaf in its own dtype (the reference trains float32
+    parameters; its ``count`` and ``step`` are int32)."""
+    from repro_torch.train.optimizer import AdamState
+    from repro_torch.train.train_step import TrainState
+
+    dev = resolve_device(device)
+
+    def put(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: put(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    opt = AdamState(mu=put(mu), nu=put(nu), count=put(count),
+                    master=put(master))
+    return TrainState(params=put(params), opt=opt, step=put(step),
+                      ef=put(ef))

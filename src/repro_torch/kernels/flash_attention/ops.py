@@ -16,6 +16,13 @@ products, f32 sums, p rounded to bf16 for p.v), float32 inputs on the FP32
 cores.  On a CPU tensor it runs the plain version in ``ref`` and counts
 nothing.  There is no fallback from one to the other: a build or launch
 failure raises.
+
+Gradients.  When an input requires a gradient, a CUDA call goes through
+:class:`FlashAttentionFn`: its forward is the same launch (counted the
+same way), and it saves q, k, v and the output; its backward is the plain
+flash backward ``ref.flash_attention_bwd_ref`` (the JAX package has no
+Pallas backward either: it trains through its XLA attention).  On the CPU
+autograd differentiates the plain forward directly.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_gqa_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_gqa_ref)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"flash_attention": 0}
@@ -108,6 +116,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: tensors on {q.device} but the "
                          f"current device is cuda:"
                          f"{torch.cuda.current_device()}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                      kv_len, prefix_len)
+    return _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B6 with a gradient: the forward launches the kernel, the backward
+    is the plain flash backward (``ref.flash_attention_bwd_ref``).  Called
+    by :func:`flash_attention` on CUDA tensors that require a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_len, prefix_len):
+        out = _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.masks = dict(causal=causal, window=window, q_offset=q_offset,
+                         kv_len=kv_len, prefix_len=prefix_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, dout,
+                                             **ctx.masks)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len):
+    """One launch of the kernel on checked CUDA tensors (counted)."""
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:

@@ -73,3 +73,70 @@ def flash_attention_gqa_ref(q, k, v, **kw):
     vf = vr.transpose(1, 2).reshape(B * H, Skv, hd)
     out = flash_attention_ref(qf, kf, vf, **kw)
     return out.reshape(B, H, Sq, hd).transpose(1, 2).contiguous()
+
+
+#: query rows of one block of :func:`flash_attention_bwd_ref`
+BWD_BLOCK = 512
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, *, causal=True, window=None,
+                            q_offset=0, kv_len=None, prefix_len=None):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_gqa_ref`'s
+    output at ``dout``, each in its input's dtype: the standard flash
+    backward in float32.  q, out, dout: ``[B, Sq, H, hd]``; k, v: ``[B,
+    Skv, Hkv, hd]``; the masks as for the forward.
+
+    ``D = rowsum(dout * out)``; then, for each block of at most
+    ``BWD_BLOCK`` queries (all H // Hkv heads of a kv head together),
+    recompute the scores, the mask and the normalised probabilities P, and
+    accumulate ``dV += P^T dO``, ``dP = dO V^T``, ``dS = P (dP - D)``,
+    ``dQ = scale dS K`` and ``dK += scale dS^T Q``.  A kv head's dK and dV
+    sum its group's query heads in the products.  Peak memory is one
+    ``[B*Hkv, group * BWD_BLOCK, Skv]`` float32 block of each of s, P and
+    dP, never the whole ``[B*H, Sq, Skv]``.  ``out`` is the forward's
+    output (rounded to its dtype), as a fused backward reads it."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / (hd ** 0.5)
+
+    def heads(x, n):           # [B, S, n*?, hd] -> [B, Hkv, n?, S, hd]
+        return x.float().permute(0, 2, 1, 3).reshape(B, Hkv, n, -1, hd)
+
+    qf, of, dof = heads(q, g), heads(out, g), heads(dout, g)
+    kf = k.float().permute(0, 2, 1, 3).reshape(B * Hkv, Skv, hd)
+    vf = v.float().permute(0, 2, 1, 3).reshape(B * Hkv, Skv, hd)
+    D = torch.sum(dof * of, dim=-1)                     # [B, Hkv, g, Sq]
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for i0 in range(0, Sq, BWD_BLOCK):
+        i1 = min(Sq, i0 + BWD_BLOCK)
+        n = i1 - i0
+
+        def rows(x):           # [B, Hkv, g, n, hd] -> [B*Hkv, g*n, hd]
+            return x[:, :, :, i0:i1].reshape(B * Hkv, g * n, -1)
+        qb, dob = rows(qf), rows(dof)
+        Db = D[:, :, :, i0:i1].reshape(B * Hkv, g * n, 1)
+        mask = attention_mask(n, Skv, causal=causal, window=window,
+                              q_offset=q_offset + i0, kv_len=kv_len,
+                              prefix_len=prefix_len, device=q.device)
+        mask = mask.repeat(g, 1)[None]                  # [1, g*n, Skv]
+        s = torch.where(mask, torch.matmul(qb * scale, kf.transpose(1, 2)),
+                        NEG)
+        p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+        p = torch.where(mask, p, 0.0)
+        p = p / torch.clamp(torch.sum(p, -1, keepdim=True), min=1e-30)
+        del s
+        dv += torch.matmul(p.transpose(1, 2), dob)
+        ds = torch.matmul(dob, vf.transpose(1, 2))      # dP
+        ds = p.mul_(ds.sub_(Db))                        # dS = P (dP - D)
+        dq[:, :, :, i0:i1] = torch.matmul(ds, kf).mul_(scale).reshape(
+            B, Hkv, g, n, hd)
+        dk += torch.matmul(ds.transpose(1, 2), qb).mul_(scale)
+
+    def back(x, n, like):      # [B, Hkv, n?, S, hd] -> [B, S, H?, hd]
+        return x.reshape(B, Hkv * n, -1, hd).permute(0, 2, 1, 3).to(
+            like.dtype).contiguous()
+    return (back(dq, g, q), back(dk.view(B, Hkv, 1, Skv, hd), 1, k),
+            back(dv.view(B, Hkv, 1, Skv, hd), 1, v))

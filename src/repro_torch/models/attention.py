@@ -3,11 +3,13 @@
 The port of the JAX package's ``repro.models.attention`` (its dense,
 single-device paths):
 
-* ``attend``              — prefill attention over a whole prompt or a
-  chunk of one.  On a CUDA tensor it runs the hand-written flash-attention
-  kernel (``kernels/flash_attention``, one launch per call, GQA in the
-  kernel); on a CPU tensor the kernel's plain version.  There is no
-  fallback between them.
+* ``attend``              — prefill and training attention over a whole
+  prompt or a chunk of one.  On a CUDA tensor it runs the hand-written
+  flash-attention kernel (``kernels/flash_attention``, one launch per call,
+  GQA in the kernel); on a CPU tensor the kernel's plain version.  There is
+  no fallback between them.  It carries a gradient on both devices: on the
+  card through ``FlashAttentionFn`` (the kernel forward, the plain flash
+  backward), on the CPU through autograd of the plain version.
 * ``decode_attend_local`` — one new token against an unsharded KV cache,
   plain PyTorch (the JAX package keeps it in plain XLA too).
 
@@ -93,7 +95,7 @@ def attend(q, k, v, q_offset: int = 0, *, causal=True,
     every row, as encdec's padded frames); keys ``< prefix_len`` are seen
     by every query (the vlm's image prefix).  float32 math, masked scores
     at -1e9, output in q's dtype.  k and v may be strided views of a KV
-    cache."""
+    cache.  Differentiable on both devices (module docstring)."""
     return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, kv_len=kv_len,
                                      prefix_len=prefix_len)

@@ -1,4 +1,5 @@
-"""Whisper-style encoder-decoder backbone: prefill and decode.
+"""Whisper-style encoder-decoder backbone: the training forward, prefill
+and decode.
 
 The port of the JAX package's ``repro.models.encdec`` on one device.  The
 conv audio frontend is a stub, as in the reference: a request brings
@@ -121,22 +122,25 @@ def _dec_layer(gen, cfg: ArchConfig, device) -> dict:
     return lp
 
 
-def init_encdec(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+def init_encdec(gen: torch.Generator, cfg: ArchConfig, device,
+                train: bool = False) -> dict:
     """Random parameters with the JAX package's tree, scales and layouts
     (``embed``; ``encoder`` and ``decoder`` stacked on ``[L]``, a decoder
     layer with ``ln_x`` and ``xattn``; ``enc_norm``, ``final_norm``),
-    drawn from ``gen`` on ``device``, each leaf in its storage dtype."""
+    drawn from ``gen`` on ``device``, each leaf in its storage dtype
+    (``train``: the reference's, ``transformer.storage_dtype``)."""
     d = cfg.d_model
     emb = L.init_embedding(gen, L.pad_vocab(cfg.vocab), d, cfg.pdtype,
                            cfg.tie_embeddings, device)
     return {
-        "embed": {k: t.to(tfm.storage_dtype(("embed", k), cfg))
+        "embed": {k: t.to(tfm.storage_dtype(("embed", k), cfg, train))
                   for k, t in emb.items()},
         "encoder": tfm.stacked_init(lambda: _enc_layer(gen, cfg, device),
                                     cfg, cfg.n_enc_layers or cfg.n_layers,
-                                    device, ("encoder",)),
+                                    device, ("encoder",), train),
         "decoder": tfm.stacked_init(lambda: _dec_layer(gen, cfg, device),
-                                    cfg, cfg.n_layers, device, ("decoder",)),
+                                    cfg, cfg.n_layers, device, ("decoder",),
+                                    train),
         "enc_norm": L.init_norm(cfg.pdtype, d, cfg.norm, device),
         "final_norm": L.init_norm(cfg.pdtype, d, cfg.norm, device),
     }
@@ -176,17 +180,44 @@ def pad_frames(frames: torch.Tensor):
     return frames, F
 
 
-def encode(params, cfg: ArchConfig, frames):
+def encode(params, cfg: ArchConfig, frames, remat=False):
     """frames: [B,F,D] stub embeddings -> (memory [B,F_pad,D] in
-    ``cdtype``, F)."""
+    ``cdtype``, F).  ``remat`` recomputes each layer in the backward."""
     x, F = pad_frames(frames.to(cfg.cdtype))
     pos = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)[None]
-    for i in range(cfg.n_enc_layers or cfg.n_layers):
-        lp = tfm._layer(params["encoder"], i)
+
+    def body(x, lp):
         x, _ = _self_block(lp, cfg, x, causal=False, kv_len=F)
-        x = _mlp_block(lp, cfg, x)
+        return _mlp_block(lp, cfg, x)
+    body = tfm.checkpointed(body, remat)
+    for lp in tfm.unstack(params["encoder"]):
+        x = body(x, lp)
     return L.apply_norm(params["enc_norm"], x, cfg.norm), F
+
+
+def forward(params, cfg: ArchConfig, tokens, frames, remat=True):
+    """The training forward.  tokens: [B,S] int; frames: [B,F,D].  Returns
+    (logits [B,S,V] float32, a float32 zero: encdec has no aux loss).  The
+    padded frames are masked in the encoder and the cross-attention as in
+    prefill (``kv_len = F``); each layer is recomputed in the backward
+    under ``remat``."""
+    memory, F = encode(params, cfg, frames, remat)
+    x = L.embed(params["embed"], tokens, cfg.cdtype)
+    S = x.shape[1]
+    x = x + sinusoidal(torch.arange(S, device=x.device), cfg.d_model).to(
+        x.dtype)[None]
+
+    def body(x, lp, memory):
+        x, _ = _self_block(lp, cfg, x, causal=True)
+        x, _ = _cross_block(lp, cfg, x, memory, F)
+        return _mlp_block(lp, cfg, x)
+    body = tfm.checkpointed(body, remat)
+    for lp in tfm.unstack(params["decoder"]):
+        x = body(x, lp, memory)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    logits = L.unembed(params["embed"], x.float(), cfg.vocab)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------

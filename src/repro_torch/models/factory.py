@@ -1,14 +1,22 @@
 """Model API of the LM stack.
 
-The port of the JAX package's ``repro.models.factory`` for serving:
-``build_model(cfg)`` returns a ``Model`` whose ``init`` draws parameters on
-a device and whose ``prefill``/``decode`` are functions of (params,
-batch/state), for every family: the decoder-only ones through
+The port of the JAX package's ``repro.models.factory``: ``build_model(cfg)``
+returns a ``Model`` whose ``init`` draws parameters on a device and whose
+``loss`` (train), ``prefill`` and ``decode`` (serve) are functions of
+(params, batch/state), for every family: the decoder-only ones through
 ``models/transformer.py`` (a vlm batch adds ``image_embeds [B, P, D]``,
 attended with the prefix-LM mask over ``cfg.num_image_tokens``
 positions), encdec through ``models/encdec.py`` (a batch adds ``frames
-[B, F, D]``).  ``logits``, ``loss`` and ``cross_entropy`` wait for the
-training slice (ROADMAP A14).
+[B, F, D]``).
+
+Two sets of parameter dtypes.  ``init()`` stores the leaves as serving
+reads them (``transformer.storage_dtype``: the block matmul weights in the
+compute dtype, bit-identical to the reference's cast at every use, half
+the bytes).  ``init(train=True)`` stores them in the reference's own dtypes
+(``cfg.pdtype``, float32; the ``_KEEP_F32`` leaves float32), which is
+what it trains: its AdamW keeps no master copy of float32 leaves, and
+training the serving storage would switch the master-weight path on and
+change the numbers.
 """
 from __future__ import annotations
 
@@ -27,24 +35,59 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import DecodeState
 
 
+def cross_entropy(logits, labels, mask):
+    """logits: [B,S,V] f32; labels: [B,S] int; mask: [B,S].  The masked
+    mean of ``logsumexp - gold`` over ``max(sum(mask), 1)``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
+    aux_weight: float = 0.01
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None,
-             device=None) -> dict:
+             device=None, *, train: bool = False) -> dict:
         """Parameters drawn from ``generator`` (default: seeded 0) on
-        ``device`` — the card unless the caller asks for the CPU.  Returns
-        the params tree (the reference also returns logical axes, which
-        only its sharding reads)."""
+        ``device`` — the card unless the caller asks for the CPU — in the
+        serving storage dtypes, or with ``train`` in the reference's
+        (module docstring).  Returns the params tree (the reference also
+        returns logical axes, which only its sharding reads)."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         if self.cfg.family == "encdec":
-            return encdec_lib.init_encdec(generator, self.cfg, dev)
+            return encdec_lib.init_encdec(generator, self.cfg, dev, train)
         tfm.check_family(self.cfg)
-        return tfm.init_params(generator, self.cfg, dev)
+        return tfm.init_params(generator, self.cfg, dev, train)
+
+    # -- train --------------------------------------------------------------
+    def logits(self, params, batch, remat=True):
+        """(logits [B, S_text, V] float32, aux): a vlm's image positions
+        are dropped from its logits; encdec reads ``batch["frames"]``."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return encdec_lib.forward(params, cfg, batch["tokens"],
+                                      batch["frames"], remat=remat)
+        if cfg.family == "vlm":
+            lg, aux = tfm.forward(params, cfg, batch["tokens"],
+                                  prefix_embeds=batch["image_embeds"],
+                                  prefix_len=cfg.num_image_tokens,
+                                  remat=remat)
+            return lg[:, cfg.num_image_tokens:], aux
+        return tfm.forward(params, cfg, batch["tokens"], remat=remat)
+
+    def loss(self, params, batch, remat=True):
+        """(loss, {"loss", "ce", "aux"}): the masked cross entropy plus
+        ``aux_weight`` times the moe aux loss."""
+        logits, aux = self.logits(params, batch, remat)
+        ce = cross_entropy(logits, batch["labels"], batch["loss_mask"])
+        loss = ce + self.aux_weight * aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
 
     # -- serve --------------------------------------------------------------
     def prefill(self, params, batch, *, max_len=None):

@@ -92,8 +92,12 @@ def init_embedding(gen, vocab, d, dtype, tie=False, device=None):
 
 
 def embed(p, tokens, cdtype):
-    """Token embedding lookup, the table cast to ``cdtype`` first."""
-    return p["embedding"].to(cdtype)[tokens]
+    """Token embedding lookup, the table cast to ``cdtype`` first.  Through
+    ``F.embedding``, whose backward sums each id's rows in a fixed order
+    on the card (an index's backward, an accumulating ``index_put_``, adds
+    them with atomics in no fixed order: a training step would not repeat
+    itself bit for bit)."""
+    return F.embedding(tokens, p["embedding"].to(cdtype))
 
 
 def unembed(p, x, true_vocab=None):

@@ -117,9 +117,16 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig,
     h = _act(torch.bmm(xe, p["wi"].to(x.dtype)), act)
     if "wg" in p:
         h = h * torch.bmm(xe, p["wg"].to(x.dtype))
-    ye = x.new_empty((n + 1, D))
-    ye[n] = 0                                                    # trash = 0
-    torch.bmm(h, p["wo"].to(x.dtype), out=ye[:n].view(E, B * C, D))
+    # serving writes the product into the buffer; ``out=`` has no
+    # gradient, so training concatenates (one more copy, the same values),
+    # as ssm.linear_scan does
+    if torch.is_grad_enabled() and h.requires_grad:
+        ye = torch.cat([torch.bmm(h, p["wo"].to(x.dtype)).view(n, D),
+                        x.new_zeros(1, D)])                      # trash = 0
+    else:
+        ye = x.new_empty((n + 1, D))
+        ye[n] = 0                                                # trash = 0
+        torch.bmm(h, p["wo"].to(x.dtype), out=ye[:n].view(E, B * C, D))
 
     # each token's K contributions in ascending expert id
     asc = torch.argsort(gate_idx, dim=-1)

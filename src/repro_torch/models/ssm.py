@@ -43,12 +43,26 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     ``t`` holds the composition of elements ``t-2d+1 .. t``, as the pair
     ``(A, B)`` with ``h_t = A * h_{t-2d} + B``; ``ceil(log2 S)`` steps of a
     few whole-tensor operations each, where a loop over time would launch
-    a few kernels per token and layer."""
+    a few kernels per token and layer.  Under autograd (an input that
+    requires a gradient) each step's result is a concatenation instead of
+    writes into a new tensor (``out=`` has no gradient): the same
+    operations, so the same values.  Serving keeps the writes: the
+    concatenations' extra pass made falcon-mamba-7b's prefill 46 % slower
+    on an H100 (PERF.md)."""
     S = a.shape[1]
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (a, b, h0))
     A, Bv = a, b
     d = 1
     while d < S:
         last = 2 * d >= S and h0 is None      # A is not needed any more
+        if grad:
+            Bv = torch.cat([Bv[:, :d],
+                            torch.addcmul(Bv[:, d:], Bv[:, :-d], A[:, d:])], 1)
+            if not last:
+                A = torch.cat([A[:, :d], A[:, :-d] * A[:, d:]], 1)
+            d *= 2
+            continue
         nb = torch.empty_like(Bv)
         nb[:, :d] = Bv[:, :d]
         torch.addcmul(Bv[:, d:], Bv[:, :-d], A[:, d:], out=nb[:, d:])

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly: prefill and decode of the dense, moe, ssm,
-hybrid and vlm families.
+"""Decoder-only LM assembly: the training forward, prefill and decode of
+the dense, moe, ssm, hybrid and vlm families.
 
 The port of the JAX package's ``repro.models.transformer`` on one device.
 Parameters are nested dictionaries with the JAX package's tree and layouts:
@@ -18,16 +18,22 @@ see each other both ways); its decode is the dense decode.  The encdec
 family is ``models/encdec.py``.  The ``rules`` and manual-TP arms of the
 reference (a mesh) have no counterpart here.
 
-Weights are stored as the reference uses them (``storage_dtype``): block
-matmul weights and biases in ``cfg.cdtype`` — bit-identical to the
-reference's ``cast_layer_params`` casting the float32 master copy at every
-use — the embedding table in ``cdtype`` (``embed`` casts before the
+``forward`` (training) runs every layer once over the whole sequence,
+as prefill's whole branch does, and sums the moe layers' aux losses;
+under ``remat`` each layer is recomputed in the backward.  It reads the
+stacked leaves through ``unstack`` (one ``unbind`` a leaf).
+
+Serving weights are stored as the reference uses them
+(``storage_dtype``): block matmul weights and biases in ``cfg.cdtype`` —
+bit-identical to the reference's ``cast_layer_params`` casting the
+float32 master copy at every use — the embedding table in ``cdtype`` (``embed`` casts before the
 gather), and the unembed and every norm in ``cfg.pdtype``: the reference's
 decode reads the norms uncast, its prefill through ``cast_layer_params``.
 So do the ssm block's ``x_proj`` and ``dt_proj``, which the reference's
 decode reads in float32 and its prefill rounded to ``cdtype``.  The
 recurrences' numerics-sensitive leaves (``_KEEP_F32``) stay float32
-everywhere, as in the reference.
+everywhere, as in the reference.  Training stores every leaf in the
+reference's float32 (``storage_dtype(train=True)``).
 
 The KV cache and the recurrent states are updated in place (the reference
 rebuilds them functionally); ``decode_step`` consumes the state it is
@@ -42,6 +48,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -111,11 +118,16 @@ _KEEP_F32 = {"A_log", "D", "lam", "w_a", "b_a", "w_x", "b_x", "dt_bias"}
 _DECODE_F32 = {"x_proj", "dt_proj"}
 
 
-def storage_dtype(path: tuple, cfg: ArchConfig) -> torch.dtype:
+def storage_dtype(path: tuple, cfg: ArchConfig,
+                  train: bool = False) -> torch.dtype:
     """The dtype a parameter leaf is stored in (see the module docstring):
     ``path`` is its key path, e.g. ``("stack", "attn", "wq")``, ``("stack",
     "moe", "wi")``, ``("groups", "rec1", "rec", "lam")`` or encdec's
-    ``("decoder", "ln_x", "scale")``."""
+    ``("decoder", "ln_x", "scale")``.  With ``train``, the reference's own
+    dtypes instead, the ones it trains: every leaf in ``cfg.pdtype``
+    (float32), the ``_KEEP_F32`` leaves in float32."""
+    if train:
+        return torch.float32 if path[-1] in _KEEP_F32 else cfg.pdtype
     if path[0] == "embed":
         if path[-1] == "embedding" and not cfg.tie_embeddings:
             return cfg.cdtype
@@ -154,18 +166,19 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, device):
     return p
 
 
-def stacked_init(make_layer, cfg, n, device, prefix=("stack",)):
+def stacked_init(make_layer, cfg, n, device, prefix=("stack",),
+                 train=False):
     """``n`` layers of ``make_layer()`` stacked on a leading axis in their
-    storage dtypes (``prefix`` is the stack's key path), drawn one layer at
-    a time so that only one layer's float32 draws are live besides the
-    stack."""
+    storage dtypes (``prefix`` is the stack's key path; ``train`` as for
+    :func:`storage_dtype`), drawn one layer at a time so that only one
+    layer's float32 draws are live besides the stack."""
     stack = None
     for i in range(n):
         lp = make_layer()
         if stack is None:
             stack = {g: {k: torch.empty(
                 (n,) + t.shape, device=device,
-                dtype=storage_dtype(prefix + (g, k), cfg))
+                dtype=storage_dtype(prefix + (g, k), cfg, train))
                 for k, t in leaves.items()} for g, leaves in lp.items()}
         for g, leaves in lp.items():
             for k, t in leaves.items():
@@ -173,30 +186,33 @@ def stacked_init(make_layer, cfg, n, device, prefix=("stack",)):
     return stack
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+def init_params(gen: torch.Generator, cfg: ArchConfig, device,
+                train: bool = False) -> dict:
     """Random parameters with the JAX package's scales and layouts, drawn
     from ``gen`` on ``device`` (different numbers from the reference's),
-    each leaf in its storage dtype."""
+    each leaf in its storage dtype (``train``: the reference's dtypes,
+    see :func:`storage_dtype`)."""
     plan = layer_plan(cfg)
     emb = L.init_embedding(gen, L.pad_vocab(cfg.vocab), cfg.d_model,
                            cfg.pdtype, cfg.tie_embeddings, device)
-    params = {"embed": {k: t.to(storage_dtype(("embed", k), cfg))
+    params = {"embed": {k: t.to(storage_dtype(("embed", k), cfg, train))
                         for k, t in emb.items()}}
     if cfg.family == "hybrid":
         ng = cfg.n_layers // 3
         params["groups"] = {
             name: stacked_init(lambda kind=kind: init_layer(
-                gen, cfg, kind, device), cfg, ng, device, ("groups", name))
+                gen, cfg, kind, device), cfg, ng, device, ("groups", name),
+                train)
             for name, kind in (("rec1", "rec"), ("rec2", "rec"),
                                ("attn", "attn"))}
         if cfg.n_layers % 3:
             params["tail"] = stacked_init(
                 lambda: init_layer(gen, cfg, "rec", device), cfg,
-                cfg.n_layers % 3, device, ("tail",))
+                cfg.n_layers % 3, device, ("tail",), train)
     else:
         params["stack"] = stacked_init(
             lambda: init_layer(gen, cfg, plan[0], device), cfg, cfg.n_layers,
-            device)
+            device, train=train)
     params["final_norm"] = L.init_norm(cfg.pdtype, cfg.d_model, cfg.norm,
                                        device)
     return params
@@ -206,6 +222,19 @@ def _layer(stack: dict, i: int) -> dict:
     """Layer ``i``'s leaves (views into the stacked tensors)."""
     return {g: {k: t[i] for k, t in leaves.items()}
             for g, leaves in stack.items()}
+
+
+def unstack(tree) -> list:
+    """Every layer's leaves of a stacked tree (views), one ``unbind`` per
+    leaf.  Under autograd that is one backward node per leaf, which stacks
+    the layers' gradients once; ``t[i]`` per layer would allocate a whole
+    ``[L, ...]`` gradient for each layer.  A leaf may also be a list of
+    per-layer tensors already (``train_step``'s per-layer leaves)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(tree.unbind(0) if isinstance(tree, torch.Tensor) else tree)
 
 
 def cast_layer_params(lp: dict, cdtype: torch.dtype) -> dict:
@@ -243,33 +272,98 @@ def _apply_attn_layer(lp, cfg, x, positions, window=None, prefix_len=None):
     return x + attn.out_proj(lp["attn"], o), (k, v)
 
 
-def _apply_mlp(lp, cfg, x):
-    """The MLP half of a layer: the dense MLP, or the moe layer's experts
-    (whose aux loss serving never reads: it is dropped here, the one place
-    the serving path calls ``apply_moe``)."""
+def _mlp_aux(lp, cfg, x):
+    """The MLP half of a layer: the dense MLP, or the moe layer's experts.
+    Returns (x, the moe aux loss or None)."""
     h = L.apply_norm(lp["ln2"], x, cfg.norm)
     if "moe" in lp:
-        y, _ = moe_lib.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
-        return x + y
-    return x + L.apply_mlp(lp["mlp"], h, cfg.act)
+        y, aux = moe_lib.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
+        return x + y, aux
+    return x + L.apply_mlp(lp["mlp"], h, cfg.act), None
+
+
+def _apply_mlp(lp, cfg, x):
+    """:func:`_mlp_aux` for serving, which never reads the aux loss."""
+    return _mlp_aux(lp, cfg, x)[0]
 
 
 def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None):
     """One layer of ``kind``, full sequence (``attn`` and ``moe`` differ
     only in their MLP; ``prefix_len`` is the vlm's image prefix).  Returns
-    (x, (k, v) or None, new recurrent state or None)."""
+    (x, (k, v) or None, new recurrent state or None, moe aux or None)."""
     lp = cast_layer_params(lp, cfg.cdtype)
     if kind == "ssm":
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
         y, st = ssm_lib.apply_ssm(lp["ssm"], h, cfg)
-        return x + y, None, st
+        return x + y, None, st, None
     if kind == "rec":
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
         y, st = rglru_lib.apply_rglru(lp["rec"], h)
-        return _apply_mlp(lp, cfg, x + y), None, st
+        x, aux = _mlp_aux(lp, cfg, x + y)
+        return x, None, st, aux
     x, kv = _apply_attn_layer(lp, cfg, x, positions, window=_window(cfg),
                               prefix_len=prefix_len)
-    return _apply_mlp(lp, cfg, x), kv, None
+    x, aux = _mlp_aux(lp, cfg, x)
+    return x, kv, None, aux
+
+
+# ---------------------------------------------------------------------------
+# forward (train)
+
+
+def checkpointed(fn, remat: bool):
+    """``fn`` recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant: only its inputs are saved) when ``remat``."""
+    if not remat:
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
+def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
+            prefix_len=None, remat=True):
+    """The training forward.  tokens: [B,S] int; prefix_embeds: [B,P,D] or
+    None (the vlm's image embeddings before the tokens', ``prefix_len``
+    of them attended both ways).  Returns (logits [B, P+S, V] float32, the
+    moe layers' aux losses summed, a float32 scalar).
+
+    The layers run one at a time (the hybrid one (rec1, rec2, attn) group
+    at a time), each recomputed in the backward under ``remat``: the
+    reference's ``jax.checkpoint`` of its scan body.  The attention layers
+    go through ``attend``, which on the card launches the flash kernel in
+    the forward and again in the recompute."""
+    check_family(cfg)
+    x = _embed_with_prefix(params, cfg, tokens, prefix_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(kind):
+        def f(x, lp):
+            x, _, _, a = _apply_layer_full(lp, cfg, kind, x, positions,
+                                           prefix_len)
+            return x, a
+        return checkpointed(f, remat)
+
+    if cfg.family == "hybrid":
+        def group(x, gp):
+            for name, kind in (("rec1", "rec"), ("rec2", "rec"),
+                               ("attn", "attn")):
+                x, _, _, _ = _apply_layer_full(gp[name], cfg, kind, x,
+                                               positions)
+            return x
+        group = checkpointed(group, remat)
+        for gp in unstack(params["groups"]):
+            x = group(x, gp)
+        for lp in unstack(params["tail"]) if "tail" in params else ():
+            x, _ = layer("rec")(x, lp)
+    else:
+        f = layer(layer_plan(cfg)[0])
+        for lp in unstack(params["stack"]):
+            x, a = f(x, lp)
+            if a is not None:
+                aux = aux + a
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    return L.unembed(params["embed"], x.float(), cfg.vocab), aux
 
 
 # ---------------------------------------------------------------------------
@@ -384,8 +478,8 @@ def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None,
         ssm_st = ssm_lib.init_ssm_state(cfg, B, cfg.cdtype, cfg.n_layers,
                                         device=dev)
         for i in range(cfg.n_layers):
-            x, _, st = _apply_layer_full(_layer(params["stack"], i), cfg,
-                                         "ssm", x, positions)
+            x, _, st, _ = _apply_layer_full(_layer(params["stack"], i),
+                                            cfg, "ssm", x, positions)
             _put_state(ssm_st, i, st)
     elif cfg.family == "hybrid":
         ng, n_tail = cfg.n_layers // 3, cfg.n_layers % 3
@@ -396,23 +490,24 @@ def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None,
         groups = params["groups"]
         for i in range(ng):
             for j, name in enumerate(("rec1", "rec2")):
-                x, _, st = _apply_layer_full(_layer(groups[name], i), cfg,
-                                             "rec", x, positions)
+                x, _, st, _ = _apply_layer_full(_layer(groups[name], i),
+                                                cfg, "rec", x, positions)
                 _put_state(lru_st, 2 * i + j, st)
-            x, (k, v), _ = _apply_layer_full(_layer(groups["attn"], i), cfg,
-                                             "attn", x, positions)
+            x, (k, v), _, _ = _apply_layer_full(_layer(groups["attn"], i),
+                                                cfg, "attn", x, positions)
             _fill_cache(cache, i, k, v, window)
         for j in range(n_tail):
-            x, _, st = _apply_layer_full(_layer(params["tail"], j), cfg,
-                                         "rec", x, positions)
+            x, _, st, _ = _apply_layer_full(_layer(params["tail"], j), cfg,
+                                            "rec", x, positions)
             _put_state(lru_st, 2 * ng + j, st)
     else:
         cache = KVCache.init(cfg.n_layers, B, max_len, cfg.n_kv_heads,
                              cfg.head_dim_, cfg.cdtype, device=dev)
         kind = layer_plan(cfg)[0]
         for i in range(cfg.n_layers):
-            x, (k, v), _ = _apply_layer_full(_layer(params["stack"], i), cfg,
-                                             kind, x, positions, prefix_len)
+            x, (k, v), _, _ = _apply_layer_full(_layer(params["stack"], i),
+                                                cfg, kind, x, positions,
+                                                prefix_len)
             _fill_cache(cache, i, k, v, None)
     last = final_logits(params, cfg, x[:, -1])
     if cache is not None:

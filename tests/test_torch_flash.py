@@ -308,3 +308,93 @@ def test_head_dim_256_mqa_matches_jax_flash(dtype, window):
     got = tattn.attend(q, k, v, 0, causal=True, window=window)
     assert got.shape == q.shape
     _close(got, want, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the backward: ``ref.flash_attention_bwd_ref`` (FlashAttentionFn's backward
+# on the card) against autograd through the plain forward and ``jax.grad``
+# of the reference's ``attend``, float32 within 1e-5
+
+BWD_MASKS = {
+    "causal": dict(causal=True),
+    "window": dict(causal=True, window=7),
+    "prefix": dict(causal=True, prefix_len=9),
+    "kv_len": dict(causal=False, kv_len=23),
+    "q_offset": dict(causal=True, q_offset=12),
+}
+
+
+def _bwd_case(seed, mask, group):
+    B, Sq, Hkv, hd = 2, 40, 2, 16
+    Skv = Sq + mask.get("q_offset", 0)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(seed, B, Sq, Skv, Hkv * group, Hkv, hd,
+                                      "float32")
+    dout = np.random.default_rng(seed + 1).normal(
+        size=(B, Sq, Hkv * group, hd)).astype(np.float32)
+    return (jq, jk, jv), (tq, tk, tv), dout
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("mask", list(BWD_MASKS))
+def test_flash_backward_matches_autograd_and_jax_grad(mask, group,
+                                                      monkeypatch):
+    from repro_torch.kernels.flash_attention import ref as fref
+    kw = BWD_MASKS[mask]
+    (jq, jk, jv), (tq, tk, tv), dout = _bwd_case(3, kw, group)
+    # blocks of 16 queries: three blocks, the last one ragged
+    monkeypatch.setattr(fref, "BWD_BLOCK", 16)
+    out = flash_attention_gqa_ref(tq, tk, tv, **kw)
+    got = fref.flash_attention_bwd_ref(tq, tk, tv, out,
+                                       torch.from_numpy(dout), **kw)
+    # autograd through the plain forward
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    flash_attention_gqa_ref(*leaves, **kw).backward(torch.from_numpy(dout))
+    for g, x in zip(got, leaves):
+        np.testing.assert_allclose(g.numpy(), x.grad.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    # jax.grad of the reference's attend
+    Sq, Skv = tq.shape[1], tk.shape[1]
+    kv_mask = None
+    if "kv_len" in kw:
+        kv_mask = jnp.broadcast_to(jnp.arange(Skv) < kw["kv_len"],
+                                   (tq.shape[0], Skv))
+
+    def f(q, k, v):
+        o = jattn.attend(q, k, v, kw.get("q_offset", 0) + jnp.arange(Sq),
+                         jnp.arange(Skv), causal=kw["causal"],
+                         window=kw.get("window"), kv_mask=kv_mask,
+                         prefix_len=kw.get("prefix_len"))
+        return jnp.sum(o * jnp.asarray(dout))
+    want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_attention_fn_plumbing(monkeypatch):
+    """``FlashAttentionFn`` with its launch swapped for the plain forward
+    (the CPU has no kernel): its gradients are ``flash_attention_bwd_ref``'s
+    of the saved tensors, the masks passed through, and no gradient for
+    the mask arguments."""
+    kw = dict(causal=True, window=None, q_offset=0, kv_len=None,
+              prefix_len=5)
+    calls = []
+
+    def launch(q, k, v, causal, window, q_offset, kv_len, prefix_len):
+        calls.append((causal, window, q_offset, kv_len, prefix_len))
+        return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, kv_len=kv_len,
+                                       prefix_len=prefix_len)
+    monkeypatch.setattr(ops, "_launch", launch)
+    _, (tq, tk, tv), dout = _bwd_case(5, kw, 4)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = ops.FlashAttentionFn.apply(*leaves, *kw.values())
+    out.backward(torch.from_numpy(dout))
+    assert calls == [tuple(kw.values())]
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    want = flash_attention_bwd_ref(tq, tk, tv, out.detach(),
+                                   torch.from_numpy(dout), **kw)
+    for x, w in zip(leaves, want):
+        assert torch.equal(x.grad, w)
+    assert all(x.grad.abs().max() > 0 for x in leaves)
