@@ -92,7 +92,16 @@ Phases, each of which fails the run on any error:
               each pool's first request cold and prewarmed, the cold
               build split into ``column_lists``, ``DeviceGraph.build``,
               chunks and the copy back); ``launch/serve.py --workload
-              graph`` at road-ca ("serve cli")
+              graph`` at road-ca ("serve cli").  5f: the distributed
+              backend on grid2d(UNFUSED_PATH_SIDE) with phase 5's sources
+              and plan, through ``launch/mesh.spawn``: four gloo ranks on
+              the one card (mesh (1, 4): the six kinds; (2, 2): sssp and
+              ppr; ``decode_attend_partitioned`` at starcoder2-7b's decode
+              shape against ``decode_attend_local`` within 1e-5), then one
+              NCCL rank (mesh (1, 1): sssp and ppr); every rank the same
+              bits, bitwise equal to the engine but ppr (4·eps·deg, mass,
+              residual bound), every rank's B1 (B2 for ppr, threefry for
+              rw) count above zero; one ``{"distributed": ...}`` line
   6. flash    the flash-attention kernels against their plain version on
               the card at the LM paths' shapes (starcoder2-7b: H=36, Hkv=4,
               hd=128; (Sq, Skv, q_offset) = (512, 512, 0), (3000, 3000, 0),
@@ -1306,10 +1315,12 @@ def phase_path(torch, counters) -> dict:
     # host-paced: 90-111 s for sssp and bfs at side 192)
     side = UNFUSED_PATH_SIDE
     gu, csru, su, usess, ufsess = setup(side)
+    side_answers = {}         # the engine's answers phase 5f holds against
     for kind in ("sssp", "bfs", "ppr"):
         ures = run(kind, usess, "dense", gu, csru, su, side)
         fres = run(kind, ufsess, "dense", gu, csru, su, side)
         same_run(fres, ures, kind, f"side {side}: fused against unfused")
+        side_answers[kind] = ures
     log(f"path side {side}: fused sssp and bfs bitwise equal to unfused, "
         f"ppr's visits, rounds and chunks equal")
     log(f"path setup+runs: {time.perf_counter() - t0:.1f} s, plan B="
@@ -1317,7 +1328,9 @@ def phase_path(torch, counters) -> dict:
     bg, perm = sess.prepared()
     phase_profile(torch, bg, perm[srcs])
     return launches, {"sess": sess, "fsess": fsess, "srcs": srcs,
-                      "csr": csr, "answers": answers}
+                      "csr": csr, "answers": answers,
+                      "side": {"sess": usess, "srcs": su,
+                               "answers": side_answers}}
 
 
 def _canonical_cc(g) -> np.ndarray:
@@ -1433,6 +1446,8 @@ def phase_kinds(torch, counters, ctx, launches) -> None:
         fres, counts = drive(f"fused {kind} {side}", usess, kind, su,
                              k=K_HOPS, fused=True)
         add(_launched(kind, counts, fres.stats, True))
+        if side == f"side {UNFUSED_PATH_SIDE}":
+            ctx["side"]["answers"][kind] = ures
         if not (np.array_equal(ures.values, fres.values)
                 and (kind == "cc" or np.array_equal(ures.residual,
                                                     fres.residual))
@@ -2024,6 +2039,142 @@ def phase_serve(torch, counters, ctx, launches) -> dict:
 
 #: the fused visit's kernels in a profiler trace (one per algebra, each
 #: instantiated per cluster size: the last template argument)
+#: phase 5f: the distributed backend.  Four gloo ranks share the card (NCCL
+#: refuses two ranks on one GPU), then one NCCL rank runs a world of one
+DIST_WORLD = 4
+DIST_GLOO_RUNS = (((1, 4), ("sssp", "bfs", "ppr", "cc", "kreach", "rw")),
+                  ((2, 2), ("sssp", "ppr")))
+DIST_NCCL_RUNS = (((1, 1), ("sssp", "ppr")),)
+#: the partitioned decode at starcoder2-7b's decode shape: (batch, cache
+#: slots, heads, kv heads, head dim), a bf16 cache (q in float32, so the
+#: comparison sees the combine, not a bf16 rounding of the output)
+DIST_DECODE_SHAPE = (LM_BATCH, LM_MAX_LEN, 36, 4, 128)
+DIST_DECODE_TOL = 1e-5
+DIST_K_HOPS, DIST_RW_LENGTH = 8, 32
+
+
+def phase_distributed(torch, ctx, launches, card: str) -> None:
+    """Phase 5f: ``FPPSession.run(..., backend="distributed")`` on
+    grid2d(UNFUSED_PATH_SIDE) with phase 5's 64 sources and plan (B = 128,
+    P = 32), in a world of four gloo ranks that share the card (mesh (1, 4):
+    the six kinds; mesh (2, 2): sssp and ppr; the partitioned decode at
+    starcoder2-7b's decode shape on (1, 4)), then in a world of one NCCL
+    rank (mesh (1, 1): sssp and ppr).  Every rank must return the same
+    bits; sssp, bfs, cc, kreach and rw bitwise equal to the engine on the
+    card (phase 5's and 5c's side-64 runs; cc and rw run here), ppr within
+    4·eps·deg of it with its mass and residual bound; the decode within
+    1e-5 of ``decode_attend_local`` on the whole cache.  Each rank resets
+    its counts before each run and reads them after: each must have
+    launched B1 (B2 for ppr, threefry for rw); the sums join
+    ``launches``.  The walls are four processes sharing one card, so they
+    measure the exchange's overhead, not scaling."""
+    from repro_torch.launch import distributed as launcher
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.attention import decode_attend_local
+
+    side = ctx["side"]
+    sess, srcs, answers = side["sess"], side["srcs"], dict(side["answers"])
+    g = sess.graph
+    Q = len(srcs)
+    bg, _ = sess.prepared()
+    answers["cc"] = sess.run("cc", srcs)
+    answers["rw"] = sess.run("rw", srcs, length=DIST_RW_LENGTH,
+                             seed=RANDOM_SEED)
+    graph = ("grid2d", {"rows": UNFUSED_PATH_SIDE, "cols": UNFUSED_PATH_SIDE,
+                        "seed": 0})
+
+    def cases(runs):
+        return [{"graph": graph, "mesh": mesh, "kind": kind,
+                 "sources": srcs.tolist(), "num_queries": Q,
+                 "block_size": None, "k": DIST_K_HOPS,
+                 "length": DIST_RW_LENGTH, "seed": RANDOM_SEED,
+                 "eps": PPR_EPS}
+                for mesh, kinds in runs for kind in kinds]
+
+    lengths = np.random.default_rng(5).integers(
+        1, LM_MAX_LEN + 1, size=LM_BATCH).tolist()
+    decode = {"decode": True, "mesh": (1, DIST_WORLD),
+              "shape": DIST_DECODE_SHAPE, "seed": 7, "dtype": "bfloat16",
+              "lengths": lengths}
+    deg = g.out_degree()
+    kernel_of = {"ppr": "masked_matmul", "rw": "threefry"}
+    rows = []
+    for backend, world, cs in (
+            ("gloo", DIST_WORLD, cases(DIST_GLOO_RUNS) + [decode]),
+            ("nccl", 1, cases(DIST_NCCL_RUNS))):
+        t = time.perf_counter()
+        per_rank = spawn(launcher.run_cases, world, backend,
+                         args=(cs, None), timeout_s=120)
+        log(f"distributed {backend} world of {world}: "
+            f"{time.perf_counter() - t:.1f} s with the ranks' start")
+        if not launcher.same_answers(per_rank):
+            raise AssertionError(f"distributed {backend}: the ranks' "
+                                 f"answers differ")
+        for i, case in enumerate(cs):
+            got = per_rank[0][i]
+            counts = [r[i]["launches"] for r in per_rank]
+            for name in ("minplus", "masked_matmul", "threefry"):
+                launches[name] = launches.get(name, 0) + sum(
+                    c[name] for c in counts)
+            row = {"mesh": list(case["mesh"]), "backend": backend,
+                   "wall_s": [r[i]["wall_s"] for r in per_rank],
+                   "launches": counts}
+            if case.get("decode"):
+                q, k, v = launcher.decode_inputs(DIST_DECODE_SHAPE, 7,
+                                                 "bfloat16")
+                dev = torch.device("cuda")
+                want = decode_attend_local(
+                    q.to(dev), k.to(dev), v.to(dev),
+                    torch.arange(LM_MAX_LEN, device=dev),
+                    torch.tensor(lengths, device=dev)).cpu().numpy()
+                err = float(np.abs(got["out"] - want).max())
+                if not err <= DIST_DECODE_TOL:
+                    raise AssertionError(f"partitioned decode off by {err}")
+                rows.append({"op": "decode_attend_partitioned",
+                             "shape": list(DIST_DECODE_SHAPE),
+                             "lengths": lengths, "max_abs_err": err, **row})
+                continue
+            kind = case["kind"]
+            need = kernel_of.get(kind, "minplus")
+            if not all(c[need] > 0 for c in counts):
+                raise AssertionError(f"distributed {backend} {kind} "
+                                     f"{case['mesh']}: a rank launched no "
+                                     f"{need}: {counts}")
+            want = answers[kind]
+            if kind == "ppr":
+                err = np.abs(got["values"] - want.values) / np.maximum(deg, 1)
+                mass = got["values"].sum(1) + got["residual"].sum(1)
+                r = got["residual"][:, deg > 0]
+                if not (err.max() <= 4 * PPR_EPS
+                        and np.abs(mass - 1.0).max() <= 5e-3
+                        and (r <= PPR_EPS * deg[deg > 0] + 1e-6).all()):
+                    raise AssertionError(
+                        f"distributed {backend} ppr {case['mesh']}: "
+                        f"{err.max()} from the engine, mass {mass.min()}.."
+                        f"{mass.max()}")
+            elif not (np.array_equal(got["values"], want.values)
+                      and (kind != "kreach"
+                           or np.array_equal(got["residual"],
+                                             want.residual))
+                      and (kind != "rw"
+                           or np.array_equal(got["edges"],
+                                             want.edges_processed))):
+                raise AssertionError(f"distributed {backend} {kind} "
+                                     f"{case['mesh']}: not bitwise equal "
+                                     f"to the engine")
+            rows.append({"kind": kind,
+                         "supersteps": got["stats"]["supersteps"],
+                         "device_syncs": [r[i]["stats"]["device_syncs"]
+                                          for r in per_rank],
+                         "edges": float(got["edges"].sum()), **row})
+    log("distributed: every rank the same bits; sssp, bfs, cc, kreach and "
+        "rw bitwise equal to the engine, ppr within 4·eps·deg; the decode "
+        f"within {DIST_DECODE_TOL}")
+    log(json.dumps({"distributed": {
+        "card": card, "graph": f"grid2d({UNFUSED_PATH_SIDE})", "n": g.n,
+        "Q": Q, "B": bg.block_size, "P": bg.num_parts, "runs": rows}}))
+
+
 FUSED_NAMES = {"minplus": "fused_minplus_kernel", "push": "fused_push_kernel"}
 #: fg_minplus's and fg_masked_matmul's kernel in a profiler trace
 CONTRACT_NAME = "list_contract_kernel"
@@ -3326,6 +3477,7 @@ def main() -> int:
     timed("5d rw, random, streaming", phase_random, torch, Counters(), ctx,
           launches)
     timed("5e serve", phase_serve, torch, Counters(), ctx, launches)
+    timed("5f distributed", phase_distributed, torch, ctx, launches, card)
     del ctx
     torch.cuda.empty_cache()
     krows["flash_attention"] = timed("6 flash", phase_flash, torch)
@@ -3435,8 +3587,9 @@ def main() -> int:
     threefry["launches_of"] = ("rw's step rounds (engine, baselines, "
                                "streaming lanes) and the unfused random "
                                "schedule's split and draw, 5d; the rw "
-                               "serving pools, 5e; the training batches, "
-                               "8d")
+                               "serving pools, 5e; the distributed rw's "
+                               "walkers, summed over ranks, 5f; the "
+                               "training batches, 8d")
     idle = [r["name"] for r in table + [threefry] if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels of the path launched no time: {idle}")

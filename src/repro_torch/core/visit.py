@@ -1,7 +1,8 @@
 """The visit algebra — one Algorithm-2 skeleton, in eager PyTorch.
 
-The port of the JAX package's ``repro.core.visit`` for the single-device
-engine.  A visit of partition ``p`` is
+The port of the JAX package's ``repro.core.visit``: the single-device
+engine's visit and megastep, and the distributed runtime's
+:func:`superstep`.  A visit of partition ``p`` is
 
     apply buffered ops   (consolidate into the resident partition's state)
     relax locally        (until converged, yielded, or out of rounds)
@@ -548,3 +549,86 @@ def harvest_edges(eq_hi: np.ndarray, eq_lo: np.ndarray) -> np.ndarray:
     """Fold a harvested (hi, lo) int32 pair into exact float64 edge counts."""
     return (np.asarray(eq_hi, dtype=np.float64) * float(1 << EDGE_SHIFT)
             + np.asarray(eq_lo, dtype=np.float64))
+
+
+# ---------------------------------------------------------------------------
+# the superstep of the distributed runtime (core/distributed.py)
+
+
+def superstep(slab, planes, buf, *, algebra: VisitAlgebra, max_rounds: int,
+              mesh, part_axis: str = "model"):
+    """One superstep on one rank's shard: visit the rank's best-priority
+    partition, then exchange boundary ops with one ``all_to_all`` over
+    ``part_axis``.
+
+    ``slab`` is the rank's :class:`~repro_torch.core.distributed.Slab`;
+    ``planes`` (each ``[pl, Qs, B]``) and ``buf`` (``[pl, Qs, B]``, no
+    trash row) are updated in place.  Returns ``(eq int32 [Qs], rounds,
+    syncs)``: this superstep's edges per query lane, relax rounds and
+    reads back to the host (one per relax exit test, one for the arriving
+    slot destinations).
+
+    When every priority is +inf it still visits partition 0, a no-op, as
+    the reference's argmin does, so supersteps and edges match it.  The
+    relax goes through ``algebra.step`` (B1 or B2 on the diagonal block),
+    the emissions are one ``algebra.contrib`` call over the ``dmax``
+    neighbour slots, and what arrives is applied in the reference's order,
+    ``i = 0 .. ndev*dmax - 1`` (ppr's summation order).
+    """
+    pl, dmax, ndev = slab.pl, slab.dmax, slab.ndev
+    prio, _ = algebra.prio_of(buf, planes, slab.deg)              # [pl]
+    p = torch.argmin(prio).view(1)       # first minimum; all +inf -> 0
+    kd = p * (1 + dmax)                  # the diagonal block's slab index
+    nnz_all = slab.row_nnz.index_select(0, p)[0]                  # [1+dmax,B]
+    nnz_pp = nnz_all[0]
+    deg_p = slab.deg.index_select(0, p)[0]
+    budget = slab.edge_budget.index_select(0, p)                  # [1]
+    planes_row = tuple(x.index_select(0, p)[0] for x in planes)
+    buf_row = buf.index_select(0, p)[0]
+    carry = algebra.begin(planes_row, buf_row, deg_p)
+    Qs, B = buf_row.shape
+
+    eq = torch.zeros(Qs, dtype=torch.int32, device=buf.device)
+    rounds = syncs = 0
+    while rounds < max_rounds:
+        act = algebra.active(carry, deg_p, eq, budget)
+        syncs += 1
+        if not bool(act.any()):
+            break
+        eq += torch.where(act, nnz_pp, 0).sum(dim=1, dtype=torch.int32)
+        carry = algebra.step(carry, act, slab, kd, deg_p)
+        rounds += 1
+
+    # emissions: one contribution per (padded) out-slot, routed to the
+    # owner rank of its destination partition; row ndev is a trash row for
+    # the padding slots
+    pay = torch.full((ndev + 1, dmax, Qs, B), algebra.identity,
+                     dtype=buf.dtype, device=buf.device)
+    slot_dst = torch.full((ndev + 1, dmax), -1, dtype=torch.int64,
+                          device=buf.device)
+    if dmax:
+        payload = algebra.emit_payload(carry)
+        emask = algebra.emit_mask(carry)
+        slots = torch.arange(dmax, device=buf.device)
+        cands = algebra.contrib(payload, slab, kd + 1 + slots)   # [dmax,Qs,B]
+        eq += torch.where(emask, nnz_all[1:].sum(dim=0), 0).sum(
+            dim=1, dtype=torch.int32)
+        dsts = slab.dst_part.index_select(0, p)[0, 1:]           # [dmax]
+        valid = dsts >= 0
+        owner = torch.where(valid, dsts // pl, ndev)
+        pay[owner, slots] = cands
+        slot_dst[owner, slots] = torch.where(valid, dsts % pl, -1)
+    recv = mesh.all_to_all(pay[:ndev], part_axis)
+    recv_dst = mesh.all_to_all(slot_dst[:ndev], part_axis)
+
+    # write back own planes and yielded ops, then apply what arrived
+    new_rows, keep_row = algebra.finish(carry, deg_p)
+    buf.index_copy_(0, p, keep_row[None])
+    for x, nr in zip(planes, new_rows):
+        x.index_copy_(0, p, nr[None])
+    flat = recv.reshape(ndev * dmax, Qs, B)
+    syncs += 1
+    for i, l in enumerate(recv_dst.reshape(-1).tolist()):
+        if l >= 0:
+            buf[l] = algebra.combine(buf[l], flat[i])
+    return eq, rounds, syncs

@@ -1,14 +1,19 @@
 """Backend dispatch behind one result contract.
 
 The port of the JAX package's ``repro.fpp.backends``.  Every kind (sssp,
-bfs, ppr, cc, kreach, rw) runs on the ``engine`` backend (the buffered
-engine, ``core/engine.py``; rw the buffered walker loop,
-``core/randomwalk.py``) and on ``baselines`` (the global-frontier engines,
-``core/baselines.py``); the ``distributed`` backend raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  Whatever
-the backend, ``values`` is float32 ``[Q, n]`` in the *reordered* id space
-(the session maps back to original ids) and ``edges_processed`` is float64
-``[Q]`` holding exact integral counts.
+bfs, ppr, cc, kreach, rw) runs on every backend:
+
+  engine       the buffered engine (``core/engine.py``; rw the buffered
+               walker loop, ``core/randomwalk.py``)
+  distributed  the superstep runtime over ``torch.distributed``
+               (``core/distributed.py``): partitions over the mesh's
+               ``model`` axis, queries over ``data``; every rank of the
+               mesh calls it with the same arguments
+  baselines    the global-frontier engines (``core/baselines.py``)
+
+Whatever the backend, ``values`` is float32 ``[Q, n]`` in the *reordered*
+id space (the session maps back to original ids) and ``edges_processed``
+is float64 ``[Q]`` holding exact integral counts.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core import distributed as _dist
 from repro_torch.core.baselines import (global_minplus, global_push,
                                        global_random_walks)
 from repro_torch.core.engine import FPPEngine
@@ -25,6 +31,7 @@ from repro_torch.core.oracles import decode_kreach
 from repro_torch.core.randomwalk import run_random_walks
 from repro_torch.core.visit import cc_label_plane
 from repro_torch.core.yielding import YieldConfig
+from repro_torch.launch.mesh import Mesh, world_size
 
 BACKENDS = ("engine", "distributed", "baselines")
 KINDS = ("sssp", "bfs", "ppr", "cc", "kreach", "rw")
@@ -33,8 +40,9 @@ KINDS = ("sssp", "bfs", "ppr", "cc", "kreach", "rw")
 _ENGINE_MODE = {"sssp": "minplus", "bfs": "minplus", "ppr": "push",
                 "cc": "cc", "kreach": "kreach"}
 
-#: where the backends not ported yet are queued
-_ROADMAP = {"distributed": "A10"}
+#: the default mesh, built once per default process group (building a mesh
+#: is collective: see launch/mesh.py)
+_DEFAULT_MESH: dict = {}
 
 
 @dataclasses.dataclass
@@ -91,15 +99,23 @@ def canonicalize_cc(values: np.ndarray) -> np.ndarray:
 
 
 def check_supported(backend: str, kind: str) -> None:
-    """Raise unless the port runs ``kind`` on ``backend``."""
+    """Raise unless ``backend`` and ``kind`` are known."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if kind not in KINDS:
         raise ValueError(f"unknown query kind {kind!r}; one of {KINDS}")
-    if backend in _ROADMAP:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet "
-            f"(ROADMAP {_ROADMAP[backend]})")
+
+
+def default_mesh() -> Mesh:
+    """``(data=1, model=world)`` over the initialised default process
+    group, or the one-rank mesh when there is none."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return Mesh((1, 1))
+    world = dist.group.WORLD
+    if _DEFAULT_MESH.get("group") is not world:
+        _DEFAULT_MESH.update(group=world, mesh=Mesh((1, world_size())))
+    return _DEFAULT_MESH["mesh"]
 
 
 def _rw_result(res, stats: dict) -> BackendResult:
@@ -116,7 +132,7 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
               max_visits: Optional[int] = None,
               fused: bool = False, frontier_mode: str = "dense",
               k: int = 8, hop_stride: float = 1.0,
-              length: int = 32, seed: int = 0,
+              length: int = 32, seed: int = 0, mesh=None,
               device=None) -> BackendResult:
     """Run one query batch (sources in reordered ids) on one backend.
 
@@ -134,6 +150,9 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
     the natural graph plus ``length``/``seed``; its values are occupancy
     counts and its walks are the same on both backends (the tape contract
     of ``core/randomwalk.py``); ``fused`` does not apply to it.
+    ``mesh`` (distributed backend only) defaults to :func:`default_mesh`;
+    the distributed stats are the reference's ``supersteps`` plus this
+    rank's ``device_syncs``.
     """
     if fused and backend != "engine":
         raise ValueError(
@@ -147,6 +166,12 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
                                    device=device)
             return _rw_result(res, {"visits": res.visits,
                                     "rounds": res.rounds,
+                                    "device_syncs": res.device_syncs})
+        if backend == "distributed":
+            res = _dist.run_distributed_walks(
+                bg, sources, mesh or default_mesh(), length, seed=seed,
+                device=device)
+            return _rw_result(res, {"supersteps": res.visits,
                                     "device_syncs": res.device_syncs})
         res = global_random_walks(bg, sources, length, seed=seed,
                                   device=device)
@@ -165,6 +190,27 @@ def run_query(backend: str, kind: str, bg: BlockGraph, sources: np.ndarray,
             "modeled_bytes": res.stats.modeled_bytes,
             "host_syncs": res.stats.host_syncs,
             "device_syncs": res.stats.device_syncs})
+
+    if backend == "distributed":
+        mesh = mesh or default_mesh()
+        if kind == "ppr":
+            res = _dist.run_distributed_ppr(bg, sources, mesh, alpha=alpha,
+                                            eps=eps, yield_config=yield_config,
+                                            device=device)
+        elif kind == "cc":
+            res = _dist.run_distributed_cc(bg, len(sources), mesh,
+                                           yield_config=yield_config,
+                                           device=device)
+        else:
+            res = _dist.run_distributed_sssp(bg, sources, mesh,
+                                             yield_config=yield_config,
+                                             device=device)
+        values, residual = res.values, res.residual
+        if kind == "kreach":
+            values, residual = decode_kreach(values, hop_stride, k)
+        return _normalize(values, residual, res.edges_processed, {
+            "supersteps": res.supersteps,
+            "device_syncs": res.device_syncs})
 
     # baselines: the global-frontier engines
     if kind == "ppr":

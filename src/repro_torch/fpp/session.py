@@ -10,6 +10,7 @@ The port of the JAX package's ``repro.fpp.session`` for this slice:
     res = sess.run("kreach", sources, k=8)     # residual = hop counts
     res = sess.run("rw", sources, length=32, seed=0)       # occupancy
     res = sess.run("sssp", sources, backend="baselines")   # same contract
+    res = sess.run("ppr", sources, backend="distributed")  # every rank
     sess.plan(num_queries=64, tune=True)       # measured block size
     bc, res = sess.bc(sources)                 # the paper's applications
     labels, res = sess.landmarks(landmarks)
@@ -162,7 +163,7 @@ class FPPSession:
             max_visits: Optional[int] = None,
             fused: Optional[bool] = None,
             frontier_mode: str = "dense", k: int = 8, length: int = 32,
-            seed: int = 0) -> SessionResult:
+            seed: int = 0, mesh=None) -> SessionResult:
         """Execute one query batch.  Sources and values use original ids.
 
         ``fused`` defaults to the plan's setting (``plan(fused=True)``);
@@ -181,7 +182,9 @@ class FPPSession:
         components only on symmetric input (on directed input it regroups
         forward min labels).  The ``random`` schedule draws from the
         engine's default seed, as the reference's session does; ``seed``
-        is rw's.
+        is rw's.  ``backend="distributed"`` runs on ``mesh`` (default:
+        ``fpp/backends.default_mesh``); every rank of the mesh makes the
+        same call and gets the same result.
         """
         sources = np.asarray(sources)
         p = self.current_plan
@@ -202,7 +205,7 @@ class FPPSession:
             yield_config=yc, alpha=alpha, eps=eps, max_visits=max_visits,
             fused=bool(fused) and kind != "rw", frontier_mode=frontier_mode,
             k=k, hop_stride=(self.kreach_stride if kind == "kreach" else 1.0),
-            length=length, seed=seed, device=self.device)
+            length=length, seed=seed, mesh=mesh, device=self.device)
         values = out.values[:, perm]          # back to original vertex ids
         if kind == "cc":
             values = _backends.canonicalize_cc(values)

@@ -1,0 +1,223 @@
+"""Meshes over ``torch.distributed`` ranks, and the collectives on them.
+
+The port of the JAX package's ``repro.launch.mesh``.  A :class:`Mesh` is a
+row-major grid of ranks with named axes (``("data", "model")`` for the
+host meshes): rank ``r`` of a ``(data, model)`` mesh sits at
+``(r // model, r % model)``, the device order ``jax.make_mesh`` gives host
+devices, so partition ownership and query shards match the reference rank
+for rank.  The mesh holds one process group per axis (the ranks that
+differ only along it) and one over all its ranks, and carries the four
+collectives the distributed runtime uses: ``all_to_all`` over an axis
+(``dist.all_to_all_single``), max and sum all-reduces, and ``all_gather``.
+
+Building a mesh is collective: every rank of the world builds the same
+mesh, in the same order, because ``dist.new_group`` must be called by every
+rank for every group.  A mesh smaller than the world is laid over
+consecutive blocks of ranks, one replica per block (``make_host_mesh``'s
+``(1, 1)`` fallback on a world of 4 is four one-rank replicas, each
+computing the whole answer).
+
+With no process group initialised, a mesh has one rank (``Mesh((1,
+1))``, which ``fpp/backends.default_mesh`` gives) and its collectives
+return their input; that is the only place where one rank differs.
+
+Not ported: ``compat_make_mesh`` and ``set_mesh``.  They paper over jax
+versions (the ``axis_types=`` keyword, ``jax.set_mesh`` against the
+resource-env context) and have no torch counterpart: a torch mesh is built
+directly and is never ambient.
+
+:func:`spawn` starts a world of local ranks (``torch.multiprocessing``'s
+spawn start method, a ``FileStore`` rendezvous in a temporary directory,
+so no port is fixed) and returns each rank's result; the collective
+backend is its explicit argument (``gloo``: ranks may share one card or
+run on the CPU; ``nccl``: one rank per card).
+"""
+from __future__ import annotations
+
+import datetime
+import math
+import os
+import pickle
+import shutil
+import tempfile
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+HOST_AXES = ("data", "model")
+
+
+class Mesh:
+    """A row-major grid of ranks with named axes (see the module doc).
+
+    ``shape`` maps each axis name to its size, as the reference's
+    ``mesh.shape`` does; ``coords`` maps it to this rank's coordinate.
+    """
+
+    def __init__(self, shape: Sequence[int],
+                 axis_names: Sequence[str] = HOST_AXES):
+        shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or min(shape) < 1:
+            raise ValueError(f"mesh shape {shape} does not fit axes "
+                             f"{axis_names}")
+        size = math.prod(shape)
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.size = size
+        self.distributed = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if self.distributed else 1
+        rank = dist.get_rank() if self.distributed else 0
+        if world % size:
+            raise ValueError(f"a mesh of {size} ranks {shape} does not tile "
+                             f"a world of {world}")
+        self.rank = rank
+        base = rank - rank % size
+        grid = np.arange(size).reshape(shape)      # mesh-local ranks
+        self.coords = dict(zip(axis_names, (int(c) for c in np.unravel_index(
+            rank % size, shape))))
+        self._groups: dict = {}
+        if not self.distributed:
+            return
+        # every rank creates every group, in one order (dist.new_group);
+        # an axis's groups are the lines of ranks that differ only along it
+        for b in range(0, world, size):
+            g = dist.new_group(list(range(b, b + size)))
+            if b == base:
+                self._groups[None] = g
+            for ax, n in enumerate(shape):
+                for line in np.moveaxis(grid, ax, -1).reshape(-1, n).tolist():
+                    ranks = [b + r for r in line]
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        self._groups[axis_names[ax]] = g
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major index over ``axes`` (its shard number)."""
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    # -- collectives (identity on a one-rank mesh with no process group) --
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``out[j] = x[me]`` of the rank at coordinate ``j`` along
+        ``axis``: ``x`` is ``[shape[axis], ...]``."""
+        if not self.distributed:
+            return x
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self._groups[axis])
+        return out
+
+    def _all_reduce(self, x: torch.Tensor, op, axis) -> torch.Tensor:
+        if not self.distributed:
+            return x
+        x = x.clone()
+        dist.all_reduce(x, op=op, group=self._groups[axis])
+        return x
+
+    def all_reduce_max(self, x: torch.Tensor,
+                       axis: Optional[str] = None) -> torch.Tensor:
+        """Max over ``axis`` (None: over the whole mesh)."""
+        return self._all_reduce(x, dist.ReduceOp.MAX, axis)
+
+    def all_reduce_sum(self, x: torch.Tensor,
+                       axis: Optional[str] = None) -> torch.Tensor:
+        """Sum over ``axis`` (None: over the whole mesh)."""
+        return self._all_reduce(x, dist.ReduceOp.SUM, axis)
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``[shape[axis], *x.shape]``: every rank's ``x`` along ``axis``,
+        in coordinate order."""
+        if not self.distributed:
+            return x[None]
+        x = x.contiguous()
+        out = [torch.empty_like(x) for _ in range(self.shape[axis])]
+        dist.all_gather(out, x, group=self._groups[axis])
+        return torch.stack(out)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def world_size() -> int:
+    return dist.get_world_size() if (dist.is_available()
+                                     and dist.is_initialized()) else 1
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """A ``(data, model)`` mesh over the world, or ``(1, 1)`` when it asks
+    for more ranks than the world has (the reference's rule)."""
+    if data * model > world_size():
+        data, model = 1, 1
+    return Mesh((data, model))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """``(16, 16)`` over ``("data", "model")``, or ``(2, 16, 16)`` over
+    ``("pod", "data", "model")``: needs an initialised world of exactly
+    that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else HOST_AXES
+    want, have = math.prod(shape), world_size()
+    if have != want:
+        raise ValueError(f"the production mesh {shape} needs a world of "
+                         f"{want} ranks; this one has {have}")
+    return Mesh(shape, axes)
+
+
+def chips(mesh: Mesh) -> int:
+    return int(mesh.size)
+
+
+# ---------------------------------------------------------------------------
+# a world of local ranks
+
+
+def _rank_main(rank: int, world: int, backend: str, store_dir: str,
+               timeout_s: float, fn: Callable, args: tuple) -> None:
+    # every rank is on this host, so gloo talks over the loopback device
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.set_num_threads(1)
+    if torch.cuda.is_available():
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    store = dist.FileStore(os.path.join(store_dir, "store"), world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        out = fn(rank, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def spawn(fn: Callable, world: int, backend: str, args: tuple = (),
+          timeout_s: float = 60.0) -> list:
+    """Run ``fn(rank, *args)`` on ``world`` local ranks joined in one
+    process group of ``backend`` and return their results, by rank.
+
+    ``fn`` is a module-level function (the spawn start method pickles it).
+    Each rank sets its CUDA device to ``rank % device_count`` where there is
+    a card, and one CPU thread; ``timeout_s`` bounds the rendezvous and
+    every collective.  A rank that fails fails the call."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"unknown collective backend {backend!r}; "
+                         f"gloo or nccl")
+    store_dir = tempfile.mkdtemp(prefix="fpp_world_")
+    try:
+        torch.multiprocessing.spawn(
+            _rank_main, args=(world, backend, store_dir, timeout_s, fn, args),
+            nprocs=world, join=True)
+        out = []
+        for r in range(world):
+            with open(os.path.join(store_dir, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)

@@ -12,9 +12,13 @@ single-device paths):
   backward), on the CPU through autograd of the plain version.
 * ``decode_attend_local`` — one new token against an unsharded KV cache,
   plain PyTorch (the JAX package keeps it in plain XLA too).
-
-``decode_attend_partitioned`` and ``combine_partials`` (the KV cache
-sharded over a mesh) wait for the distributed slice (ROADMAP A10).
+* ``decode_attend_partitioned`` — the same against a KV cache whose
+  sequence axis is sharded over a mesh's ``model`` axis (``launch/mesh``):
+  each rank attends over its shard and ``combine_partials`` merges the
+  partial softmaxes with a max and two sum all-reduces, serving's form of
+  the runtime's boundary exchange.  ``Model.decode(mesh=...)``, which would
+  keep the cache sharded this way, waits for the next slice of the
+  distributed port (ROADMAP A10).
 
 GQA throughout: Hkv kv-heads are broadcast over group = H // Hkv query heads
 (query head ``h`` reads kv-head ``h // group``).
@@ -135,6 +139,35 @@ def decode_attend_local(q, k, v, kv_pos, length, window=None):
     """Unsharded decode attention.  q: [B,H,hd] -> [B,H,hd]."""
     m, l, acc = _decode_partial(q, k, v, kv_pos, length, window)
     return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+
+
+def combine_partials(m, l, acc, mesh, axis: str = "model"):
+    """LSE-combine partial attention over mesh axis ``axis`` (the partition
+    axis): each partition's ``(m, l, acc)`` are its buffered partial ops,
+    consolidated by one max and two sum all-reduces."""
+    m_g = mesh.all_reduce_max(m, axis)
+    r = torch.exp(m - m_g)
+    l_g = mesh.all_reduce_sum(l * r, axis)
+    acc_g = mesh.all_reduce_sum(acc * r[..., None], axis)
+    return acc_g / torch.clamp(l_g[..., None], min=1e-30)
+
+
+def decode_attend_partitioned(q, k, v, length, mesh, *, window=None,
+                              seq_axis: str = "model"):
+    """Partitioned-KV decode on one rank of ``mesh``.
+
+    q: [B_loc, H, hd] (the same on every rank of ``seq_axis``); k, v: this
+    rank's sequence shard ``[B_loc, S/n, Hkv, hd]``, shard ``i`` holding
+    slots ``i*S/n ..`` for ``i`` the rank's ``seq_axis`` coordinate;
+    length: [B_loc].  The batch may be sharded over the other axes: each
+    rank passes its rows.  Returns [B_loc, H, hd] in q's dtype, the same on
+    every rank of ``seq_axis``.
+    """
+    s_loc = k.shape[1]
+    kv_pos = mesh.coords[seq_axis] * s_loc + torch.arange(
+        s_loc, device=k.device)
+    m, l, acc = _decode_partial(q, k, v, kv_pos, length, window)
+    return combine_partials(m, l, acc, mesh, seq_axis).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
