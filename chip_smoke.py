@@ -157,6 +157,23 @@ Phases, each of which fails the run on any error:
               cross; 108 in all), each request's extras through
               ``ContinuousBatcher``; check b and c with the extras; each
               ``launch/serve.py --no-reduced``
+  7e. lm mesh  starcoder2-7b at full width and depth on a (1, 4) mesh of
+              four gloo ranks sharing the card (``launch/mesh.spawn``;
+              ``rules_for``: heads, kv heads, MLP and vocabulary split four
+              ways, the KV cache over the ranks on its sequence), phase 7's
+              seeded weights built whole by one rank at a time, three of
+              phase 7's prompts (512, 2048, 8192 tokens, 8 new tokens each)
+              through ``ContinuousBatcher(mesh=, rules=)``: a. every rank
+              the same tokens; b. a teacher-forced prefill of 4 x 256 and 8
+              decode steps within 5 % of the largest logit of phase 7's on
+              one card; c. ``Model.logits`` with
+              ``manual_tp`` (B6 on 9 / 1 heads a rank) against phase 7's
+              forward; d. the reduced config in float32 on the four ranks
+              against the port on the CPU (1e-5, same tokens); e. B6 once
+              an attention layer and chunk on every rank (128 served), no
+              graph kernel; one ``lm mesh run`` line (per rank: walls,
+              prefill and decode seconds, decode tok/s, collectives a decode
+              step, B6 launches, peak memory)
   8. train    the training path (``train/``, ``launch/train.py``).  8a:
               B6's gradient (``FlashAttentionFn``: the kernel forward, the
               plain flash backward) against autograd through the plain
@@ -272,6 +289,29 @@ LM_SPECS = {
                      for T in (272, 512, 1000, 2048, 4096, 8192)), LM_MAX_LEN),
     ENCDEC_ARCH: ((4, 32, 64, 128, 224, 224), 448),
 }
+#: phase 7e: starcoder2-7b at full width and depth on a (1, 4) mesh of four
+#: gloo ranks that share the card (NCCL refuses two ranks on one GPU):
+#: heads, kv heads, MLP and vocabulary split four ways, so each rank's B6
+#: runs 9 query heads on 1 kv head of 128 (MESH_KEY in phase 6)
+MESH_WORLD, MESH = 4, (1, 4)
+MESH_KEY = LM_ARCH + " tp4"
+#: the served prompts and new tokens of the mesh run: phase 7's cut to
+#: three prompts (one wave at batch 4, the chunked 8192 among them) and 8
+#: new tokens, for time (gloo's collectives among four ranks on one H100
+#: cost milliseconds each: a decode step of the four ranks is ~10 times
+#: phase 7's; PERF.md section 5)
+MESH_PROMPTS, MESH_NEW = (512, 2048, 8192), 8
+#: check b: a prefill of (rows, tokens) and this many greedy decode steps on
+#: one card (phase 7), the mesh fed the same tokens; check c: the forward's
+#: logits of one MESH_C_TOKENS-token row, every MESH_C_STRIDE-th position
+MESH_B_BATCH, MESH_B_STEPS = (LM_BATCH, 256), 8
+MESH_C_TOKENS, MESH_C_STRIDE = 4096, 32
+#: checks b and c hold the mesh's bf16 logits to the one card's as check b
+#: of phase 7 holds the plain attention's: within LM_LOGIT_RTOL of the
+#: largest logit (the partial sums of a rank's heads and columns are added
+#: in float32 and rounded to bf16 once, where one card rounds the whole
+#: product once: bf16 roundings at other points, over 32 layers)
+MESH_LOGIT_RTOL = 0.05
 #: (Sq, Skv, q_offset, window, causal, kv_len, prefix_len) of phase 6 per
 #: model (the first four fields alone: causal, every key seen)
 FLASH_SHAPES = {
@@ -283,14 +323,18 @@ FLASH_SHAPES = {
     ENCDEC_ARCH: ((1536, 1536, 0, None, False, 1500, None),
                   (224, 1536, 0, None, False, 1500, None),
                   (224, 224, 0, None, True, None, None)),
+    # one rank's share of starcoder2's heads: a whole 4096-token chunk and
+    # the 8192-token prompt's second
+    MESH_KEY: ((4096, 4096, 0, None), (4096, 8192, 4096, None)),
 }
 #: the shape each model's kernel row is timed at (its plain version too)
 FLASH_TIMED = {LM_ARCH: (4096, 4096), RG_ARCH: (4096, 4096, 0, 2048),
-               MOE_ARCH: (4096, 4096), VLM_ARCH: FLASH_SHAPES[VLM_ARCH][1],
+               MOE_ARCH: (4096, 4096), MESH_KEY: (4096, 4096),
+               VLM_ARCH: FLASH_SHAPES[VLM_ARCH][1],
                ENCDEC_ARCH: FLASH_SHAPES[ENCDEC_ARCH][0]}
-#: the flash row's sub-rows (kernel table rows 6c/6d, 6e, 6f, 6g)
+#: the flash row's sub-rows (kernel table rows 6c/6d, 6e, 6f, 6g, 6h)
 FLASH_ROW_KEYS = {"hd256": RG_ARCH, "h32": MOE_ARCH, "prefix": VLM_ARCH,
-                  "hd64": ENCDEC_ARCH}
+                  "hd64": ENCDEC_ARCH, "tp4": MESH_KEY}
 #: check b's prompts (text tokens) per LM path: the kernel's prefill against
 #: the plain attention's; none for the ssm, which has no attention
 CHECK_B_TOKENS = {LM_ARCH: (512,), "recurrentgemma-2b": (512, 3000),
@@ -2377,6 +2421,9 @@ def phase_flash(torch) -> dict:
                 size * (2 * sq * H * hd + 2 * skv * Hkv * hd))
 
     def heads_of(arch):
+        if arch == MESH_KEY:
+            cfg, n = get_config(LM_ARCH), MESH[1]
+            return cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim_
         cfg = get_config(arch)
         return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
 
@@ -2626,14 +2673,18 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
         b for b, p in zip(batches, prompts)
         if want or len(p) in TRACE_SSM_TOKENS], cfg, max_len)
     del batches
-    del params, batcher
+    del batcher
+    # what phase 7e holds the mesh to
+    mesh_ref = (lm_mesh_reference(torch, model, params, out)
+                if arch == LM_ARCH else None)
+    del params
     torch.cuda.empty_cache()
     # c. the reduced config on the card against the CPU
     check_c = lm_card_vs_cpu(torch, arch)
     return {"info": info, "prefills": prefills, "run": run,
             "launches": counts["flash_attention"], "decode": decode,
             "check_b": check_b, "drops": drops,
-            "check_c": check_c, "flash_share": shares}
+            "check_c": check_c, "flash_share": shares, "mesh_ref": mesh_ref}
 
 
 def phase_lm_recurrent(torch, counters) -> dict:
@@ -2908,6 +2959,204 @@ def lm_flash_share(torch, model, params, batches, cfg, max_len) -> list:
         log("lm prefill trace: " + json.dumps(row))
         rows.append(row)
     return rows
+
+
+def lm_mesh_reference(torch, model, params, served) -> dict:
+    """Phase 7's one-card results that phase 7e holds the mesh to: a
+    prefill of a seeded MESH_B_BATCH and MESH_B_STEPS greedy decode steps
+    (the tokens fed and every step's logits; check b), the forward's
+    logits of a seeded 1 x MESH_C_TOKENS row at every MESH_C_STRIDE-th
+    position (check c), and the tokens the batcher served (check a's
+    report)."""
+    dev = params["embed"]["embedding"].device
+    cfg = model.cfg
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, cfg.vocab, MESH_B_BATCH)
+    logits, state = model.prefill(params, {"tokens": torch.as_tensor(
+        tokens, device=dev)}, max_len=LM_MAX_LEN)
+    ref = {"tokens": tokens, "prefill": logits.cpu().numpy(), "steps": [],
+           "decode": [], "served": served}
+    for _ in range(MESH_B_STEPS):
+        nxt = torch.argmax(logits, dim=-1)
+        ref["steps"].append(nxt.cpu().numpy())
+        logits, state = model.decode(params, nxt[:, None], state)
+        ref["decode"].append(logits.cpu().numpy())
+    del state, logits
+    ref["steps"], ref["decode"] = (np.stack(ref[k]) for k in ("steps",
+                                                             "decode"))
+    ref["c_tokens"] = rng.integers(0, cfg.vocab, (1, MESH_C_TOKENS))
+    logits, _ = model.logits(params, {"tokens": torch.as_tensor(
+        ref["c_tokens"], device=dev)}, remat=False)
+    ref["c_logits"] = logits[:, ::MESH_C_STRIDE].cpu().numpy()
+    del logits
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _logit_diff(got, want, vocab) -> dict:
+    """The largest difference of two logit arrays over the true vocab, its
+    share of the largest logit, and whether it is within
+    MESH_LOGIT_RTOL of it."""
+    got, want = got[..., :vocab], want[..., :vocab]
+    diff = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    return {"max_abs_diff": diff, "max_abs_logit": scale,
+            "rel": diff / scale, "ok": diff <= MESH_LOGIT_RTOL * scale}
+
+
+def phase_lm_mesh(torch, ref, card) -> dict:
+    """Phase 7e: starcoder2-7b at full width and depth on MESH, four gloo
+    ranks sharing the card (``launch/mesh.spawn``,
+    ``launch/distributed.run_lm_cases``), from phase 7's seeded weights
+    (each rank builds them whole in turn and keeps its shards) with
+    ``rules_for(cfg, mesh)``: the prompts of phase 7 through
+    ``ContinuousBatcher(mesh=, rules=)`` at batch LM_BATCH and
+    ``max_len`` LM_MAX_LEN.  Checks: a. every rank the same tokens (the
+    ones equal to phase 7's are reported); b. a teacher-forced prefill and
+    MESH_B_STEPS decode steps against phase 7's logits; c. ``Model.logits``
+    with ``manual_tp`` against phase 7's forward; d. the reduced config in
+    float32 on the same four ranks against the port unsharded on the CPU;
+    e. B6 launched once an attention layer and chunk on every rank, and no
+    graph kernel.  The walls are four processes on one card: they measure
+    the exchange's overhead, not scaling."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import lm_params_from_arrays
+    from repro_torch.launch import distributed as launcher
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(0)        # phase 7's prompts
+    prompts = {T: rng.integers(0, cfg.vocab, T).astype(np.int32)
+               for T in LM_PROMPTS}
+    served_ids = [LM_PROMPTS.index(T) for T in MESH_PROMPTS]
+    prompts = [prompts[T] for T in MESH_PROMPTS]
+    full = {"arch": LM_ARCH, "mesh": MESH, "seed": 0,
+            "teacher": {"tokens": ref["tokens"], "steps": ref["steps"],
+                        "max_len": LM_MAX_LEN},
+            "logits": {"tokens": ref["c_tokens"], "stride": MESH_C_STRIDE,
+                       "overrides": {"manual_tp": True}},
+            "serve": {"prompts": prompts, "batch": LM_BATCH,
+                      "max_len": LM_MAX_LEN, "new": MESH_NEW}}
+    # d. the reduced config in float32, on the ranks and on the CPU
+    rcfg = dataclasses.replace(cfg.reduced(), compute_dtype="float32")
+    rmodel = build_model(rcfg)
+    cpu = rmodel.init(torch.Generator().manual_seed(1), "cpu")
+
+    def arrays(tree):
+        return {k: arrays(v) if isinstance(v, dict) else v.float().numpy()
+                for k, v in tree.items()}
+
+    rrng = np.random.default_rng(1)
+    r_teacher = {"tokens": rrng.integers(0, rcfg.vocab, (2, 24)),
+                 "steps": rrng.integers(0, rcfg.vocab, (4, 2)),
+                 "max_len": 32}
+    r_serve = {"prompts": [rrng.integers(0, rcfg.vocab, T).astype(np.int32)
+                           for T in (40, 100, 64)],
+               "batch": 2, "max_len": 128, "new": 8}
+    reduced = {"arch": LM_ARCH, "reduced": True, "mesh": MESH,
+               "config": {"compute_dtype": "float32"}, "arrays": arrays(cpu),
+               "teacher": r_teacher, "serve": r_serve}
+    t = time.perf_counter()
+    per_rank = spawn(launcher.run_lm_cases, MESH_WORLD, "gloo",
+                     args=([full, reduced], None), timeout_s=300)
+    world_s = time.perf_counter() - t
+    fulls, reds = [r[0] for r in per_rank], [r[1] for r in per_rank]
+
+    # a. every rank the same tokens; those equal to phase 7's, reported
+    toks = [r["serve"]["tokens"] for r in fulls]
+    if any(x != toks[0] for x in toks[1:]):
+        raise AssertionError("lm mesh: the ranks served different tokens")
+    for rid, p in enumerate(prompts):
+        if len(toks[0][rid]) != MESH_NEW or not all(
+                0 <= x < cfg.vocab for x in toks[0][rid]):
+            raise AssertionError(f"lm mesh request {rid}: {toks[0][rid][:8]}")
+    same = sum(a == b for rid, one in enumerate(served_ids)
+               for a, b in zip(toks[0][rid], ref["served"][one]))
+    # b and c against phase 7's one card, every rank the same bits
+    for part, keys in (("teacher", ("prefill", "decode")), ("logits", ())):
+        for r in fulls[1:]:
+            for k in keys or (None,):
+                a = r[part] if k is None else r[part][k]
+                b = fulls[0][part] if k is None else fulls[0][part][k]
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"lm mesh: the ranks' {part} "
+                                         f"{k or ''} differ")
+    got = fulls[0]
+    check_b = {"prefill": _logit_diff(got["teacher"]["prefill"],
+                                      ref["prefill"], cfg.vocab),
+               "decode": _logit_diff(got["teacher"]["decode"],
+                                     ref["decode"], cfg.vocab),
+               "greedy_equal": int((got["teacher"]["decode"][..., :cfg.vocab]
+                                    .argmax(-1)[:-1]
+                                    == ref["steps"][1:]).sum()),
+               "greedy_of": int(ref["steps"][1:].size),
+               "tol_rel": MESH_LOGIT_RTOL}
+    check_c = {**_logit_diff(got["logits"], ref["c_logits"], cfg.vocab),
+               "rows": int(got["logits"].shape[1]), "tol_rel": MESH_LOGIT_RTOL}
+    # d. the reduced config: the ranks against the port on the CPU
+    cpu_p = lm_params_from_arrays(reduced["arrays"], rcfg, "cpu")
+    batch = {"tokens": torch.as_tensor(r_teacher["tokens"])}
+    lg, st = rmodel.prefill(cpu_p, batch, max_len=r_teacher["max_len"])
+    want = [lg.numpy()]
+    for row in r_teacher["steps"]:
+        lg, st = rmodel.decode(cpu_p, torch.as_tensor(row[:, None]), st)
+        want.append(lg.numpy())
+    b = ContinuousBatcher(rmodel, cpu_p, r_serve["batch"], r_serve["max_len"],
+                          device="cpu")
+    for rid, p in enumerate(r_serve["prompts"]):
+        b.submit(Request(rid=rid, prompt=p, max_new_tokens=r_serve["new"]))
+    cpu_tokens = b.run()
+    rgot = [reds[0]["teacher"]["prefill"]] + list(reds[0]["teacher"]["decode"])
+    d_err = max(float(np.abs(g - w).max()) for g, w in zip(rgot, want))
+    check_d = {"max_abs_diff": d_err, "tol": LM_F32_TOL,
+               "tokens_equal": all(r["serve"]["tokens"] == cpu_tokens
+                                   for r in reds)}
+    for g, w in zip(rgot, want):
+        np.testing.assert_allclose(g, w, **LM_F32_TOL)
+    # e. B6 once an attention layer and chunk on every rank, no graph kernel
+    served = sum(_prefill_launches(T, cfg) for T in MESH_PROMPTS)
+    before = (_prefill_launches(MESH_B_BATCH[1], cfg)
+              + _prefill_launches(MESH_C_TOKENS, cfg))
+    for r in fulls:
+        for counts, want_n in ((r["serve"]["launches"], served),
+                               (r["launches"], before)):
+            others = {k: c for k, c in counts.items()
+                      if k != "flash_attention" and c}
+            if counts["flash_attention"] != want_n or others:
+                raise AssertionError(f"lm mesh: a rank launched {counts}, "
+                                     f"want {want_n} flash and nothing else")
+    ranks = [{"rank": i, "params_s": r["params_s"],
+              "wall_s": r["serve"]["wall_s"],
+              "prefill_s": sum(r["serve"]["prefill_s"]),
+              "decode_s": r["serve"]["decode_s"],
+              "decode_steps": r["serve"]["decode_steps"],
+              "decode_tok_per_s": r["serve"]["decode_tok_per_s"],
+              "collectives_per_decode_step":
+                  r["serve"]["collectives_per_decode_step"],
+              "collectives": r["serve"]["collectives"],
+              "b6_launches": r["serve"]["launches"]["flash_attention"],
+              "peak_mem_bytes": r["peak_mem_bytes"],
+              "case_wall_s": r["wall_s"]} for i, r in enumerate(fulls)]
+    res = {"card": card, "arch": LM_ARCH, "mesh": list(MESH),
+           "backend": "gloo", "world_s": world_s,
+           "prompts": list(MESH_PROMPTS), "new": MESH_NEW,
+           "tokens_equal_to_one_card": same,
+           "tokens": sum(len(x) for x in toks[0].values()),
+           "check_b": check_b, "check_c": check_c, "check_d": check_d,
+           "ranks": ranks}
+    log("lm mesh run: " + json.dumps(res))
+    if not (check_b["prefill"]["ok"] and check_b["decode"]["ok"]
+            and check_c["ok"]):
+        raise AssertionError("lm mesh: the mesh's logits are off the one "
+                             "card's beyond the tolerance")
+    if not check_d["tokens_equal"]:
+        raise AssertionError("lm mesh: the reduced config's tokens differ "
+                             "from the CPU's")
+    return {"launches": sum(r["b6_launches"] for r in ranks), **res}
 
 
 def lm_card_vs_cpu(torch, arch: str = LM_ARCH) -> dict:
@@ -3486,10 +3735,13 @@ def main() -> int:
     lm_moe = timed("7c lm moe", phase_lm_moe, torch, Counters())
     lm_last = timed("7d lm vlm, encdec", phase_lm_vlm_encdec, torch,
                     Counters())
+    lm_mesh = timed("7e lm mesh", phase_lm_mesh, torch, lm["mesh_ref"],
+                    card)
     train = timed("8 train", phase_train, torch, Counters())
     launches["flash_attention"] = lm["launches"] + sum(
         r["launches"] for r in lm_rec.values()) + lm_moe["launches"] + sum(
-        r["launches"] for r in lm_last.values()) + train["launches"]
+        r["launches"] for r in lm_last.values()) + train["launches"] + \
+        lm_mesh["launches"]
     launches["threefry"] = launches.get("threefry", 0) + \
         train["full"]["counts"]["threefry"]
 
@@ -3545,7 +3797,8 @@ def main() -> int:
         if name == "flash_attention":
             row["ms_is"] = ("card ms per launch at (Sq, Skv, q_offset) = "
                             "(4096, 4096, 0), bf16, CUDA graph")
-            row["launches_of"] = ("the LM paths' prefills and phase 8's "
+            row["launches_of"] = ("the LM paths' prefills (7e's summed "
+                                  "over its four ranks) and phase 8's "
                                   "training forwards and remat "
                                   "recomputes, all of them "
                                   "flash_tc_kernel (bf16, tensor cores)")
@@ -3554,6 +3807,7 @@ def main() -> int:
                 **{a: r["launches"] for a, r in lm_rec.items()},
                 MOE_ARCH: lm_moe["launches"],
                 **{a: r["launches"] for a, r in lm_last.items()},
+                MESH_KEY: lm_mesh["launches"],
                 LM_ARCH + " train": train["launches"]}
             # the training path's backward is the plain flash backward
             # (FlashAttentionFn), timed at the training shape beside SDPA's

@@ -64,7 +64,8 @@ def state_from_arrays(planes, buf, prio, ops_count, stamp,
         stamp=put(np.append(stamp, empty_stamp), np.int32))
 
 
-def lm_params_from_arrays(tree: dict, cfg: ArchConfig, device=None) -> dict:
+def lm_params_from_arrays(tree: dict, cfg: ArchConfig, device=None,
+                          rules=None) -> dict:
     """The reference's LM params (``jax.tree.map(np.asarray, params)`` of
     ``Model.init``: nested dicts, the ``stack`` leaves ``[L, ...]``, a moe
     layer's ``router`` and experts among them; the
@@ -73,18 +74,27 @@ def lm_params_from_arrays(tree: dict, cfg: ArchConfig, device=None) -> dict:
     stacks, a decoder layer's ``ln_x`` and ``xattn``, its ``enc_norm``) as
     the port's, on ``device``, each leaf in its storage dtype
     (``models.transformer.storage_dtype``: the recurrences' ``_KEEP_F32``
-    leaves in float32, every norm in ``pdtype``)."""
+    leaves in float32, every norm in ``pdtype``).  With ``rules`` (over a
+    ``launch/mesh.Mesh``) each leaf is this rank's block of it, cut by
+    ``Model.param_axes()`` (``sharding.local_shard``) before it goes to
+    ``device``."""
+    from repro_torch.models.factory import build_model
+    from repro_torch.models.sharding import local_shard
     from repro_torch.models.transformer import storage_dtype
 
     dev = resolve_device(device)
+    axes = build_model(cfg).param_axes() if rules is not None else None
 
-    def put(node, path):
+    def put(node, path, ax):
         if isinstance(node, dict):
-            return {k: put(v, path + (k,)) for k, v in node.items()}
+            return {k: put(v, path + (k,), None if ax is None else ax[k])
+                    for k, v in node.items()}
         t = torch.from_numpy(np.array(node, dtype=np.float32))
+        if ax is not None:
+            t = local_shard(t, ax, rules)
         return t.to(device=dev, dtype=storage_dtype(path, cfg))
 
-    return put(tree, ())
+    return put(tree, (), axes)
 
 
 def _tensor(a, dev) -> torch.Tensor:

@@ -16,7 +16,9 @@ command fails unless every rank returned the same answer bit for bit.
 
 :func:`run_cases` is the rank-side body (a test or a smoke run spawns it
 with its own cases); :func:`decode_inputs` makes the seeded inputs of a
-partitioned-decode case.
+partitioned-decode case.  :func:`run_lm_cases` is the rank-side body of
+the LM on a mesh: a model's prefill, decode, forward and
+``ContinuousBatcher`` on a rank's shards of its params.
 """
 from __future__ import annotations
 
@@ -39,17 +41,24 @@ def decode_inputs(shape, seed: int, dtype: str = "float32"):
     return q, k, v
 
 
-def _launches() -> dict:
+def _kernel_modules() -> tuple:
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.frontier import ops as fops
+    from repro_torch.kernels.fused_visit import ops as fvops
     from repro_torch.kernels.minplus import ops as mops
+    from repro_torch.kernels.ppr_push import ops as pops
     from repro_torch.kernels.threefry import ops as tfops
-    return {**mops.LAUNCHES, **tfops.LAUNCHES}
+    return mops, fops, pops, fvops, faops, tfops
+
+
+def _launches() -> dict:
+    """Every kernel wrapper's launch count on this rank."""
+    return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
 def _reset_launches() -> None:
-    from repro_torch.kernels.minplus import ops as mops
-    from repro_torch.kernels.threefry import ops as tfops
-    mops.reset_launches()
-    tfops.reset_launches()
+    for m in _kernel_modules():
+        m.reset_launches()
 
 
 def _sync(dev) -> None:
@@ -142,6 +151,210 @@ def run_cases(rank: int, cases: list, device=None) -> list:
                     "edges": res.edges_processed, "stats": res.stats,
                     "wall_s": time.perf_counter() - t,
                     "launches": _launches()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the LM on a mesh
+
+
+def _lm_params(model, case: dict, rules, dev):
+    """A rank's shards of the case's params: the whole ``arrays`` (numpy,
+    the reference's tree) cut by ``convert.lm_params_from_arrays``, or
+    ``Model.init`` from the generator seeded ``seed`` on ``dev``, built
+    whole by one rank at a time (a barrier between ranks), so that only
+    one whole copy is ever on a card that the ranks share."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import lm_params_from_arrays
+    if "arrays" in case:
+        return lm_params_from_arrays(case["arrays"], model.cfg, dev, rules)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    mine = None
+    for r in range(world):
+        if r == rank:
+            gen = torch.Generator(device=dev).manual_seed(case["seed"])
+            mine = model.shard_params(model.init(gen, dev), rules)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if world > 1:
+            dist.barrier()
+    return mine
+
+
+def _lm_batch(tokens, extras, dev) -> dict:
+    batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
+                                       device=dev)}
+    for k, v in (extras or {}).items():
+        batch[k] = torch.as_tensor(np.asarray(v, np.float32), device=dev)
+    return batch
+
+
+def _whole_rows(x: torch.Tensor, batch: int, mesh) -> np.ndarray:
+    """A rank's rows of a ``[batch, ...]`` result -> every row (an
+    all-gather over ``"data"`` when the rows are split), float32 numpy."""
+    if x.shape[0] < batch:
+        x = torch.cat(list(mesh.all_gather(x, "data")))
+    return x.float().cpu().numpy()
+
+
+def _lm_teacher(model, params, t: dict, mesh, rules, dev) -> dict:
+    """A prefill of the batch ``t["tokens"] [B, S]`` (and ``extras``) at
+    ``max_len`` (``chunk``: the transformer's prefill chunk), then one
+    decode step for each ``t["steps"]`` row ``[B]`` of tokens, fed as
+    given (teacher forcing).  Every row's logits."""
+    from repro_torch.models import transformer as tfm
+
+    batch = _lm_batch(t["tokens"], t.get("extras"), dev)
+    B = batch["tokens"].shape[0]
+    if "chunk" in t:
+        logits, state = tfm.prefill(params, model.cfg, batch["tokens"],
+                                    max_len=t["max_len"], chunk=t["chunk"],
+                                    rules=rules)
+    else:
+        logits, state = model.prefill(params, batch, max_len=t["max_len"],
+                                      rules=rules)
+    out = {"prefill": _whole_rows(logits, B, mesh), "decode": []}
+    calls = []
+    for row in t.get("steps", ()):
+        tok = torch.as_tensor(np.asarray(row, np.int64)[:, None], device=dev)
+        c0 = mesh.calls
+        logits, state = model.decode(params, tok, state, mesh=mesh,
+                                     rules=rules)
+        calls.append(mesh.calls - c0)
+        out["decode"].append(_whole_rows(logits, B, mesh))
+    out["decode"] = np.stack(out["decode"]) if out["decode"] else None
+    out["collectives_per_decode_step"] = calls
+    return out
+
+
+def _lm_serve(model, params, s: dict, mesh, rules, dev) -> dict:
+    """``ContinuousBatcher(mesh=, rules=)`` over ``s["prompts"]`` (and
+    ``extras``, one per prompt) at ``batch`` and ``max_len``, ``new`` tokens
+    each: the tokens, and this rank's walls, prefill times, collectives a
+    decode step (the model's, without the batcher's gather and check of
+    the tokens) and kernel launches."""
+    from repro_torch.serve.engine import (ContinuousBatcher, Request,
+                                          make_decode_step,
+                                          make_prefill_step)
+    prefill = make_prefill_step(model, max_len=s["max_len"], rules=rules)
+    decode = make_decode_step(model, mesh=mesh, rules=rules)
+    prefill_s, decode_calls = [], []
+
+    def timed_prefill(p, batch):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = prefill(p, batch)
+        _sync(dev)
+        prefill_s.append(time.perf_counter() - t0)
+        return out
+
+    def counted_decode(p, tokens, state):
+        c0 = mesh.calls
+        out = decode(p, tokens, state)
+        decode_calls.append(mesh.calls - c0)
+        return out
+
+    b = ContinuousBatcher(model, params, s["batch"], s["max_len"], device=dev,
+                          mesh=mesh, rules=rules, prefill_fn=timed_prefill,
+                          decode_fn=counted_decode)
+    extras = s.get("extras") or [None] * len(s["prompts"])
+    for rid, (p, ex) in enumerate(zip(s["prompts"], extras)):
+        b.submit(Request(rid=rid, prompt=np.asarray(p, np.int32),
+                         max_new_tokens=s["new"],
+                         extras=None if ex is None else dict(ex)))
+    _reset_launches()
+    calls0 = mesh.calls
+    _sync(dev)
+    t = time.perf_counter()
+    tokens = b.run()
+    _sync(dev)
+    wall = time.perf_counter() - t
+    decode_tokens = b.tokens_out - len(s["prompts"])
+    return {"tokens": tokens, "wall_s": wall, "prefill_s": prefill_s,
+            "decode_s": wall - sum(prefill_s), "decode_steps": b.steps,
+            "decode_tok_per_s": decode_tokens / (wall - sum(prefill_s)),
+            "collectives_per_decode_step": (
+                sum(decode_calls) / max(len(decode_calls), 1)),
+            "collectives": mesh.calls - calls0, "launches": _launches()}
+
+
+def run_lm_cases(rank: int, cases: list, device=None) -> list:
+    """Run LM ``cases`` on this rank of a world (every rank the same list:
+    building a mesh is collective).  A case is a dict:
+
+    * ``arch``, optional ``reduced`` (``ArchConfig.reduced()``) and
+      ``config`` (fields replaced after it, e.g. ``{"compute_dtype":
+      "float32"}``), optional ``overrides`` (extra rules, e.g.
+      ``{"manual_tp": True}``) and ``mesh`` ``(data, model)``; the rules
+      are ``launch/steps.rules_for(cfg, mesh, overrides)``;
+    * the weights: ``arrays`` (the reference's numpy tree) or ``seed``
+      (:func:`_lm_params`);
+    * any of ``teacher`` (:func:`_lm_teacher`), ``logits`` (``{"tokens",
+      "extras"}``: ``Model.logits`` of that batch, with its own
+      ``overrides`` on top of the case's, every ``stride``-th position's
+      row) and ``serve`` (:func:`_lm_serve`), run in that order on the
+      same params.
+
+    Returns one dict per case with each part's result (logits as float32
+    numpy with every row of the batch), ``wall_s``, this rank's kernel
+    ``launches`` over the parts before ``serve`` (which counts its own) and
+    its card's ``peak_mem_bytes`` over the case."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import rules_for
+    from repro_torch.models.factory import build_model
+
+    dev = resolve_device(device)
+    meshes: dict = {}
+    out = []
+    for case in cases:
+        key = tuple(case["mesh"])
+        if key not in meshes:
+            meshes[key] = make_host_mesh(*key)
+        mesh = meshes[key]
+        cfg = get_config(case["arch"])
+        cfg = cfg.reduced() if case.get("reduced") else cfg
+        cfg = dataclasses.replace(cfg, **case.get("config", {}))
+        model = build_model(cfg)
+        rules = rules_for(cfg, mesh, case.get("overrides"))
+        _reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(dev)
+        t = time.perf_counter()
+        params = _lm_params(model, case, rules, dev)
+        _sync(dev)
+        res = {"params_s": time.perf_counter() - t}
+        with torch.inference_mode():
+            if "teacher" in case:
+                res["teacher"] = _lm_teacher(model, params, case["teacher"],
+                                             mesh, rules, dev)
+            if "logits" in case:
+                lg = case["logits"]
+                batch = _lm_batch(lg["tokens"], lg.get("extras"), dev)
+                lrules = rules_for(cfg, mesh, {**case.get("overrides", {}),
+                                               **lg.get("overrides", {})})
+                logits, _ = model.logits(params, batch, rules=lrules,
+                                         remat=False)
+                res["logits"] = _whole_rows(
+                    logits[:, ::lg.get("stride", 1)], len(lg["tokens"]), mesh)
+                del logits
+            res["launches"] = _launches()
+            if "serve" in case:
+                res["serve"] = _lm_serve(model, params, case["serve"], mesh,
+                                         rules, dev)
+        res["wall_s"] = time.perf_counter() - t
+        res["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else None)
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out.append(res)
     return out
 
 

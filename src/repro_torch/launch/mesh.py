@@ -54,6 +54,7 @@ class Mesh:
 
     ``shape`` maps each axis name to its size, as the reference's
     ``mesh.shape`` does; ``coords`` maps it to this rank's coordinate.
+    ``calls`` counts the collectives this rank has entered on it.
     """
 
     def __init__(self, shape: Sequence[int],
@@ -78,6 +79,7 @@ class Mesh:
         self.coords = dict(zip(axis_names, (int(c) for c in np.unravel_index(
             rank % size, shape))))
         self._groups: dict = {}
+        self.calls = 0
         if not self.distributed:
             return
         # every rank creates every group, in one order (dist.new_group);
@@ -107,6 +109,7 @@ class Mesh:
         ``axis``: ``x`` is ``[shape[axis], ...]``."""
         if not self.distributed:
             return x
+        self.calls += 1
         x = x.contiguous()
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self._groups[axis])
@@ -115,6 +118,7 @@ class Mesh:
     def _all_reduce(self, x: torch.Tensor, op, axis) -> torch.Tensor:
         if not self.distributed:
             return x
+        self.calls += 1
         x = x.clone()
         dist.all_reduce(x, op=op, group=self._groups[axis])
         return x
@@ -134,6 +138,7 @@ class Mesh:
         in coordinate order."""
         if not self.distributed:
             return x[None]
+        self.calls += 1
         x = x.contiguous()
         out = [torch.empty_like(x) for _ in range(self.shape[axis])]
         dist.all_gather(out, x, group=self._groups[axis])

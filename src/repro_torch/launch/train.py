@@ -12,7 +12,7 @@ It restores from the newest checkpoint under ``--ckpt-dir`` automatically
 (kill it and rerun to see the fault tolerance).  The learning rate is
 ``warmup_cosine(--lr, steps // 20, steps)``; the parameters start from a
 generator seeded 0.  ``--production-mesh`` (the reference's multi-pod
-mesh) waits for the distributed slice, ROADMAP A10.  A published config
+mesh) waits for training on a mesh, ROADMAP A10b.  A published config
 at full depth does not fit one card in float32 with AdamW's moments
 (starcoder2-7b: 16 bytes a parameter, 118 GB); :func:`run` takes a config,
 so a caller can cut its depth (``dataclasses.replace(cfg, n_layers=...)``)
@@ -52,7 +52,7 @@ def config_for(args):
 
     if args.production_mesh:
         raise NotImplementedError("--production-mesh: distributed execution "
-                                  "waits for ROADMAP A10")
+                                  "waits for ROADMAP A10b")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

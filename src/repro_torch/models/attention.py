@@ -15,10 +15,10 @@ single-device paths):
 * ``decode_attend_partitioned`` — the same against a KV cache whose
   sequence axis is sharded over a mesh's ``model`` axis (``launch/mesh``):
   each rank attends over its shard and ``combine_partials`` merges the
-  partial softmaxes with a max and two sum all-reduces, serving's form of
-  the runtime's boundary exchange.  ``Model.decode(mesh=...)``, which would
-  keep the cache sharded this way, waits for the next slice of the
-  distributed port (ROADMAP A10).
+  partial softmaxes after one all-gather of them, serving's form of the
+  runtime's boundary exchange.  ``Model.decode(mesh=..., rules=...)``
+  keeps the cache sharded this way; ``cache_update_sharded`` writes a new
+  token's keys and values on the rank whose shard owns its slot.
 
 GQA throughout: Hkv kv-heads are broadcast over group = H // Hkv query heads
 (query head ``h`` reads kv-head ``h // group``).
@@ -38,6 +38,17 @@ NEG = -1e9  # mask value: large-negative (never -inf: exp() stays NaN-free)
 
 # ---------------------------------------------------------------------------
 # params
+
+
+def attention_axes(qkv_bias=False) -> dict:
+    a = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if qkv_bias:
+        a.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    return a
 
 
 def init_attention(gen, d, n_heads, n_kv, head_dim, dtype, qkv_bias=False,
@@ -144,11 +155,16 @@ def decode_attend_local(q, k, v, kv_pos, length, window=None):
 def combine_partials(m, l, acc, mesh, axis: str = "model"):
     """LSE-combine partial attention over mesh axis ``axis`` (the partition
     axis): each partition's ``(m, l, acc)`` are its buffered partial ops,
-    consolidated by one max and two sum all-reduces."""
-    m_g = mesh.all_reduce_max(m, axis)
-    r = torch.exp(m - m_g)
-    l_g = mesh.all_reduce_sum(l * r, axis)
-    acc_g = mesh.all_reduce_sum(acc * r[..., None], axis)
+    exchanged in one all-gather and consolidated on every rank, in
+    coordinate order (so every rank gets the same bits): the reference's
+    max and two sums (``pmax``, ``psum``) over the gathered partials."""
+    parts = mesh.all_gather(torch.cat([m[..., None], l[..., None], acc],
+                                      dim=-1), axis)
+    m_all, l_all, acc_all = parts[..., 0], parts[..., 1], parts[..., 2:]
+    m_g = torch.amax(m_all, dim=0)
+    r = torch.exp(m_all - m_g)
+    l_g = torch.sum(l_all * r, dim=0)
+    acc_g = torch.sum(acc_all * r[..., None], dim=0)
     return acc_g / torch.clamp(l_g[..., None], min=1e-30)
 
 
@@ -198,15 +214,28 @@ def cache_update_local(k_cache, v_cache, k_new, v_new, length):
     k_cache: [B,S,Hkv,hd]; k_new: [B,1,Hkv,hd]; length: [B].  Updates the
     caches in place (the JAX package rebuilds them with a one-hot blend,
     ``cache * (1 - onehot) + new * onehot``, which equals this wherever the
-    cache is finite) and returns them.  A sequence whose ``length`` is past
-    the cache's end writes nothing, as the blend's all-zero one-hot row.
+    cache is finite) and returns them.  A sequence whose ``length`` is
+    outside the cache (past its end, or below 0) writes nothing, as the
+    blend's all-zero one-hot row.
     """
     B, S = k_cache.shape[:2]
     rows = torch.arange(B, device=k_cache.device)
-    slot = torch.clamp(length.long(), max=S - 1)
-    inside = (length < S)[:, None, None]
+    slot = torch.clamp(length.long(), min=0, max=S - 1)
+    inside = ((length >= 0) & (length < S))[:, None, None]
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         keep = cache[rows, slot]
         cache.index_put_((rows, slot),
                          torch.where(inside, new[:, 0].to(cache.dtype), keep))
     return k_cache, v_cache
+
+
+def cache_update_sharded(k_cache, v_cache, k_new, v_new, length, mesh,
+                         seq_axis: str = "model"):
+    """:func:`cache_update_local` on a sequence shard: k_cache is this
+    rank's ``[B, S/n, Hkv, hd]`` of slots ``i*S/n ..`` (``i`` its
+    ``seq_axis`` coordinate), and slot ``length`` is written only on the
+    rank that owns it; a slot past the whole cache's end is written by
+    none."""
+    s_loc = k_cache.shape[1]
+    local = length - mesh.coords[seq_axis] * s_loc
+    return cache_update_local(k_cache, v_cache, k_new, v_new, local)

@@ -26,6 +26,14 @@ prefill and decode alike.  So the matmul weights are stored in ``cdtype``
 Decode state: the decoder's self-attention KV cache (``max_len`` slots,
 updated in place) and the cross-attention keys and values of the encoder's
 memory, projected once at prefill.
+
+On a mesh (``rules``) every attention block and MLP runs tensor parallel
+(``models/manual_tp.py``), as in ``models/transformer.py``: the
+self-attention cache is sharded over ``"model"`` on its sequence axis
+(decode: ``decode_attend_partitioned``), the cross cache keeps every frame
+and every kv head on every rank (the reference's ``state_logical_axes``:
+``"null"``), and the cross-attention of a decode step runs on the rank's
+heads.
 """
 from __future__ import annotations
 
@@ -38,8 +46,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import manual_tp as tp_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KVCache
+from repro_torch.models.sharding import batch_rows
 
 N_FRAMES = 1500       # whisper: 30 s @ 50 Hz post-conv
 N_FRAMES_PAD = 1536   # the reference pads the frames to a multiple of 16;
@@ -122,6 +132,25 @@ def _dec_layer(gen, cfg: ArchConfig, device) -> dict:
     return lp
 
 
+def param_axes(cfg: ArchConfig) -> dict:
+    """The reference's logical axes tree of :func:`init_encdec`'s params,
+    leaf for leaf."""
+    enc = {"ln1": L.norm_axes(cfg.norm), "attn": attn.attention_axes(),
+           "ln2": L.norm_axes(cfg.norm), "mlp": L.mlp_axes(cfg.gated_mlp)}
+    dec = dict(enc, ln_x=L.norm_axes(cfg.norm), xattn=attn.attention_axes())
+    return {"embed": L.embedding_axes(cfg.tie_embeddings),
+            "encoder": L.add_layer_axis(enc),
+            "decoder": L.add_layer_axis(dec),
+            "enc_norm": L.norm_axes(cfg.norm),
+            "final_norm": L.norm_axes(cfg.norm)}
+
+
+def _layer_axes(cfg, stack: str) -> dict:
+    """One layer's axes of ``stack`` (without the ``"layers"`` axis)."""
+    return {g: {k: a[1:] for k, a in leaves.items()}
+            for g, leaves in param_axes(cfg)[stack].items()}
+
+
 def init_encdec(gen: torch.Generator, cfg: ArchConfig, device,
                 train: bool = False) -> dict:
     """Random parameters with the JAX package's tree, scales and layouts
@@ -150,25 +179,57 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig, device,
 # blocks
 
 
-def _self_block(lp, cfg, x, causal, kv_len=None):
+def _self_block(lp, cfg, x, causal, kv_len=None, rules=None):
+    """Self-attention.  Returns (x, (k, v)): with ``rules`` tensor
+    parallel, the keys and values with the kv heads the rank holds
+    (``manual_tp.project``)."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
+    if rules is not None:
+        y, k, v = tp_lib.manual_attention(lp["attn"], h, None, cfg, rules,
+                                          theta=0.0, causal=causal,
+                                          kv_len=kv_len)
+        return x + y, (k, v)
     q, k, v = attn.qkv_proj(lp["attn"], h, None, 0.0)
     o = attn.attend(q, k, v, 0, causal=causal, kv_len=kv_len)
     return x + attn.out_proj(lp["attn"], o), (k, v)
 
 
-def _cross_block(lp, cfg, x, memory, kv_len):
+def _cross_block(lp, cfg, x, memory, kv_len, rules=None):
+    """Cross-attention against the encoder's memory.  Returns (x, (k, v)):
+    with ``rules`` on the rank's heads, and the keys and values with every
+    kv head (``manual_tp.all_heads``), as the cross cache holds them."""
     h = L.apply_norm(lp["ln_x"], x, cfg.norm)
     xa = lp["xattn"]
+    if rules is not None:
+        lay = tp_lib.attn_layout(cfg, rules)
+        y, k, v = tp_lib.manual_attention(xa, h, None, cfg, rules, theta=0.0,
+                                          causal=False, kv_len=kv_len,
+                                          x_kv=memory)
+        return x + y, (tp_lib.all_heads(k, rules, lay),
+                       tp_lib.all_heads(v, rules, lay))
     q = attn._proj(h, xa["wq"])
     k, v = attn._proj(memory, xa["wk"]), attn._proj(memory, xa["wv"])
     o = attn.attend(q, k, v, 0, causal=False, kv_len=kv_len)
     return x + attn.out_proj(xa, o), (k, v)
 
 
-def _mlp_block(lp, cfg, x):
+def _mlp_block(lp, cfg, x, rules=None):
     h = L.apply_norm(lp["ln2"], x, cfg.norm)
+    if rules is not None:
+        return x + tp_lib.manual_mlp(lp["mlp"], h, cfg, rules)
     return x + L.apply_mlp(lp["mlp"], h, cfg.act)
+
+
+def _layers(params, cfg, stack: str, rules):
+    """Each layer of ``stack`` (views), its FSDP split gathered with
+    ``rules``."""
+    axes = _layer_axes(cfg, stack) if rules is not None else None
+    return [tfm.gather_fsdp(lp, axes, cfg, rules)
+            for lp in tfm.unstack(params[stack])]
+
+
+def _top(params, name, cfg, rules):
+    return tfm.gather_fsdp(params[name], L.norm_axes(cfg.norm), cfg, rules)
 
 
 def pad_frames(frames: torch.Tensor):
@@ -180,43 +241,48 @@ def pad_frames(frames: torch.Tensor):
     return frames, F
 
 
-def encode(params, cfg: ArchConfig, frames, remat=False):
+def encode(params, cfg: ArchConfig, frames, remat=False, rules=None):
     """frames: [B,F,D] stub embeddings -> (memory [B,F_pad,D] in
-    ``cdtype``, F).  ``remat`` recomputes each layer in the backward."""
+    ``cdtype``, F).  ``remat`` recomputes each layer in the backward;
+    ``rules`` runs each layer tensor parallel."""
     x, F = pad_frames(frames.to(cfg.cdtype))
     pos = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)[None]
 
     def body(x, lp):
-        x, _ = _self_block(lp, cfg, x, causal=False, kv_len=F)
-        return _mlp_block(lp, cfg, x)
+        x, _ = _self_block(lp, cfg, x, causal=False, kv_len=F, rules=rules)
+        return _mlp_block(lp, cfg, x, rules)
     body = tfm.checkpointed(body, remat)
-    for lp in tfm.unstack(params["encoder"]):
+    for lp in _layers(params, cfg, "encoder", rules):
         x = body(x, lp)
-    return L.apply_norm(params["enc_norm"], x, cfg.norm), F
+    return L.apply_norm(_top(params, "enc_norm", cfg, rules), x,
+                        cfg.norm), F
 
 
-def forward(params, cfg: ArchConfig, tokens, frames, remat=True):
+def forward(params, cfg: ArchConfig, tokens, frames, remat=True,
+            rules=None):
     """The training forward.  tokens: [B,S] int; frames: [B,F,D].  Returns
     (logits [B,S,V] float32, a float32 zero: encdec has no aux loss).  The
     padded frames are masked in the encoder and the cross-attention as in
     prefill (``kv_len = F``); each layer is recomputed in the backward
-    under ``remat``."""
-    memory, F = encode(params, cfg, frames, remat)
-    x = L.embed(params["embed"], tokens, cfg.cdtype)
+    under ``remat``.  With ``rules``: the rank's rows, tensor parallel."""
+    if rules is not None:
+        rows = batch_rows(tokens.shape[0], rules)
+        tokens, frames = tokens[rows], frames[rows]
+    memory, F = encode(params, cfg, frames, remat, rules)
+    x = L.embed(params["embed"], tokens, cfg.cdtype, rules, cfg.vocab)
     S = x.shape[1]
     x = x + sinusoidal(torch.arange(S, device=x.device), cfg.d_model).to(
         x.dtype)[None]
 
     def body(x, lp, memory):
-        x, _ = _self_block(lp, cfg, x, causal=True)
-        x, _ = _cross_block(lp, cfg, x, memory, F)
-        return _mlp_block(lp, cfg, x)
+        x, _ = _self_block(lp, cfg, x, causal=True, rules=rules)
+        x, _ = _cross_block(lp, cfg, x, memory, F, rules)
+        return _mlp_block(lp, cfg, x, rules)
     body = tfm.checkpointed(body, remat)
-    for lp in tfm.unstack(params["decoder"]):
+    for lp in _layers(params, cfg, "decoder", rules):
         x = body(x, lp, memory)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    logits = L.unembed(params["embed"], x.float(), cfg.vocab)
+    logits = tfm.final_logits(params, cfg, x, rules)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -225,11 +291,16 @@ def forward(params, cfg: ArchConfig, tokens, frames, remat=True):
 
 
 def prefill(params, cfg: ArchConfig, tokens, frames, *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, rules=None):
     """tokens: [B,S] int; frames: [B,F,D].  Returns (last_logits [B,V]
     f32, EncDecState with ``length = S``): a self-attention cache of
     ``max(max_len, S)`` slots (the reference keeps the whole prompt when it
-    is longer) and the cross cache of the encoder's ``F_pad`` frames."""
+    is longer) and the cross cache of the encoder's ``F_pad`` frames.
+    With ``rules``: :func:`_prefill_sharded`."""
+    if rules is not None:
+        return _prefill_sharded(params, cfg, tokens, frames,
+                                max(max_len or tokens.shape[1],
+                                    tokens.shape[1]), rules)
     memory, F = encode(params, cfg, frames)
     x = L.embed(params["embed"], tokens, cfg.cdtype)
     B, S = tokens.shape
@@ -256,11 +327,51 @@ def prefill(params, cfg: ArchConfig, tokens, frames, *,
                              cross_k=cross[0], cross_v=cross[1])
 
 
-def decode_step(params, cfg: ArchConfig, tokens, state: EncDecState):
+def _prefill_sharded(params, cfg: ArchConfig, tokens, frames, C: int,
+                     rules):
+    """The prefill on a mesh: the rank's rows, every block tensor parallel;
+    the self cache of ``C`` slots the rank's sequence shard with every kv
+    head, the cross cache whole."""
+    tfm.check_seq_shards(C, rules)
+    rows = batch_rows(tokens.shape[0], rules)
+    tokens, frames = tokens[rows], frames[rows]
+    memory, F = encode(params, cfg, frames, rules=rules)
+    x = L.embed(params["embed"], tokens, cfg.cdtype, rules, cfg.vocab)
+    B, S = tokens.shape
+    dev = x.device
+    x = x + sinusoidal(torch.arange(S, device=dev), cfg.d_model).to(
+        x.dtype)[None]
+    lay = tp_lib.attn_layout(cfg, rules)
+    self_kv, cross = ([], []), ([], [])
+    for lp in _layers(params, cfg, "decoder", rules):
+        x, (k, v) = _self_block(lp, cfg, x, causal=True, rules=rules)
+        for dst, t in zip(self_kv, (k, v)):
+            t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, C - S))
+            dst.append(tp_lib.seq_shard(t, rules, lay, S))
+        x, xkv = _cross_block(lp, cfg, x, memory, F, rules)
+        for dst, t in zip(cross, xkv):
+            dst.append(t)
+        x = _mlp_block(lp, cfg, x, rules)
+    last = tfm.final_logits(params, cfg, x[:, -1], rules)
+    length = torch.full((B,), S, dtype=torch.int32, device=dev)
+    k, v = (torch.stack(t) for t in self_kv)
+    return last, EncDecState(self_kv=KVCache(k=k, v=v, length=length),
+                             cross_k=torch.stack(cross[0]),
+                             cross_v=torch.stack(cross[1]))
+
+
+def decode_step(params, cfg: ArchConfig, tokens, state: EncDecState, *,
+                mesh=None, rules=None):
     """tokens: [B,1] -> (logits [B,V] f32, state).  The self-attention
     cache is updated in place (``state`` is consumed); the cross-attention
     reads ``min(N_FRAMES, F_pad)`` slots of the cross cache, as the
-    reference (ROADMAP C7)."""
+    reference (ROADMAP C7).  With ``rules`` (and its ``mesh``): the rank's
+    rows, the self-attention on its sequence shard
+    (``manual_tp.decode_attention``), the cross-attention and the MLP on
+    its heads and columns."""
+    rules = tfm.sharded_rules(mesh, rules)
+    if rules is not None:
+        return _decode_sharded(params, cfg, tokens, state, rules)
     x = L.embed(params["embed"], tokens, cfg.cdtype)
     kc, vc, length = state.self_kv
     xk, xv = state.cross_k, state.cross_v
@@ -300,3 +411,34 @@ def state_specs(cfg: ArchConfig, batch: int, max_len: int,
         self_kv=KVCache(k=(kv, dtype), v=(kv, dtype),
                         length=((batch,), torch.int32)),
         cross_k=(xs, dtype), cross_v=(xs, dtype))
+
+
+def _decode_sharded(params, cfg: ArchConfig, tokens, state: EncDecState,
+                    rules):
+    kc, vc, length = state.self_kv
+    xk, xv = state.cross_k, state.cross_v
+    tokens = tokens[batch_rows(tokens.shape[0], rules)]
+    x = L.embed(params["embed"], tokens, cfg.cdtype, rules, cfg.vocab)
+    B, dev = tokens.shape[0], x.device
+    x = x + sinusoidal(length[:, None], cfg.d_model).to(x.dtype)
+    cross_pos = torch.arange(xk.shape[2], device=dev)
+    cross_len = torch.full((B,), min(N_FRAMES, xk.shape[2]),
+                           dtype=torch.int32, device=dev)
+    lay = tp_lib.attn_layout(cfg, rules)
+    heads = slice(lay.kv0, lay.kv0 + lay.kv_loc)
+    for i, lp in enumerate(_layers(params, cfg, "decoder", rules)):
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        x = x + tp_lib.decode_attention(lp["attn"], h, kc[i], vc[i], length,
+                                        cfg, rules, theta=0.0)
+        # cross-attention of the rank's heads against the whole cross cache
+        h = L.apply_norm(lp["ln_x"], x, cfg.norm)
+        p = tp_lib.attn_weights(lp["xattn"], cfg, rules, lay)
+        q = attn._proj(h, p["wq"])
+        o = attn.decode_attend_local(q[:, 0], xk[i][:, :, heads],
+                                     xv[i][:, :, heads], cross_pos,
+                                     cross_len)
+        x = x + tp_lib.out_tp(p, o[:, None], rules, lay, x.dtype)
+        x = _mlp_block(lp, cfg, x, rules)
+    logits = tfm.final_logits(params, cfg, x[:, 0], rules)
+    return logits, state._replace(
+        self_kv=KVCache(k=kc, v=vc, length=length + 1))

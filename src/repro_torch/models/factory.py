@@ -17,6 +17,15 @@ the bytes).  ``init(train=True)`` stores them in the reference's own dtypes
 what it trains: its AdamW keeps no master copy of float32 leaves, and
 training the serving storage would switch the master-weight path on and
 change the numbers.
+
+On a mesh every method takes ``rules`` (``models/sharding.AxisRules``
+over a ``launch/mesh.Mesh``; ``launch/steps.rules_for`` gives the
+reference's) and a rank's params: ``shard_params`` (or
+``convert.lm_params_from_arrays(..., rules=)``) cuts them from the whole
+ones by ``param_axes``.  ``decode_state_init`` gives the rank its shard of
+the state by ``state_logical_axes``: the sequence over ``"model"``, the
+batch over ``"data"``.  The moe, hybrid and ssm families raise a
+``NotImplementedError`` on a mesh of more than one rank.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import encdec as encdec_lib
@@ -32,6 +42,7 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KVCache
+from repro_torch.models.sharding import local_shape, shard_tree
 from repro_torch.models.transformer import DecodeState
 
 
@@ -65,46 +76,70 @@ class Model:
         tfm.check_family(self.cfg)
         return tfm.init_params(generator, self.cfg, dev, train)
 
+    def param_axes(self) -> dict:
+        """The reference's logical axes tree of the params (its
+        ``init(key)[1]``), leaf for leaf."""
+        if self.cfg.family == "encdec":
+            return encdec_lib.param_axes(self.cfg)
+        return tfm.param_axes(self.cfg)
+
+    def shard_params(self, params: dict, rules) -> dict:
+        """This rank's block of every leaf of whole ``params`` by
+        :meth:`param_axes` and ``rules`` (``sharding.local_shard``)."""
+        return shard_tree(params, self.param_axes(), rules)
+
     # -- train --------------------------------------------------------------
-    def logits(self, params, batch, remat=True):
+    def logits(self, params, batch, rules=None, remat=True):
         """(logits [B, S_text, V] float32, aux): a vlm's image positions
-        are dropped from its logits; encdec reads ``batch["frames"]``."""
+        are dropped from its logits; encdec reads ``batch["frames"]``.
+        With ``rules``: the rank's rows."""
         cfg = self.cfg
         if cfg.family == "encdec":
             return encdec_lib.forward(params, cfg, batch["tokens"],
-                                      batch["frames"], remat=remat)
+                                      batch["frames"], remat=remat,
+                                      rules=rules)
         if cfg.family == "vlm":
             lg, aux = tfm.forward(params, cfg, batch["tokens"],
                                   prefix_embeds=batch["image_embeds"],
                                   prefix_len=cfg.num_image_tokens,
-                                  remat=remat)
+                                  remat=remat, rules=rules)
             return lg[:, cfg.num_image_tokens:], aux
-        return tfm.forward(params, cfg, batch["tokens"], remat=remat)
+        return tfm.forward(params, cfg, batch["tokens"], remat=remat,
+                           rules=rules)
 
     def loss(self, params, batch, remat=True):
         """(loss, {"loss", "ce", "aux"}): the masked cross entropy plus
         ``aux_weight`` times the moe aux loss."""
-        logits, aux = self.logits(params, batch, remat)
+        logits, aux = self.logits(params, batch, remat=remat)
         ce = cross_entropy(logits, batch["labels"], batch["loss_mask"])
         loss = ce + self.aux_weight * aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
     # -- serve --------------------------------------------------------------
-    def prefill(self, params, batch, *, max_len=None):
+    def prefill(self, params, batch, *, max_len=None, rules=None):
+        """(last logits, decode state); with ``rules`` the rank's rows of
+        both (its sequence shard of the cache)."""
         cfg = self.cfg
         if cfg.family == "encdec":
             return encdec_lib.prefill(params, cfg, batch["tokens"],
-                                      batch["frames"], max_len=max_len)
+                                      batch["frames"], max_len=max_len,
+                                      rules=rules)
         if cfg.family == "vlm":
             return tfm.prefill(params, cfg, batch["tokens"], max_len=max_len,
                                prefix_embeds=batch["image_embeds"],
-                               prefix_len=cfg.num_image_tokens)
-        return tfm.prefill(params, cfg, batch["tokens"], max_len=max_len)
+                               prefix_len=cfg.num_image_tokens, rules=rules)
+        return tfm.prefill(params, cfg, batch["tokens"], max_len=max_len,
+                           rules=rules)
 
-    def decode(self, params, tokens, state):
+    def decode(self, params, tokens, state, *, mesh=None, rules=None):
+        """tokens: the whole batch's [B, 1]; with ``rules`` (and its
+        ``mesh``) ``state`` is the rank's shard and the logits are its
+        rows'."""
         if self.cfg.family == "encdec":
-            return encdec_lib.decode_step(params, self.cfg, tokens, state)
-        return tfm.decode_step(params, self.cfg, tokens, state)
+            return encdec_lib.decode_step(params, self.cfg, tokens, state,
+                                          mesh=mesh, rules=rules)
+        return tfm.decode_step(params, self.cfg, tokens, state, mesh=mesh,
+                               rules=rules)
 
     def n_attn_layers(self) -> int:
         """Attention layers that hold a self-attention KV cache (encdec:
@@ -149,18 +184,29 @@ class Model:
         return DecodeState(kv=kv, ssm=ssm, lru=lru)
 
     def decode_state_init(self, batch: int, max_len: int, *, filled=0,
-                          device=None):
+                          device=None, rules=None):
         """Concrete zero state on ``device`` (the card unless asked for the
-        CPU), every sequence's cache length ``filled``."""
+        CPU), every sequence's cache length ``filled``; with ``rules`` the
+        rank's shard of it (:func:`state_logical_axes`)."""
         dev = resolve_device(device)
+        specs = self.decode_state_specs(batch, max_len)
+        if self.cfg.family != "encdec":
+            rules = tfm.check_shardable(self.cfg, rules)
+        if rules is not None:
+            tfm.check_seq_shards(max_len, rules)
+        axes = state_logical_axes(self, specs) if rules is not None else None
 
-        def zeros(spec):
+        def zeros(spec, ax):
             if spec is None:
                 return None
             if isinstance(spec[1], torch.dtype):     # a (shape, dtype) leaf
-                return torch.zeros(spec[0], dtype=spec[1], device=dev)
-            return type(spec)(*(zeros(s) for s in spec))
-        st = zeros(self.decode_state_specs(batch, max_len))
+                shape = spec[0] if ax is None else local_shape(
+                    spec[0], ax, rules)
+                return torch.zeros(shape, dtype=spec[1], device=dev)
+            return type(spec)(*(zeros(s, None if ax is None else a)
+                                for s, a in zip(spec, ax if ax is not None
+                                                else [None] * len(spec))))
+        st = zeros(specs, axes)
         kv = st.self_kv if self.cfg.family == "encdec" else st.kv
         if kv is not None:
             kv.length.fill_(filled)
@@ -169,3 +215,42 @@ class Model:
 
 def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg)
+
+
+def batch_logical_axes(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The logical axes of a batch of ``shape`` (the reference's):
+    ``"batch"`` then ``"null"`` for each input."""
+    ndims = {"tokens": 2}
+    if shape.kind != "decode":
+        if cfg.family == "encdec":
+            ndims["frames"] = 3
+        elif cfg.family == "vlm":
+            ndims["image_embeds"] = 3
+        if shape.kind == "train":
+            ndims.update(labels=2, loss_mask=2)
+    return {k: ("batch",) + ("null",) * (n - 1) for k, n in ndims.items()}
+
+
+def state_logical_axes(model: Model, specs):
+    """Logical axes tree matching ``decode_state_specs``: the KV caches'
+    sequence over ``"seq_kv"`` (the hybrid's window cache stays local),
+    the batch over ``"batch"``, the recurrent states' channels over
+    ``"inner"``."""
+    cfg = model.cfg
+    seq = "null" if cfg.family == "hybrid" else "seq_kv"
+    kv_axes = KVCache(k=("layers", "batch", seq, "null", "null"),
+                      v=("layers", "batch", seq, "null", "null"),
+                      length=("batch",))
+    if cfg.family == "encdec":
+        return encdec_lib.EncDecState(
+            self_kv=kv_axes,
+            cross_k=("layers", "batch", "null", "null", "null"),
+            cross_v=("layers", "batch", "null", "null", "null"))
+    return DecodeState(
+        kv=kv_axes if specs.kv is not None else None,
+        ssm=(ssm_lib.SSMState(conv=("layers", "batch", "null", "inner"),
+                              h=("layers", "batch", "inner", "null"))
+             if specs.ssm is not None else None),
+        lru=(rglru_lib.LRUState(conv=("layers", "batch", "null", "inner"),
+                                h=("layers", "batch", "inner"))
+             if specs.lru is not None else None))

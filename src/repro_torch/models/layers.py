@@ -4,8 +4,12 @@ The port of the JAX package's ``repro.models.layers``.  Parameters are plain
 dictionaries of tensors; every ``init_*`` draws from an explicit
 ``torch.Generator`` on an explicit device with the JAX package's scales and
 layouts (the random numbers differ: the tests carry the JAX package's
-weights across with ``convert.lm_params_from_arrays``).  No sharded
-embedding: that waits for the distributed slice (ROADMAP A10).
+weights across with ``convert.lm_params_from_arrays``).  Each
+``*_axes`` function gives the reference's logical axes of the leaves its
+``init_*`` draws (``models/sharding.py``).  With ``rules``, ``embed`` and
+``unembed`` read a rank's block of the table: when its vocab dim is shorter
+than the padded vocab, the rank's rows (or columns) of it, combined over
+the ``"model"`` axis of the rules' mesh; else the whole table.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import gather_dims
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -27,6 +33,13 @@ def _normal(gen, shape, dtype, scale, device):
 
 # ---------------------------------------------------------------------------
 # norms
+
+
+def norm_axes(kind="rmsnorm") -> dict:
+    a = {"scale": ("embed",)}
+    if kind == "layernorm":
+        a["bias"] = ("embed",)
+    return a
 
 
 def init_norm(dtype, d, kind="rmsnorm", device=None):
@@ -83,6 +96,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # embedding / unembedding
 
 
+def embedding_axes(tie=False) -> dict:
+    # rows sharded over "model", D replicated: a row-sharded table gathers
+    # with local masking and one small all-reduce
+    a = {"embedding": ("vocab", "vocab_embed")}
+    if not tie:
+        a["unembed"] = ("embed", "vocab")
+    return a
+
+
 def init_embedding(gen, vocab, d, dtype, tie=False, device=None):
     p = {"embedding": _normal(gen, (vocab, d), dtype, 1.0, device)}
     if not tie:
@@ -91,22 +113,54 @@ def init_embedding(gen, vocab, d, dtype, tie=False, device=None):
     return p
 
 
-def embed(p, tokens, cdtype):
+def _vocab_split(n: int, vocab, rules) -> bool:
+    """Whether a vocab dim of local length ``n`` is this rank's block of a
+    split one: shorter than the padded ``vocab`` (the spec guard leaves a
+    dim either whole or evenly split, as ``sharding.gather_dims`` reads
+    it)."""
+    return rules is not None and vocab is not None and n < pad_vocab(vocab)
+
+
+def embed(p, tokens, cdtype, rules=None, vocab=None):
     """Token embedding lookup, the table cast to ``cdtype`` first.  Through
     ``F.embedding``, whose backward sums each id's rows in a fixed order
     on the card (an index's backward, an accumulating ``index_put_``, adds
     them with atomics in no fixed order: a training step would not repeat
-    itself bit for bit)."""
-    return F.embedding(tokens, p["embedding"].to(cdtype))
+    itself bit for bit).
+
+    With ``rules`` and a table shorter than ``pad_vocab(vocab)``,
+    ``p["embedding"]`` is this rank's block of rows: each rank looks up the
+    ids it owns, zeroes the others, and one float32 all-reduce over the
+    vocab's mesh axis adds the rows up (exact: one rank adds a non-zero
+    row)."""
+    table = p["embedding"]
+    if not _vocab_split(table.shape[0], vocab, rules):
+        return F.embedding(tokens, table.to(cdtype))
+    ax = rules.rules["vocab"]
+    v_loc = table.shape[0]
+    loc = tokens - rules.mesh.coords[ax] * v_loc
+    ok = (loc >= 0) & (loc < v_loc)
+    x = F.embedding(torch.clamp(loc, 0, v_loc - 1), table.to(cdtype))
+    x = x * ok[..., None].to(cdtype)
+    return rules.mesh.all_reduce_sum(x.float(), ax).to(cdtype)
 
 
-def unembed(p, x, true_vocab=None):
+def unembed(p, x, true_vocab=None, rules=None):
     """``x @ unembed`` in ``x``'s dtype (float32 on the serving path); the
-    padded vocab columns are masked to -1e9, so they can never win."""
+    padded vocab columns are masked to -1e9, so they can never win.  With
+    ``rules`` the weight is this rank's block (its ``"embed"`` rows under
+    FSDP, gathered first); when it holds fewer columns than
+    ``pad_vocab(true_vocab)``, the rank's logits are all-gathered over the
+    vocab's mesh axis into ``[..., V]``."""
     w = p.get("unembed")
     if w is None:
         w = p["embedding"].T
+    elif rules is not None:
+        w = gather_dims(w, ("embed", "vocab"), rules, {"embed": x.shape[-1]})
     logits = torch.matmul(x, w.to(x.dtype))
+    if _vocab_split(w.shape[-1], true_vocab, rules):
+        ax = rules.rules["vocab"]
+        logits = torch.cat(list(rules.mesh.all_gather(logits, ax)), dim=-1)
     if true_vocab is not None and true_vocab < logits.shape[-1]:
         mask = torch.arange(logits.shape[-1], device=x.device) < true_vocab
         logits = logits.masked_fill(~mask, -1e9)
@@ -115,6 +169,14 @@ def unembed(p, x, true_vocab=None):
 
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU-gated or plain)
+
+
+def mlp_axes(gated=True) -> dict:
+    a = {"wi": ("embed", "mlp")}
+    if gated:
+        a["wg"] = ("embed", "mlp")
+    a["wo"] = ("mlp", "embed")
+    return a
 
 
 def init_mlp(gen, d, d_ff, dtype, gated=True, device=None):
@@ -146,3 +208,11 @@ def apply_mlp(p, x, act="silu"):
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:
     return int(-(-vocab // multiple) * multiple)
+
+
+def add_layer_axis(axes):
+    """Prefix every logical-axes tuple of a tree with the stacked
+    ``"layers"`` axis."""
+    if isinstance(axes, dict):
+        return {k: add_layer_axis(v) for k, v in axes.items()}
+    return ("layers",) + axes

@@ -1,0 +1,264 @@
+"""Tensor-parallel blocks on a ``(data, model)`` mesh, written out.
+
+The port of the JAX package's ``repro.models.manual_tp``.  The reference
+has two ways to run a layer on a mesh that compute the same function:
+GSPMD's automatic partitioning of the unsharded code, and these manual
+(``shard_map``) blocks, enabled by ``rules["manual_tp"]``.  The port has
+no compiler to partition for it, so it writes the partitioning out once,
+here, and every sharded path uses it (``rules["manual_tp"]`` selects
+nothing different in the port).  With the ``"model"`` axis of size ``tp``:
+
+    mlp:   h_loc = act(x @ wi_loc) [* x @ wg_loc]   (F sharded; no comm)
+           y     = all_reduce_sum(h_loc @ wo_loc)    (float32)
+    attn:  q_loc = x @ wq_loc                        (the rank's H/tp heads)
+           k, v  for the kv heads those heads read
+           o_loc = attend(q_loc, k, v)               (B6 on the rank's heads)
+           y     = all_reduce_sum(o_loc @ wo_loc)    (float32)
+
+The weights a block gets are the rank's blocks by the rules, with any
+FSDP (``"data"``) split already gathered by the caller.  The kv heads come
+one of two ways (:class:`AttnLayout`): the kv heads are sharded
+(``Hkv % tp == 0``); else the kv weights, which the rules leave whole on
+every rank, project every kv head, and the rank's q heads read the kv
+group slice ``start = idx·h_loc·Hkv // H``.  The reference has a third
+way for ``hd % tp == 0``, which splits the head dim of the kv projection
+and all-gathers the keys and values over it; it computes the same keys
+and values with one more collective a layer, so the port projects them
+whole there too.
+
+A block that is not eligible (``attn_eligible`` / ``mlp_eligible``: the
+heads or the MLP width do not split over the model axis, or the rank's q
+heads would straddle kv groups) is computed replicated from its whole
+weights, gathered over every axis that splits them: the reference's spec
+guard leaves such dims replicated, and its context-parallel ``"seq"``
+policy for heads that do not divide the axis is not ported (ROADMAP).
+
+The decode step projects q, k and v the same way, all-gathers them over
+``"model"`` in one call (every rank attends over its sequence shard of the
+cache with every head: ``attention.decode_attend_partitioned``), and runs
+the row-parallel output projection on the rank's heads.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers as L
+from repro_torch.models.sharding import gather_dims
+
+AXIS = "model"
+
+
+def tp_size(rules) -> int:
+    """The model axis's size (1 without rules or without the axis)."""
+    return 1 if rules is None else rules._sizes.get(AXIS, 1)
+
+
+def mlp_eligible(cfg, rules) -> bool:
+    tp = tp_size(rules)
+    return tp > 1 and cfg.d_ff % tp == 0
+
+
+def attn_eligible(cfg, rules) -> bool:
+    tp = tp_size(rules)
+    if tp <= 1 or cfg.n_heads % tp:
+        return False
+    h_loc = cfg.n_heads // tp
+    g = cfg.n_heads // cfg.n_kv_heads
+    # per-shard q heads must align with whole kv-head groups
+    return (cfg.n_kv_heads % tp == 0) or \
+        (tp % cfg.n_kv_heads == 0 and g % h_loc == 0)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+
+
+def manual_mlp(lp, x, cfg, rules):
+    """x: [B,S,D] -> [B,S,D], the MLP on the rank's d_ff columns (its
+    blocks of ``wi``/``wg`` and rows of ``wo``), summed over the model
+    axis in float32.  Not eligible: the whole MLP, its weights gathered."""
+    if not mlp_eligible(cfg, rules):
+        full = {"embed": cfg.d_model, "mlp": cfg.d_ff}
+        axes = L.mlp_axes("wg" in lp)
+        lp = {k: gather_dims(t, axes[k], rules, full) for k, t in lp.items()}
+        return L.apply_mlp(lp, x, cfg.act)
+    y = L.apply_mlp(lp, x, cfg.act)
+    return rules.mesh.all_reduce_sum(y.float(), AXIS).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+class AttnLayout(NamedTuple):
+    """How one rank holds an attention layer (module docstring)."""
+    kv: str      # "heads" | "replicated" | "full" (not eligible)
+    tp: int      # model axis size
+    idx: int     # this rank's model coordinate
+    h0: int      # first q head of the rank
+    h_loc: int   # q heads of the rank
+    kv0: int     # first kv head its q heads read
+    kv_loc: int  # kv heads they read
+
+
+def attn_layout(cfg, rules) -> AttnLayout:
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    tp = tp_size(rules)
+    idx = rules.mesh.coords.get(AXIS, 0)
+    if not attn_eligible(cfg, rules):
+        return AttnLayout("full", tp, idx, 0, H, 0, Hkv)
+    h_loc = H // tp
+    kv = "heads" if Hkv % tp == 0 else "replicated"
+    return AttnLayout(kv, tp, idx, idx * h_loc, h_loc,
+                      (idx * h_loc * Hkv) // H, max(1, h_loc * Hkv // H))
+
+
+def attn_weights(p: dict, cfg, rules, lay: AttnLayout) -> dict:
+    """The rank's attention weights as :func:`project` reads them: whole
+    (gathered over the model axis) for ``"full"``, else as given."""
+    if lay.kv == "full":
+        full = {"embed": cfg.d_model, "heads": cfg.n_heads,
+                "kv_heads": cfg.n_kv_heads}
+        axes = attn_lib.attention_axes("bq" in p)
+        return {k: gather_dims(t, axes[k], rules, full) for k, t in p.items()}
+    return p
+
+
+def _bias(p, name, x):
+    return x + p[name].to(x.dtype) if name in p else x
+
+
+def _rope(x, positions, theta):
+    return L.apply_rope(x, positions, theta) if theta else x
+
+
+def project(p, x, positions, theta, x_kv=None):
+    """x: [B,S,D] -> q [B,S,h_loc,hd] (the rank's heads), k and v (of
+    ``x_kv``, default ``x``: encdec's cross-attention projects the
+    encoder's memory) with the kv heads the layout holds: the rank's
+    ``Hkv/tp`` (``"heads"``), else all ``Hkv``.  The bias follows the
+    projection and RoPE of angle base ``theta`` (0: none) the bias, as
+    ``attention.qkv_proj``."""
+    x_kv = x if x_kv is None else x_kv
+    q = attn_lib._proj(x, p["wq"])
+    k, v = attn_lib._proj(x_kv, p["wk"]), attn_lib._proj(x_kv, p["wv"])
+    return (_rope(_bias(p, "bq", q), positions, theta),
+            _rope(_bias(p, "bk", k), positions, theta), _bias(p, "bv", v))
+
+
+def group(k, lay: AttnLayout):
+    """The kv heads of ``k`` (as :func:`project` returns them) that the
+    rank's q heads read."""
+    if lay.kv == "heads":
+        return k
+    return k[:, :, lay.kv0:lay.kv0 + lay.kv_loc]
+
+
+def out_tp(p, o, rules, lay: AttnLayout, dtype):
+    """The row-parallel output projection of the rank's heads' output
+    ``o [B,S,h_loc,hd]``: its partial sums added over the model axis in
+    float32 (whole, no sum, for ``"full"``)."""
+    y = attn_lib.out_proj(p, o)
+    if lay.kv == "full":
+        return y
+    return rules.mesh.all_reduce_sum(y.float(), AXIS).to(dtype)
+
+
+def manual_attention(lp, x, positions, cfg, rules, *, theta=None,
+                     q_offset=0, causal=True, window=None, kv_len=None,
+                     prefix_len=None, x_kv=None, buf=None):
+    """x: [B,S,D] (the normed input) -> (the attention output [B,S,D]
+    (pre-residual), k, v): B6 on the rank's q heads against the kv heads
+    they read, then the row-parallel output projection.  ``k`` and ``v``
+    are this call's keys and values as :func:`project` holds them (of
+    ``x_kv``, default ``x``), for a cache.  ``buf`` ``[2, B, N, hk, hd]``
+    holds the keys and values of the positions before ``q_offset`` (a
+    chunked prefill): this call's go into its slots from ``q_offset`` on
+    and the queries attend to its first ``q_offset + S``.  RoPE at
+    ``positions`` with ``theta`` (default ``cfg.rope_theta``; 0: none);
+    the rest as ``attention.attend``."""
+    lay = attn_layout(cfg, rules)
+    p = attn_weights(lp, cfg, rules, lay)
+    theta = cfg.rope_theta if theta is None else theta
+    q, k, v = project(p, x, positions, theta, x_kv)
+    ka, va = k, v
+    if buf is not None:
+        end = q_offset + k.shape[1]
+        buf[0, :, q_offset:end] = k
+        buf[1, :, q_offset:end] = v
+        ka, va = buf[0, :, :end], buf[1, :, :end]
+    o = attn_lib.attend(q, group(ka, lay), group(va, lay), q_offset,
+                        causal=causal, window=window, kv_len=kv_len,
+                        prefix_len=prefix_len)
+    return out_tp(p, o, rules, lay, x.dtype), k, v
+
+
+def seq_shard(k, rules, lay: AttnLayout, filled: int):
+    """A cache layer ``k [B, C, hk, hd]`` (the kv heads :func:`project`
+    holds, every slot; slots from ``filled`` on are zero) -> this rank's
+    sequence shard with every kv head, ``[B, C/n, Hkv, hd]`` for ``n`` the
+    model axis: one ``all_to_all`` of each shard's first ``filled`` slots
+    when the kv heads are sharded, else a slice."""
+    n = tp_size(rules)
+    s_loc = k.shape[1] // n
+    i = rules.mesh.coords.get(AXIS, 0)
+    if lay.kv != "heads":
+        return k[:, i * s_loc:(i + 1) * s_loc]
+    f = min(s_loc, filled)
+    x = k.unflatten(1, (n, s_loc))[:, :, :f].movedim(1, 0)  # [n, B, f, ..]
+    x = rules.mesh.all_to_all(x, AXIS)                 # [n] from each rank
+    out = k.new_zeros((k.shape[0], s_loc, n * k.shape[2], k.shape[3]))
+    out[:, :f] = x.movedim(0, 2).flatten(2, 3)         # [B, f, n·hk, hd]
+    return out
+
+
+def _whole(piece, part):
+    """An all-gathered ``[tp, B, 1, a·b]`` piece of ``part [B, 1, a, b]``
+    (split over heads) -> ``[B, 1, tp·a, b]``."""
+    return piece.unflatten(-1, part.shape[2:]).movedim(0, 2).flatten(2, 3)
+
+
+def all_heads(k, rules, lay: AttnLayout):
+    """``k [B, S, hk, hd]`` as :func:`project` holds it -> every kv head
+    on every rank (an all-gather over the model axis when the kv heads
+    are sharded)."""
+    if lay.kv != "heads":
+        return k
+    return torch.cat(list(rules.mesh.all_gather(k, AXIS)), dim=2)
+
+
+def decode_qkv(p, h, length, cfg, rules, lay: AttnLayout, theta):
+    """h: [B,1,D] -> q [B,1,H,hd], k, v [B,1,Hkv,hd], whole on every rank
+    of the model axis: the rank's part of each (its q heads; its kv heads
+    when they are sharded) in one all-gather.  RoPE at ``length`` with
+    ``theta`` (0: none)."""
+    q, k, v = project(p, h, length[:, None], theta)
+    if lay.kv == "full":
+        return q, k, v
+    parts = [q] if lay.kv == "replicated" else [q, k, v]
+    flat = torch.cat([t.flatten(2) for t in parts], dim=-1)
+    got = rules.mesh.all_gather(flat, AXIS).split(
+        [t.shape[2] * t.shape[3] for t in parts], dim=-1)
+    whole = [_whole(g, t) for g, t in zip(got, parts)]
+    return tuple(whole) if lay.kv == "heads" else (whole[0], k, v)
+
+
+def decode_attention(lp, h, k_cache, v_cache, length, cfg, rules,
+                     theta=None):
+    """One decode step of an attention layer on a sequence-sharded cache:
+    h [B,1,D] (normed); k_cache, v_cache this rank's ``[B, S/n, Hkv,
+    hd]`` (updated in place: slot ``length`` on its owner).  Returns the
+    attention output [B,1,D] (pre-residual).  ``theta`` as for
+    :func:`manual_attention`."""
+    lay = attn_layout(cfg, rules)
+    p = attn_weights(lp, cfg, rules, lay)
+    theta = cfg.rope_theta if theta is None else theta
+    q, k, v = decode_qkv(p, h, length, cfg, rules, lay, theta)
+    attn_lib.cache_update_sharded(k_cache, v_cache, k, v, length, rules.mesh)
+    o = attn_lib.decode_attend_partitioned(q[:, 0], k_cache, v_cache,
+                                           length + 1, rules.mesh)
+    return out_tp(p, o[:, None, lay.h0:lay.h0 + lay.h_loc], rules, lay,
+                  h.dtype)

@@ -39,6 +39,15 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import _act, _normal
 
 
+def moe_axes(gated=True) -> dict:
+    a = {"router": ("embed", "experts"),
+         "wi": ("experts", "expert_embed", "expert_mlp"),
+         "wo": ("experts", "expert_mlp", "expert_embed")}
+    if gated:
+        a["wg"] = ("experts", "expert_embed", "expert_mlp")
+    return a
+
+
 def init_moe(gen, d, cfg: MoEConfig, dtype, gated=True, act="silu",
              device=None) -> dict:
     """``router [D, E]``, ``wi``/``wg [E, D, F]``, ``wo [E, F, D]`` with the

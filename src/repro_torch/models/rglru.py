@@ -37,6 +37,13 @@ def lru_width(cfg: ArchConfig) -> int:
     return h.lru_width or cfg.d_model
 
 
+#: the reference's logical axes of an RG-LRU block's leaves
+RGLRU_AXES = {"in_x": ("embed", "inner"), "in_gate": ("embed", "inner"),
+              "conv_w": ("conv", "inner"), "conv_b": ("inner",),
+              "w_a": ("inner",), "b_a": ("inner",), "w_x": ("inner",),
+              "b_x": ("inner",), "lam": ("inner",), "out": ("inner", "embed")}
+
+
 def init_rglru(gen, cfg: ArchConfig, dtype, device=None, conv_width=4):
     """The reference's leaves and scales; ``lam`` so that a lies in [0.9,
     0.999] at r = 1 (Griffin's appendix)."""

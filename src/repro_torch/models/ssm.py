@@ -89,6 +89,14 @@ def dims(cfg: ArchConfig):
     return s, d_inner, dt_rank
 
 
+#: the reference's logical axes of a Mamba block's leaves
+SSM_AXES = {"in_proj": ("embed", "inner"), "conv_w": ("conv", "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", "null"),
+            "dt_proj": ("dt", "inner"), "dt_bias": ("inner",),
+            "A_log": ("inner", "state"), "D": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
 def init_ssm(gen, cfg: ArchConfig, dtype, device=None) -> dict:
     """The reference's leaves, scales and layouts (``A`` by the S4D-real
     init, ``A = -(1..state)`` per channel)."""

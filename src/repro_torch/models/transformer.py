@@ -15,8 +15,17 @@ matmul weight.  A vlm is a dense decoder whose prefill puts the image
 embeddings (``prefix_embeds``, from the stub frontend) before the tokens'
 and attends with the prefix-LM mask (``prefix_len``: the image positions
 see each other both ways); its decode is the dense decode.  The encdec
-family is ``models/encdec.py``.  The ``rules`` and manual-TP arms of the
-reference (a mesh) have no counterpart here.
+family is ``models/encdec.py``.
+
+On a mesh (``rules``, ``models/sharding.py``) the dense and vlm families
+run each rank's shards of the parameters: ``forward``, ``prefill`` and
+``decode_step`` take ``rules`` (and ``decode_step`` the ``mesh``), their
+layers go through ``models/manual_tp.py`` (tensor parallel over
+``"model"``, the FSDP split of ``"embed"`` gathered layer by layer), the
+KV cache is sharded over ``"model"`` on its sequence axis and the batch
+over ``"data"`` when it divides.  A call takes the whole batch (the same
+on every rank) and returns the rank's rows.  The moe, hybrid and ssm
+families raise on a mesh of more than one rank (:func:`check_shardable`).
 
 ``forward`` (training) runs every layer once over the whole sequence,
 as prefill's whole branch does, and sums the moe layers' aux losses;
@@ -53,10 +62,12 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import manual_tp as tp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
+from repro_torch.models.sharding import batch_rows, gather_dims, mesh_size
 
 #: the families this module assembles (encdec is ``models/encdec.py``)
 _PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -66,6 +77,29 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in _PORTED:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not one of "
                          f"the decoder-only families {_PORTED}")
+
+
+#: the ROADMAP item that shards each family this module does not yet run
+#: on a mesh
+_UNSHARDED = {"moe": "ROADMAP A10c (the moe family's expert parallelism "
+                     "over the \"experts\" axis)",
+              "hybrid": "ROADMAP A10d (the hybrid family's \"inner\" "
+                        "sharding; its ring cache stays local)",
+              "ssm": "ROADMAP A10d (the ssm family's \"inner\" sharding)"}
+
+
+def check_shardable(cfg: ArchConfig, rules):
+    """The rules a call of ``cfg`` runs with: ``rules`` for the dense and
+    vlm families; None for the others on a one-rank mesh (nothing is
+    split).  On a mesh of more than one rank those raise, before anything
+    runs: none of them computes unsharded in silence."""
+    if rules is None or cfg.family not in _UNSHARDED:
+        return rules
+    if mesh_size(rules) == 1:
+        return None
+    raise NotImplementedError(
+        f"{cfg.name}: a mesh of {dict(rules._sizes)} needs "
+        f"{_UNSHARDED[cfg.family]}, which is not ported")
 
 
 class DecodeState(NamedTuple):
@@ -218,6 +252,53 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device,
     return params
 
 
+def layer_axes(cfg: ArchConfig, kind: str) -> dict:
+    """The reference's logical axes of one layer's leaves (no ``"layers"``
+    axis), as :func:`init_layer` draws them."""
+    a = {"ln1": L.norm_axes(cfg.norm)}
+    if kind in ("attn", "moe"):
+        a["attn"] = attn.attention_axes(cfg.qkv_bias)
+    elif kind == "rec":
+        a["rec"] = dict(rglru_lib.RGLRU_AXES)
+    elif kind == "ssm":
+        a["ssm"] = dict(ssm_lib.SSM_AXES)
+        return a
+    a["ln2"] = L.norm_axes(cfg.norm)
+    if kind == "moe":
+        a["moe"] = moe_lib.moe_axes(cfg.gated_mlp)
+    else:
+        a["mlp"] = L.mlp_axes(cfg.gated_mlp)
+    return a
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The reference's logical axes tree of :func:`init_params`' params,
+    leaf for leaf (stacked leaves lead with ``"layers"``)."""
+    plan = layer_plan(cfg)
+    a = {"embed": L.embedding_axes(cfg.tie_embeddings)}
+    if cfg.family == "hybrid":
+        a["groups"] = L.add_layer_axis(
+            {"rec1": layer_axes(cfg, "rec"), "rec2": layer_axes(cfg, "rec"),
+             "attn": layer_axes(cfg, "attn")})
+        if cfg.n_layers % 3:
+            a["tail"] = L.add_layer_axis(layer_axes(cfg, "rec"))
+    else:
+        a["stack"] = L.add_layer_axis(layer_axes(cfg, plan[0]))
+    a["final_norm"] = L.norm_axes(cfg.norm)
+    return a
+
+
+def gather_fsdp(lp: dict, axes: dict, cfg: ArchConfig, rules) -> dict:
+    """A layer's (or any subtree's) leaves with their FSDP split of
+    ``"embed"`` gathered (``axes`` without the ``"layers"`` axis); the
+    tensor-parallel split stays."""
+    if rules is None:
+        return lp
+    if isinstance(lp, dict):
+        return {k: gather_fsdp(v, axes[k], cfg, rules) for k, v in lp.items()}
+    return gather_dims(lp, axes, rules, {"embed": cfg.d_model})
+
+
 def _layer(stack: dict, i: int) -> dict:
     """Layer ``i``'s leaves (views into the stacked tensors)."""
     return {g: {k: t[i] for k, t in leaves.items()}
@@ -272,25 +353,38 @@ def _apply_attn_layer(lp, cfg, x, positions, window=None, prefix_len=None):
     return x + attn.out_proj(lp["attn"], o), (k, v)
 
 
-def _mlp_aux(lp, cfg, x):
-    """The MLP half of a layer: the dense MLP, or the moe layer's experts.
-    Returns (x, the moe aux loss or None)."""
+def _mlp_aux(lp, cfg, x, rules=None):
+    """The MLP half of a layer: the dense MLP (tensor parallel with
+    ``rules``), or the moe layer's experts.  Returns (x, the moe aux loss
+    or None)."""
     h = L.apply_norm(lp["ln2"], x, cfg.norm)
     if "moe" in lp:
         y, aux = moe_lib.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
         return x + y, aux
+    if rules is not None:
+        return x + tp_lib.manual_mlp(lp["mlp"], h, cfg, rules), None
     return x + L.apply_mlp(lp["mlp"], h, cfg.act), None
 
 
-def _apply_mlp(lp, cfg, x):
+def _apply_mlp(lp, cfg, x, rules=None):
     """:func:`_mlp_aux` for serving, which never reads the aux loss."""
-    return _mlp_aux(lp, cfg, x)[0]
+    return _mlp_aux(lp, cfg, x, rules)[0]
 
 
-def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None):
+def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None,
+                      rules=None):
     """One layer of ``kind``, full sequence (``attn`` and ``moe`` differ
     only in their MLP; ``prefix_len`` is the vlm's image prefix).  Returns
-    (x, (k, v) or None, new recurrent state or None, moe aux or None)."""
+    (x, (k, v) or None, new recurrent state or None, moe aux or None).
+    With ``rules`` (the dense and vlm families: the forward's manual arm)
+    the layer runs tensor parallel and returns no keys and values."""
+    if rules is not None:
+        lp = cast_layer_params(gather_fsdp(lp, layer_axes(cfg, kind), cfg,
+                                           rules), cfg.cdtype)
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        y, _, _ = tp_lib.manual_attention(lp["attn"], h, positions, cfg,
+                                          rules, prefix_len=prefix_len)
+        return _apply_mlp(lp, cfg, x + y, rules), None, None, None
     lp = cast_layer_params(lp, cfg.cdtype)
     if kind == "ssm":
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
@@ -321,7 +415,7 @@ def checkpointed(fn, remat: bool):
 
 
 def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
-            prefix_len=None, remat=True):
+            prefix_len=None, remat=True, rules=None):
     """The training forward.  tokens: [B,S] int; prefix_embeds: [B,P,D] or
     None (the vlm's image embeddings before the tokens', ``prefix_len``
     of them attended both ways).  Returns (logits [B, P+S, V] float32, the
@@ -331,16 +425,21 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     at a time), each recomputed in the backward under ``remat``: the
     reference's ``jax.checkpoint`` of its scan body.  The attention layers
     go through ``attend``, which on the card launches the flash kernel in
-    the forward and again in the recompute."""
+    the forward and again in the recompute.  With ``rules`` (a rank's
+    params) each layer runs tensor parallel (the reference's manual arm)
+    on the rank's rows of the batch, and the logits are those rows'."""
     check_family(cfg)
-    x = _embed_with_prefix(params, cfg, tokens, prefix_embeds)
+    rules = check_shardable(cfg, rules)
+    if rules is not None:
+        tokens, prefix_embeds = _rows(tokens, prefix_embeds, rules)
+    x = _embed_with_prefix(params, cfg, tokens, prefix_embeds, rules)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def layer(kind):
         def f(x, lp):
             x, _, _, a = _apply_layer_full(lp, cfg, kind, x, positions,
-                                           prefix_len)
+                                           prefix_len, rules)
             return x, a
         return checkpointed(f, remat)
 
@@ -362,8 +461,7 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
             x, a = f(x, lp)
             if a is not None:
                 aux = aux + a
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return L.unembed(params["embed"], x.float(), cfg.vocab), aux
+    return final_logits(params, cfg, x, rules), aux
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +475,7 @@ CHUNKED_FAMILIES = ("dense", "moe", "vlm")
 
 def prefill(params, cfg: ArchConfig, tokens, *, max_len=None,
             prefix_embeds=None, prefix_len=None,
-            chunk: int = PREFILL_CHUNK):
+            chunk: int = PREFILL_CHUNK, rules=None):
     """tokens: [B,S] int; prefix_embeds: [B,P,D] or None (the vlm's image
     embeddings, put before the tokens' in ``cdtype``; ``prefix_len``
     positions attend bidirectionally).  Returns (last_logits [B,V] f32,
@@ -388,27 +486,42 @@ def prefill(params, cfg: ArchConfig, tokens, *, max_len=None,
     (``_prefill_chunked``); any other, and every ssm and hybrid prompt, in
     one pass (``_prefill_whole``), as in the reference.  A moe layer's
     expert capacity follows each call's own length: a chunk's, not the
-    prompt's."""
+    prompt's.  With ``rules``: :func:`_prefill_sharded`."""
     check_family(cfg)
+    rules = check_shardable(cfg, rules)
     S_tot = tokens.shape[1] + (prefix_embeds.shape[1]
                                if prefix_embeds is not None else 0)
     kw = dict(prefix_embeds=prefix_embeds, prefix_len=prefix_len)
-    if (cfg.family in CHUNKED_FAMILIES and S_tot > chunk
-            and S_tot % chunk == 0 and (max_len or S_tot) >= S_tot):
+    chunked = (cfg.family in CHUNKED_FAMILIES and S_tot > chunk
+               and S_tot % chunk == 0 and (max_len or S_tot) >= S_tot)
+    if rules is not None:
+        return _prefill_sharded(params, cfg, tokens, max_len=max_len or S_tot,
+                                step=chunk if chunked else S_tot,
+                                rules=rules, **kw)
+    if chunked:
         return _prefill_chunked(params, cfg, tokens, max_len=max_len or S_tot,
                                 chunk=chunk, **kw)
     return _prefill_whole(params, cfg, tokens, max_len=max_len, **kw)
 
 
-def final_logits(params, cfg, x_last):
-    """The final norm and the unembed of ``x_last [B, D]``, in float32."""
-    x = L.apply_norm(params["final_norm"], x_last, cfg.norm)
-    return L.unembed(params["embed"], x.float(), cfg.vocab)
+def final_logits(params, cfg, x_last, rules=None):
+    """The final norm and the unembed of ``x_last [B, D]``, in float32
+    (with ``rules``: from the rank's shards, the whole vocab gathered)."""
+    norm = gather_fsdp(params["final_norm"], L.norm_axes(cfg.norm), cfg,
+                       rules)
+    x = L.apply_norm(norm, x_last, cfg.norm)
+    return L.unembed(params["embed"], x.float(), cfg.vocab, rules)
 
 
-def _embed_with_prefix(params, cfg, tokens, prefix_embeds):
+def _rows(tokens, extra, rules):
+    """The rank's rows of a whole batch's tokens and extra input."""
+    rows = batch_rows(tokens.shape[0], rules)
+    return tokens[rows], None if extra is None else extra[rows]
+
+
+def _embed_with_prefix(params, cfg, tokens, prefix_embeds, rules=None):
     """The tokens' embeddings, after the prefix's (cast to ``cdtype``)."""
-    x = L.embed(params["embed"], tokens, cfg.cdtype)
+    x = L.embed(params["embed"], tokens, cfg.cdtype, rules, cfg.vocab)
     if prefix_embeds is None:
         return x
     return torch.cat([prefix_embeds.to(cfg.cdtype), x], dim=1)
@@ -442,6 +555,59 @@ def _prefill_chunked(params, cfg: ArchConfig, tokens, *, max_len, chunk,
     last = final_logits(params, cfg, last_x[:, -1])
     length = torch.full((B,), S_tot, dtype=torch.int32, device=x_all.device)
     return last, DecodeState(kv=KVCache(k=kc, v=vc, length=length))
+
+
+def check_seq_shards(max_len: int, rules) -> None:
+    """A cache sharded over the model axis on its sequence needs a length
+    the axis divides."""
+    n = tp_lib.tp_size(rules)
+    if max_len % n:
+        raise ValueError(f"a KV cache of {max_len} slots does not split "
+                         f"over a model axis of {n}; pick max_len a "
+                         f"multiple of it")
+
+
+def _prefill_sharded(params, cfg: ArchConfig, tokens, *, max_len, step,
+                     rules, prefix_embeds=None, prefix_len=None):
+    """The prefill on a mesh: the rank's rows of the batch, ``step``
+    positions at a time (a chunk, or the whole prompt in one), every layer
+    tensor parallel (``manual_tp``): B6 on the rank's q heads against the
+    kv heads they read, whose keys and values (every position so far) it
+    keeps in a buffer of ``max(S, max_len)`` slots.  Then each layer's
+    buffer becomes the rank's sequence shard of the cache with every kv
+    head (``manual_tp.seq_shard``), holding the last ``max_len`` positions
+    as the unsharded prefill does."""
+    check_seq_shards(max_len, rules)
+    tokens, prefix_embeds = _rows(tokens, prefix_embeds, rules)
+    x_all = _embed_with_prefix(params, cfg, tokens, prefix_embeds, rules)
+    B, S_tot, _ = x_all.shape
+    dev = x_all.device
+    lay = tp_lib.attn_layout(cfg, rules)
+    hk = cfg.n_kv_heads // lay.tp if lay.kv == "heads" else cfg.n_kv_heads
+    n_buf = max(S_tot, max_len)
+    kbuf = torch.zeros((2, cfg.n_layers, B, n_buf, hk, cfg.head_dim_),
+                       dtype=cfg.cdtype, device=dev)
+    axes = layer_axes(cfg, "attn")
+    for off in range(0, S_tot, step):
+        x = x_all[:, off:off + step]
+        q_pos = off + torch.arange(step, device=dev)
+        for i in range(cfg.n_layers):
+            lp = cast_layer_params(gather_fsdp(_layer(params["stack"], i),
+                                               axes, cfg, rules), cfg.cdtype)
+            h = L.apply_norm(lp["ln1"], x, cfg.norm)
+            y, _, _ = tp_lib.manual_attention(
+                lp["attn"], h, q_pos, cfg, rules, q_offset=off,
+                prefix_len=prefix_len, buf=kbuf[:, i])
+            x = _apply_mlp(lp, cfg, x + y, rules)
+    last = final_logits(params, cfg, x[:, -1], rules)
+    keep = kbuf[:, :, :, n_buf - max_len:]
+    filled = min(S_tot, max_len)
+    cache = [torch.stack([tp_lib.seq_shard(keep[j, i], rules, lay, filled)
+                          for i in range(cfg.n_layers)]) for j in (0, 1)]
+    del kbuf, keep
+    length = torch.full((B,), S_tot, dtype=torch.int32, device=dev)
+    return last, DecodeState(kv=KVCache(k=cache[0], v=cache[1],
+                                        length=length))
 
 
 def _fill_cache(cache: KVCache, i: int, k, v, window) -> None:
@@ -552,13 +718,18 @@ def _decode_rec(lp, cfg, x, lru, i):
     return _apply_mlp(lp, cfg, x + y)
 
 
-def decode_step(params, cfg: ArchConfig, tokens, state: DecodeState):
+def decode_step(params, cfg: ArchConfig, tokens, state: DecodeState, *,
+                mesh=None, rules=None):
     """tokens: [B,1].  Returns (logits [B,V] f32, new DecodeState).
 
     The layers' caches and recurrent states are updated in place (views of
     the stacked state), so ``state`` is consumed; the new state shares its
-    tensors, with a cache length one larger."""
+    tensors, with a cache length one larger.  With ``rules`` (and its
+    ``mesh``), :func:`_decode_sharded`."""
     check_family(cfg)
+    rules = check_shardable(cfg, sharded_rules(mesh, rules))
+    if rules is not None:
+        return _decode_sharded(params, cfg, tokens, state, rules)
     x = L.embed(params["embed"], tokens, cfg.cdtype)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
@@ -593,5 +764,37 @@ def decode_step(params, cfg: ArchConfig, tokens, state: DecodeState):
             x, _, _ = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length)
             x = _apply_mlp(lp, cfg, x)
     logits = final_logits(params, cfg, x[:, 0])
+    return logits, state._replace(
+        kv=KVCache(k=kc, v=vc, length=length + 1))
+
+
+def sharded_rules(mesh, rules):
+    """The rules of a decode on ``mesh``: the port's shards follow the
+    rules, so a mesh needs them, and they must be laid over that mesh."""
+    if mesh is not None and (rules is None or rules.mesh is not mesh):
+        raise ValueError("decode on a mesh takes the rules its params and "
+                         "state were sharded by (rules= over that mesh)")
+    return rules
+
+
+def _decode_sharded(params, cfg: ArchConfig, tokens, state: DecodeState,
+                    rules):
+    """One decode step on a mesh: the rank's rows of ``tokens``, each
+    layer's q, k and v gathered over ``"model"``, the new keys and values
+    written on the shard that owns slot ``length``, the partitioned
+    attention over every shard (``decode_attend_partitioned``), then the
+    row-parallel output projection and the tensor-parallel MLP
+    (``manual_tp``).  Returns the rank's rows' logits [B_loc, V]."""
+    kc, vc, length = state.kv
+    tokens = tokens[batch_rows(tokens.shape[0], rules)]
+    x = L.embed(params["embed"], tokens, cfg.cdtype, rules, cfg.vocab)
+    axes = layer_axes(cfg, "attn")
+    for i in range(cfg.n_layers):
+        lp = gather_fsdp(_layer(params["stack"], i), axes, cfg, rules)
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        x = x + tp_lib.decode_attention(lp["attn"], h, kc[i], vc[i], length,
+                                        cfg, rules)
+        x = _apply_mlp(lp, cfg, x, rules)
+    logits = final_logits(params, cfg, x[:, 0], rules)
     return logits, state._replace(
         kv=KVCache(k=kc, v=vc, length=length + 1))

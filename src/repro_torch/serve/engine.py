@@ -6,6 +6,14 @@ running prefill for the next queued request at batch=1 and *inserting* the
 resulting cache into the slot (per-sequence lengths make the insert exact).
 Decode runs over every slot each step, as in the reference.  The decode
 state lives on one device and is updated in place.
+
+On a mesh (``mesh=``, ``rules=``: every rank of it runs the same batcher
+on its shards of the params) the state is the rank's shard: its rows of
+the batch over ``"data"``, its sequence shard of the cache over
+``"model"``.  Every rank runs the same host loop and must take the same
+admit and finish decisions: a prefill's first token and each step's next
+tokens (the rank's rows, all-gathered over ``"data"``) are checked to
+agree over the whole mesh, and a disagreement raises.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.factory import Model
+from repro_torch.models.sharding import batch_rows
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -25,18 +34,35 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_prefill_step(model: Model, *, max_len: int):
+def make_prefill_step(model: Model, *, max_len: int, rules=None):
     def prefill_step(params, batch):
-        logits, state = model.prefill(params, batch, max_len=max_len)
+        logits, state = model.prefill(params, batch, max_len=max_len,
+                                      rules=rules)
         return greedy_sample(logits), state
     return prefill_step
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, *, mesh=None, rules=None):
+    """(next tokens [B, 1], logits, state) of a decode step; on a mesh the
+    rank's rows of the first two."""
     def decode_step(params, tokens, state):
-        logits, state = model.decode(params, tokens, state)
+        logits, state = model.decode(params, tokens, state, mesh=mesh,
+                                     rules=rules)
         return greedy_sample(logits)[:, None], logits, state
     return decode_step
+
+
+def agreed(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """``tokens`` (the same on every rank, or a fault) after checking that
+    every rank of ``mesh`` holds the same: a max and a max of the negated
+    over the whole mesh, which differ where any rank differs."""
+    both = torch.stack([tokens, -tokens]).to(torch.int64)
+    top = mesh.all_reduce_max(both)
+    if not (torch.equal(top[0], tokens.to(torch.int64))
+            and torch.equal(top[1], -tokens.to(torch.int64))):
+        raise RuntimeError(f"rank {mesh.rank} of {mesh}: the ranks' tokens "
+                           f"disagree ({tokens.flatten().tolist()} here)")
+    return tokens
 
 
 def insert_slot(state, pstate, slot: int):
@@ -92,10 +118,12 @@ class SlotInfo:
 class ContinuousBatcher:
     """Serves submitted requests ``batch_size`` at a time on ``device``
     (the card unless the caller asks for the CPU; ``params`` must already
-    be there)."""
+    be there).  On a mesh (``mesh`` and ``rules``) ``params`` are the
+    rank's shards (module docstring)."""
 
     def __init__(self, model: Model, params, batch_size: int, max_len: int,
-                 *, device=None, decode_fn=None, prefill_fn=None):
+                 *, device=None, mesh=None, rules=None, decode_fn=None,
+                 prefill_fn=None):
         self.device = resolve_device(device)
         emb = params["embed"]["embedding"]
         if emb.device != self.device:
@@ -105,15 +133,23 @@ class ContinuousBatcher:
         self.params = params
         self.B = batch_size
         self.max_len = max_len
+        if mesh is not None and (rules is None or rules.mesh is not mesh):
+            raise ValueError("a batcher on a mesh takes the rules its params "
+                             "were sharded by (rules= over that mesh)")
+        self.mesh, self.rules = mesh, rules
         self.state = model.decode_state_init(batch_size, max_len,
-                                             device=self.device)
+                                             device=self.device, rules=rules)
+        # the global slots this rank's state rows hold
+        self.rows = (slice(0, batch_size) if rules is None
+                     else batch_rows(batch_size, rules))
         self.slots: List[SlotInfo] = [SlotInfo() for _ in range(batch_size)]
         self.queue: collections.deque = collections.deque()
         self.requests: Dict[int, Request] = {}
         self.tokens = np.zeros((batch_size, 1), np.int32)
-        self._decode = decode_fn or make_decode_step(model)
-        self._prefill = prefill_fn or make_prefill_step(model,
-                                                        max_len=max_len)
+        self._decode = decode_fn or make_decode_step(model, mesh=mesh,
+                                                     rules=rules)
+        self._prefill = prefill_fn or make_prefill_step(
+            model, max_len=max_len, rules=rules)
         self.steps = 0
         self.tokens_out = 0
 
@@ -132,7 +168,13 @@ class ContinuousBatcher:
                 for k, v in (req.extras or {}).items():
                     batch[k] = _extra(v, self.device)
                 first, pstate = self._prefill(self.params, batch)
-                self.state = insert_slot(self.state, pstate, slot)
+                if self.mesh is None:
+                    self.state = insert_slot(self.state, pstate, slot)
+                else:
+                    first = agreed(first, self.mesh)
+                    if self.rows.start <= slot < self.rows.stop:
+                        self.state = insert_slot(self.state, pstate,
+                                                 slot - self.rows.start)
                 tok = int(first[0])
                 req.generated.append(tok)
                 self.tokens_out += 1
@@ -147,6 +189,10 @@ class ContinuousBatcher:
         nxt, logits, self.state = self._decode(
             self.params, torch.as_tensor(self.tokens.astype(np.int64),
                                          device=self.device), self.state)
+        if self.mesh is not None:
+            if self.rows.stop - self.rows.start < self.B:
+                nxt = torch.cat(list(self.mesh.all_gather(nxt, "data")))
+            nxt = agreed(nxt, self.mesh)
         nxt = nxt.cpu().numpy()
         self.steps += 1
         for slot, info in enumerate(self.slots):

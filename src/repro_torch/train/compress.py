@@ -8,7 +8,7 @@ it simulates the wire format bit for bit; the train step applies it where
 the gradient all-reduce would be.
 
 ``compressed_psum``, the collective that sums int8 payloads across
-devices, waits for the distributed slice (ROADMAP A10).
+devices, waits for training on a mesh (ROADMAP A10b).
 """
 from __future__ import annotations
 

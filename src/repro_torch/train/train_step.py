@@ -20,8 +20,8 @@ the state in place (the reference donates it): ``train_step(state,
 batch)`` consumes ``state`` and returns the new one, which shares its
 tensors.
 
-``state_shardings`` and ``batch_shardings`` wait for the distributed slice
-(ROADMAP A10).
+``state_shardings`` and ``batch_shardings`` wait for training on a mesh
+(ROADMAP A10b).
 """
 from __future__ import annotations
 

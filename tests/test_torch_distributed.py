@@ -4,11 +4,13 @@ JAX package's pod runtime, on the CPU.
 
 * ``ShardedGraph.build`` is the reference's field for field.
 * One 4-rank gloo world of the port (``launch/mesh.spawn``, one thread a
-  rank) and one reference process with four XLA host devices run the same
-  cases: a grid and a directed R-MAT at B = 32 and Q = 4, meshes (1, 4) and
+  rank) and two reference processes with four XLA host devices each (side
+  by side) run the same cases: a grid and a directed R-MAT at B = 32 and Q = 4, meshes (1, 4) and
   (2, 2), all six kinds, through ``FPPSession.run(...,
-  backend="distributed", mesh=...)``; and the partitioned decode at meshes
-  (1, 4) and (2, 2), with and without a window.
+  backend="distributed", mesh=...)``; the grid at mesh (4, 1) and an
+  Erdős–Rényi graph whose 10 partitions (B = 16) the model axis of 4 does
+  not divide, all six kinds; and the partitioned decode at meshes (1, 4)
+  and (2, 2), with and without a window.
 * sssp, bfs, cc and kreach are bitwise (values, hops, supersteps, edges);
   rw's occupancy and steps are bitwise; ppr is held within 4·eps,
   deg-normalised, and keeps the residual bound and mass conservation (its
@@ -52,6 +54,11 @@ MESHES = [(1, 4), (2, 2)]
 KINDS = ["sssp", "bfs", "ppr", "cc", "kreach", "rw"]
 SRCS = [0, 30, 100, 77]
 BLOCK, Q, EPS = 32, 4, 1e-4
+#: the cases the loops above leave out: the query axis alone (4, 1), and
+#: partitions that do not split evenly over the model axis (P = 10 at
+#: B = 16 over 4 ranks); (graph, block size, mesh)
+ODD_GRAPHS = {"er": ("erdos_renyi", {"n": 150, "avg_deg": 2.0, "seed": 4})}
+ODD = [("grid", BLOCK, (4, 1)), ("er", 16, (1, 4))]
 DECODE_SHAPE = (4, 32, 4, 2, 16)         # B, S, H, Hkv, hd
 DECODE_LENGTHS = [5, 17, 32, 9]
 WINDOWS = [None, 8]
@@ -59,7 +66,7 @@ WORLD_TIMEOUT_S = 60
 
 
 def _graph(pkg, name):
-    fn, kw = GRAPHS[name]
+    fn, kw = {**GRAPHS, **ODD_GRAPHS}[name]
     return getattr(pkg, fn)(**kw)
 
 
@@ -92,9 +99,10 @@ _REF_SCRIPT = textwrap.dedent("""
 
     spec = json.loads(sys.argv[1])
     arrays = np.load(sys.argv[2])
+    part = sys.argv[4]            # "main" or "odd": run side by side
     srcs = np.asarray(spec["srcs"])
     out = {}
-    for gname, (fn, kw) in spec["graphs"].items():
+    for gname, (fn, kw) in spec["graphs"].items() if part == "main" else ():
         sess = FPPSession(getattr(generators, fn)(**kw)).plan(
             num_queries=spec["q"], block_size=spec["block"])
         for shape in map(tuple, spec["meshes"]):
@@ -108,10 +116,24 @@ _REF_SCRIPT = textwrap.dedent("""
                 out[key + "_supersteps"] = r.stats["supersteps"]
                 if r.residual is not None:
                     out[key + "_residual"] = r.residual
+    for gname, block, shape in spec["odd"] if part == "odd" else ():
+        fn, kw = spec["all_graphs"][gname]
+        sess = FPPSession(getattr(generators, fn)(**kw)).plan(
+            num_queries=spec["q"], block_size=block)
+        mesh = jax.make_mesh(tuple(shape), ("data", "model"))
+        for kind in spec["kinds"]:
+            r = sess.run(kind, srcs, backend="distributed", mesh=mesh,
+                         eps=spec["eps"])
+            key = f"{gname}_{shape[0]}x{shape[1]}_{kind}"
+            out[key + "_values"] = r.values
+            out[key + "_edges"] = r.edges_processed
+            out[key + "_supersteps"] = r.stats["supersteps"]
+            if r.residual is not None:
+                out[key + "_residual"] = r.residual
     q, k, v = (jnp.asarray(arrays[n]) for n in ("q", "k", "v"))
     length = jnp.asarray(spec["lengths"], jnp.int32)
     S = k.shape[1]
-    for w in spec["windows"]:
+    for w in spec["windows"] if part == "main" else ():
         out[f"decode_local_{w}"] = np.asarray(A.decode_attend_local(
             q, k, v, jnp.arange(S), length, window=w))
         for shape in map(tuple, spec["meshes"]):
@@ -129,6 +151,10 @@ def _port_cases():
     cases = [{"graph": GRAPHS[g], "mesh": m, "kind": kind, "sources": SRCS,
               "num_queries": Q, "block_size": BLOCK, "eps": EPS}
              for g in GRAPHS for m in MESHES for kind in KINDS]
+    cases += [{"graph": {**GRAPHS, **ODD_GRAPHS}[g], "mesh": m, "kind": kind,
+               "sources": SRCS, "num_queries": Q, "block_size": block,
+               "eps": EPS}
+              for g, block, m in ODD for kind in KINDS]
     cases += [{"decode": True, "mesh": m, "shape": DECODE_SHAPE, "seed": 1,
                "dtype": "float32", "lengths": DECODE_LENGTHS, "window": w}
               for w in WINDOWS for m in MESHES]
@@ -138,40 +164,48 @@ def _port_cases():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(reference npz, the port's per-rank results by case key): the
-    reference process runs while the port's world does."""
+    reference's two processes run while the port's world does."""
     tmp = tmp_path_factory.mktemp("distributed")
     q, k, v = launcher.decode_inputs(DECODE_SHAPE, 1, "float32")
     np.savez(tmp / "decode.npz", q=q.numpy(), k=k.numpy(), v=v.numpy())
     spec = json.dumps({"graphs": GRAPHS, "meshes": MESHES, "kinds": KINDS,
                        "srcs": SRCS, "q": Q, "block": BLOCK, "eps": EPS,
-                       "lengths": DECODE_LENGTHS, "windows": WINDOWS})
+                       "lengths": DECODE_LENGTHS, "windows": WINDOWS,
+                       "odd": ODD, "all_graphs": {**GRAPHS, **ODD_GRAPHS}})
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "JAX_PLATFORMS": "cpu"}
-    ref = subprocess.Popen(
+    refs = [subprocess.Popen(
         [sys.executable, "-c", _REF_SCRIPT, spec, str(tmp / "decode.npz"),
-         str(tmp / "ref.npz")], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+         str(tmp / f"ref_{part}.npz"), part], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for part in ("main", "odd")]
     try:
         cases = _port_cases()
         per_rank = tmesh.spawn(launcher.run_cases, 4, "gloo",
                                args=(cases, "cpu"),
                                timeout_s=WORLD_TIMEOUT_S)
-        out, err = ref.communicate(timeout=300)
+        for ref in refs:
+            out, err = ref.communicate(timeout=300)
+            assert ref.returncode == 0 and "REF_OK" in out, err[-3000:]
     finally:
-        if ref.poll() is None:
-            ref.kill()
-            ref.wait()
-    assert ref.returncode == 0 and "REF_OK" in out, err[-3000:]
+        for ref in refs:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
     keys = []
     for c in cases:
         m = f"{c['mesh'][0]}x{c['mesh'][1]}"
         if c.get("decode"):
             keys.append(f"decode_{m}_{c['window']}")
         else:
-            g = next(n for n, spec in GRAPHS.items() if spec == c["graph"])
+            g = next(n for n, spec in {**GRAPHS, **ODD_GRAPHS}.items()
+                     if spec == c["graph"])
             keys.append(f"{g}_{m}_{c['kind']}")
     port = {key: [rank[i] for rank in per_rank] for i, key in enumerate(keys)}
-    return dict(np.load(tmp / "ref.npz")), port
+    want = {}
+    for part in ("main", "odd"):
+        want.update(np.load(tmp / f"ref_{part}.npz"))
+    return want, port
 
 
 def _same_across_ranks(results):
@@ -182,6 +216,20 @@ def _same_across_ranks(results):
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_four_rank_world_matches_reference(runs, name, mesh, kind):
+    _check_case(runs, name, mesh, kind)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name,block,mesh", ODD,
+                         ids=[f"{g}-B{b}-{m[0]}x{m[1]}" for g, b, m in ODD])
+def test_query_axis_and_uneven_partitions_match_reference(runs, name, block,
+                                                         mesh, kind):
+    """Mesh (4, 1) (the queries split four ways, one partition owner) and
+    P = 10 partitions over a model axis of 4, as the reference."""
+    _check_case(runs, name, mesh, kind)
+
+
+def _check_case(runs, name, mesh, kind):
     ref, port = runs
     key = f"{name}_{mesh[0]}x{mesh[1]}_{kind}"
     results = port[key]
