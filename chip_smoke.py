@@ -192,6 +192,21 @@ Phases, each of which fails the run on any error:
               finite, every parameter's moment non-zero, two flash
               launches per attention layer and microbatch (forward and
               remat), peak memory and tokens/s printed
+  8e. train mesh  ``launch/train.run(..., mesh=)`` for starcoder2-7b at
+              full width on a (2, 2) mesh of four gloo ranks sharing the
+              card (tensor parallel over "model", 18 / 2 heads a rank;
+              FSDP over "data"), TRAIN_MESH_LAYERS of its 32 layers, batch
+              4 x 1024 in 2 microbatches, 2 AdamW steps; its ranks run in
+              phase 7e's world after 7e's cases.  a. every rank the same
+              loss and grad-norm bits, every replica of a leaf the same
+              bits; b. the first step within TRAIN_MESH_LOSS_RTOL /
+              TRAIN_MESH_NORM_RTOL of one card's; c. the reduced config in
+              float32, 2 steps on the ranks against the CPU; d. its
+              checkpoint resharded onto (1, 4) and 2 more steps against 4
+              CPU steps; e. B6 twice an attention layer and microbatch on
+              every rank, threefry for the batches, nothing else; one
+              ``train mesh`` line a rank (step wall, tokens/s, collectives
+              a step and their seconds, peak GB, B6 launches)
   9. report   fg_threefry's line and the kernel table as JSON lines (each
               kernel launched at least once on the paths), then the
               result line
@@ -312,6 +327,33 @@ MESH_C_TOKENS, MESH_C_STRIDE = 4096, 32
 #: in float32 and rounded to bf16 once, where one card rounds the whole
 #: product once: bf16 roundings at other points, over 32 layers)
 MESH_LOGIT_RTOL = 0.05
+#: phase 8e: ``launch/train.run`` for starcoder2-7b at full width on a (2, 2)
+#: mesh of four gloo ranks sharing the card (``rules_for``: tensor parallel
+#: over "model", 18 / 2 heads of 128 a rank, TRAIN_MESH_KEY in phase 6;
+#: FSDP over "data"), cut for time to TRAIN_MESH_LAYERS of 32 layers and
+#: TRAIN_MESH_STEPS steps at 8d's rate; batch 4 x 1024 in 2 microbatches
+#: (one row a rank and microbatch).  Widths are not cut.  gloo paces it:
+#: each layer's FSDP gather (~435 MB a rank) runs in the forward and again
+#: in the remat, and its gradient's reduce-scatter in the backward
+TRAIN_MESH = (2, 2)
+TRAIN_MESH_LAYERS = 2
+TRAIN_MESH_STEPS = 2
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_MICRO = 4, 1024, 2
+TRAIN_MESH_KEY = LM_ARCH + " train tp2"
+#: check b: the mesh's first step against one card's (the same cut config,
+#: seeded state and batch), relative.  Both compute in bf16; the mesh adds
+#: a row-parallel block's two partial products in float32 and rounds once,
+#: where one card rounds the whole product once, so activations differ by
+#: bf16 roundings in each layer.  The loss averages 4,096 tokens' nll; the
+#: grad norm is a sum of squares over 0.9 B entries, dominated by the
+#: embedding and unembed, whose gradients move with the logits
+TRAIN_MESH_LOSS_RTOL = 0.01
+TRAIN_MESH_NORM_RTOL = 0.05
+#: checks c and d: the reduced config in float32 on the four ranks, its
+#: seed, batch, rate and steps (c: TRAIN_MESH on the ranks; d: then
+#: resharded onto RESHARD_MESH), against the port on the CPU
+TRAIN_MESH_REDUCED_SEQ, TRAIN_MESH_REDUCED_LR = 64, 1e-3
+RESHARD_MESH = (1, 4)
 #: (Sq, Skv, q_offset, window, causal, kv_len, prefix_len) of phase 6 per
 #: model (the first four fields alone: causal, every key seen)
 FLASH_SHAPES = {
@@ -326,15 +368,19 @@ FLASH_SHAPES = {
     # one rank's share of starcoder2's heads: a whole 4096-token chunk and
     # the 8192-token prompt's second
     MESH_KEY: ((4096, 4096, 0, None), (4096, 8192, 4096, None)),
+    # one rank's share of starcoder2's heads in phase 8e's training forward
+    TRAIN_MESH_KEY: ((TRAIN_MESH_SEQ, TRAIN_MESH_SEQ, 0, None),),
 }
 #: the shape each model's kernel row is timed at (its plain version too)
 FLASH_TIMED = {LM_ARCH: (4096, 4096), RG_ARCH: (4096, 4096, 0, 2048),
                MOE_ARCH: (4096, 4096), MESH_KEY: (4096, 4096),
+               TRAIN_MESH_KEY: (TRAIN_MESH_SEQ, TRAIN_MESH_SEQ),
                VLM_ARCH: FLASH_SHAPES[VLM_ARCH][1],
                ENCDEC_ARCH: FLASH_SHAPES[ENCDEC_ARCH][0]}
-#: the flash row's sub-rows (kernel table rows 6c/6d, 6e, 6f, 6g, 6h)
+#: the flash row's sub-rows (kernel table rows 6c/6d, 6e, 6f, 6g, 6h, 6i)
 FLASH_ROW_KEYS = {"hd256": RG_ARCH, "h32": MOE_ARCH, "prefix": VLM_ARCH,
-                  "hd64": ENCDEC_ARCH, "tp4": MESH_KEY}
+                  "hd64": ENCDEC_ARCH, "tp4": MESH_KEY,
+                  "train_tp2": TRAIN_MESH_KEY}
 #: check b's prompts (text tokens) per LM path: the kernel's prefill against
 #: the plain attention's; none for the ssm, which has no attention
 CHECK_B_TOKENS = {LM_ARCH: (512,), "recurrentgemma-2b": (512, 3000),
@@ -2421,8 +2467,9 @@ def phase_flash(torch) -> dict:
                 size * (2 * sq * H * hd + 2 * skv * Hkv * hd))
 
     def heads_of(arch):
-        if arch == MESH_KEY:
-            cfg, n = get_config(LM_ARCH), MESH[1]
+        if arch in (MESH_KEY, TRAIN_MESH_KEY):
+            cfg = get_config(LM_ARCH)
+            n = MESH[1] if arch == MESH_KEY else TRAIN_MESH[1]
             return cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim_
         cfg = get_config(arch)
         return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -3004,7 +3051,7 @@ def _logit_diff(got, want, vocab) -> dict:
             "rel": diff / scale, "ok": diff <= MESH_LOGIT_RTOL * scale}
 
 
-def phase_lm_mesh(torch, ref, card) -> dict:
+def phase_lm_mesh(torch, ref, card, train_cases=()) -> dict:
     """Phase 7e: starcoder2-7b at full width and depth on MESH, four gloo
     ranks sharing the card (``launch/mesh.spawn``,
     ``launch/distributed.run_lm_cases``), from phase 7's seeded weights
@@ -3018,7 +3065,10 @@ def phase_lm_mesh(torch, ref, card) -> dict:
     float32 on the same four ranks against the port unsharded on the CPU;
     e. B6 launched once an attention layer and chunk on every rank, and no
     graph kernel.  The walls are four processes on one card: they measure
-    the exchange's overhead, not scaling."""
+    the exchange's overhead, not scaling.  The same world then runs phase
+    8e's ``train_cases`` (``launch/distributed.run_mesh_cases``: the ranks
+    start once); their per-rank results are returned under
+    ``"train_ranks"`` for phase 8e to check."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -3061,9 +3111,11 @@ def phase_lm_mesh(torch, ref, card) -> dict:
                "config": {"compute_dtype": "float32"}, "arrays": arrays(cpu),
                "teacher": r_teacher, "serve": r_serve}
     t = time.perf_counter()
-    per_rank = spawn(launcher.run_lm_cases, MESH_WORLD, "gloo",
-                     args=([full, reduced], None), timeout_s=300)
+    both = spawn(launcher.run_mesh_cases, MESH_WORLD, "gloo",
+                 args=([full, reduced], list(train_cases), None),
+                 timeout_s=300)
     world_s = time.perf_counter() - t
+    per_rank = [lm for lm, _ in both]
     fulls, reds = [r[0] for r in per_rank], [r[1] for r in per_rank]
 
     # a. every rank the same tokens; those equal to phase 7's, reported
@@ -3156,7 +3208,8 @@ def phase_lm_mesh(torch, ref, card) -> dict:
     if not check_d["tokens_equal"]:
         raise AssertionError("lm mesh: the reduced config's tokens differ "
                              "from the CPU's")
-    return {"launches": sum(r["b6_launches"] for r in ranks), **res}
+    return {"launches": sum(r["b6_launches"] for r in ranks),
+            "train_ranks": [tr for _, tr in both], **res}
 
 
 def lm_card_vs_cpu(torch, arch: str = LM_ARCH) -> dict:
@@ -3646,6 +3699,270 @@ def phase_train(torch, counters) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8e: training on a mesh
+
+def train_mesh_cases(torch) -> tuple:
+    """Phase 8e's cases for the shared world (phase 7e spawns it): the
+    full-width ``launch/train.run`` on TRAIN_MESH, and the reduced config
+    in float32 from a seeded state (2 steps, a checkpoint, a reshard onto
+    RESHARD_MESH, 2 more).  Returns (cases, what phase 8e holds them
+    to)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import init_train_state
+
+    argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_MESH_STEPS), "--batch",
+            str(TRAIN_MESH_BATCH), "--seq", str(TRAIN_MESH_SEQ),
+            "--microbatches", str(TRAIN_MESH_MICRO), "--lr", str(TRAIN_LR)]
+    full = {"arch": LM_ARCH, "mesh": TRAIN_MESH, "argv": argv,
+            "config": {"n_layers": TRAIN_MESH_LAYERS}}
+    rcfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
+                               compute_dtype="float32")
+    st = init_train_state(build_model(rcfg), torch.Generator().manual_seed(1),
+                          AdamW(), device="cpu")
+
+    def arrays(tree):
+        return None if tree is None else {
+            k: arrays(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
+    state = {"params": arrays(st.params), "mu": arrays(st.opt.mu),
+             "nu": arrays(st.opt.nu), "count": st.opt.count.numpy(),
+             "step": st.step.numpy()}
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_mesh_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    reduced = {"arch": LM_ARCH, "reduced": True, "mesh": TRAIN_MESH,
+               "config": {"compute_dtype": "float32"}, "state": state,
+               "seq": TRAIN_MESH_REDUCED_SEQ, "batch": TRAIN_MESH_BATCH,
+               "microbatches": TRAIN_MESH_MICRO,
+               "lr": ("constant", (TRAIN_MESH_REDUCED_LR,)),
+               "steps": TRAIN_MESH_STEPS, "ckpt_dir": ckdir,
+               "reshard": [(RESHARD_MESH, TRAIN_MESH_STEPS)]}
+    return [full, reduced], {"argv": argv, "rcfg": rcfg, "state": state,
+                             "ckdir": ckdir}
+
+
+def _shard_specs(cfg, mesh_shape) -> dict:
+    """``{params leaf path: spec}`` of ``cfg`` on a (data, model) mesh."""
+    from repro_torch.launch.steps import rules_for
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.optimizer import AdamState
+    from repro_torch.train.train_step import TrainState, state_shardings
+
+    model = build_model(cfg)
+    rules = rules_for(cfg, dict(zip(("data", "model"), mesh_shape)))
+    specs = state_shardings(TrainState(
+        params=model.param_shapes(), opt=AdamState(None, None, None),
+        step=None), model.param_axes(), rules)
+    return _flatten(specs.params, specs=True)
+
+
+class _RankAt:
+    """Where rank ``rank`` of a (data, model) mesh sits (what
+    ``sharding.shard_by_spec`` reads of a mesh), without a world."""
+
+    def __init__(self, shape, rank):
+        self.shape = dict(zip(("data", "model"), shape))
+        self.coords = dict(zip(("data", "model"), (int(c) for c in
+                                                   np.unravel_index(
+                                                       rank, shape))))
+
+    def index(self, axes):
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+
+def _adamw_close(got: dict, want, specs, mesh_shape, rank, steps,
+                 lr) -> dict:
+    """A rank's reduced state (``{checkpoint path: numpy}``) against its
+    blocks of the CPU's state ``want`` after ``steps`` steps at ``lr``:
+    the moments within TRAIN_F32_TOL; the params within TRAIN_F32_TOL plus
+    what AdamW makes of the moments' differences (8b's allowance, for any
+    step: the update's first-order change, ``lr * (|dm| / (s + eps) + |m|
+    ds / (s + eps)^2)`` summed over the steps, ``s = sqrt(v)``, both
+    bias-corrected), at most TRAIN_AMPLIFIED_MAX elements beyond
+    TRAIN_F32_TOL."""
+    from repro_torch.models.sharding import shard_by_spec
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.optimizer import AdamW
+
+    opt, tol = AdamW(), TRAIN_F32_TOL
+    where = _RankAt(mesh_shape, rank) if mesh_shape else None
+    flat = _flatten(want)
+
+    def block(key, path):
+        t = flat[key]
+        if where is not None:
+            t = shard_by_spec(t, specs[path], where)
+        return t.numpy()
+    bc1, bc2 = 1 - opt.b1 ** steps, 1 - opt.b2 ** steps
+    worst = {"mu": 0.0, "nu": 0.0, "params": 0.0}
+    amplified = 0
+    for key in flat:
+        if not key.startswith(".params::"):
+            continue
+        path = key[len(".params::"):]
+        p, m, v = (block(pre + path, path) for pre in (
+            ".params::", ".opt::.mu::", ".opt::.nu::"))
+        gp, gm, gv = (got[pre + path] for pre in (
+            ".params::", ".opt::.mu::", ".opt::.nu::"))
+        for name, a, b in (("mu", gm, m), ("nu", gv, v)):
+            np.testing.assert_allclose(a, b, **tol, err_msg=f"{name} {path}")
+            worst[name] = max(worst[name], float(np.abs(a - b).max()))
+        mh, s = m / bc1, np.sqrt(v / bc2)
+        dm, ds = np.abs(gm / bc1 - mh), np.abs(np.sqrt(gv / bc2) - s)
+        plain = tol["atol"] + tol["rtol"] * np.abs(p)
+        slack = steps * lr * (dm / (s + opt.eps)
+                              + np.abs(mh) * ds / (s + opt.eps) ** 2)
+        d = np.abs(gp - p)
+        if not (d <= plain + slack).all():
+            raise AssertionError(f"train 8e: {path} differs by "
+                                 f"{float(d.max())} beyond the bound")
+        amplified += int((d > plain).sum())
+        worst["params"] = max(worst["params"], float(d.max()))
+    if amplified > TRAIN_AMPLIFIED_MAX:
+        raise AssertionError(f"train 8e: {amplified} parameters beyond "
+                             f"TRAIN_F32_TOL (at most {TRAIN_AMPLIFIED_MAX})")
+    return {"max_abs_diff": worst, "amplified": amplified}
+
+
+def _check_train_mesh_launches(full: list) -> None:
+    """8e's check e on each rank's launch counts."""
+    per_step = TRAIN_MESH_LAYERS * TRAIN_MESH_MICRO * 2
+    want = {"flash_attention": per_step * TRAIN_MESH_STEPS,
+            "threefry": TRAIN_DRAWS * TRAIN_MESH_STEPS}
+    for i, r in enumerate(full):
+        got = {k: c for k, c in r["launches"].items() if c}
+        if got != want or r["b6"] != [per_step] * TRAIN_MESH_STEPS:
+            raise AssertionError(f"train 8e rank {i}: launches {got} "
+                                 f"({r['b6']} a step), want {want}")
+
+
+def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
+    """Phase 8e: training on a mesh, from the per-rank results of the
+    world phase 7e shared (:func:`train_mesh_cases`).  Checks: a. every
+    rank the same loss and grad-norm bits, and every replica of a leaf
+    (the ranks along an axis it is not split over) the same bits (sha1 of
+    params, moments); b. the mesh's first step's loss and grad norm within
+    TRAIN_MESH_LOSS_RTOL and TRAIN_MESH_NORM_RTOL of one card's
+    (``launch/train.run`` here, the same argv and cut); c. the reduced
+    config's 2 steps on TRAIN_MESH against the port on the CPU; d. its
+    checkpoint resharded onto RESHARD_MESH and 2 more steps against 4 CPU
+    steps; e. B6 twice per attention layer and microbatch on every rank
+    (forward and remat), threefry TRAIN_DRAWS a step, nothing else.  One
+    ``train mesh`` line per rank: step wall, tokens/s, collectives a step,
+    peak GB, B6 launches."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.convert import train_state_from_arrays
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.optimizer import AdamW, constant
+    from repro_torch.train.train_step import make_train_step
+
+    full, red = [r[0] for r in ranks], [r[1] for r in ranks]
+    steps = TRAIN_MESH_STEPS
+    _check_train_mesh_launches(full)
+    # a. every rank the same metric bits; replicas the same leaves
+    if any(r["bits"] != full[0]["bits"] for r in full[1:]):
+        raise AssertionError("train 8e: the ranks' loss or grad norm bits "
+                             "differ")
+    args = tlaunch.parse_args(ctx["argv"])
+    cfg = dataclasses.replace(tlaunch.config_for(args),
+                              n_layers=TRAIN_MESH_LAYERS)
+    specs = _shard_specs(cfg, TRAIN_MESH)
+    replicas = 0
+    for path, spec in specs.items():
+        split = {a for e in spec if e for a in
+                 ((e,) if isinstance(e, str) else e)}
+        seen = {}
+        for r in full:
+            where = tuple(r["coords"][a] for a in ("data", "model")
+                          if a in split)
+            for pre in (".params::", ".opt::.mu::", ".opt::.nu::"):
+                d = r["digests"][pre + path]
+                if (pre, where) in seen:
+                    replicas += 1
+                    if seen[(pre, where)] != d:
+                        raise AssertionError(f"train 8e: replicas of "
+                                             f"{pre}{path} differ")
+                seen[(pre, where)] = d
+    # b. one card's first step of the same cut config, argv and state
+    torch.cuda.empty_cache()
+    one_args = tlaunch.parse_args(ctx["argv"][:2] + ["--steps", "1"]
+                                  + ctx["argv"][4:])
+    state, stats = tlaunch.run(one_args, cfg, log=lambda m: None)
+    one = stats.history[0]
+    del state
+    torch.cuda.empty_cache()
+    mesh0 = full[0]["history"][0]
+    check_b = {"loss": [mesh0["loss"], one["loss"]],
+               "grad_norm": [mesh0["grad_norm"], one["grad_norm"]],
+               "loss_rel": abs(mesh0["loss"] - one["loss"]) / abs(one["loss"]),
+               "norm_rel": abs(mesh0["grad_norm"] - one["grad_norm"])
+               / one["grad_norm"],
+               "tol": [TRAIN_MESH_LOSS_RTOL, TRAIN_MESH_NORM_RTOL]}
+    if not (check_b["loss_rel"] <= TRAIN_MESH_LOSS_RTOL
+            and check_b["norm_rel"] <= TRAIN_MESH_NORM_RTOL):
+        raise AssertionError(f"train 8e check b: {check_b}")
+    # c and d. the reduced config: the ranks against the port on the CPU
+    rcfg = ctx["rcfg"]
+    cpu = train_state_from_arrays(**ctx["state"], device="cpu")
+    step = make_train_step(build_model(rcfg), AdamW(),
+                           constant(TRAIN_MESH_REDUCED_LR),
+                           microbatches=TRAIN_MESH_MICRO)
+    shape = ShapeConfig("t", "train", TRAIN_MESH_REDUCED_SEQ,
+                        TRAIN_MESH_BATCH)
+    checks = {}
+    for leg, (mesh_shape, label) in enumerate(((TRAIN_MESH, "c"),
+                                               (RESHARD_MESH, "d"))):
+        for s in range(leg * steps, (leg + 1) * steps):
+            cpu, m = step(cpu, batch_for_step(rcfg, shape, s, device="cpu"))
+        rspecs = _shard_specs(rcfg, mesh_shape)
+        n = (leg + 1) * steps
+        res = [_adamw_close(r["legs"][leg]["state"], cpu, rspecs,
+                            mesh_shape, i, n, TRAIN_MESH_REDUCED_LR)
+               for i, r in enumerate(red)]
+        loss = red[0]["legs"][leg]["loss"][-1]
+        checks[label] = {"mesh": list(mesh_shape), "steps": n,
+                         "loss": loss, "cpu_loss": float(m["loss"]),
+                         **max(res, key=lambda x: x["amplified"])}
+        np.testing.assert_allclose(loss, float(m["loss"]), **TRAIN_F32_TOL)
+    import shutil
+    shutil.rmtree(ctx["ckdir"], ignore_errors=True)
+    tokens = TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
+    lines = []
+    for i, r in enumerate(full):
+        line = {"rank": i, "card": card, "mesh": list(TRAIN_MESH),
+                "layers": TRAIN_MESH_LAYERS, "step_s": r["step_s"],
+                "tokens_per_s": [tokens / t for t in r["step_s"]],
+                "collectives_per_step": r["calls"],
+                "collective_s_per_step": r["collective_s"],
+                "peak_gb": (r["peak_mem_bytes"] or 0) / 1e9,
+                "b6_launches": r["launches"]["flash_attention"],
+                "loss": [h["loss"] for h in r["history"]],
+                "grad_norm": [h["grad_norm"] for h in r["history"]],
+                "case_wall_s": r["wall_s"]}
+        log("train mesh: " + json.dumps(line))
+        lines.append(line)
+    res = {"arch": LM_ARCH, "layers": TRAIN_MESH_LAYERS, "check_a_replicas":
+           replicas, "check_b": check_b, "check_c": checks["c"],
+           "check_d": checks["d"], "reduced_walls_s": [r["wall_s"]
+                                                       for r in red]}
+    log("train 8e checks: " + json.dumps(res))
+    return {"launches": sum(r["launches"]["flash_attention"] for r in full),
+            "ranks": lines, **res}
+
+
 class Counters:
     """Every kernel wrapper's launch count, reset and read together."""
 
@@ -3735,13 +4052,16 @@ def main() -> int:
     lm_moe = timed("7c lm moe", phase_lm_moe, torch, Counters())
     lm_last = timed("7d lm vlm, encdec", phase_lm_vlm_encdec, torch,
                     Counters())
-    lm_mesh = timed("7e lm mesh", phase_lm_mesh, torch, lm["mesh_ref"],
-                    card)
+    train_cases, train_ctx = train_mesh_cases(torch)
+    lm_mesh = timed("7e lm mesh (and 8e's ranks)", phase_lm_mesh, torch,
+                    lm["mesh_ref"], card, train_cases)
     train = timed("8 train", phase_train, torch, Counters())
+    train_mesh = timed("8e train mesh", phase_train_mesh, torch,
+                       lm_mesh.pop("train_ranks"), train_ctx, card)
     launches["flash_attention"] = lm["launches"] + sum(
         r["launches"] for r in lm_rec.values()) + lm_moe["launches"] + sum(
         r["launches"] for r in lm_last.values()) + train["launches"] + \
-        lm_mesh["launches"]
+        lm_mesh["launches"] + train_mesh["launches"]
     launches["threefry"] = launches.get("threefry", 0) + \
         train["full"]["counts"]["threefry"]
 
@@ -3800,15 +4120,17 @@ def main() -> int:
             row["launches_of"] = ("the LM paths' prefills (7e's summed "
                                   "over its four ranks) and phase 8's "
                                   "training forwards and remat "
-                                  "recomputes, all of them "
-                                  "flash_tc_kernel (bf16, tensor cores)")
+                                  "recomputes (8e's summed over its four "
+                                  "ranks), all of them flash_tc_kernel "
+                                  "(bf16, tensor cores)")
             row["launches_by_arch"] = {
                 LM_ARCH: lm["launches"],
                 **{a: r["launches"] for a, r in lm_rec.items()},
                 MOE_ARCH: lm_moe["launches"],
                 **{a: r["launches"] for a, r in lm_last.items()},
                 MESH_KEY: lm_mesh["launches"],
-                LM_ARCH + " train": train["launches"]}
+                LM_ARCH + " train": train["launches"],
+                TRAIN_MESH_KEY: train_mesh["launches"]}
             # the training path's backward is the plain flash backward
             # (FlashAttentionFn), timed at the training shape beside SDPA's
             # forward + backward

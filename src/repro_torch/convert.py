@@ -108,25 +108,49 @@ def _tensor(a, dev) -> torch.Tensor:
 
 
 def train_state_from_arrays(*, params, mu, nu, count, step, master=None,
-                            ef=None, device=None):
+                            ef=None, device=None, cfg=None, rules=None):
     """The reference's ``TrainState`` (``jax.tree.map(np.asarray, ...)`` of
     its ``params``, ``opt.mu``, ``opt.nu``, ``opt.count``, ``opt.master``,
     ``ef`` and ``step``) as the port's ``train_step.TrainState`` on
     ``device``, every leaf in its own dtype (the reference trains float32
-    parameters; its ``count`` and ``step`` are int32)."""
+    parameters; its ``count`` and ``step`` are int32).  With ``rules``
+    (over a ``launch/mesh.Mesh``) and ``cfg``, each leaf is this rank's
+    block of it by ``train_step.state_shardings`` (cut on the host before
+    it goes to ``device``)."""
+    from repro_torch.models.factory import build_model
     from repro_torch.train.optimizer import AdamState
-    from repro_torch.train.train_step import TrainState
+    from repro_torch.train.train_step import TrainState, state_shardings
 
     dev = resolve_device(device)
+    cpu = torch.device("cpu")
 
-    def put(node):
+    def put(node, d):
         if node is None:
             return None
         if isinstance(node, dict):
-            return {k: put(v) for k, v in node.items()}
-        return _tensor(node, dev)
+            return {k: put(v, d) for k, v in node.items()}
+        return _tensor(node, d)
 
-    opt = AdamState(mu=put(mu), nu=put(nu), count=put(count),
-                    master=put(master))
-    return TrainState(params=put(params), opt=opt, step=put(step),
-                      ef=put(ef))
+    opt = AdamState(mu=put(mu, cpu), nu=put(nu, cpu), count=put(count, dev),
+                    master=put(master, cpu))
+    state = TrainState(params=put(params, cpu), opt=opt, step=put(step, dev),
+                       ef=put(ef, cpu))
+    if rules is not None:
+        from repro_torch.train.train_step import shard_state
+        if cfg is None:
+            raise ValueError("a sharded train state needs the cfg whose "
+                             "param axes cut it")
+        specs = state_shardings(state, build_model(cfg).param_axes(), rules)
+        state = shard_state(state, specs, rules.mesh)
+    return _to(state, dev)
+
+
+def _to(tree, dev):
+    """Every tensor leaf of a tree of dicts and NamedTuples on ``dev``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return type(tree)(*(_to(v, dev) for v in tree))

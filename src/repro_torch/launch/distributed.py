@@ -19,6 +19,9 @@ with its own cases); :func:`decode_inputs` makes the seeded inputs of a
 partitioned-decode case.  :func:`run_lm_cases` is the rank-side body of
 the LM on a mesh: a model's prefill, decode, forward and
 ``ContinuousBatcher`` on a rank's shards of its params.
+:func:`run_train_cases` is the one of training on a mesh: train steps on
+a rank's shards of a state, checkpoints and reshards, or
+``launch/train.run`` itself.
 """
 from __future__ import annotations
 
@@ -356,6 +359,219 @@ def run_lm_cases(rank: int, cases: list, device=None) -> list:
             torch.cuda.empty_cache()
         out.append(res)
     return out
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh
+
+
+def _np_leaves(tree) -> dict:
+    """``{path: float32-or-own-dtype numpy}`` of a train state's tensors
+    (the checkpoint's path strings)."""
+    from repro_torch.train.checkpoint import _flatten
+    return {k: v.detach().cpu().numpy() for k, v in _flatten(tree).items()}
+
+
+def _digests(tree) -> dict:
+    """``{path: sha1 of the leaf's bytes}``: replicas compared bit for bit
+    without moving whole leaves between processes."""
+    import hashlib
+
+    from repro_torch.train.checkpoint import _flatten
+    return {k: hashlib.sha1(v.detach().reshape(-1).view(torch.uint8)
+                            .cpu().numpy().tobytes()).hexdigest()
+            for k, v in _flatten(tree).items()}
+
+
+def _train_cfg(case: dict):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config(case["arch"])
+    cfg = cfg.reduced() if case.get("reduced") else cfg
+    return dataclasses.replace(cfg, **case.get("config", {}))
+
+
+def _train_legs(case: dict, cfg, model, dev, meshes: dict) -> dict:
+    """The steps of a case from a carried state (see
+    :func:`run_train_cases`)."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.convert import train_state_from_arrays
+    from repro_torch.launch.elastic import reshard_restore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import rules_for
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.train_step import (grads_of, make_train_step,
+                                              state_shardings)
+
+    def mesh_of(shape):
+        if shape is None:
+            return None
+        key = tuple(shape)
+        if key not in meshes:
+            meshes[key] = make_host_mesh(*key)
+        return meshes[key]
+
+    mesh = mesh_of(case["mesh"])
+    rules = rules_for(cfg, mesh) if mesh is not None and mesh.size > 1 \
+        else None
+    state = train_state_from_arrays(**case["state"], device=dev, cfg=cfg,
+                                    rules=rules)
+    shape = ShapeConfig("t", "train", case["seq"], case["batch"])
+    name, lr_args = case["lr"]
+    lr = getattr(opt_lib, name)(*lr_args)
+    opt = opt_lib.AdamW()
+    out = {"legs": []}
+    if case.get("grads"):
+        g, _ = grads_of(model, state.params, batch_for_step(
+            cfg, shape, 0, device=dev), rules=rules,
+            microbatches=case["microbatches"])
+        out["grads"] = _np_leaves(g)
+        del g
+    step = 0
+    legs = [(case["mesh"], case["steps"])] + list(case.get("reshard", ()))
+    for i, (mshape, n) in enumerate(legs):
+        if i:
+            mesh = mesh_of(mshape)
+            state, rules, got = reshard_restore(case["ckpt_dir"], cfg, mesh,
+                                                device=dev)
+            if got != step:
+                raise RuntimeError(f"restored step {got}, want {step}")
+        fn = make_train_step(model, opt, lr, rules=rules,
+                             microbatches=case["microbatches"],
+                             compression=case.get("compression", False))
+        leg = {"mesh": mshape, "loss": [], "grad_norm": [], "bits": [],
+               "calls": [], "step_s": []}
+        for _ in range(n):
+            batch = batch_for_step(cfg, shape, step, device=dev)
+            c0 = mesh.calls if mesh is not None else 0
+            _sync(dev)
+            t = time.perf_counter()
+            state, m = fn(state, batch)
+            _sync(dev)
+            leg["step_s"].append(time.perf_counter() - t)
+            leg["calls"].append((mesh.calls if mesh is not None else 0) - c0)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            leg["loss"].append(loss)
+            leg["grad_norm"].append(norm)
+            leg["bits"].append(np.array([loss, norm], np.float32).tobytes())
+            step += 1
+        if case.get("ckpt_dir") and i + 1 < len(legs):
+            specs = None if rules is None else state_shardings(
+                state._replace(params=model.param_shapes()),
+                model.param_axes(), rules)
+            ck.save(case["ckpt_dir"], step, state, specs=specs,
+                    mesh=None if rules is None else mesh)
+        leg["state"] = _np_leaves(state)
+        out["legs"].append(leg)
+    return out
+
+
+def _train_launch(case: dict, dev) -> dict:
+    """``launch/train.run`` on the case's mesh (see
+    :func:`run_train_cases`)."""
+    import dataclasses
+
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(*case["mesh"])
+    args = tlaunch.parse_args(case["argv"])
+    cfg = dataclasses.replace(tlaunch.config_for(args),
+                              **case.get("config", {}))
+    marks = []   # (collectives, their seconds, B6 launches) at each step
+
+    def log(msg):
+        if msg.startswith("[train] ") and not marks or \
+                msg.startswith("[loop] step"):
+            _sync(dev)
+            marks.append((mesh.calls, mesh.seconds,
+                          _launches()["flash_attention"]))
+    state, stats = tlaunch.run(args, cfg, mesh=mesh, log_every=1, log=log)
+    calls, coll_s, b6 = ([b[i] - a[i] for a, b in zip(marks, marks[1:])]
+                         for i in range(3))
+    return {"history": stats.history, "step_s": stats.step_times,
+            "restored_step": stats.restored_step, "calls": calls,
+            "collective_s": coll_s, "b6": b6,
+            "bits": [np.array([h["loss"], h["grad_norm"]], np.float32)
+                     .tobytes() for h in stats.history],
+            "digests": _digests(state), "rank": mesh.rank,
+            "coords": dict(mesh.coords)}
+
+
+def _psum_case(case: dict, dev) -> dict:
+    """``train/compress.compressed_psum`` of the rank's row ``x[r]`` of
+    ``case["x"] [world, ...]`` over ``case["axis"]`` of ``case["mesh"]``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.compress import compressed_psum
+    mesh = make_host_mesh(*case["mesh"])
+    x = torch.as_tensor(np.asarray(case["x"])[mesh.rank], device=dev)
+    return {"out": compressed_psum(x, mesh, case["axis"]).cpu().numpy()}
+
+
+def run_train_cases(rank: int, cases: list, device=None) -> list:
+    """Run training ``cases`` on this rank of a world (every rank the same
+    list: building a mesh is collective).  A case is a dict with ``arch``,
+    optional ``reduced`` and ``config`` (fields replaced after it) and
+    ``mesh`` ``(data, model)``, and either
+
+    * ``argv``: ``launch/train.py``'s arguments, run through
+      ``launch/train.run(args, cfg, mesh=)`` (``cfg`` from its
+      ``config_for``, ``config`` replaced; the CLI's own state, seeded 0);
+      returns the loop's history and step times, the collectives (their
+      count and seconds) and B6 launches of each step, the rank's state
+      digests; or
+    * ``state`` (the reference's numpy train state, cut by
+      ``convert.train_state_from_arrays(..., rules=)``), ``seq``,
+      ``batch``, ``microbatches``, ``lr`` (``(schedule name, args)`` of
+      ``train/optimizer.py``), ``steps``, optional ``compression``,
+      ``grads`` (also return the first batch's gradient shards) and
+      ``ckpt_dir`` with ``reshard`` (``[(mesh or None, steps), ...]``:
+      after each leg the state is saved there and
+      ``launch/elastic.reshard_restore`` puts it on the next leg's mesh).
+      Returns each leg's losses, grad norms, their float32 bits,
+      collectives and seconds a step, and its final state's shards; or
+    * ``psum``: ``{"mesh", "axis", "x" [world, ...]}``, the rank's
+      ``compressed_psum`` of its row (``out``).
+
+    Every case also returns ``wall_s``, the rank's kernel ``launches``
+    and its card's ``peak_mem_bytes``."""
+    from repro_torch.core.engine import resolve_device
+    from repro_torch.models.factory import build_model
+
+    dev = resolve_device(device)
+    meshes: dict = {}
+    out = []
+    for case in cases:
+        _reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        if "psum" in case:
+            res = _psum_case(case["psum"], dev)
+        elif "argv" in case:
+            res = _train_launch(case, dev)
+        else:
+            cfg = _train_cfg(case)
+            res = _train_legs(case, cfg, build_model(cfg), dev, meshes)
+        res["wall_s"] = time.perf_counter() - t
+        res["launches"] = _launches()
+        res["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else None)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out.append(res)
+    return out
+
+
+def run_mesh_cases(rank: int, lm_cases: list, train_cases: list,
+                   device=None) -> tuple:
+    """:func:`run_lm_cases` then :func:`run_train_cases` on one world (its
+    ranks start once)."""
+    return (run_lm_cases(rank, lm_cases, device),
+            run_train_cases(rank, train_cases, device))
 
 
 def same_answers(per_rank: list) -> bool:

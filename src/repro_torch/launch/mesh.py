@@ -21,6 +21,20 @@ With no process group initialised, a mesh has one rank (``Mesh((1,
 1))``, which ``fpp/backends.default_mesh`` gives) and its collectives
 return their input; that is the only place where one rank differs.
 
+Under autograd the collectives carry their adjoints, chosen so that every
+activation replicated over an axis keeps a complete, replicated gradient
+(the rule the tensor-parallel blocks of ``models/manual_tp.py`` keep):
+``all_reduce_sum`` passes its gradient through (its output is the
+replicated sum of partial terms); :meth:`Mesh.sum_grad` is the identity
+forward and sums the gradient over its axis (a replicated input entering
+a computation split over that axis); ``all_gather`` hands each rank its
+block of the gradient, summed over the axis first when ``grad="sum"``
+(the ranks along it computed with different data: the FSDP gather over
+``"data"``, whose adjoint is a reduce-scatter).  A backward enters its
+collectives in autograd's order, which is the same on every rank of a
+mesh that built the same graph; a rank that waits for a collective the
+others never enter fails at ``spawn``'s timeout.
+
 Not ported: ``compat_make_mesh`` and ``set_mesh``.  They paper over jax
 versions (the ``axis_types=`` keyword, ``jax.set_mesh`` against the
 resource-env context) and have no torch counterpart: a torch mesh is built
@@ -40,6 +54,7 @@ import os
 import pickle
 import shutil
 import tempfile
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -54,7 +69,9 @@ class Mesh:
 
     ``shape`` maps each axis name to its size, as the reference's
     ``mesh.shape`` does; ``coords`` maps it to this rank's coordinate.
-    ``calls`` counts the collectives this rank has entered on it.
+    ``calls`` counts the collectives this rank has entered on it and
+    ``seconds`` adds up the host's time inside them (a collective of CUDA
+    tensors first waits for the card's work queued before it).
     """
 
     def __init__(self, shape: Sequence[int],
@@ -80,6 +97,7 @@ class Mesh:
             rank % size, shape))))
         self._groups: dict = {}
         self.calls = 0
+        self.seconds = 0.0
         if not self.distributed:
             return
         # every rank creates every group, in one order (dist.new_group);
@@ -109,43 +127,115 @@ class Mesh:
         ``axis``: ``x`` is ``[shape[axis], ...]``."""
         if not self.distributed:
             return x
-        self.calls += 1
         x = x.contiguous()
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self._groups[axis])
+        self._call(dist.all_to_all_single, out, x, group=self._groups[axis])
         return out
+
+    def _call(self, collective, *args, **kwargs) -> None:
+        """Enter one collective, counted and timed."""
+        self.calls += 1
+        t = time.perf_counter()
+        collective(*args, **kwargs)
+        self.seconds += time.perf_counter() - t
 
     def _all_reduce(self, x: torch.Tensor, op, axis) -> torch.Tensor:
         if not self.distributed:
             return x
-        self.calls += 1
-        x = x.clone()
-        dist.all_reduce(x, op=op, group=self._groups[axis])
+        x = x.detach().clone()
+        self._call(dist.all_reduce, x, op=op, group=self._groups[axis])
         return x
 
     def all_reduce_max(self, x: torch.Tensor,
                        axis: Optional[str] = None) -> torch.Tensor:
-        """Max over ``axis`` (None: over the whole mesh)."""
+        """Max over ``axis`` (None: over the whole mesh); no gradient."""
         return self._all_reduce(x, dist.ReduceOp.MAX, axis)
 
     def all_reduce_sum(self, x: torch.Tensor,
                        axis: Optional[str] = None) -> torch.Tensor:
-        """Sum over ``axis`` (None: over the whole mesh)."""
-        return self._all_reduce(x, dist.ReduceOp.SUM, axis)
+        """Sum over ``axis`` (None: over the whole mesh).  Its gradient is
+        the output's, unchanged (module docstring)."""
+        if not self.distributed:
+            return x
+        return _AllReduceSum.apply(x, self, axis)
 
-    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def sum_grad(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` itself; its gradient summed over ``axis`` (module
+        docstring)."""
+        if not (self.distributed and x.requires_grad
+                and torch.is_grad_enabled()):
+            return x
+        return _SumGrad.apply(x, self, axis)
+
+    def all_gather(self, x: torch.Tensor, axis: str,
+                   grad: str = "slice") -> torch.Tensor:
         """``[shape[axis], *x.shape]``: every rank's ``x`` along ``axis``,
-        in coordinate order."""
+        in coordinate order.  The gradient of ``x`` is the rank's block of
+        the output's, summed over ``axis`` first with ``grad="sum"``."""
+        if grad not in ("slice", "sum"):
+            raise ValueError(f"all_gather grad={grad!r}: slice or sum")
         if not self.distributed:
             return x[None]
-        self.calls += 1
-        x = x.contiguous()
-        out = [torch.empty_like(x) for _ in range(self.shape[axis])]
-        dist.all_gather(out, x, group=self._groups[axis])
-        return torch.stack(out)
+        return _AllGather.apply(x, self, axis, grad == "sum")
+
+    def barrier(self) -> None:
+        """Every rank of the mesh has reached this call."""
+        if self.distributed:
+            self._call(dist.barrier, group=self._groups[None])
+
+    def _gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        x = x.detach().contiguous()
+        n = self.shape[axis]
+        out = x.new_empty(n * x.numel())
+        self._call(dist.all_gather_into_tensor, out, x.view(-1),
+                   group=self._groups[axis])
+        return out.view((n,) + tuple(x.shape))
+
+    def _reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x [shape[axis], ...]`` summed over ``axis``; this rank's row."""
+        x = x.detach().contiguous()
+        out = x.new_empty(x[0].numel())
+        self._call(dist.reduce_scatter_tensor, out, x.view(-1),
+                   group=self._groups[axis])
+        return out.view(x.shape[1:])
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh._all_reduce(x, dist.ReduceOp.SUM, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._all_reduce(g, dist.ReduceOp.SUM, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, summed):
+        ctx.mesh, ctx.axis, ctx.summed = mesh, axis, summed
+        return mesh._gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.mesh, ctx.axis
+        if ctx.summed:
+            return mesh._reduce_scatter(g, axis), None, None, None
+        return g[mesh.coords[axis]], None, None, None
 
 
 def world_size() -> int:

@@ -33,7 +33,9 @@ self-attention cache is sharded over ``"model"`` on its sequence axis
 (decode: ``decode_attend_partitioned``), the cross cache keeps every frame
 and every kv head on every rank (the reference's ``state_logical_axes``:
 ``"null"``), and the cross-attention of a decode step runs on the rank's
-heads.
+heads.  The training forward gathers each layer's FSDP shards inside its
+recomputed body, so the remat gathers them again rather than keeping
+every layer's whole weights.
 """
 from __future__ import annotations
 
@@ -249,11 +251,14 @@ def encode(params, cfg: ArchConfig, frames, remat=False, rules=None):
     pos = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)[None]
 
+    axes = _layer_axes(cfg, "encoder") if rules is not None else None
+
     def body(x, lp):
+        lp = tfm.gather_fsdp(lp, axes, cfg, rules)
         x, _ = _self_block(lp, cfg, x, causal=False, kv_len=F, rules=rules)
         return _mlp_block(lp, cfg, x, rules)
     body = tfm.checkpointed(body, remat)
-    for lp in _layers(params, cfg, "encoder", rules):
+    for lp in tfm.unstack(params["encoder"]):
         x = body(x, lp)
     return L.apply_norm(_top(params, "enc_norm", cfg, rules), x,
                         cfg.norm), F
@@ -275,12 +280,15 @@ def forward(params, cfg: ArchConfig, tokens, frames, remat=True,
     x = x + sinusoidal(torch.arange(S, device=x.device), cfg.d_model).to(
         x.dtype)[None]
 
+    axes = _layer_axes(cfg, "decoder") if rules is not None else None
+
     def body(x, lp, memory):
+        lp = tfm.gather_fsdp(lp, axes, cfg, rules)
         x, _ = _self_block(lp, cfg, x, causal=True, rules=rules)
         x, _ = _cross_block(lp, cfg, x, memory, F, rules)
         return _mlp_block(lp, cfg, x, rules)
     body = tfm.checkpointed(body, remat)
-    for lp in _layers(params, cfg, "decoder", rules):
+    for lp in tfm.unstack(params["decoder"]):
         x = body(x, lp, memory)
     logits = tfm.final_logits(params, cfg, x, rules)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -24,12 +24,15 @@ reference's) and a rank's params: ``shard_params`` (or
 ``convert.lm_params_from_arrays(..., rules=)``) cuts them from the whole
 ones by ``param_axes``.  ``decode_state_init`` gives the rank its shard of
 the state by ``state_logical_axes``: the sequence over ``"model"``, the
-batch over ``"data"``.  The moe, hybrid and ssm families raise a
+batch over ``"data"``.  ``loss(params, batch, rules)`` trains on a mesh:
+the rank's rows, its part of the reference's global mean (see
+:meth:`Model.loss`).  The moe, hybrid and ssm families raise a
 ``NotImplementedError`` on a mesh of more than one rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -42,17 +45,29 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KVCache
-from repro_torch.models.sharding import local_shape, shard_tree
+from repro_torch.models.sharding import (batch_axes, batch_rows, local_shape,
+                                         shard_tree)
 from repro_torch.models.transformer import DecodeState
 
 
-def cross_entropy(logits, labels, mask):
+def cross_entropy(logits, labels, mask, count=None):
     """logits: [B,S,V] f32; labels: [B,S] int; mask: [B,S].  The masked
-    mean of ``logsumexp - gold`` over ``max(sum(mask), 1)``."""
+    sum of ``logsumexp - gold`` over ``max(count, 1)``, ``count`` the
+    mask's sum unless given (a mesh's: the sum over every rank's rows)."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = (logz - gold) * mask
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask) if count is None else count
+    return torch.sum(nll) / torch.clamp(count, min=1.0)
+
+
+def _sum_over(x: torch.Tensor, axes: tuple, mesh) -> torch.Tensor:
+    """``x`` summed over the mesh ``axes``, no gradient."""
+    x = x.detach()
+    for ax in axes:
+        if mesh.shape[ax] > 1:
+            x = mesh.all_reduce_sum(x, ax)
+    return x
 
 
 @dataclasses.dataclass
@@ -107,13 +122,52 @@ class Model:
         return tfm.forward(params, cfg, batch["tokens"], remat=remat,
                            rules=rules)
 
-    def loss(self, params, batch, remat=True):
+    def loss(self, params, batch, rules=None, remat=True):
         """(loss, {"loss", "ce", "aux"}): the masked cross entropy plus
-        ``aux_weight`` times the moe aux loss."""
-        logits, aux = self.logits(params, batch, remat=remat)
-        ce = cross_entropy(logits, batch["labels"], batch["loss_mask"])
+        ``aux_weight`` times the moe aux loss.
+
+        With ``rules`` (a rank's params; the whole batch on every rank)
+        each rank takes its rows of the batch over the batch axes, which
+        must split it: its cross entropy is its rows' nll summed over the
+        mask's count summed over those axes (no gradient through the
+        count), the reference's global mean split into parts.  The loss
+        returned is the rank's part, whose gradients summed over the batch
+        axes are the reference's; the metrics are the whole batch's (the
+        parts summed)."""
+        if rules is None:
+            logits, aux = self.logits(params, batch, remat=remat)
+            ce = cross_entropy(logits, batch["labels"], batch["loss_mask"])
+            loss = ce + self.aux_weight * aux
+            return loss, {"loss": loss, "ce": ce, "aux": aux}
+        n = batch["labels"].shape[0]
+        axes = batch_axes(rules)
+        shards = math.prod(rules.mesh.shape[a] for a in axes)
+        if n % shards:
+            raise ValueError(f"a batch of {n} rows does not split over the "
+                             f"{shards} ranks of the batch axes {axes}")
+        rows = batch_rows(n, rules)
+        mask = batch["loss_mask"][rows]
+        count = _sum_over(torch.sum(mask), axes, rules.mesh)
+        logits, aux = self.logits(params, batch, rules, remat)
+        ce = cross_entropy(logits, batch["labels"][rows], mask, count)
         loss = ce + self.aux_weight * aux
-        return loss, {"loss": loss, "ce": ce, "aux": aux}
+        m = _sum_over(torch.stack([loss, ce]), axes, rules.mesh)
+        return loss, {"loss": m[0], "ce": m[1], "aux": aux.detach()}
+
+    def param_shapes(self) -> dict:
+        """The whole params' shapes (``init`` on the meta device: nothing
+        is drawn), a tree congruent with :meth:`param_axes`."""
+        meta = torch.device("meta")
+        if self.cfg.family == "encdec":
+            p = encdec_lib.init_encdec(None, self.cfg, meta, True)
+        else:
+            tfm.check_family(self.cfg)
+            p = tfm.init_params(None, self.cfg, meta, train=True)
+
+        def shapes(t):
+            return ({k: shapes(v) for k, v in t.items()}
+                    if isinstance(t, dict) else tuple(t.shape))
+        return shapes(p)
 
     # -- serve --------------------------------------------------------------
     def prefill(self, params, batch, *, max_len=None, rules=None):

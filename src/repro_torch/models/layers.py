@@ -9,7 +9,11 @@ weights across with ``convert.lm_params_from_arrays``).  Each
 ``init_*`` draws (``models/sharding.py``).  With ``rules``, ``embed`` and
 ``unembed`` read a rank's block of the table: when its vocab dim is shorter
 than the padded vocab, the rank's rows (or columns) of it, combined over
-the ``"model"`` axis of the rules' mesh; else the whole table.
+the ``"model"`` axis of the rules' mesh; else the whole table.  Under
+autograd their collectives carry the adjoints of ``launch/mesh.py``: the
+embed's sum passes the gradient through, the unembed's input sums its
+gradient over the vocab's axis and its gathered logits hand each rank its
+columns' gradient.
 """
 from __future__ import annotations
 
@@ -157,8 +161,13 @@ def unembed(p, x, true_vocab=None, rules=None):
         w = p["embedding"].T
     elif rules is not None:
         w = gather_dims(w, ("embed", "vocab"), rules, {"embed": x.shape[-1]})
+    split = _vocab_split(w.shape[-1], true_vocab, rules)
+    if split:
+        # x is replicated over the vocab's axis and each rank reads it for
+        # its own columns: its gradient is the sum of theirs
+        x = rules.mesh.sum_grad(x, rules.rules["vocab"])
     logits = torch.matmul(x, w.to(x.dtype))
-    if _vocab_split(w.shape[-1], true_vocab, rules):
+    if split:
         ax = rules.rules["vocab"]
         logits = torch.cat(list(rules.mesh.all_gather(logits, ax)), dim=-1)
     if true_vocab is not None and true_vocab < logits.shape[-1]:

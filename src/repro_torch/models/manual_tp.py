@@ -33,6 +33,18 @@ weights, gathered over every axis that splits them: the reference's spec
 guard leaves such dims replicated, and its context-parallel ``"seq"``
 policy for heads that do not divide the axis is not ported (ROADMAP).
 
+Under autograd (training, ``transformer.forward(rules=)``) every
+activation replicated over ``"model"`` keeps a complete, replicated
+gradient, so each rank's weight gradients are complete over the model
+axis (and partial over ``"data"``, whose rows differ).  The collectives'
+adjoints (``launch/mesh.py``) do it: the row-parallel sum passes its
+gradient through; an input read for the rank's heads or columns only
+sums its gradient over the model axis (``Mesh.sum_grad`` in
+:func:`manual_mlp` and :func:`project`); a slice of whole keys sums its
+scattered gradient (:func:`group`); weights gathered over the model axis
+for a block every rank repeats (``"full"``, a non-eligible MLP) take
+their block of the gradient, unsummed.
+
 The decode step projects q, k and v the same way, all-gathers them over
 ``"model"`` in one call (every rank attends over its sequence shard of the
 cache with every head: ``attention.decode_attend_partitioned``), and runs
@@ -85,7 +97,7 @@ def manual_mlp(lp, x, cfg, rules):
         axes = L.mlp_axes("wg" in lp)
         lp = {k: gather_dims(t, axes[k], rules, full) for k, t in lp.items()}
         return L.apply_mlp(lp, x, cfg.act)
-    y = L.apply_mlp(lp, x, cfg.act)
+    y = L.apply_mlp(lp, rules.mesh.sum_grad(x, AXIS), cfg.act)
     return rules.mesh.all_reduce_sum(y.float(), AXIS).to(x.dtype)
 
 
@@ -135,25 +147,38 @@ def _rope(x, positions, theta):
     return L.apply_rope(x, positions, theta) if theta else x
 
 
-def project(p, x, positions, theta, x_kv=None):
+def project(p, x, positions, theta, x_kv=None, lay=None, mesh=None):
     """x: [B,S,D] -> q [B,S,h_loc,hd] (the rank's heads), k and v (of
     ``x_kv``, default ``x``: encdec's cross-attention projects the
     encoder's memory) with the kv heads the layout holds: the rank's
     ``Hkv/tp`` (``"heads"``), else all ``Hkv``.  The bias follows the
     projection and RoPE of angle base ``theta`` (0: none) the bias, as
-    ``attention.qkv_proj``."""
-    x_kv = x if x_kv is None else x_kv
+    ``attention.qkv_proj``.  Under autograd with ``lay`` and its ``mesh``,
+    an input read only for the rank's heads sums its gradient over the
+    model axis: ``x`` for q, and for k and v when the kv heads are sharded
+    (whole kv projections get theirs complete through :func:`group`)."""
+    own_kv = x_kv is not None
+    x_kv = x_kv if own_kv else x
+    if lay is not None and lay.kv != "full":
+        x = mesh.sum_grad(x, AXIS)
+        if lay.kv == "heads":
+            x_kv = mesh.sum_grad(x_kv, AXIS) if own_kv else x
     q = attn_lib._proj(x, p["wq"])
     k, v = attn_lib._proj(x_kv, p["wk"]), attn_lib._proj(x_kv, p["wv"])
     return (_rope(_bias(p, "bq", q), positions, theta),
             _rope(_bias(p, "bk", k), positions, theta), _bias(p, "bv", v))
 
 
-def group(k, lay: AttnLayout):
+def group(k, lay: AttnLayout, mesh=None):
     """The kv heads of ``k`` (as :func:`project` returns them) that the
-    rank's q heads read."""
+    rank's q heads read.  Under autograd a slice of whole keys (the
+    ``"replicated"`` layout, with its ``mesh``) sums the scattered
+    gradient over the model axis: ranks whose q heads share a kv group
+    each add their part, and every rank gets the whole keys' gradient."""
     if lay.kv == "heads":
         return k
+    if lay.kv == "replicated" and mesh is not None:
+        k = mesh.sum_grad(k, AXIS)
     return k[:, :, lay.kv0:lay.kv0 + lay.kv_loc]
 
 
@@ -183,14 +208,15 @@ def manual_attention(lp, x, positions, cfg, rules, *, theta=None,
     lay = attn_layout(cfg, rules)
     p = attn_weights(lp, cfg, rules, lay)
     theta = cfg.rope_theta if theta is None else theta
-    q, k, v = project(p, x, positions, theta, x_kv)
+    q, k, v = project(p, x, positions, theta, x_kv, lay, rules.mesh)
     ka, va = k, v
     if buf is not None:
         end = q_offset + k.shape[1]
         buf[0, :, q_offset:end] = k
         buf[1, :, q_offset:end] = v
         ka, va = buf[0, :, :end], buf[1, :, :end]
-    o = attn_lib.attend(q, group(ka, lay), group(va, lay), q_offset,
+    o = attn_lib.attend(q, group(ka, lay, rules.mesh),
+                        group(va, lay, rules.mesh), q_offset,
                         causal=causal, window=window, kv_len=kv_len,
                         prefix_len=prefix_len)
     return out_tp(p, o, rules, lay, x.dtype), k, v

@@ -182,13 +182,34 @@ def local_shard(x: torch.Tensor, logical_axes: tuple, rules: AxisRules
                 ) -> torch.Tensor:
     """This rank's block of the full leaf ``x`` by its spec, as a tensor of
     its own (the full one can be freed)."""
-    spec = rules.spec(logical_axes, tuple(x.shape))
+    return shard_by_spec(x, rules.spec(logical_axes, tuple(x.shape)),
+                         rules.mesh)
+
+
+def shard_by_spec(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of the full leaf ``x`` by the partition spec
+    ``spec`` (as :meth:`AxisRules.spec` gives it) on ``mesh``, as a tensor
+    of its own."""
     for d, entry in enumerate(spec):
         if entry is not None:
-            i, n = _block(rules.mesh, entry)
+            i, n = _block(mesh, entry)
             size = x.shape[d] // n
             x = x.narrow(d, i * size, size)
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def spec_axes(spec: tuple) -> tuple:
+    """The mesh axes a partition spec splits a leaf over."""
+    return tuple(a for entry in spec for a in _axes_of(entry))
+
+
+def tree_specs(axes_tree, shapes_tree, rules: AxisRules):
+    """The partition spec of every leaf of a nested-dict tree of logical
+    axes, the divisibility guard on the congruent tree of full shapes."""
+    if isinstance(axes_tree, dict):
+        return {k: tree_specs(v, shapes_tree[k], rules)
+                for k, v in axes_tree.items()}
+    return rules.spec(axes_tree, tuple(shapes_tree))
 
 
 def shard_tree(tree, axes_tree, rules: AxisRules):
@@ -200,13 +221,25 @@ def shard_tree(tree, axes_tree, rules: AxisRules):
     return local_shard(tree, axes_tree, rules)
 
 
-def gather_dim(x: torch.Tensor, dim: int, entry, mesh) -> torch.Tensor:
+def batch_axes(rules: AxisRules) -> tuple:
+    """The mesh axes the rules split a batch over (``"data"``, or
+    ``("pod", "data")``)."""
+    return _axes_of(rules.rules.get("batch"))
+
+
+def gather_dim(x: torch.Tensor, dim: int, entry, mesh,
+               summed: tuple = ()) -> torch.Tensor:
     """The inverse of :func:`local_shard` along one dim: every rank's block
     over the mesh axes of spec ``entry``, concatenated in the order
-    ``local_shard`` cut them."""
+    ``local_shard`` cut them.  Under autograd the gradient of ``x`` is the
+    rank's block of the output's, summed first over the axes in ``summed``
+    (the batch axes, whose ranks computed with other rows: the FSDP
+    gather's adjoint is a reduce-scatter); along any other axis the ranks
+    repeat one computation and the block is taken as it is."""
     for axis in reversed(_axes_of(entry)):
         if mesh.shape[axis] > 1:
-            x = torch.cat(list(mesh.all_gather(x, axis)), dim=dim)
+            grad = "sum" if axis in summed else "slice"
+            x = torch.cat(list(mesh.all_gather(x, axis, grad)), dim=dim)
     return x
 
 
@@ -216,10 +249,12 @@ def gather_dims(x: torch.Tensor, logical_axes: tuple, rules: AxisRules,
     length is below ``full[name]`` gathered over the mesh axes that the
     rules map that name to (the spec guard leaves a dim either whole or
     evenly split, so a short dim is a sharded one).  ``full = {"embed":
-    d_model}`` is the FSDP gather."""
+    d_model}`` is the FSDP gather.  The adjoint follows :func:`gather_dim`
+    with the rules' batch axes summed."""
     for d, name in enumerate(logical_axes):
         if name in full and x.shape[d] < full[name]:
-            x = gather_dim(x, d, rules.rules[name], rules.mesh)
+            x = gather_dim(x, d, rules.rules[name], rules.mesh,
+                           batch_axes(rules))
     return x
 
 

@@ -20,6 +20,14 @@ The port of ``repro.train.checkpoint``:
 numpy has no bfloat16: a bf16 leaf is written as its raw 16-bit words
 (``uint16``) with ``"bfloat16"`` as its manifest dtype, and read back the
 same way.
+
+On a mesh a state holds each rank's shards.  ``save``/``AsyncCheckpointer``
+with ``specs`` (the partition specs of ``train_step.state_shardings``) and
+the ``mesh`` gather every leaf whole on the host, leaf by leaf, in one
+order on every rank and on the calling thread (the writer thread makes no
+collective), and only the world's rank 0 writes: the files are the
+reference's, whole leaves, whatever mesh wrote them.  ``restore`` with
+``shardings`` and ``rules`` cuts each whole leaf to the rank's block.
 """
 from __future__ import annotations
 
@@ -37,12 +45,21 @@ _SEP = "::"
 _BF16 = "bfloat16"
 
 
-def _flatten(tree, prefix=()) -> dict:
+def _is_spec(x) -> bool:
+    """A partition spec: a plain tuple of mesh axes, tuples of them or
+    None (``()``: replicated)."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def _flatten(tree, prefix=(), specs=False) -> dict:
     """``{key path: leaf}`` of a tree of dicts, NamedTuples and lists, in
     the reference's path strings; None leaves (an absent ``master`` or
-    ``ef``) are no leaves."""
+    ``ef``) are no leaves.  ``specs``: the leaves are partition specs."""
     if tree is None:
         return {}
+    if specs and _is_spec(tree):
+        return {_SEP.join(prefix): tree}
     if isinstance(tree, dict):
         items = [(str(k), v) for k, v in sorted(tree.items())]
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -53,7 +70,7 @@ def _flatten(tree, prefix=()) -> dict:
         return {_SEP.join(prefix): tree}
     out = {}
     for k, v in items:
-        out.update(_flatten(v, prefix + (k,)))
+        out.update(_flatten(v, prefix + (k,), specs))
     return out
 
 
@@ -120,26 +137,67 @@ def _save_host(directory: str, step: int, flat: dict, dtypes: dict,
     return final
 
 
-def _host(tree) -> tuple:
-    """(``{path: numpy array}``, ``{path: "bfloat16"}`` for bf16 leaves)."""
+def _whole(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole leaf of this rank's shard ``x`` (split by ``spec``),
+    gathered on the host (CPU tensors through the mesh's collectives)."""
+    from repro_torch.models.sharding import gather_dim
+    x = x.detach().to("cpu", copy=True)
+    with torch.no_grad():
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                x = gather_dim(x, d, entry, mesh)
+    return x
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes checkpoints: the world's rank 0."""
+    return mesh is None or mesh.rank == 0
+
+
+def _host(tree, specs=None, mesh=None) -> tuple:
+    """(``{path: numpy array}``, ``{path: "bfloat16"}`` for bf16 leaves);
+    with ``specs`` on a ``mesh`` of several ranks, each leaf gathered whole
+    (an empty dict on a rank that does not write)."""
     flat = _flatten(tree)
     dtypes = {k: _BF16 for k, v in flat.items()
               if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16}
-    return {k: _to_numpy(v) for k, v in flat.items()}, dtypes
+    if specs is None or mesh is None or not mesh.distributed:
+        return {k: _to_numpy(v) for k, v in flat.items()}, dtypes
+    sflat = _flatten(specs, specs=True)
+    out = {}
+    for k, v in flat.items():
+        whole = _whole(v, sflat[k], mesh)
+        if _writes(mesh):
+            out[k] = _to_numpy(whole)
+        del whole
+    return out, dtypes
 
 
-def save(directory: str, step: int, tree: Any, extra: dict = None) -> str:
-    """Blocking save.  Returns the committed path."""
-    return _save_host(directory, step, *_host(tree), extra)
+def save(directory: str, step: int, tree: Any, extra: dict = None, *,
+         specs=None, mesh=None) -> str:
+    """Blocking save.  Returns the committed path.  With ``specs`` and a
+    ``mesh``: ``tree`` is this rank's shards (module docstring); every rank
+    of the mesh calls it and returns once the commit is done."""
+    flat, dtypes = _host(tree, specs, mesh)
+    final = os.path.join(directory, f"step_{step}")
+    if _writes(mesh):
+        final = _save_host(directory, step, flat, dtypes, extra)
+    if mesh is not None:
+        mesh.barrier()
+    return final
 
 
 def restore(directory: str, step: Optional[int] = None, *,
-            target: Any = None, strict_crc: bool = True):
+            target: Any = None, shardings: Any = None, rules=None,
+            strict_crc: bool = True):
     """Restore a checkpoint (the newest when ``step`` is None).
 
     target: a tree of the desired structure whose leaves are tensors (each
-    restored leaf goes to that tensor's device in its dtype) or numpy
-    arrays; if None, returns the flat ``{key: np.ndarray}`` dict.
+    restored leaf goes to that tensor's device in its dtype; their shapes
+    are not read) or numpy arrays; if None, returns the flat ``{key:
+    np.ndarray}`` dict.  ``shardings`` (a partition spec tree congruent
+    with ``target``) and ``rules`` (over the mesh to restore onto): each
+    leaf is cut to this rank's block before it goes to the device.
     Returns (tree_or_flat, step, extra).
     """
     if step is None:
@@ -166,11 +224,16 @@ def restore(directory: str, step: Optional[int] = None, *,
     missing = set(tflat) - set(flat)
     if missing:
         raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]}")
+    sflat = (_flatten(shardings, specs=True) if shardings is not None
+             and rules is not None else {})
     leaves = {}
     for key, tgt in tflat.items():
         arr = flat[key]
         t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
              if key in bf16 else torch.from_numpy(arr))
+        if key in sflat:
+            from repro_torch.models.sharding import shard_by_spec
+            t = shard_by_spec(t, sflat[key], rules.mesh)
         if isinstance(tgt, torch.Tensor):
             t = t.to(device=tgt.device, dtype=tgt.dtype)
         leaves[key] = t
@@ -178,20 +241,27 @@ def restore(directory: str, step: Optional[int] = None, *,
 
 
 class AsyncCheckpointer:
-    """Background-thread writer; at most one save in flight."""
+    """Background-thread writer; at most one save in flight.  With a
+    ``mesh`` every rank calls ``save`` and ``wait`` at the same steps:
+    the gathers run on the calling thread, rank 0's thread writes, and
+    ``wait`` returns on every rank once that write is committed."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, mesh=None):
         self.directory = directory
         self.keep = keep
+        self.mesh = mesh
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         os.makedirs(directory, exist_ok=True)
 
-    def save(self, step: int, tree: Any, extra: dict = None):
+    def save(self, step: int, tree: Any, extra: dict = None, *,
+             specs=None):
         self.wait()
         # copy to the host before handing over to the thread, so that the
         # train step can update the device tensors in place at once
-        flat, dtypes = _host(tree)
+        flat, dtypes = _host(tree, specs, self.mesh)
+        if not _writes(self.mesh):
+            return
 
         def work():
             try:
@@ -206,6 +276,8 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None:
+            self.mesh.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

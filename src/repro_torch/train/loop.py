@@ -14,6 +14,11 @@ The port of the JAX package's ``repro.train.loop``:
 
 A step's time runs until the card has finished it
 (``torch.cuda.synchronize`` where the reference blocks on the loss).
+
+On a mesh (``rules`` and the state's ``shardings``, the partition specs of
+``train_step.state_shardings``) every rank runs the loop: each restores
+its shards of the same checkpoint and checkpoints at the same steps, and
+rank 0 writes (``checkpoint.AsyncCheckpointer(mesh=)``).
 """
 from __future__ import annotations
 
@@ -58,20 +63,26 @@ def _block(metrics: dict) -> None:
 def run_loop(train_step: Callable, state: TrainState, data_fn: Callable,
              cfg: LoopConfig, *, log: Callable = print,
              on_straggler: Callable = None,
-             fault_hook: Callable = None) -> tuple:
-    """data_fn(step) -> batch.  Returns (state, LoopStats)."""
+             fault_hook: Callable = None, rules=None,
+             shardings=None) -> tuple:
+    """data_fn(step) -> batch.  Returns (state, LoopStats).  ``rules`` and
+    ``shardings``: a state of shards on a mesh (module docstring)."""
     stats = LoopStats()
-    ckpt = (ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir)
+    mesh = rules.mesh if rules is not None else None
+    ckpt = (ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir, mesh=mesh)
             if cfg.ckpt_dir else None)
     start = 0
     if ckpt is not None and ckpt_lib.latest_step(cfg.ckpt_dir) is not None:
-        state, start, _ = ckpt_lib.restore(cfg.ckpt_dir, target=state)
+        state, start, _ = ckpt_lib.restore(cfg.ckpt_dir, target=state,
+                                           shardings=shardings, rules=rules)
         stats.restored_step = start
         log(f"[loop] restored checkpoint at step {start}")
     ring = collections.deque(maxlen=cfg.straggler_window)
+    save = None if ckpt is None else (
+        lambda step, st: ckpt.save(step, st, specs=shardings))
     try:
         state = _step_loop(train_step, state, data_fn, cfg, stats, ring,
-                           start, ckpt, log, on_straggler, fault_hook)
+                           start, save, log, on_straggler, fault_hook)
     except BaseException:
         # a dying run must not abandon an in-flight async checkpoint: the
         # commit rename is what the restarted job restores from
@@ -83,12 +94,12 @@ def run_loop(train_step: Callable, state: TrainState, data_fn: Callable,
         raise
     if ckpt is not None:
         ckpt.wait()
-        ckpt.save(cfg.n_steps, state)
+        save(cfg.n_steps, state)
         ckpt.wait()
     return state, stats
 
 
-def _step_loop(train_step, state, data_fn, cfg, stats, ring, start, ckpt,
+def _step_loop(train_step, state, data_fn, cfg, stats, ring, start, save,
                log, on_straggler, fault_hook):
     for step in range(start, cfg.n_steps):
         if fault_hook is not None:
@@ -113,6 +124,6 @@ def _step_loop(train_step, state, data_fn, cfg, stats, ring, start, ckpt,
             stats.history.append({"step": step, **m})
             log(f"[loop] step {step:5d} loss {m['loss']:.4f} "
                 f"lr {m.get('lr', 0):.2e} {dt * 1e3:7.1f} ms")
-        if ckpt is not None and (step + 1) % cfg.ckpt_every == 0:
-            ckpt.save(step + 1, state)
+        if save is not None and (step + 1) % cfg.ckpt_every == 0:
+            save(step + 1, state)
     return state

@@ -127,14 +127,51 @@ class AdamW:
             p.copy_(w)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, splits=None, mesh=None) -> torch.Tensor:
     """``sqrt(sum of every leaf's squares)`` in float32, the leaves summed in
-    ``tree_leaves`` order."""
-    sq = None
-    for x in tree_leaves(tree):
-        s = torch.sum(torch.square(x.float()))
-        sq = s if sq is None else sq + s
-    return torch.sqrt(sq)
+    ``tree_leaves`` order.
+
+    On a ``mesh`` whose ranks hold shards of the leaves, ``splits`` is a
+    congruent tree of the mesh axes each leaf is split over
+    (``sharding.spec_axes`` of its spec).  Every rank's per-leaf sums of
+    squares are gathered over the whole mesh, and each leaf's shards are
+    added once each (a replica along an axis the leaf is not split over
+    counts once), in coordinate order: every rank computes the same bits
+    from the same gathered numbers, so replicas updated with this norm
+    never drift apart."""
+    leaves = tree_leaves(tree)
+    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    if splits is not None and mesh is not None and mesh.distributed:
+        sq = _sharded_squares(torch.stack(sq), _axes_leaves(splits), mesh)
+    total = None
+    for s in sq:
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _axes_leaves(tree) -> list:
+    """The leaves of a dict tree whose leaves are tuples of mesh axes, in
+    ``tree_leaves`` (sorted-key) order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _axes_leaves(tree[k])]
+    return [tuple(tree)]
+
+
+def _sharded_squares(local: torch.Tensor, splits: list, mesh) -> list:
+    """Each leaf's whole sum of squares from every rank's ``local [n]``
+    (see :func:`global_norm`)."""
+    every = local
+    for ax in reversed(mesh.axis_names):
+        every = mesh.all_gather(every, ax)       # [*mesh shape, n]
+    out = []
+    for i, axes in enumerate(splits):
+        idx = tuple(slice(None) if a in axes else 0 for a in mesh.axis_names)
+        parts = every[idx + (i,)].reshape(-1)
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        out.append(total)
+    return out
 
 
 def clip_by_global_norm(tree, max_norm: float):

@@ -275,8 +275,11 @@ def test_train_step_matches_reference(microbatches, compression):
     assert int(ts.opt.count) == int(js.opt.count) == 2
 
 
-def test_production_mesh_waits_for_a10():
-    with pytest.raises(NotImplementedError, match="A10"):
+def test_production_mesh_needs_its_world():
+    """``--production-mesh`` asks for the reference's (16, 16) mesh, which
+    needs a world of 256 ranks: off one it raises a ``ValueError`` naming
+    the world size, as the reference's fails off a pod."""
+    with pytest.raises(ValueError, match="needs a world of 256 ranks"):
         tlaunch.main(["--reduced", "--device", "cpu", "--production-mesh"])
 
 

@@ -69,7 +69,8 @@ def _tbatch(batch, cfg):
 def _port(arch, dtype, remat=True):
     jcfg, tcfg, params, batch = _setup(arch, dtype)
     leaves = _leaves(params)
-    loss, metrics = tbuild(tcfg).loss(leaves, _tbatch(batch, tcfg), remat)
+    loss, metrics = tbuild(tcfg).loss(leaves, _tbatch(batch, tcfg),
+                                      remat=remat)
     loss.backward()
     return loss, metrics, [x.grad for x in tree_leaves(leaves)]
 
