@@ -115,7 +115,9 @@ Phases, each of which fails the run on any error:
               and (4096, 4096); whisper-base: H=Hkv=8, hd=64, the encoder
               (1536, 1536) and the cross-attention (224, 1536) non-causal
               with kv_len 1500, the decoder (224, 224) causal; bf16 and
-              f32), each shape timed over a CUDA graph beside PyTorch's
+              f32; one rank's heads on the meshes of 7e (9 / 1), 7f
+              (8 / 1) and 8e (18 / 2) at every shape those phases launch),
+              each shape timed over a CUDA graph beside PyTorch's
               SDPA as a yardstick (causal, GQA; a window, a prefix or
               padded keys as the equivalent boolean mask), the plain
               version timed at each model's timed shape
@@ -161,19 +163,43 @@ Phases, each of which fails the run on any error:
               four gloo ranks sharing the card (``launch/mesh.spawn``;
               ``rules_for``: heads, kv heads, MLP and vocabulary split four
               ways, the KV cache over the ranks on its sequence), phase 7's
-              seeded weights built whole by one rank at a time, three of
-              phase 7's prompts (512, 2048, 8192 tokens, 8 new tokens each)
+              seeded weights built whole by one rank at a time, two of
+              phase 7's prompts (512, 2048 tokens, 4 new tokens each)
               through ``ContinuousBatcher(mesh=, rules=)``: a. every rank
-              the same tokens; b. a teacher-forced prefill of 4 x 256 and 8
+              the same tokens; b. a teacher-forced prefill of 4 x 256 and 4
               decode steps within 5 % of the largest logit of phase 7's on
-              one card; c. ``Model.logits`` with
-              ``manual_tp`` (B6 on 9 / 1 heads a rank) against phase 7's
+              one card; c. ``Model.logits`` (2048 tokens) with
+              ``manual_tp`` (B6 on 9 / 1 heads a rank: every shape of
+              7e in phase 6) against phase 7's
               forward; d. the reduced config in float32 on the four ranks
               against the port on the CPU (1e-5, same tokens); e. B6 once
-              an attention layer and chunk on every rank (128 served), no
+              an attention layer and chunk on every rank (64 served), no
               graph kernel; one ``lm mesh run`` line (per rank: walls,
               prefill and decode seconds, decode tok/s, collectives a decode
               step, B6 launches, peak memory)
+  7f. moe mesh  qwen3-moe-30b-a3b at full width, MOE_MESH_LAYERS of its 48
+              layers, on the same (1, 4) mesh in the same world, after 7e's
+              cases (``rules_for``: 32 of the 128 experts a rank, expert
+              parallel over "model"; 8 / 1 heads of 128 a rank; the KV
+              cache over the ranks on its sequence), built whole by one
+              rank at a time from phase 7c's seed, two of 7c's prompts
+              (512 tokens, and 8192 in two chunks; 8 new tokens) through
+              ``ContinuousBatcher(mesh=, rules=)`` in bf16: a. every rank
+              the same tokens and routing (calls, entries dropped, the
+              picks' sha1); b. a teacher-forced prefill of 4 x 256 and 4
+              decode steps against one card's run of the same cut model
+              (built after 7c frees its own): in float32 within 1e-4 of
+              the largest logit, a control with the combine in bf16
+              beyond it; in bf16 at least 90 % of the picks and 75 % of
+              the greedy tokens equal (MOE_MESH_DTYPES); c.
+              ``Model.logits`` in float32 against one card's forward
+              (1e-4); d. reduced qwen3-moe and phi3.5-moe in
+              float32 on the ranks at (1, 4) and (2, 2) against the port on
+              the CPU (1e-5, same tokens); e. B6 once an attention layer and
+              chunk on every rank, no graph kernel; one ``lm mesh run`` line
+              (per rank: walls, prefill and decode seconds, decode tok/s,
+              collectives a decode step, B6 launches, peak GB, the share of
+              entries dropped)
   8. train    the training path (``train/``, ``launch/train.py``).  8a:
               B6's gradient (``FlashAttentionFn``: the kernel forward, the
               plain flash backward) against autograd through the plain
@@ -204,9 +230,13 @@ Phases, each of which fails the run on any error:
               float32, 2 steps on the ranks against the CPU; d. its
               checkpoint resharded onto (1, 4) and 2 more steps against 4
               CPU steps; e. B6 twice an attention layer and microbatch on
-              every rank, threefry for the batches, nothing else; one
-              ``train mesh`` line a rank (step wall, tokens/s, collectives
-              a step and their seconds, peak GB, B6 launches)
+              every rank, threefry for the batches, nothing else; f. the
+              reduced qwen3-moe config in float32, 2 steps on the (2, 2)
+              ranks (experts expert parallel, FSDP over "data") against the
+              CPU: loss, ce and aux, params and moments as c, every rank
+              the same metric bits; one ``train mesh`` line a rank (step
+              wall, tokens/s, collectives a step and their seconds, peak
+              GB, B6 launches)
   9. report   fg_threefry's line and the kernel table as JSON lines (each
               kernel launched at least once on the paths), then the
               result line
@@ -311,22 +341,64 @@ LM_SPECS = {
 MESH_WORLD, MESH = 4, (1, 4)
 MESH_KEY = LM_ARCH + " tp4"
 #: the served prompts and new tokens of the mesh run: phase 7's cut to
-#: three prompts (one wave at batch 4, the chunked 8192 among them) and 8
-#: new tokens, for time (gloo's collectives among four ranks on one H100
-#: cost milliseconds each: a decode step of the four ranks is ~10 times
-#: phase 7's; PERF.md section 5)
-MESH_PROMPTS, MESH_NEW = (512, 2048, 8192), 8
+#: two prompts (one wave at batch 4) and 4 new tokens, for time (gloo's
+#: collectives among four ranks on one H100 cost milliseconds each: a
+#: decode step of the four ranks is ~10 times phase 7's; PERF.md section
+#: 5).  The chunked 8192-token prompt went when phase 7f joined the world
+#: (its float32 sums took ~22 s of 7e's 30 s of prefill): phase 7f serves
+#: it instead, so the chunked prefill on a mesh runs on the card there
+MESH_PROMPTS, MESH_NEW = (512, 2048), 4
 #: check b: a prefill of (rows, tokens) and this many greedy decode steps on
 #: one card (phase 7), the mesh fed the same tokens; check c: the forward's
 #: logits of one MESH_C_TOKENS-token row, every MESH_C_STRIDE-th position
-MESH_B_BATCH, MESH_B_STEPS = (LM_BATCH, 256), 8
-MESH_C_TOKENS, MESH_C_STRIDE = 4096, 32
+MESH_B_BATCH, MESH_B_STEPS = (LM_BATCH, 256), 4
+MESH_C_TOKENS, MESH_C_STRIDE = 2048, 16
 #: checks b and c hold the mesh's bf16 logits to the one card's as check b
 #: of phase 7 holds the plain attention's: within LM_LOGIT_RTOL of the
 #: largest logit (the partial sums of a rank's heads and columns are added
 #: in float32 and rounded to bf16 once, where one card rounds the whole
 #: product once: bf16 roundings at other points, over 32 layers)
 MESH_LOGIT_RTOL = 0.05
+#: phase 7f: qwen3-moe-30b-a3b at full width on MESH, expert parallel over
+#: "model" (32 of its 128 experts a rank), its attention tensor parallel
+#: (8 / 1 heads of 128 a rank: MOE_MESH_KEY in phase 6).  Depth is cut by
+#: memory: ``launch/distributed._lm_params`` builds the whole model on one
+#: rank at a time while the others keep their shards, a peak of ~1.75
+#: times the whole (~1.9 GB of embedding and float32 unembed and ~1.25 GB
+#: a layer in bf16: ~108 GB at 48 layers), so MOE_MESH_LAYERS of 48
+#: (~12 GB whole); widths are not cut.  Two of phase 7c's prompts, 8 new
+#: tokens; checks b and c as 7e's, against the same cut model on one card
+#: (built after 7c frees its own), b with MOE_MESH_B_STEPS decode steps.
+#: The 8192-token prompt runs the mesh's chunked prefill (two chunks of
+#: PREFILL_CHUNK), which 7e no longer serves
+MOE_MESH_LAYERS = 8
+MOE_MESH_KEY = MOE_ARCH + " ep4"
+MOE_MESH_PROMPTS, MOE_MESH_NEW = (512, 8192), 8
+MOE_MESH_B_STEPS = 4
+#: the compute dtypes of 7f's cut model: bf16 is the served path (checks a
+#: and e, the timings), float32 holds checks b and c to one card within
+#: MOE_MESH_F32_RTOL.  In bf16 the mesh's float32 partial sums round
+#: differently from one card's bf16 sums, routing near-ties flip, and with
+#: random weights (~14 % of entries dropped past capacity) a flipped pick
+#: moves which later entries fit: the logits drift 6-11 % of the largest
+#: (one card's kernel and plain attention disagree on 3.4 % of the picks,
+#: 7c's check b), so bf16 is held by its routing and greedy tokens instead
+MOE_MESH_DTYPES = ("bfloat16", "float32")
+#: check b and c in float32, relative to the largest logit: the mesh reads
+#: 8.0e-7 (b) and 2.3e-6 (c); a float32 config whose combine ran in bf16
+#: (the control of :func:`moe_mesh_reference`, on one card) reads far above
+#: it, which the phase checks in every run
+MOE_MESH_F32_RTOL = 1e-4
+#: check b in bf16: the share of the teacher prefill's picks equal to one
+#: card's (97.5 % at 8 layers, 95.8 % at 24) and of the teacher steps'
+#: greedy tokens (11 and 10 of 12) at least these; an expert block that
+#: computed the wrong function would move every later layer's picks
+#: (top-8 of 128 at random shares ~6 %)
+MOE_MESH_BF16_PICKS, MOE_MESH_BF16_GREEDY = 0.9, 0.75
+#: check d: the reduced moe configs in float32 on the four ranks at these
+#: meshes against the port on the CPU
+MOE_MESH_REDUCED = (MOE_ARCH, MOE_REDUCED_ONLY)
+MOE_MESH_REDUCED_MESHES = ((1, 4), (2, 2))
 #: phase 8e: ``launch/train.run`` for starcoder2-7b at full width on a (2, 2)
 #: mesh of four gloo ranks sharing the card (``rules_for``: tensor parallel
 #: over "model", 18 / 2 heads of 128 a rank, TRAIN_MESH_KEY in phase 6;
@@ -365,22 +437,34 @@ FLASH_SHAPES = {
     ENCDEC_ARCH: ((1536, 1536, 0, None, False, 1500, None),
                   (224, 1536, 0, None, False, 1500, None),
                   (224, 224, 0, None, True, None, None)),
-    # one rank's share of starcoder2's heads: a whole 4096-token chunk and
-    # the 8192-token prompt's second
-    MESH_KEY: ((4096, 4096, 0, None), (4096, 8192, 4096, None)),
+    # one rank's share of starcoder2's heads: 7e's teacher prefill, its
+    # served prompts and check c's row, then a whole 4096-token chunk and
+    # the 8192-token prompt's second (``scripts/lm_mesh.py``'s uncut run)
+    MESH_KEY: ((MESH_B_BATCH[1], MESH_B_BATCH[1], 0, None),
+               *((T, T, 0, None) for T in MESH_PROMPTS),
+               (4096, 4096, 0, None), (4096, 8192, 4096, None)),
     # one rank's share of starcoder2's heads in phase 8e's training forward
     TRAIN_MESH_KEY: ((TRAIN_MESH_SEQ, TRAIN_MESH_SEQ, 0, None),),
+    # one rank's share of qwen3-moe's heads in phase 7f: the teacher
+    # prefill, the 512-token prompt, check c's row, and the 8192-token
+    # prompt's two chunks
+    MOE_MESH_KEY: ((MESH_B_BATCH[1], MESH_B_BATCH[1], 0, None),
+                   (512, 512, 0, None),
+                   (MESH_C_TOKENS, MESH_C_TOKENS, 0, None),
+                   (4096, 4096, 0, None), (4096, 8192, 4096, None)),
 }
 #: the shape each model's kernel row is timed at (its plain version too)
 FLASH_TIMED = {LM_ARCH: (4096, 4096), RG_ARCH: (4096, 4096, 0, 2048),
-               MOE_ARCH: (4096, 4096), MESH_KEY: (4096, 4096),
+               MOE_ARCH: (4096, 4096), MESH_KEY: (max(MESH_PROMPTS),) * 2,
+               MOE_MESH_KEY: (4096, 4096),
                TRAIN_MESH_KEY: (TRAIN_MESH_SEQ, TRAIN_MESH_SEQ),
                VLM_ARCH: FLASH_SHAPES[VLM_ARCH][1],
                ENCDEC_ARCH: FLASH_SHAPES[ENCDEC_ARCH][0]}
-#: the flash row's sub-rows (kernel table rows 6c/6d, 6e, 6f, 6g, 6h, 6i)
+#: the flash row's sub-rows (kernel table rows 6c/6d, 6e, 6f, 6g, 6h, 6i,
+#: 6j)
 FLASH_ROW_KEYS = {"hd256": RG_ARCH, "h32": MOE_ARCH, "prefix": VLM_ARCH,
                   "hd64": ENCDEC_ARCH, "tp4": MESH_KEY,
-                  "train_tp2": TRAIN_MESH_KEY}
+                  "train_tp2": TRAIN_MESH_KEY, "ep4": MOE_MESH_KEY}
 #: check b's prompts (text tokens) per LM path: the kernel's prefill against
 #: the plain attention's; none for the ssm, which has no attention
 CHECK_B_TOKENS = {LM_ARCH: (512,), "recurrentgemma-2b": (512, 3000),
@@ -2467,9 +2551,9 @@ def phase_flash(torch) -> dict:
                 size * (2 * sq * H * hd + 2 * skv * Hkv * hd))
 
     def heads_of(arch):
-        if arch in (MESH_KEY, TRAIN_MESH_KEY):
-            cfg = get_config(LM_ARCH)
-            n = MESH[1] if arch == MESH_KEY else TRAIN_MESH[1]
+        if arch in (MESH_KEY, TRAIN_MESH_KEY, MOE_MESH_KEY):
+            cfg = get_config(MOE_ARCH if arch == MOE_MESH_KEY else LM_ARCH)
+            n = TRAIN_MESH[1] if arch == TRAIN_MESH_KEY else MESH[1]
             return cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim_
         cfg = get_config(arch)
         return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -2759,11 +2843,14 @@ def phase_lm_recurrent(torch, counters) -> dict:
 def phase_lm_moe(torch, counters) -> dict:
     """Phase 7c: qwen3-moe-30b-a3b at full width and depth (after 7b has
     freed its models), then once more through ``launch/serve.py
-    --no-reduced``; check c also on phi3.5-moe's reduced config."""
+    --no-reduced``; check c also on phi3.5-moe's reduced config.  Then
+    the one-card run of MOE_MESH_LAYERS of its layers that phase 7f holds
+    the mesh to (``"mesh_ref"``)."""
     from repro_torch.launch import serve
 
     out = phase_lm(torch, counters, MOE_ARCH)
     out["check_c_reduced_only"] = lm_card_vs_cpu(torch, MOE_REDUCED_ONLY)
+    out["mesh_ref"] = moe_mesh_reference(torch)
     t = time.perf_counter()
     got = serve.main(["--arch", MOE_ARCH, "--no-reduced", "--requests", "4",
                       "--batch", "2", "--max-new", "4"])
@@ -2796,55 +2883,13 @@ def phase_lm_vlm_encdec(torch, counters) -> dict:
     return out
 
 
-class RouteLog:
-    """While active, records every moe layer's routing: the expert ids
-    ``[B, S, K]`` and slots that ``models/moe.route`` returns, with the
-    trash slot ``E * C`` of that call (no host read while recording)."""
-
-    def __enter__(self):
-        from repro_torch.models import moe
-        self.calls, self._route = [], moe.route
-
-        def spy(gate_idx, C, E):
-            slot = self._route(gate_idx, C, E)
-            self.calls.append((gate_idx, slot, E * C))
-            return slot
-        moe.route = spy
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.models import moe
-        moe.route = self._route
-
-    def dropped(self) -> list:
-        """Each call's share of (token, choice) entries dropped."""
-        return [float((slot == trash).float().mean())
-                for _, slot, trash in self.calls]
-
-    def agreement(self, other: "RouteLog") -> dict:
-        """Routing decisions of two runs over the same tokens: the share of
-        (layer, token, chosen expert) picks both made, and of (layer,
-        token) whose whole expert set is the same."""
-        import torch
-        picks = same_sets = n_picks = n_sets = 0
-        for (a, _, _), (b, _, _) in zip(self.calls, other.calls, strict=True):
-            E = int(max(a.max(), b.max())) + 1
-            ha = torch.nn.functional.one_hot(a, E).sum(-2)
-            hb = torch.nn.functional.one_hot(b, E).sum(-2)
-            picks += int((ha * hb).sum())
-            n_picks += a.numel()
-            same_sets += int((ha == hb).all(-1).sum())
-            n_sets += ha[..., 0].numel()
-        return {"picks_agree": picks / n_picks,
-                "sets_agree": same_sets / n_sets,
-                "sets_differ": n_sets - same_sets, "sets": n_sets}
-
-
 def lm_moe_drops(torch, model, params, batches, max_len) -> list:
     """Each prompt's prefill once more, its routing recorded: the share of
     (token, choice) entries dropped past capacity, over the whole prefill,
     in its worst layer and in its first and last (a chunked prompt: of the
     last chunk)."""
+    from repro_torch.launch.distributed import RouteLog
+
     rows = []
     for batch in batches:
         with RouteLog() as rl:
@@ -2907,6 +2952,7 @@ def lm_kernel_vs_plain(torch, model, params, batch, first_token,
     version in every layer (same weights, same prompt and extras)."""
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_gqa_ref
+    from repro_torch.launch.distributed import RouteLog
     from repro_torch.models import attention
 
     tok = batch["tokens"]
@@ -3040,18 +3086,19 @@ def lm_mesh_reference(torch, model, params, served) -> dict:
     return ref
 
 
-def _logit_diff(got, want, vocab) -> dict:
+def _logit_diff(got, want, vocab, rtol=MESH_LOGIT_RTOL) -> dict:
     """The largest difference of two logit arrays over the true vocab, its
-    share of the largest logit, and whether it is within
-    MESH_LOGIT_RTOL of it."""
+    share of the largest logit, and whether it is within ``rtol`` of it
+    (None: not gated)."""
     got, want = got[..., :vocab], want[..., :vocab]
     diff = float(np.abs(got - want).max())
     scale = float(np.abs(want).max())
     return {"max_abs_diff": diff, "max_abs_logit": scale,
-            "rel": diff / scale, "ok": diff <= MESH_LOGIT_RTOL * scale}
+            "rel": diff / scale,
+            "ok": None if rtol is None else diff <= rtol * scale}
 
 
-def phase_lm_mesh(torch, ref, card, train_cases=()) -> dict:
+def phase_lm_mesh(torch, ref, card, train_cases=(), moe_cases=()) -> dict:
     """Phase 7e: starcoder2-7b at full width and depth on MESH, four gloo
     ranks sharing the card (``launch/mesh.spawn``,
     ``launch/distributed.run_lm_cases``), from phase 7's seeded weights
@@ -3066,17 +3113,13 @@ def phase_lm_mesh(torch, ref, card, train_cases=()) -> dict:
     e. B6 launched once an attention layer and chunk on every rank, and no
     graph kernel.  The walls are four processes on one card: they measure
     the exchange's overhead, not scaling.  The same world then runs phase
-    8e's ``train_cases`` (``launch/distributed.run_mesh_cases``: the ranks
-    start once); their per-rank results are returned under
-    ``"train_ranks"`` for phase 8e to check."""
-    import dataclasses
-
+    7f's ``moe_cases`` and 8e's ``train_cases``
+    (``launch/distributed.run_mesh_cases``: the ranks start once); their
+    per-rank results are returned under ``"moe_ranks"`` and
+    ``"train_ranks"`` for phases 7f and 8e to check."""
     from repro_torch.configs.base import get_config
-    from repro_torch.convert import lm_params_from_arrays
     from repro_torch.launch import distributed as launcher
     from repro_torch.launch.mesh import spawn
-    from repro_torch.models.factory import build_model
-    from repro_torch.serve.engine import ContinuousBatcher, Request
 
     cfg = get_config(LM_ARCH)
     rng = np.random.default_rng(0)        # phase 7's prompts
@@ -3092,28 +3135,11 @@ def phase_lm_mesh(torch, ref, card, train_cases=()) -> dict:
             "serve": {"prompts": prompts, "batch": LM_BATCH,
                       "max_len": LM_MAX_LEN, "new": MESH_NEW}}
     # d. the reduced config in float32, on the ranks and on the CPU
-    rcfg = dataclasses.replace(cfg.reduced(), compute_dtype="float32")
-    rmodel = build_model(rcfg)
-    cpu = rmodel.init(torch.Generator().manual_seed(1), "cpu")
-
-    def arrays(tree):
-        return {k: arrays(v) if isinstance(v, dict) else v.float().numpy()
-                for k, v in tree.items()}
-
-    rrng = np.random.default_rng(1)
-    r_teacher = {"tokens": rrng.integers(0, rcfg.vocab, (2, 24)),
-                 "steps": rrng.integers(0, rcfg.vocab, (4, 2)),
-                 "max_len": 32}
-    r_serve = {"prompts": [rrng.integers(0, rcfg.vocab, T).astype(np.int32)
-                           for T in (40, 100, 64)],
-               "batch": 2, "max_len": 128, "new": 8}
-    reduced = {"arch": LM_ARCH, "reduced": True, "mesh": MESH,
-               "config": {"compute_dtype": "float32"}, "arrays": arrays(cpu),
-               "teacher": r_teacher, "serve": r_serve}
+    (reduced,), want_d = _mesh_reduced_cases(torch, LM_ARCH, (MESH,))
     t = time.perf_counter()
     both = spawn(launcher.run_mesh_cases, MESH_WORLD, "gloo",
-                 args=([full, reduced], list(train_cases), None),
-                 timeout_s=300)
+                 args=([full, reduced] + list(moe_cases), list(train_cases),
+                       None), timeout_s=300)
     world_s = time.perf_counter() - t
     per_rank = [lm for lm, _ in both]
     fulls, reds = [r[0] for r in per_rank], [r[1] for r in per_rank]
@@ -3150,22 +3176,11 @@ def phase_lm_mesh(torch, ref, card, train_cases=()) -> dict:
     check_c = {**_logit_diff(got["logits"], ref["c_logits"], cfg.vocab),
                "rows": int(got["logits"].shape[1]), "tol_rel": MESH_LOGIT_RTOL}
     # d. the reduced config: the ranks against the port on the CPU
-    cpu_p = lm_params_from_arrays(reduced["arrays"], rcfg, "cpu")
-    batch = {"tokens": torch.as_tensor(r_teacher["tokens"])}
-    lg, st = rmodel.prefill(cpu_p, batch, max_len=r_teacher["max_len"])
-    want = [lg.numpy()]
-    for row in r_teacher["steps"]:
-        lg, st = rmodel.decode(cpu_p, torch.as_tensor(row[:, None]), st)
-        want.append(lg.numpy())
-    b = ContinuousBatcher(rmodel, cpu_p, r_serve["batch"], r_serve["max_len"],
-                          device="cpu")
-    for rid, p in enumerate(r_serve["prompts"]):
-        b.submit(Request(rid=rid, prompt=p, max_new_tokens=r_serve["new"]))
-    cpu_tokens = b.run()
     rgot = [reds[0]["teacher"]["prefill"]] + list(reds[0]["teacher"]["decode"])
+    want = want_d["logits"]
     d_err = max(float(np.abs(g - w).max()) for g, w in zip(rgot, want))
     check_d = {"max_abs_diff": d_err, "tol": LM_F32_TOL,
-               "tokens_equal": all(r["serve"]["tokens"] == cpu_tokens
+               "tokens_equal": all(r["serve"]["tokens"] == want_d["tokens"]
                                    for r in reds)}
     for g, w in zip(rgot, want):
         np.testing.assert_allclose(g, w, **LM_F32_TOL)
@@ -3209,7 +3224,335 @@ def phase_lm_mesh(torch, ref, card, train_cases=()) -> dict:
         raise AssertionError("lm mesh: the reduced config's tokens differ "
                              "from the CPU's")
     return {"launches": sum(r["b6_launches"] for r in ranks),
+            "moe_ranks": [r[2:] for r in per_rank],
             "train_ranks": [tr for _, tr in both], **res}
+
+
+def moe_mesh_reference(torch, layers: int = MOE_MESH_LAYERS) -> dict:
+    """Phase 7f's one-card results: qwen3-moe-30b-a3b at full width cut to
+    ``layers`` layers in bf16 and MOE_MESH_LAYERS in float32 (the float32
+    model is twice the bytes: at a deeper cut its whole copy and the
+    other ranks' shards would not fit the shared card), built from the
+    seed the ranks build it from, in each compute dtype of
+    MOE_MESH_DTYPES: a prefill of a seeded
+    MESH_B_BATCH and MOE_MESH_B_STEPS greedy decode steps (the tokens fed,
+    every step's logits, the prefill's picks: check b) and, in float32,
+    the forward's logits of a seeded 1 x MESH_C_TOKENS row at every
+    MESH_C_STRIDE-th position (check c) and the control of check b's
+    float32 gate: the same teacher-forced run with every moe layer's
+    combine computed in bf16, its distance from the clean run; as numpy;
+    each model is freed after."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.distributed import RouteLog
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.factory import build_model
+
+    def teacher(model, params, tokens, steps=None):
+        """The prefill's and the decode steps' float32 logits, greedy or
+        fed ``steps``."""
+        logits, state = model.prefill(params, {"tokens": torch.as_tensor(
+            tokens, device=dev)}, max_len=LM_MAX_LEN)
+        out = {"prefill": logits.float().cpu().numpy(), "steps": [],
+               "decode": []}
+        for j in range(MOE_MESH_B_STEPS):
+            nxt = (torch.argmax(logits, dim=-1) if steps is None
+                   else torch.as_tensor(steps[j], device=dev))
+            out["steps"].append(nxt.cpu().numpy())
+            logits, state = model.decode(params, nxt[:, None], state)
+            out["decode"].append(logits.float().cpu().numpy())
+        out["steps"], out["decode"] = (np.stack(out[k])
+                                       for k in ("steps", "decode"))
+        return out
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    vocab = get_config(MOE_ARCH).vocab
+    ref = {"tokens": rng.integers(0, vocab, MESH_B_BATCH),
+           "c_tokens": rng.integers(0, vocab, (1, MESH_C_TOKENS))}
+    for dtype in MOE_MESH_DTYPES:
+        cfg = dataclasses.replace(
+            get_config(MOE_ARCH), compute_dtype=dtype,
+            n_layers=layers if dtype == "bfloat16" else MOE_MESH_LAYERS)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        with RouteLog() as routes:
+            out = teacher(model, params, ref["tokens"])
+        out.update(layers=cfg.n_layers,     # the prefill's picks
+                   picks=routes.summary(picks=True)["picks"][:cfg.n_layers])
+        if dtype == "float32":
+            logits, _ = model.logits(params, {"tokens": torch.as_tensor(
+                ref["c_tokens"], device=dev)}, remat=False)
+            out["c_logits"] = logits[:, ::MESH_C_STRIDE].cpu().numpy()
+            del logits
+            clean = moe_lib._combine
+            moe_lib._combine = lambda c: clean(c.bfloat16()).to(c.dtype)
+            try:
+                bad = teacher(model, params, ref["tokens"], out["steps"])
+            finally:
+                moe_lib._combine = clean
+            out["control"] = {
+                k: _logit_diff(bad[k], out[k], cfg.vocab, MOE_MESH_F32_RTOL)
+                for k in ("prefill", "decode")}
+        ref[dtype] = out
+        del params
+        torch.cuda.empty_cache()
+    return ref
+
+
+def moe_mesh_cases(torch, ref, prompts=MOE_MESH_PROMPTS,
+                   new=MOE_MESH_NEW) -> tuple:
+    """Phase 7f's cases for the world phase 7e spawns: qwen3-moe-30b-a3b at
+    full width cut as :func:`moe_mesh_reference` cut it, on MESH, its routing
+    recorded, in bf16 (the teacher case of :func:`moe_mesh_reference`,
+    phase 7c's ``prompts`` served with ``new`` tokens each) and in float32
+    (the teacher case, the logits row), then the reduced moe configs in
+    float32 at MOE_MESH_REDUCED_MESHES (check d).
+    Returns (cases, what :func:`phase_lm_moe_mesh` holds them to)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(MOE_ARCH)
+    rng = np.random.default_rng(0)        # phase 7c's prompts
+    by_len = {T: rng.integers(0, cfg.vocab, T).astype(np.int32)
+              for T in LM_PROMPTS}
+    cases = []
+    for dtype in MOE_MESH_DTYPES:
+        case = {"arch": MOE_ARCH, "mesh": MESH, "seed": 0,
+                "config": {"n_layers": ref[dtype]["layers"],
+                           "compute_dtype": dtype}, "routing": "picks",
+                "teacher": {"tokens": ref["tokens"],
+                            "steps": ref[dtype]["steps"],
+                            "max_len": LM_MAX_LEN}}
+        if dtype == "float32":
+            case["logits"] = {"tokens": ref["c_tokens"],
+                              "stride": MESH_C_STRIDE}
+        else:                                  # the served path
+            case["serve"] = {"prompts": [by_len[T] for T in prompts],
+                             "batch": LM_BATCH, "max_len": LM_MAX_LEN,
+                             "new": new}
+        cases.append(case)
+    reduced = {}
+    for arch in MOE_MESH_REDUCED:
+        cases_of, ctx = _mesh_reduced_cases(torch, arch,
+                                            MOE_MESH_REDUCED_MESHES)
+        cases += cases_of
+        reduced[arch] = ctx
+    return cases, {"ref": ref, "prompts": list(prompts), "new": new,
+                   "reduced": reduced}
+
+
+def _mesh_reduced_cases(torch, arch, meshes) -> tuple:
+    """Check d's cases: ``arch``'s reduced config in float32 from weights
+    seeded 1, a teacher-forced prefill and 4 decode steps and three
+    prompts served, at each of ``meshes``; and the same on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import lm_params_from_arrays
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    rcfg = dataclasses.replace(get_config(arch).reduced(),
+                               compute_dtype="float32")
+    rmodel = build_model(rcfg)
+    cpu = rmodel.init(torch.Generator().manual_seed(1), "cpu")
+
+    def arrays(tree):
+        return {k: arrays(v) if isinstance(v, dict) else v.float().numpy()
+                for k, v in tree.items()}
+
+    rrng = np.random.default_rng(1)
+    teacher = {"tokens": rrng.integers(0, rcfg.vocab, (2, 24)),
+               "steps": rrng.integers(0, rcfg.vocab, (4, 2)), "max_len": 32}
+    serve = {"prompts": [rrng.integers(0, rcfg.vocab, T).astype(np.int32)
+                         for T in (40, 100, 64)],
+             "batch": 2, "max_len": 128, "new": 8}
+    tree = arrays(cpu)
+    cases = [{"arch": arch, "reduced": True, "mesh": m,
+              "routing": rcfg.family == "moe",
+              "config": {"compute_dtype": "float32"}, "arrays": tree,
+              "teacher": teacher, "serve": serve} for m in meshes]
+    cpu_p = lm_params_from_arrays(tree, rcfg, "cpu")
+    lg, st = rmodel.prefill(cpu_p, {"tokens": torch.as_tensor(
+        teacher["tokens"])}, max_len=teacher["max_len"])
+    want = [lg.numpy()]
+    for row in teacher["steps"]:
+        lg, st = rmodel.decode(cpu_p, torch.as_tensor(row[:, None]), st)
+        want.append(lg.numpy())
+    b = ContinuousBatcher(rmodel, cpu_p, serve["batch"], serve["max_len"],
+                          device="cpu")
+    for rid, p in enumerate(serve["prompts"]):
+        b.submit(Request(rid=rid, prompt=p, max_new_tokens=serve["new"]))
+    return cases, {"meshes": [list(m) for m in meshes], "logits": want,
+                   "tokens": b.run()}
+
+
+def _routing_key(r: dict) -> tuple:
+    """A rank's routing summary without its picks."""
+    return tuple(sorted((k, v) for k, v in r.items() if k != "picks"))
+
+
+def phase_lm_moe_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
+    """Phase 7f: qwen3-moe-30b-a3b on MESH (expert parallel over "model"),
+    from the per-rank results of the world phase 7e shared
+    (:func:`moe_mesh_cases`).  Checks: a. every rank the same tokens, the
+    same routing (calls, entries dropped, the picks' sha1) and the same
+    logits; b. the teacher-forced prefill and MOE_MESH_B_STEPS decode
+    steps against one card's run of the same cut model
+    (:func:`moe_mesh_reference`) with the routing agreement of their
+    prefills, as 7c's check b: in float32 within MOE_MESH_F32_RTOL of the
+    largest logit, which the control (one card's combine in bf16) must
+    exceed; in bf16 the picks and the greedy tokens at least
+    MOE_MESH_BF16_PICKS and MOE_MESH_BF16_GREEDY of one card's (see
+    MOE_MESH_DTYPES); c. ``Model.logits`` in float32 against one card's
+    forward, within MOE_MESH_F32_RTOL; d. the reduced moe configs in
+    float32 on the ranks at
+    MOE_MESH_REDUCED_MESHES against the port on the CPU (LM_F32_TOL, the
+    same tokens); e. B6 once an attention layer and chunk on every rank,
+    no graph kernel.  One ``lm mesh run`` line (per rank of the served
+    bf16 case: walls, prefill and decode seconds, decode tok/s,
+    collectives a decode step, B6 launches, peak GB, the share of entries
+    dropped)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.distributed import RouteLog
+
+    ref = ctx["ref"]
+    cfgs = {d: dataclasses.replace(get_config(MOE_ARCH),
+                                   n_layers=ref[d]["layers"])
+            for d in MOE_MESH_DTYPES}
+    cfg = cfgs["bfloat16"]
+    n = len(MOE_MESH_DTYPES)
+    by_dtype = {d: [r[i] for r in ranks]
+                for i, d in enumerate(MOE_MESH_DTYPES)}
+    served = by_dtype["bfloat16"]
+    # a. every rank the same tokens, routing and logits
+    toks = [r["serve"]["tokens"] for r in served]
+    if any(x != toks[0] for x in toks[1:]):
+        raise AssertionError("moe mesh: the ranks served different tokens")
+    for rid in range(len(ctx["prompts"])):
+        if len(toks[0][rid]) != ctx["new"] or not all(
+                0 <= x < cfg.vocab for x in toks[0][rid]):
+            raise AssertionError(f"moe mesh request {rid}: "
+                                 f"{toks[0][rid][:8]}")
+    for dtype, rs in by_dtype.items():
+        if len({_routing_key(r["routing"]) for r in rs}) != 1:
+            raise AssertionError(f"moe mesh {dtype}: the ranks routed "
+                                 f"differently")
+        for r in rs[1:]:
+            for k in ("prefill", "decode"):
+                if not np.array_equal(r["teacher"][k], rs[0]["teacher"][k]):
+                    raise AssertionError(f"moe mesh {dtype}: the ranks' "
+                                         f"teacher {k} differ")
+            if "logits" in r and not np.array_equal(r["logits"],
+                                                    rs[0]["logits"]):
+                raise AssertionError(f"moe mesh {dtype}: the ranks' logits "
+                                     f"differ")
+    # b and c against one card's run of the cut model
+    check_b = {}
+    for dtype, rs in by_dtype.items():
+        got, want = rs[0], ref[dtype]
+        rtol = MOE_MESH_F32_RTOL if dtype == "float32" else None
+        mesh_routes, card_routes = RouteLog(), RouteLog()
+        mesh_routes.calls = [(torch.as_tensor(p).long(), None, None)
+                             for p in got["routing"]["picks"][
+                                 :want["layers"]]]
+        card_routes.calls = [(torch.as_tensor(p).long(), None, None)
+                             for p in want["picks"]]
+        check_b[dtype] = {
+            "prefill": _logit_diff(got["teacher"]["prefill"],
+                                   want["prefill"], cfg.vocab, rtol),
+            "decode": _logit_diff(got["teacher"]["decode"], want["decode"],
+                                  cfg.vocab, rtol),
+            "greedy_equal": int((got["teacher"]["decode"][..., :cfg.vocab]
+                                 .argmax(-1)[:-1]
+                                 == want["steps"][1:]).sum()),
+            "greedy_of": int(want["steps"][1:].size),
+            "routing": mesh_routes.agreement(card_routes),
+            "dropped_share": got["routing"]["dropped_share"]}
+    check_b["float32"].update(tol_rel=MOE_MESH_F32_RTOL,
+                              control=ref["float32"]["control"])
+    check_b["bfloat16"].update(min_picks_agree=MOE_MESH_BF16_PICKS,
+                               min_greedy_share=MOE_MESH_BF16_GREEDY)
+    got32 = by_dtype["float32"][0]
+    check_c = {**_logit_diff(got32["logits"], ref["float32"]["c_logits"],
+                             cfg.vocab, MOE_MESH_F32_RTOL),
+               "rows": int(got32["logits"].shape[1]),
+               "dtype": "float32", "tol_rel": MOE_MESH_F32_RTOL}
+    # d. the reduced configs: the ranks against the port on the CPU
+    check_d, i = {}, n
+    for arch, want in ctx["reduced"].items():
+        for m in want["meshes"]:
+            reds = [r[i] for r in ranks]
+            i += 1
+            rgot = [reds[0]["teacher"]["prefill"]] + list(
+                reds[0]["teacher"]["decode"])
+            for g, w in zip(rgot, want["logits"]):
+                np.testing.assert_allclose(g, w, **LM_F32_TOL)
+            d = check_d[f"{arch} {m[0]}x{m[1]}"] = {
+                "max_abs_diff": max(float(np.abs(g - w).max())
+                                    for g, w in zip(rgot, want["logits"])),
+                "tokens_equal": all(r["serve"]["tokens"] == want["tokens"]
+                                    for r in reds),
+                "ranks_routed_alike": len({_routing_key(r["routing"])
+                                           for r in reds[:m[1]]}) == 1}
+            if not (d["tokens_equal"] and d["ranks_routed_alike"]):
+                raise AssertionError(f"moe mesh check d: {check_d}")
+    # e. B6 once an attention layer and chunk on every rank, no graph kernel
+    served_n = sum(_prefill_launches(T, cfg) for T in ctx["prompts"])
+    teacher_n = _prefill_launches(MESH_B_BATCH[1], cfg)
+    want_e = [(r["serve"]["launches"], served_n) for r in served] + [
+        (r["launches"], teacher_n) for r in served] + [
+        (r["launches"], sum(_prefill_launches(T, cfgs["float32"])
+                            for T in (MESH_B_BATCH[1], MESH_C_TOKENS)))
+        for r in by_dtype["float32"]]
+    for counts, want_n in want_e:
+        others = {k: c for k, c in counts.items()
+                  if k != "flash_attention" and c}
+        if counts["flash_attention"] != want_n or others:
+            raise AssertionError(f"moe mesh: a rank launched {counts}, "
+                                 f"want {want_n} flash and nothing else")
+    lines = [{"rank": i, "params_s": r["params_s"],
+              "wall_s": r["serve"]["wall_s"],
+              "prefill_s": sum(r["serve"]["prefill_s"]),
+              "decode_s": r["serve"]["decode_s"],
+              "decode_steps": r["serve"]["decode_steps"],
+              "decode_tok_per_s": r["serve"]["decode_tok_per_s"],
+              "collectives_per_decode_step":
+                  r["serve"]["collectives_per_decode_step"],
+              "collectives": r["serve"]["collectives"],
+              "b6_launches": r["serve"]["launches"]["flash_attention"],
+              "peak_gb": (r["peak_mem_bytes"] or 0) / 1e9,
+              "dropped_share": r["routing"]["dropped_share"],
+              "case_wall_s": r["wall_s"]} for i, r in enumerate(served)]
+    res = {"card": card, "arch": MOE_ARCH, "layers": cfg.n_layers,
+           "float32_layers": cfgs["float32"].n_layers,
+           "mesh": list(MESH), "backend": "gloo",
+           "experts_per_rank": cfg.moe.num_experts // MESH[1],
+           "prompts": ctx["prompts"], "new": ctx["new"],
+           "tokens": sum(len(x) for x in toks[0].values()),
+           "check_b": check_b, "check_c": check_c, "check_d": check_d,
+           "cases_wall_s": max(sum(x["wall_s"] for x in r) for r in ranks),
+           "case_walls_s": [max(r[i]["wall_s"] for r in ranks)
+                            for i in range(len(ranks[0]))],
+           "float32_peak_gb": max((r["peak_mem_bytes"] or 0) / 1e9
+                                  for r in by_dtype["float32"]),
+           "ranks": lines}
+    log("lm mesh run: " + json.dumps(res))
+    f32, b16 = check_b["float32"], check_b["bfloat16"]
+    if not (f32["prefill"]["ok"] and f32["decode"]["ok"] and check_c["ok"]):
+        raise AssertionError("moe mesh: the mesh's float32 logits are off "
+                             "the one card's beyond the tolerance")
+    if any(c["ok"] for c in f32["control"].values()):
+        raise AssertionError("moe mesh: a combine in bf16 passes the float32 "
+                             f"gate: {f32['control']}")
+    if (b16["routing"]["picks_agree"] < MOE_MESH_BF16_PICKS
+            or b16["greedy_equal"] < MOE_MESH_BF16_GREEDY * b16["greedy_of"]):
+        raise AssertionError("moe mesh: the bf16 mesh's routing or greedy "
+                             "tokens are off one card's")
+    return {"launches": sum(x["b6_launches"] for x in lines), **res}
 
 
 def lm_card_vs_cpu(torch, arch: str = LM_ARCH) -> dict:
@@ -3721,18 +4064,22 @@ def train_mesh_cases(torch) -> tuple:
             "--microbatches", str(TRAIN_MESH_MICRO), "--lr", str(TRAIN_LR)]
     full = {"arch": LM_ARCH, "mesh": TRAIN_MESH, "argv": argv,
             "config": {"n_layers": TRAIN_MESH_LAYERS}}
-    rcfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
-                               compute_dtype="float32")
-    st = init_train_state(build_model(rcfg), torch.Generator().manual_seed(1),
-                          AdamW(), device="cpu")
-
     def arrays(tree):
         return None if tree is None else {
             k: arrays(v) if isinstance(v, dict) else v.numpy()
             for k, v in tree.items()}
-    state = {"params": arrays(st.params), "mu": arrays(st.opt.mu),
-             "nu": arrays(st.opt.nu), "count": st.opt.count.numpy(),
-             "step": st.step.numpy()}
+
+    def seeded(arch):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  compute_dtype="float32")
+        st = init_train_state(build_model(cfg),
+                              torch.Generator().manual_seed(1), AdamW(),
+                              device="cpu")
+        return cfg, {"params": arrays(st.params), "mu": arrays(st.opt.mu),
+                     "nu": arrays(st.opt.nu), "count": st.opt.count.numpy(),
+                     "step": st.step.numpy()}
+    rcfg, state = seeded(LM_ARCH)
+    mcfg, mstate = seeded(MOE_ARCH)
     ckdir = os.path.join(ROOT, "build", "chip_smoke_mesh_ckpt")
     shutil.rmtree(ckdir, ignore_errors=True)
     reduced = {"arch": LM_ARCH, "reduced": True, "mesh": TRAIN_MESH,
@@ -3742,8 +4089,13 @@ def train_mesh_cases(torch) -> tuple:
                "lr": ("constant", (TRAIN_MESH_REDUCED_LR,)),
                "steps": TRAIN_MESH_STEPS, "ckpt_dir": ckdir,
                "reshard": [(RESHARD_MESH, TRAIN_MESH_STEPS)]}
-    return [full, reduced], {"argv": argv, "rcfg": rcfg, "state": state,
-                             "ckdir": ckdir}
+    # the moe family: the reduced config's experts expert parallel over
+    # "model", FSDP over "data" (phase 7f's training check)
+    moe = {**reduced, "arch": MOE_ARCH, "state": mstate, "routing": True}
+    del moe["ckpt_dir"], moe["reshard"]
+    return [full, reduced, moe], {"argv": argv, "rcfg": rcfg, "state": state,
+                                  "ckdir": ckdir, "mcfg": mcfg,
+                                  "mstate": mstate}
 
 
 def _shard_specs(cfg, mesh_shape) -> dict:
@@ -3845,6 +4197,52 @@ def _check_train_mesh_launches(full: list) -> None:
                                  f"({r['b6']} a step), want {want}")
 
 
+def _train_mesh_moe(torch, moe: list, ctx: dict) -> dict:
+    """8e's check f: the reduced moe config's 2 steps on TRAIN_MESH (its
+    experts expert parallel over "model", FSDP over "data") against the
+    port on the CPU: ``loss``, ``ce`` and ``aux`` of each step within
+    TRAIN_F32_TOL, each rank's state as :func:`_adamw_close`; every rank
+    the same metric bits, and the ranks of a data row routed alike."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.convert import train_state_from_arrays
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.optimizer import AdamW, constant
+    from repro_torch.train.train_step import make_train_step
+
+    steps = TRAIN_MESH_STEPS
+    shape = ShapeConfig("t", "train", TRAIN_MESH_REDUCED_SEQ,
+                        TRAIN_MESH_BATCH)
+    mcfg = ctx["mcfg"]
+    legs = [r["legs"][0] for r in moe]
+    if any(leg["bits"] != legs[0]["bits"] for leg in legs[1:]):
+        raise AssertionError("train 8e: the moe ranks' metric bits differ")
+    rows = {}
+    for i, r in enumerate(moe):
+        key = _routing_key(r["routing"])
+        if rows.setdefault(i // TRAIN_MESH[1], key) != key:
+            raise AssertionError("train 8e: moe ranks of a data row routed "
+                                 "differently")
+    cpu = train_state_from_arrays(**ctx["mstate"], device="cpu")
+    step = make_train_step(build_model(mcfg), AdamW(),
+                           constant(TRAIN_MESH_REDUCED_LR),
+                           microbatches=TRAIN_MESH_MICRO)
+    for s_ in range(steps):
+        cpu, m = step(cpu, batch_for_step(mcfg, shape, s_, device="cpu"))
+        np.testing.assert_allclose(
+            [legs[0][k][s_] for k in ("loss", "ce", "aux")],
+            [float(m[k]) for k in ("loss", "ce", "aux")], **TRAIN_F32_TOL)
+    mspecs = _shard_specs(mcfg, TRAIN_MESH)
+    res_f = [_adamw_close(r["legs"][0]["state"], cpu, mspecs, TRAIN_MESH,
+                          i, steps, TRAIN_MESH_REDUCED_LR)
+             for i, r in enumerate(moe)]
+    return {"arch": mcfg.name + " reduced", "mesh": list(TRAIN_MESH),
+            "steps": steps, "loss": legs[0]["loss"], "aux": legs[0]["aux"],
+            "cpu_loss": float(m["loss"]),
+            "dropped_share": moe[0]["routing"]["dropped_share"],
+            **max(res_f, key=lambda x: x["amplified"])}
+
+
 def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     """Phase 8e: training on a mesh, from the per-rank results of the
     world phase 7e shared (:func:`train_mesh_cases`).  Checks: a. every
@@ -3856,9 +4254,10 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     config's 2 steps on TRAIN_MESH against the port on the CPU; d. its
     checkpoint resharded onto RESHARD_MESH and 2 more steps against 4 CPU
     steps; e. B6 twice per attention layer and microbatch on every rank
-    (forward and remat), threefry TRAIN_DRAWS a step, nothing else.  One
-    ``train mesh`` line per rank: step wall, tokens/s, collectives a step,
-    peak GB, B6 launches."""
+    (forward and remat), threefry TRAIN_DRAWS a step, nothing else; f.
+    the reduced moe config (:func:`_train_mesh_moe`).  One ``train mesh``
+    line per rank: step wall, tokens/s, collectives a step, peak GB, B6
+    launches."""
     import dataclasses
 
     from repro_torch.configs.shapes import ShapeConfig
@@ -3869,7 +4268,7 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     from repro_torch.train.optimizer import AdamW, constant
     from repro_torch.train.train_step import make_train_step
 
-    full, red = [r[0] for r in ranks], [r[1] for r in ranks]
+    full, red, moe = ([r[i] for r in ranks] for i in range(3))
     steps = TRAIN_MESH_STEPS
     _check_train_mesh_launches(full)
     # a. every rank the same metric bits; replicas the same leaves
@@ -3937,6 +4336,7 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
                          "loss": loss, "cpu_loss": float(m["loss"]),
                          **max(res, key=lambda x: x["amplified"])}
         np.testing.assert_allclose(loss, float(m["loss"]), **TRAIN_F32_TOL)
+    checks["f"] = _train_mesh_moe(torch, moe, ctx)
     import shutil
     shutil.rmtree(ctx["ckdir"], ignore_errors=True)
     tokens = TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
@@ -3956,8 +4356,9 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
         lines.append(line)
     res = {"arch": LM_ARCH, "layers": TRAIN_MESH_LAYERS, "check_a_replicas":
            replicas, "check_b": check_b, "check_c": checks["c"],
-           "check_d": checks["d"], "reduced_walls_s": [r["wall_s"]
-                                                       for r in red]}
+           "check_d": checks["d"], "check_f_moe": checks["f"],
+           "reduced_walls_s": [r["wall_s"] for r in red],
+           "moe_walls_s": [r["wall_s"] for r in moe]}
     log("train 8e checks: " + json.dumps(res))
     return {"launches": sum(r["launches"]["flash_attention"] for r in full),
             "ranks": lines, **res}
@@ -4053,15 +4454,18 @@ def main() -> int:
     lm_last = timed("7d lm vlm, encdec", phase_lm_vlm_encdec, torch,
                     Counters())
     train_cases, train_ctx = train_mesh_cases(torch)
-    lm_mesh = timed("7e lm mesh (and 8e's ranks)", phase_lm_mesh, torch,
-                    lm["mesh_ref"], card, train_cases)
+    moe_cases, moe_ctx = moe_mesh_cases(torch, lm_moe.pop("mesh_ref"))
+    lm_mesh = timed("7e lm mesh (and 7f's and 8e's ranks)", phase_lm_mesh,
+                    torch, lm["mesh_ref"], card, train_cases, moe_cases)
+    moe_mesh = timed("7f moe mesh checks", phase_lm_moe_mesh, torch,
+                     lm_mesh.pop("moe_ranks"), moe_ctx, card)
     train = timed("8 train", phase_train, torch, Counters())
     train_mesh = timed("8e train mesh", phase_train_mesh, torch,
                        lm_mesh.pop("train_ranks"), train_ctx, card)
     launches["flash_attention"] = lm["launches"] + sum(
         r["launches"] for r in lm_rec.values()) + lm_moe["launches"] + sum(
         r["launches"] for r in lm_last.values()) + train["launches"] + \
-        lm_mesh["launches"] + train_mesh["launches"]
+        lm_mesh["launches"] + moe_mesh["launches"] + train_mesh["launches"]
     launches["threefry"] = launches.get("threefry", 0) + \
         train["full"]["counts"]["threefry"]
 
@@ -4117,8 +4521,9 @@ def main() -> int:
         if name == "flash_attention":
             row["ms_is"] = ("card ms per launch at (Sq, Skv, q_offset) = "
                             "(4096, 4096, 0), bf16, CUDA graph")
-            row["launches_of"] = ("the LM paths' prefills (7e's summed "
-                                  "over its four ranks) and phase 8's "
+            row["launches_of"] = ("the LM paths' prefills (7e's and 7f's "
+                                  "served ones summed over their four "
+                                  "ranks) and phase 8's "
                                   "training forwards and remat "
                                   "recomputes (8e's summed over its four "
                                   "ranks), all of them flash_tc_kernel "
@@ -4129,6 +4534,7 @@ def main() -> int:
                 MOE_ARCH: lm_moe["launches"],
                 **{a: r["launches"] for a, r in lm_last.items()},
                 MESH_KEY: lm_mesh["launches"],
+                MOE_MESH_KEY: moe_mesh["launches"],
                 LM_ARCH + " train": train["launches"],
                 TRAIN_MESH_KEY: train_mesh["launches"]}
             # the training path's backward is the plain flash backward

@@ -2,13 +2,22 @@
 """Run the smoke's LM-on-a-mesh phase alone on one card.
 
     python3 scripts/lm_mesh.py [--prompts 512,1000,2048,8192] [--new 8]
+    python3 scripts/lm_mesh.py --arch qwen3-moe-30b-a3b [--layers 24] \\
+        [--prompts ...] [--new 32]
 
-Builds the kernels, runs ``chip_smoke.phase_lm`` for starcoder2-7b (phase 7:
-the one-card run that phase 7e's checks are held to) and then
-``chip_smoke.phase_lm_mesh`` (phase 7e: four gloo ranks sharing the card),
-with the served prompts and new tokens given (default: the smoke's
-``MESH_PROMPTS`` and ``MESH_NEW``), and prints the ``lm mesh run`` line.  ``scripts/gloo_collectives.py``
-times gloo's collectives among four ranks on the card on its own.
+Builds the kernels, then for starcoder2-7b (the default) runs
+``chip_smoke.phase_lm`` (phase 7: the one-card run that phase 7e's checks
+are held to) and ``chip_smoke.phase_lm_mesh`` (phase 7e: four gloo ranks
+sharing the card), with the served prompts and new tokens given (default:
+the smoke's ``MESH_PROMPTS`` and ``MESH_NEW``), and prints the ``lm mesh
+run`` line.  With ``--arch qwen3-moe-30b-a3b`` it runs phase 7f alone
+instead: the model at full width cut to ``--layers`` layers (default the
+smoke's ``MOE_MESH_LAYERS``) on one card (``chip_smoke.moe_mesh_reference``),
+then on four gloo ranks, expert parallel over "model"
+(``chip_smoke.moe_mesh_cases`` and ``phase_lm_moe_mesh``), serving the
+prompts given (default ``MOE_MESH_PROMPTS``, ``MOE_MESH_NEW``).
+``scripts/gloo_collectives.py`` times gloo's collectives among four ranks
+on the card on its own.
 """
 from __future__ import annotations
 
@@ -23,6 +32,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2-7b",
+                    choices=("starcoder2-7b", "qwen3-moe-30b-a3b"))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="qwen3-moe-30b-a3b's depth cut (of 48)")
     ap.add_argument("--prompts", default=None,
                     help="comma-separated prompt lengths of phase 7's")
     ap.add_argument("--new", type=int, default=None)
@@ -31,10 +44,6 @@ def main(argv=None) -> int:
     import torch
 
     import chip_smoke as cs
-    if args.prompts:
-        cs.MESH_PROMPTS = tuple(int(x) for x in args.prompts.split(","))
-    if args.new:
-        cs.MESH_NEW = args.new
     from repro_torch.kernels import _build
     _build.build_all()
     card = subprocess.run(
@@ -42,6 +51,28 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
     cs.log(card)
+    prompts = (tuple(int(x) for x in args.prompts.split(","))
+               if args.prompts else None)
+    if args.arch == cs.MOE_ARCH:
+        from repro_torch.launch import distributed as launcher
+        from repro_torch.launch.mesh import spawn
+
+        t = time.perf_counter()
+        ref = cs.moe_mesh_reference(torch, args.layers or cs.MOE_MESH_LAYERS)
+        cs.log(f"phase 7f one-card reference: {time.perf_counter() - t:.1f} s")
+        cases, ctx = cs.moe_mesh_cases(torch, ref,
+                                       prompts or cs.MOE_MESH_PROMPTS,
+                                       args.new or cs.MOE_MESH_NEW)
+        t = time.perf_counter()
+        ranks = spawn(launcher.run_lm_cases, cs.MESH_WORLD, "gloo",
+                      args=(cases, None), timeout_s=600)
+        cs.log(f"phase 7f world: {time.perf_counter() - t:.1f} s")
+        cs.phase_lm_moe_mesh(torch, ranks, ctx, card)
+        return 0
+    if prompts:
+        cs.MESH_PROMPTS = prompts
+    if args.new:
+        cs.MESH_NEW = args.new
     lm = cs.phase_lm(torch, cs.Counters())
     torch.cuda.empty_cache()
     t = time.perf_counter()

@@ -283,6 +283,71 @@ def _lm_serve(model, params, s: dict, mesh, rules, dev) -> dict:
             "collectives": mesh.calls - calls0, "launches": _launches()}
 
 
+class RouteLog:
+    """While active, records every moe layer's routing: the expert ids
+    ``[B, S, K]`` and slots that ``models/moe.route`` returns, with the
+    trash slot ``E * C`` of that call (no host read while recording)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._route = [], moe.route
+
+        def spy(gate_idx, C, E):
+            slot = self._route(gate_idx, C, E)
+            self.calls.append((gate_idx, slot, E * C))
+            return slot
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+    def dropped(self) -> list:
+        """Each call's share of (token, choice) entries dropped."""
+        return [float((slot == trash).float().mean())
+                for _, slot, trash in self.calls]
+
+    def summary(self, picks: bool = False) -> dict:
+        """The calls recorded, their (token, choice) entries, the share
+        dropped past capacity, and a sha1 of the picks (every call's
+        expert ids in call order): ranks that routed the same rows compare
+        their picks without moving them.  With ``picks``, the picks too
+        (int16 numpy, one array a call)."""
+        import hashlib
+        h = hashlib.sha1()
+        entries = dropped = 0
+        for gate_idx, slot, trash in self.calls:
+            h.update(gate_idx.to(torch.int64).cpu().numpy().tobytes())
+            entries += slot.numel()
+            dropped += int((slot == trash).sum())
+        out = {"calls": len(self.calls), "entries": entries,
+               "dropped": dropped,
+               "dropped_share": dropped / max(entries, 1),
+               "picks_sha1": h.hexdigest()}
+        if picks:
+            out["picks"] = [g.to(torch.int16).cpu().numpy()
+                            for g, _, _ in self.calls]
+        return out
+
+    def agreement(self, other: "RouteLog") -> dict:
+        """Routing decisions of two runs over the same tokens: the share of
+        (layer, token, chosen expert) picks both made, and of (layer,
+        token) whose whole expert set is the same."""
+        picks = same_sets = n_picks = n_sets = 0
+        for (a, _, _), (b, _, _) in zip(self.calls, other.calls, strict=True):
+            E = int(max(a.max(), b.max())) + 1
+            ha = torch.nn.functional.one_hot(a, E).sum(-2)
+            hb = torch.nn.functional.one_hot(b, E).sum(-2)
+            picks += int((ha * hb).sum())
+            n_picks += a.numel()
+            same_sets += int((ha == hb).all(-1).sum())
+            n_sets += ha[..., 0].numel()
+        return {"picks_agree": picks / n_picks,
+                "sets_agree": same_sets / n_sets,
+                "sets_differ": n_sets - same_sets, "sets": n_sets}
+
+
 def run_lm_cases(rank: int, cases: list, device=None) -> list:
     """Run LM ``cases`` on this rank of a world (every rank the same list:
     building a mesh is collective).  A case is a dict:
@@ -298,12 +363,16 @@ def run_lm_cases(rank: int, cases: list, device=None) -> list:
       "extras"}``: ``Model.logits`` of that batch, with its own
       ``overrides`` on top of the case's, every ``stride``-th position's
       row) and ``serve`` (:func:`_lm_serve`), run in that order on the
-      same params.
+      same params;
+    * ``routing`` (a moe model): record the rank's routing over the parts
+      (:class:`RouteLog`; ``"picks"``: its picks too).
 
     Returns one dict per case with each part's result (logits as float32
     numpy with every row of the batch), ``wall_s``, this rank's kernel
-    ``launches`` over the parts before ``serve`` (which counts its own) and
-    its card's ``peak_mem_bytes`` over the case."""
+    ``launches`` over the parts before ``serve`` (which counts its own),
+    its card's ``peak_mem_bytes`` over the case and, with ``routing``, its
+    ``RouteLog.summary()``."""
+    import contextlib
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -333,7 +402,9 @@ def run_lm_cases(rank: int, cases: list, device=None) -> list:
         params = _lm_params(model, case, rules, dev)
         _sync(dev)
         res = {"params_s": time.perf_counter() - t}
-        with torch.inference_mode():
+        routes = RouteLog() if case.get("routing") else \
+            contextlib.nullcontext()
+        with torch.inference_mode(), routes:
             if "teacher" in case:
                 res["teacher"] = _lm_teacher(model, params, case["teacher"],
                                              mesh, rules, dev)
@@ -351,6 +422,8 @@ def run_lm_cases(rank: int, cases: list, device=None) -> list:
             if "serve" in case:
                 res["serve"] = _lm_serve(model, params, case["serve"], mesh,
                                          rules, dev)
+        if case.get("routing"):
+            res["routing"] = routes.summary(case["routing"] == "picks")
         res["wall_s"] = time.perf_counter() - t
         res["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None)
@@ -425,10 +498,11 @@ def _train_legs(case: dict, cfg, model, dev, meshes: dict) -> dict:
     opt = opt_lib.AdamW()
     out = {"legs": []}
     if case.get("grads"):
-        g, _ = grads_of(model, state.params, batch_for_step(
+        g, m = grads_of(model, state.params, batch_for_step(
             cfg, shape, 0, device=dev), rules=rules,
             microbatches=case["microbatches"])
         out["grads"] = _np_leaves(g)
+        out["grad_metrics"] = {k: float(v) for k, v in m.items()}
         del g
     step = 0
     legs = [(case["mesh"], case["steps"])] + list(case.get("reshard", ()))
@@ -442,8 +516,8 @@ def _train_legs(case: dict, cfg, model, dev, meshes: dict) -> dict:
         fn = make_train_step(model, opt, lr, rules=rules,
                              microbatches=case["microbatches"],
                              compression=case.get("compression", False))
-        leg = {"mesh": mshape, "loss": [], "grad_norm": [], "bits": [],
-               "calls": [], "step_s": []}
+        leg = {"mesh": mshape, "loss": [], "ce": [], "aux": [],
+               "grad_norm": [], "bits": [], "calls": [], "step_s": []}
         for _ in range(n):
             batch = batch_for_step(cfg, shape, step, device=dev)
             c0 = mesh.calls if mesh is not None else 0
@@ -455,6 +529,8 @@ def _train_legs(case: dict, cfg, model, dev, meshes: dict) -> dict:
             leg["calls"].append((mesh.calls if mesh is not None else 0) - c0)
             loss, norm = float(m["loss"]), float(m["grad_norm"])
             leg["loss"].append(loss)
+            leg["ce"].append(float(m["ce"]))
+            leg["aux"].append(float(m["aux"]))
             leg["grad_norm"].append(norm)
             leg["bits"].append(np.array([loss, norm], np.float32).tobytes())
             step += 1
@@ -527,17 +603,22 @@ def run_train_cases(rank: int, cases: list, device=None) -> list:
       ``convert.train_state_from_arrays(..., rules=)``), ``seq``,
       ``batch``, ``microbatches``, ``lr`` (``(schedule name, args)`` of
       ``train/optimizer.py``), ``steps``, optional ``compression``,
-      ``grads`` (also return the first batch's gradient shards) and
+      ``grads`` (also return the first batch's gradient shards and
+      metrics) and
       ``ckpt_dir`` with ``reshard`` (``[(mesh or None, steps), ...]``:
       after each leg the state is saved there and
       ``launch/elastic.reshard_restore`` puts it on the next leg's mesh).
-      Returns each leg's losses, grad norms, their float32 bits,
-      collectives and seconds a step, and its final state's shards; or
+      Returns each leg's losses (and their ``ce`` and ``aux`` parts),
+      grad norms, their float32 bits, collectives and seconds a step, and
+      its final state's shards; or
     * ``psum``: ``{"mesh", "axis", "x" [world, ...]}``, the rank's
       ``compressed_psum`` of its row (``out``).
 
     Every case also returns ``wall_s``, the rank's kernel ``launches``
-    and its card's ``peak_mem_bytes``."""
+    and its card's ``peak_mem_bytes``; with ``routing`` (a moe model), the
+    rank's ``RouteLog.summary()`` over the case."""
+    import contextlib
+
     from repro_torch.core.engine import resolve_device
     from repro_torch.models.factory import build_model
 
@@ -549,13 +630,18 @@ def run_train_cases(rank: int, cases: list, device=None) -> list:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
-        if "psum" in case:
-            res = _psum_case(case["psum"], dev)
-        elif "argv" in case:
-            res = _train_launch(case, dev)
-        else:
-            cfg = _train_cfg(case)
-            res = _train_legs(case, cfg, build_model(cfg), dev, meshes)
+        routes = RouteLog() if case.get("routing") else \
+            contextlib.nullcontext()
+        with routes:
+            if "psum" in case:
+                res = _psum_case(case["psum"], dev)
+            elif "argv" in case:
+                res = _train_launch(case, dev)
+            else:
+                cfg = _train_cfg(case)
+                res = _train_legs(case, cfg, build_model(cfg), dev, meshes)
+        if case.get("routing"):
+            res["routing"] = routes.summary()
         res["wall_s"] = time.perf_counter() - t
         res["launches"] = _launches()
         res["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)

@@ -26,7 +26,7 @@ ones by ``param_axes``.  ``decode_state_init`` gives the rank its shard of
 the state by ``state_logical_axes``: the sequence over ``"model"``, the
 batch over ``"data"``.  ``loss(params, batch, rules)`` trains on a mesh:
 the rank's rows, its part of the reference's global mean (see
-:meth:`Model.loss`).  The moe, hybrid and ssm families raise a
+:meth:`Model.loss`).  The hybrid and ssm families raise a
 ``NotImplementedError`` on a mesh of more than one rank.
 """
 from __future__ import annotations
@@ -130,10 +130,14 @@ class Model:
         each rank takes its rows of the batch over the batch axes, which
         must split it: its cross entropy is its rows' nll summed over the
         mask's count summed over those axes (no gradient through the
-        count), the reference's global mean split into parts.  The loss
-        returned is the rank's part, whose gradients summed over the batch
-        axes are the reference's; the metrics are the whole batch's (the
-        parts summed)."""
+        count), the reference's global mean split into parts.  The moe
+        aux loss is the global batch's on every rank (``moe.apply_moe``:
+        its statistics summed over the batch axes, a sum whose gradient
+        passes through), so each rank's gradient of it covers its own
+        rows.  The loss returned is the rank's part, whose gradients
+        summed over the batch axes are the reference's; the metrics are
+        the whole batch's: ``ce`` the parts summed, ``loss`` that plus
+        ``aux_weight`` times the aux, counted once."""
         if rules is None:
             logits, aux = self.logits(params, batch, remat=remat)
             ce = cross_entropy(logits, batch["labels"], batch["loss_mask"])
@@ -151,8 +155,10 @@ class Model:
         logits, aux = self.logits(params, batch, rules, remat)
         ce = cross_entropy(logits, batch["labels"][rows], mask, count)
         loss = ce + self.aux_weight * aux
-        m = _sum_over(torch.stack([loss, ce]), axes, rules.mesh)
-        return loss, {"loss": m[0], "ce": m[1], "aux": aux.detach()}
+        aux = aux.detach()
+        ce_all = _sum_over(ce, axes, rules.mesh)
+        return loss, {"loss": ce_all + self.aux_weight * aux, "ce": ce_all,
+                      "aux": aux}
 
     def param_shapes(self) -> dict:
         """The whole params' shapes (``init`` on the meta device: nothing

@@ -16,8 +16,9 @@ a ``{axis: size}`` mapping, without a world (the production meshes).
 
 Where the reference hands a spec to GSPMD, the port keeps explicit shards:
 :func:`local_shard` cuts a rank's block of a full leaf by its spec and the
-mesh's coordinates, and :func:`gather_dims` is its inverse over chosen
-axes, an all-gather per sharded dim through ``launch/mesh.Mesh``.  A
+mesh's coordinates (:func:`local_block`: where one dim's block starts),
+and :func:`gather_dims` is its inverse over chosen axes, an all-gather per
+sharded dim through ``launch/mesh.Mesh``.  A
 model function that gets ``rules`` receives such blocks and knows a dim is
 sharded when its length is below the config's full one.
 
@@ -196,6 +197,18 @@ def shard_by_spec(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
             size = x.shape[d] // n
             x = x.narrow(d, i * size, size)
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def local_block(name: str, full: int, rules: AxisRules) -> tuple:
+    """(offset, count) of this rank's block of a dim of logical ``name``
+    and whole length ``full``, as :func:`local_shard` cuts it: the whole
+    dim when its mesh axes do not divide it (the spec guard)."""
+    entry = rules.rules.get(name)
+    n = rules._mesh_size(entry)
+    if n == 1 or full % n:
+        return 0, full
+    i, _ = _block(rules.mesh, entry)
+    return i * (full // n), full // n
 
 
 def spec_axes(spec: tuple) -> tuple:

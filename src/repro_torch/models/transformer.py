@@ -17,15 +17,17 @@ and attends with the prefix-LM mask (``prefix_len``: the image positions
 see each other both ways); its decode is the dense decode.  The encdec
 family is ``models/encdec.py``.
 
-On a mesh (``rules``, ``models/sharding.py``) the dense and vlm families
-run each rank's shards of the parameters: ``forward``, ``prefill`` and
-``decode_step`` take ``rules`` (and ``decode_step`` the ``mesh``), their
-layers go through ``models/manual_tp.py`` (tensor parallel over
-``"model"``, the FSDP split of ``"embed"`` gathered layer by layer), the
-KV cache is sharded over ``"model"`` on its sequence axis and the batch
-over ``"data"`` when it divides.  A call takes the whole batch (the same
-on every rank) and returns the rank's rows.  The moe, hybrid and ssm
-families raise on a mesh of more than one rank (:func:`check_shardable`).
+On a mesh (``rules``, ``models/sharding.py``) the dense, moe and vlm
+families run each rank's shards of the parameters: ``forward``,
+``prefill`` and ``decode_step`` take ``rules`` (and ``decode_step`` the
+``mesh``), their layers go through ``models/manual_tp.py`` (tensor
+parallel over ``"model"``, the FSDP split of ``"embed"`` and
+``"expert_embed"`` gathered layer by layer; a moe layer's experts expert
+parallel over ``"model"``, ``models/moe.py``), the KV cache is sharded
+over ``"model"`` on its sequence axis and the batch over ``"data"`` when
+it divides.  A call takes the whole batch (the same on every rank) and
+returns the rank's rows.  The hybrid and ssm families raise on a mesh of
+more than one rank (:func:`check_shardable`).
 
 ``forward`` (training) runs every layer once over the whole sequence,
 as prefill's whole branch does, and sums the moe layers' aux losses;
@@ -81,16 +83,14 @@ def check_family(cfg: ArchConfig) -> None:
 
 #: the ROADMAP item that shards each family this module does not yet run
 #: on a mesh
-_UNSHARDED = {"moe": "ROADMAP A10c (the moe family's expert parallelism "
-                     "over the \"experts\" axis)",
-              "hybrid": "ROADMAP A10d (the hybrid family's \"inner\" "
+_UNSHARDED = {"hybrid": "ROADMAP A10d (the hybrid family's \"inner\" "
                         "sharding; its ring cache stays local)",
               "ssm": "ROADMAP A10d (the ssm family's \"inner\" sharding)"}
 
 
 def check_shardable(cfg: ArchConfig, rules):
-    """The rules a call of ``cfg`` runs with: ``rules`` for the dense and
-    vlm families; None for the others on a one-rank mesh (nothing is
+    """The rules a call of ``cfg`` runs with: ``rules`` for the dense, moe
+    and vlm families; None for the others on a one-rank mesh (nothing is
     split).  On a mesh of more than one rank those raise, before anything
     runs: none of them computes unsharded in silence."""
     if rules is None or cfg.family not in _UNSHARDED:
@@ -290,13 +290,15 @@ def param_axes(cfg: ArchConfig) -> dict:
 
 def gather_fsdp(lp: dict, axes: dict, cfg: ArchConfig, rules) -> dict:
     """A layer's (or any subtree's) leaves with their FSDP split of
-    ``"embed"`` gathered (``axes`` without the ``"layers"`` axis); the
-    tensor-parallel split stays."""
+    ``"embed"`` and ``"expert_embed"`` gathered (``axes`` without the
+    ``"layers"`` axis); the tensor-parallel and expert-parallel splits
+    stay."""
     if rules is None:
         return lp
     if isinstance(lp, dict):
         return {k: gather_fsdp(v, axes[k], cfg, rules) for k, v in lp.items()}
-    return gather_dims(lp, axes, rules, {"embed": cfg.d_model})
+    return gather_dims(lp, axes, rules, {"embed": cfg.d_model,
+                                         "expert_embed": cfg.d_model})
 
 
 def _layer(stack: dict, i: int) -> dict:
@@ -353,14 +355,16 @@ def _apply_attn_layer(lp, cfg, x, positions, window=None, prefix_len=None):
     return x + attn.out_proj(lp["attn"], o), (k, v)
 
 
-def _mlp_aux(lp, cfg, x, rules=None):
+def _mlp_aux(lp, cfg, x, rules=None, aux=True):
     """The MLP half of a layer: the dense MLP (tensor parallel with
-    ``rules``), or the moe layer's experts.  Returns (x, the moe aux loss
-    or None)."""
+    ``rules``), or the moe layer's experts (expert parallel with
+    ``rules``).  Returns (x, the moe aux loss or None; with ``rules`` and
+    without ``aux``, None)."""
     h = L.apply_norm(lp["ln2"], x, cfg.norm)
     if "moe" in lp:
-        y, aux = moe_lib.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
-        return x + y, aux
+        kw = {} if rules is None else {"rules": rules, "aux": aux}
+        y, a = moe_lib.apply_moe(lp["moe"], h, cfg.moe, cfg.act, **kw)
+        return x + y, a
     if rules is not None:
         return x + tp_lib.manual_mlp(lp["mlp"], h, cfg, rules), None
     return x + L.apply_mlp(lp["mlp"], h, cfg.act), None
@@ -368,7 +372,7 @@ def _mlp_aux(lp, cfg, x, rules=None):
 
 def _apply_mlp(lp, cfg, x, rules=None):
     """:func:`_mlp_aux` for serving, which never reads the aux loss."""
-    return _mlp_aux(lp, cfg, x, rules)[0]
+    return _mlp_aux(lp, cfg, x, rules, aux=False)[0]
 
 
 def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None,
@@ -376,15 +380,16 @@ def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None,
     """One layer of ``kind``, full sequence (``attn`` and ``moe`` differ
     only in their MLP; ``prefix_len`` is the vlm's image prefix).  Returns
     (x, (k, v) or None, new recurrent state or None, moe aux or None).
-    With ``rules`` (the dense and vlm families: the forward's manual arm)
-    the layer runs tensor parallel and returns no keys and values."""
+    With ``rules`` (the dense, moe and vlm families: the forward's manual
+    arm) the layer runs tensor parallel and returns no keys and values."""
     if rules is not None:
         lp = cast_layer_params(gather_fsdp(lp, layer_axes(cfg, kind), cfg,
                                            rules), cfg.cdtype)
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
         y, _, _ = tp_lib.manual_attention(lp["attn"], h, positions, cfg,
                                           rules, prefix_len=prefix_len)
-        return _apply_mlp(lp, cfg, x + y, rules), None, None, None
+        x, aux = _mlp_aux(lp, cfg, x + y, rules)
+        return x, None, None, aux
     lp = cast_layer_params(lp, cfg.cdtype)
     if kind == "ssm":
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
@@ -427,7 +432,9 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     go through ``attend``, which on the card launches the flash kernel in
     the forward and again in the recompute.  With ``rules`` (a rank's
     params) each layer runs tensor parallel (the reference's manual arm)
-    on the rank's rows of the batch, and the logits are those rows'."""
+    on the rank's rows of the batch, and the logits are those rows'; the
+    aux losses are the global batch's (``moe.apply_moe``), the same on
+    every rank."""
     check_family(cfg)
     rules = check_shardable(cfg, rules)
     if rules is not None:
@@ -587,7 +594,7 @@ def _prefill_sharded(params, cfg: ArchConfig, tokens, *, max_len, step,
     n_buf = max(S_tot, max_len)
     kbuf = torch.zeros((2, cfg.n_layers, B, n_buf, hk, cfg.head_dim_),
                        dtype=cfg.cdtype, device=dev)
-    axes = layer_axes(cfg, "attn")
+    axes = layer_axes(cfg, layer_plan(cfg)[0])
     for off in range(0, S_tot, step):
         x = x_all[:, off:off + step]
         q_pos = off + torch.arange(step, device=dev)
@@ -784,11 +791,11 @@ def _decode_sharded(params, cfg: ArchConfig, tokens, state: DecodeState,
     written on the shard that owns slot ``length``, the partitioned
     attention over every shard (``decode_attend_partitioned``), then the
     row-parallel output projection and the tensor-parallel MLP
-    (``manual_tp``).  Returns the rank's rows' logits [B_loc, V]."""
+    (``manual_tp``) or the expert-parallel experts (``moe``).  Returns the rank's rows' logits [B_loc, V]."""
     kc, vc, length = state.kv
     tokens = tokens[batch_rows(tokens.shape[0], rules)]
     x = L.embed(params["embed"], tokens, cfg.cdtype, rules, cfg.vocab)
-    axes = layer_axes(cfg, "attn")
+    axes = layer_axes(cfg, layer_plan(cfg)[0])
     for i in range(cfg.n_layers):
         lp = gather_fsdp(_layer(params["stack"], i), axes, cfg, rules)
         h = L.apply_norm(lp["ln1"], x, cfg.norm)

@@ -7,8 +7,9 @@ rules=)``) against the JAX package, on the CPU.
   (1, 4), (2, 2), (4, 1) and (16, 16); the param axes, the state and
   batch axes and ``effective_microbatches`` against the reference's; each
   rank's block of the weights against the reference's
-  ``NamedSharding.devices_indices_map``; moe, hybrid and ssm refused on a
-  model axis of 4; a disagreement between ranks raises.
+  ``NamedSharding.devices_indices_map``; hybrid and ssm refused on a
+  model axis of 4 (moe on a mesh: ``tests/test_torch_moe_mesh.py``); a
+  disagreement between ranks raises.
 * One 4-rank gloo world of the port (``launch/mesh.spawn``, one thread a
   rank) and one reference process with four XLA host devices, side by
   side, run the same cases from the same numpy weights (the reference's
@@ -212,14 +213,13 @@ class _RankOf:
 
 
 @pytest.mark.parametrize(
-    "family", ["moe", "hybrid", "ssm"])
+    "family", ["hybrid", "ssm"])
 @pytest.mark.parametrize(
     "entry", ["prefill", "decode", "logits", "decode_state_init"])
 def test_unsharded_families_refuse_a_mesh(family, entry):
-    """moe, hybrid and ssm on a model axis of 4 raise before anything runs
-    (no params are read), naming the ROADMAP item."""
-    arch = {"moe": "qwen3-moe-30b-a3b", "hybrid": "recurrentgemma-2b",
-            "ssm": "falcon-mamba-7b"}[family]
+    """hybrid and ssm on a model axis of 4 raise before anything runs (no
+    params are read), naming the ROADMAP item."""
+    arch = {"hybrid": "recurrentgemma-2b", "ssm": "falcon-mamba-7b"}[family]
     cfg = tget(arch).reduced()
     model = tfactory.build_model(cfg)
     rules = tsteps.rules_for(cfg, {"data": 1, "model": 4})
@@ -231,8 +231,7 @@ def test_unsharded_families_refuse_a_mesh(family, entry):
         "logits": lambda: model.logits(None, {"tokens": tok}, rules=rules),
         "decode_state_init": lambda: model.decode_state_init(
             2, 16, device="cpu", rules=rules)}
-    item = "A10c" if family == "moe" else "A10d"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10d"):
         calls[entry]()
 
 
