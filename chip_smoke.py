@@ -159,21 +159,22 @@ Phases, each of which fails the run on any error:
               cross; 108 in all), each request's extras through
               ``ContinuousBatcher``; check b and c with the extras; each
               ``launch/serve.py --no-reduced``
-  7e. lm mesh  starcoder2-7b at full width and depth on a (1, 4) mesh of
-              four gloo ranks sharing the card (``launch/mesh.spawn``;
-              ``rules_for``: heads, kv heads, MLP and vocabulary split four
-              ways, the KV cache over the ranks on its sequence), phase 7's
-              seeded weights built whole by one rank at a time, two of
-              phase 7's prompts (512, 2048 tokens, 4 new tokens each)
-              through ``ContinuousBatcher(mesh=, rules=)``: a. every rank
-              the same tokens; b. a teacher-forced prefill of 4 x 256 and 4
-              decode steps within 5 % of the largest logit of phase 7's on
-              one card; c. ``Model.logits`` (2048 tokens) with
+  7e. lm mesh  starcoder2-7b at full width, MESH_LAYERS of its 32 layers,
+              on a (1, 4) mesh of four gloo ranks sharing the card
+              (``launch/mesh.spawn``; ``rules_for``: heads, kv heads, MLP
+              and vocabulary split four ways, the KV cache over the ranks on
+              its sequence), phase 7's seed built whole by one rank at a
+              time, two of phase 7's prompts (512, 2048 tokens, 4 new tokens
+              each) through ``ContinuousBatcher(mesh=, rules=)``: a. every
+              rank the same tokens; b. a teacher-forced prefill of 4 x 256
+              and 4 decode steps within 5 % of the largest logit of one
+              card's run of the same cut model (built after phase 7 frees
+              its own); c. ``Model.logits`` (2048 tokens) with
               ``manual_tp`` (B6 on 9 / 1 heads a rank: every shape of
-              7e in phase 6) against phase 7's
+              7e in phase 6) against one card's
               forward; d. the reduced config in float32 on the four ranks
               against the port on the CPU (1e-5, same tokens); e. B6 once
-              an attention layer and chunk on every rank (64 served), no
+              an attention layer and chunk on every rank, no
               graph kernel; one ``lm mesh run`` line (per rank: walls,
               prefill and decode seconds, decode tok/s, collectives a decode
               step, B6 launches, peak memory)
@@ -200,6 +201,30 @@ Phases, each of which fails the run on any error:
               (per rank: walls, prefill and decode seconds, decode tok/s,
               collectives a decode step, B6 launches, peak GB, the share of
               entries dropped)
+  7g. recurrent mesh  recurrentgemma-2b and falcon-mamba-7b at full
+              width, RECURRENT_MESH_LAYERS of their layers (the hybrid in
+              whole (rec, rec, attn) groups), on the same (1, 4) mesh in the
+              same world, after 7f's cases (``rules_for``: d_inner 8192 and
+              lru_width 2560 channel parallel over "model", 2048 and 640
+              channels a rank; the hybrid's MLP split four ways, its 10 / 1
+              heads of 256 computed whole on every rank, its ring cache of
+              2048 slots whole on every rank), built whole by one rank at a
+              time from phase 7b's seed, two of 7b's prompts (512 and 2048,
+              4 new tokens) through ``ContinuousBatcher(mesh=, rules=)`` in
+              bf16: a. every rank the same tokens; b. a teacher-forced
+              prefill of 4 x 256 and 4 decode steps against one card's run
+              of the same cut model (built in 7b after its full-depth runs):
+              bf16 within MESH_LOGIT_RTOL, float32 within
+              RECURRENT_MESH_F32_RTOL of the largest logit; c.
+              ``Model.logits`` in float32 against one card's forward
+              (RECURRENT_MESH_F32_RTOL); d. both reduced configs in float32
+              on the ranks at (1, 4) and (2, 2) against the port on the CPU
+              (LM_F32_TOL, scaled for the hybrid's tied embedding as check c
+              of 7b); e. B6 once an attention layer and prefill on every
+              rank for the hybrid, never for falcon-mamba, no graph kernel;
+              one ``lm mesh run`` line an arch (per rank: walls, prefill and
+              decode seconds, decode tok/s, collectives a decode step, B6
+              launches, peak GB)
   8. train    the training path (``train/``, ``launch/train.py``).  8a:
               B6's gradient (``FlashAttentionFn``: the kernel forward, the
               plain flash backward) against autograd through the plain
@@ -234,7 +259,9 @@ Phases, each of which fails the run on any error:
               reduced qwen3-moe config in float32, 2 steps on the (2, 2)
               ranks (experts expert parallel, FSDP over "data") against the
               CPU: loss, ce and aux, params and moments as c, every rank
-              the same metric bits; one ``train mesh`` line a rank (step
+              the same metric bits; g. the reduced recurrentgemma-2b and
+              falcon-mamba-7b configs the same way (their RG-LRU and ssm
+              blocks channel parallel); one ``train mesh`` line a rank (step
               wall, tokens/s, collectives a step and their seconds, peak
               GB, B6 launches)
   9. report   fg_threefry's line and the kernel table as JSON lines (each
@@ -310,8 +337,13 @@ FLASH_CASES = ((512, 512, 0, None), (3000, 3000, 0, None),
 LM_RECURRENT = ("recurrentgemma-2b", "falcon-mamba-7b")
 RG_ARCH = LM_RECURRENT[0]
 #: (Sq, Skv, q_offset, window) of recurrentgemma-2b's whole prefills
-#: (H=10, Hkv=1, hd=256, window 2048) in phase 6
-RG_FLASH_CASES = ((4096, 4096, 0, 2048), (8192, 8192, 0, 2048))
+#: (H=10, Hkv=1, hd=256, window 2048) in phase 6: two of 7b's, then 7g's
+#: on every rank of the mesh (its 10 heads do not split over a model axis
+#: of 4, so each rank runs them all): the teacher prefill of 256 tokens,
+#: the served prompts of 512 and 2048 and check c's row of 2048
+RG_FLASH_CASES = ((4096, 4096, 0, 2048), (8192, 8192, 0, 2048),
+                  (256, 256, 0, 2048), (512, 512, 0, 2048),
+                  (2048, 2048, 0, 2048))
 #: phase 7c: the moe family at full width and depth, through the same six
 #: prompts (PERF.md section 4); its attention runs the flash kernel at 32
 #: query heads over 4 key/value heads (groups of 8), hd 128.  phi3.5-moe
@@ -340,6 +372,10 @@ LM_SPECS = {
 #: runs 9 query heads on 1 kv head of 128 (MESH_KEY in phase 6)
 MESH_WORLD, MESH = 4, (1, 4)
 MESH_KEY = LM_ARCH + " tp4"
+#: 7e's depth: cut for time to MESH_LAYERS of starcoder2-7b's 32 when phase
+#: 7g joined the world (it took the smoke from ~577 s to 635.5 s), held to
+#: one card's run of the same cut model; widths are not cut
+MESH_LAYERS = 8
 #: the served prompts and new tokens of the mesh run: phase 7's cut to
 #: two prompts (one wave at batch 4) and 4 new tokens, for time (gloo's
 #: collectives among four ranks on one H100 cost milliseconds each: a
@@ -365,13 +401,14 @@ MESH_LOGIT_RTOL = 0.05
 #: memory: ``launch/distributed._lm_params`` builds the whole model on one
 #: rank at a time while the others keep their shards, a peak of ~1.75
 #: times the whole (~1.9 GB of embedding and float32 unembed and ~1.25 GB
-#: a layer in bf16: ~108 GB at 48 layers), so MOE_MESH_LAYERS of 48
-#: (~12 GB whole); widths are not cut.  Two of phase 7c's prompts, 8 new
+#: a layer in bf16: ~108 GB at 48 layers), so 8 of 48 (~12 GB whole),
+#: then for time MOE_MESH_LAYERS when phase 7g joined the world; widths
+#: are not cut.  Two of phase 7c's prompts, 8 new
 #: tokens; checks b and c as 7e's, against the same cut model on one card
 #: (built after 7c frees its own), b with MOE_MESH_B_STEPS decode steps.
 #: The 8192-token prompt runs the mesh's chunked prefill (two chunks of
 #: PREFILL_CHUNK), which 7e no longer serves
-MOE_MESH_LAYERS = 8
+MOE_MESH_LAYERS = 4
 MOE_MESH_KEY = MOE_ARCH + " ep4"
 MOE_MESH_PROMPTS, MOE_MESH_NEW = (512, 8192), 8
 MOE_MESH_B_STEPS = 4
@@ -399,6 +436,27 @@ MOE_MESH_BF16_PICKS, MOE_MESH_BF16_GREEDY = 0.9, 0.75
 #: meshes against the port on the CPU
 MOE_MESH_REDUCED = (MOE_ARCH, MOE_REDUCED_ONLY)
 MOE_MESH_REDUCED_MESHES = ((1, 4), (2, 2))
+#: phase 7g: the recurrent families at full width on MESH, channel parallel
+#: over "model" (falcon-mamba-7b's d_inner 8192 and recurrentgemma-2b's
+#: lru_width 2560: 2048 and 640 channels a rank), in the same world after
+#: 7f's cases.  Depth cut for time to RECURRENT_MESH_LAYERS (the hybrid in
+#: whole (rec, rec, attn) groups: two attention layers); widths are not
+#: cut.  The prompts and checks b and c as 7e's, against the same cut model
+#: on one card (built in 7b after its full-depth runs), b in both compute
+#: dtypes (the served bf16 within MESH_LOGIT_RTOL), c in float32
+RECURRENT_MESH_LAYERS = 6
+RECURRENT_MESH_KEY = RG_ARCH + " tp4"
+RECURRENT_MESH_DTYPES = ("bfloat16", "float32")
+#: checks b and c in float32, relative to the largest logit: the mesh adds
+#: its partial sums in another order than one card
+RECURRENT_MESH_F32_RTOL = 1e-4
+#: check c's row: the unembed's logits of a rank are all-gathered over the
+#: model axis, and recurrentgemma-2b's 256,000-entry vocab makes a
+#: 2048-token row 2.1 GB of float32 to move through gloo; 512 tokens
+RECURRENT_MESH_C_TOKENS = 512
+#: check d: the reduced recurrent configs in float32 on the four ranks at
+#: these meshes against the port on the CPU
+RECURRENT_MESH_REDUCED_MESHES = ((1, 4), (2, 2))
 #: phase 8e: ``launch/train.run`` for starcoder2-7b at full width on a (2, 2)
 #: mesh of four gloo ranks sharing the card (``rules_for``: tensor parallel
 #: over "model", 18 / 2 heads of 128 a rank, TRAIN_MESH_KEY in phase 6;
@@ -406,9 +464,10 @@ MOE_MESH_REDUCED_MESHES = ((1, 4), (2, 2))
 #: TRAIN_MESH_STEPS steps at 8d's rate; batch 4 x 1024 in 2 microbatches
 #: (one row a rank and microbatch).  Widths are not cut.  gloo paces it:
 #: each layer's FSDP gather (~435 MB a rank) runs in the forward and again
-#: in the remat, and its gradient's reduce-scatter in the backward
+#: in the remat, and its gradient's reduce-scatter in the backward.  One
+#: layer since phase 7g joined the world (two took 35-42 s of it)
 TRAIN_MESH = (2, 2)
-TRAIN_MESH_LAYERS = 2
+TRAIN_MESH_LAYERS = 1
 TRAIN_MESH_STEPS = 2
 TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_MICRO = 4, 1024, 2
 TRAIN_MESH_KEY = LM_ARCH + " train tp2"
@@ -2805,11 +2864,10 @@ def phase_lm(torch, counters, arch: str = LM_ARCH) -> dict:
         if want or len(p) in TRACE_SSM_TOKENS], cfg, max_len)
     del batches
     del batcher
-    # what phase 7e holds the mesh to
-    mesh_ref = (lm_mesh_reference(torch, model, params, out)
-                if arch == LM_ARCH else None)
     del params
     torch.cuda.empty_cache()
+    # what phase 7e holds the mesh to
+    mesh_ref = lm_mesh_reference(torch) if arch == LM_ARCH else None
     # c. the reduced config on the card against the CPU
     check_c = lm_card_vs_cpu(torch, arch)
     return {"info": info, "prefills": prefills, "run": run,
@@ -2822,7 +2880,9 @@ def phase_lm_recurrent(torch, counters) -> dict:
     """Phase 7b: the hybrid (recurrentgemma-2b) and ssm (falcon-mamba-7b)
     serving paths at full width and depth, one after the other, each then
     once more through ``launch/serve.py --no-reduced`` (the CLI's own
-    weights and prompts; its default cache covers the hybrid's window)."""
+    weights and prompts; its default cache covers the hybrid's window).
+    Then the one-card runs of RECURRENT_MESH_LAYERS of their layers that
+    phase 7g holds the mesh to (``"mesh_ref"``)."""
     from repro_torch.launch import serve
 
     out = {}
@@ -2837,6 +2897,7 @@ def phase_lm_recurrent(torch, counters) -> dict:
             raise AssertionError(f"lm cli {arch}: {got}")
         log(f"lm cli: {arch} --no-reduced, 4 requests served in "
             f"{time.perf_counter() - t:.2f} s")
+    out["mesh_ref"] = recurrent_mesh_reference(torch)
     return out
 
 
@@ -3054,36 +3115,51 @@ def lm_flash_share(torch, model, params, batches, cfg, max_len) -> list:
     return rows
 
 
-def lm_mesh_reference(torch, model, params, served) -> dict:
-    """Phase 7's one-card results that phase 7e holds the mesh to: a
+def lm_mesh_reference(torch, layers=None) -> dict:
+    """Phase 7e's one-card results: starcoder2-7b at full width cut to
+    ``layers`` (default MESH_LAYERS) layers, built from phase 7's seed: a
     prefill of a seeded MESH_B_BATCH and MESH_B_STEPS greedy decode steps
     (the tokens fed and every step's logits; check b), the forward's
     logits of a seeded 1 x MESH_C_TOKENS row at every MESH_C_STRIDE-th
-    position (check c), and the tokens the batcher served (check a's
-    report)."""
-    dev = params["embed"]["embedding"].device
-    cfg = model.cfg
+    position (check c), and phase 7's MESH_PROMPTS served with MESH_NEW
+    tokens each (check a's report); the model is freed after."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.engine import ContinuousBatcher, Request
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=layers or MESH_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(11)
     tokens = rng.integers(0, cfg.vocab, MESH_B_BATCH)
-    logits, state = model.prefill(params, {"tokens": torch.as_tensor(
-        tokens, device=dev)}, max_len=LM_MAX_LEN)
-    ref = {"tokens": tokens, "prefill": logits.cpu().numpy(), "steps": [],
-           "decode": [], "served": served}
-    for _ in range(MESH_B_STEPS):
-        nxt = torch.argmax(logits, dim=-1)
-        ref["steps"].append(nxt.cpu().numpy())
-        logits, state = model.decode(params, nxt[:, None], state)
-        ref["decode"].append(logits.cpu().numpy())
-    del state, logits
-    ref["steps"], ref["decode"] = (np.stack(ref[k]) for k in ("steps",
-                                                             "decode"))
+    ref = one_card_teacher(torch, model, params, tokens)
+    ref["tokens"], ref["layers"] = tokens, cfg.n_layers
     ref["c_tokens"] = rng.integers(0, cfg.vocab, (1, MESH_C_TOKENS))
     logits, _ = model.logits(params, {"tokens": torch.as_tensor(
         ref["c_tokens"], device=dev)}, remat=False)
     ref["c_logits"] = logits[:, ::MESH_C_STRIDE].cpu().numpy()
     del logits
+    batcher = ContinuousBatcher(model, params, LM_BATCH, LM_MAX_LEN,
+                                device=dev)
+    for rid, p in enumerate(mesh_prompts()):
+        batcher.submit(Request(rid=rid, prompt=p, max_new_tokens=MESH_NEW))
+    ref["served"] = batcher.run()
+    del params, batcher
     torch.cuda.empty_cache()
     return ref
+
+
+def mesh_prompts() -> list:
+    """Phase 7's prompts of MESH_PROMPTS' lengths (its seeded draws)."""
+    from repro_torch.configs.base import get_config
+    rng = np.random.default_rng(0)
+    by_len = {T: rng.integers(0, get_config(LM_ARCH).vocab, T).astype(
+        np.int32) for T in LM_PROMPTS}
+    return [by_len[T] for T in MESH_PROMPTS]
 
 
 def _logit_diff(got, want, vocab, rtol=MESH_LOGIT_RTOL) -> dict:
@@ -3098,36 +3174,38 @@ def _logit_diff(got, want, vocab, rtol=MESH_LOGIT_RTOL) -> dict:
             "ok": None if rtol is None else diff <= rtol * scale}
 
 
-def phase_lm_mesh(torch, ref, card, train_cases=(), moe_cases=()) -> dict:
-    """Phase 7e: starcoder2-7b at full width and depth on MESH, four gloo
-    ranks sharing the card (``launch/mesh.spawn``,
-    ``launch/distributed.run_lm_cases``), from phase 7's seeded weights
-    (each rank builds them whole in turn and keeps its shards) with
-    ``rules_for(cfg, mesh)``: the prompts of phase 7 through
+def phase_lm_mesh(torch, ref, card, train_cases=(), moe_cases=(),
+                  rec_cases=()) -> dict:
+    """Phase 7e: starcoder2-7b at full width, cut to the depth of ``ref``
+    (:func:`lm_mesh_reference`: MESH_LAYERS), on MESH, four gloo ranks
+    sharing the card (``launch/mesh.spawn``,
+    ``launch/distributed.run_lm_cases``), from phase 7's seed (each rank
+    builds the model whole in turn and keeps its shards) with
+    ``rules_for(cfg, mesh)``: phase 7's MESH_PROMPTS through
     ``ContinuousBatcher(mesh=, rules=)`` at batch LM_BATCH and
     ``max_len`` LM_MAX_LEN.  Checks: a. every rank the same tokens (the
-    ones equal to phase 7's are reported); b. a teacher-forced prefill and
-    MESH_B_STEPS decode steps against phase 7's logits; c. ``Model.logits``
-    with ``manual_tp`` against phase 7's forward; d. the reduced config in
+    ones equal to one card's are reported); b. a teacher-forced prefill
+    and MESH_B_STEPS decode steps against one card's logits of the same
+    cut model; c. ``Model.logits`` with ``manual_tp`` against one card's
+    forward; d. the reduced config in
     float32 on the same four ranks against the port unsharded on the CPU;
     e. B6 launched once an attention layer and chunk on every rank, and no
     graph kernel.  The walls are four processes on one card: they measure
     the exchange's overhead, not scaling.  The same world then runs phase
-    7f's ``moe_cases`` and 8e's ``train_cases``
+    7f's ``moe_cases``, 7g's ``rec_cases`` and 8e's ``train_cases``
     (``launch/distributed.run_mesh_cases``: the ranks start once); their
-    per-rank results are returned under ``"moe_ranks"`` and
-    ``"train_ranks"`` for phases 7f and 8e to check."""
+    per-rank results are returned under ``"moe_ranks"``, ``"rec_ranks"``
+    and ``"train_ranks"`` for phases 7f, 7g and 8e to check."""
+    import dataclasses
+
     from repro_torch.configs.base import get_config
     from repro_torch.launch import distributed as launcher
     from repro_torch.launch.mesh import spawn
 
-    cfg = get_config(LM_ARCH)
-    rng = np.random.default_rng(0)        # phase 7's prompts
-    prompts = {T: rng.integers(0, cfg.vocab, T).astype(np.int32)
-               for T in LM_PROMPTS}
-    served_ids = [LM_PROMPTS.index(T) for T in MESH_PROMPTS]
-    prompts = [prompts[T] for T in MESH_PROMPTS]
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=ref["layers"])
+    prompts = mesh_prompts()
     full = {"arch": LM_ARCH, "mesh": MESH, "seed": 0,
+            "config": {"n_layers": cfg.n_layers},
             "teacher": {"tokens": ref["tokens"], "steps": ref["steps"],
                         "max_len": LM_MAX_LEN},
             "logits": {"tokens": ref["c_tokens"], "stride": MESH_C_STRIDE,
@@ -3138,8 +3216,8 @@ def phase_lm_mesh(torch, ref, card, train_cases=(), moe_cases=()) -> dict:
     (reduced,), want_d = _mesh_reduced_cases(torch, LM_ARCH, (MESH,))
     t = time.perf_counter()
     both = spawn(launcher.run_mesh_cases, MESH_WORLD, "gloo",
-                 args=([full, reduced] + list(moe_cases), list(train_cases),
-                       None), timeout_s=300)
+                 args=([full, reduced] + list(moe_cases) + list(rec_cases),
+                       list(train_cases), None), timeout_s=300)
     world_s = time.perf_counter() - t
     per_rank = [lm for lm, _ in both]
     fulls, reds = [r[0] for r in per_rank], [r[1] for r in per_rank]
@@ -3152,8 +3230,8 @@ def phase_lm_mesh(torch, ref, card, train_cases=(), moe_cases=()) -> dict:
         if len(toks[0][rid]) != MESH_NEW or not all(
                 0 <= x < cfg.vocab for x in toks[0][rid]):
             raise AssertionError(f"lm mesh request {rid}: {toks[0][rid][:8]}")
-    same = sum(a == b for rid, one in enumerate(served_ids)
-               for a, b in zip(toks[0][rid], ref["served"][one]))
+    same = sum(a == b for rid in range(len(prompts))
+               for a, b in zip(toks[0][rid], ref["served"][rid]))
     # b and c against phase 7's one card, every rank the same bits
     for part, keys in (("teacher", ("prefill", "decode")), ("logits", ())):
         for r in fulls[1:]:
@@ -3208,8 +3286,8 @@ def phase_lm_mesh(torch, ref, card, train_cases=(), moe_cases=()) -> dict:
               "b6_launches": r["serve"]["launches"]["flash_attention"],
               "peak_mem_bytes": r["peak_mem_bytes"],
               "case_wall_s": r["wall_s"]} for i, r in enumerate(fulls)]
-    res = {"card": card, "arch": LM_ARCH, "mesh": list(MESH),
-           "backend": "gloo", "world_s": world_s,
+    res = {"card": card, "arch": LM_ARCH, "layers": cfg.n_layers,
+           "mesh": list(MESH), "backend": "gloo", "world_s": world_s,
            "prompts": list(MESH_PROMPTS), "new": MESH_NEW,
            "tokens_equal_to_one_card": same,
            "tokens": sum(len(x) for x in toks[0].values()),
@@ -3223,9 +3301,32 @@ def phase_lm_mesh(torch, ref, card, train_cases=(), moe_cases=()) -> dict:
     if not check_d["tokens_equal"]:
         raise AssertionError("lm mesh: the reduced config's tokens differ "
                              "from the CPU's")
+    n_moe = len(moe_cases)
     return {"launches": sum(r["b6_launches"] for r in ranks),
-            "moe_ranks": [r[2:] for r in per_rank],
+            "moe_ranks": [r[2:2 + n_moe] for r in per_rank],
+            "rec_ranks": [r[2 + n_moe:] for r in per_rank],
             "train_ranks": [tr for _, tr in both], **res}
+
+
+def one_card_teacher(torch, model, params, tokens, steps=None,
+                     n: int = MESH_B_STEPS) -> dict:
+    """A prefill of ``tokens`` at LM_MAX_LEN on the params' device and
+    ``n`` decode steps, greedy or fed ``steps``: the tokens fed and the
+    prefill's and every step's float32 logits, as numpy."""
+    dev = params["embed"]["embedding"].device
+    logits, state = model.prefill(params, {"tokens": torch.as_tensor(
+        tokens, device=dev)}, max_len=LM_MAX_LEN)
+    out = {"prefill": logits.float().cpu().numpy(), "steps": [],
+           "decode": []}
+    for j in range(n):
+        nxt = (torch.argmax(logits, dim=-1) if steps is None
+               else torch.as_tensor(steps[j], device=dev))
+        out["steps"].append(nxt.cpu().numpy())
+        logits, state = model.decode(params, nxt[:, None], state)
+        out["decode"].append(logits.float().cpu().numpy())
+    out["steps"], out["decode"] = (np.stack(out[k])
+                                   for k in ("steps", "decode"))
+    return out
 
 
 def moe_mesh_reference(torch, layers: int = MOE_MESH_LAYERS) -> dict:
@@ -3250,21 +3351,8 @@ def moe_mesh_reference(torch, layers: int = MOE_MESH_LAYERS) -> dict:
     from repro_torch.models.factory import build_model
 
     def teacher(model, params, tokens, steps=None):
-        """The prefill's and the decode steps' float32 logits, greedy or
-        fed ``steps``."""
-        logits, state = model.prefill(params, {"tokens": torch.as_tensor(
-            tokens, device=dev)}, max_len=LM_MAX_LEN)
-        out = {"prefill": logits.float().cpu().numpy(), "steps": [],
-               "decode": []}
-        for j in range(MOE_MESH_B_STEPS):
-            nxt = (torch.argmax(logits, dim=-1) if steps is None
-                   else torch.as_tensor(steps[j], device=dev))
-            out["steps"].append(nxt.cpu().numpy())
-            logits, state = model.decode(params, nxt[:, None], state)
-            out["decode"].append(logits.float().cpu().numpy())
-        out["steps"], out["decode"] = (np.stack(out[k])
-                                       for k in ("steps", "decode"))
-        return out
+        return one_card_teacher(torch, model, params, tokens, steps,
+                                MOE_MESH_B_STEPS)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(12)
@@ -3555,14 +3643,257 @@ def phase_lm_moe_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     return {"launches": sum(x["b6_launches"] for x in lines), **res}
 
 
+def recurrent_mesh_reference(torch, layers: int = RECURRENT_MESH_LAYERS,
+                             archs=LM_RECURRENT) -> dict:
+    """Phase 7g's one-card results, per arch of ``archs``: the model at
+    full width cut to ``layers`` layers in bf16 and RECURRENT_MESH_LAYERS
+    in float32, built from the seed the ranks build it from (phase 7b's),
+    in each compute dtype of RECURRENT_MESH_DTYPES: a prefill of a seeded
+    MESH_B_BATCH and MESH_B_STEPS greedy decode steps (check b) and, in
+    float32, the forward's logits of a seeded 1 x RECURRENT_MESH_C_TOKENS
+    row at every MESH_C_STRIDE-th position (check c); as numpy; each model
+    is freed after."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.factory import build_model
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch in archs:
+        rng = np.random.default_rng(13)
+        vocab = get_config(arch).vocab
+        ref = out[arch] = {
+            "tokens": rng.integers(0, vocab, MESH_B_BATCH),
+            "c_tokens": rng.integers(0, vocab, (1, RECURRENT_MESH_C_TOKENS))}
+        for dtype in RECURRENT_MESH_DTYPES:
+            cfg = dataclasses.replace(
+                get_config(arch), compute_dtype=dtype,
+                n_layers=layers if dtype == "bfloat16"
+                else RECURRENT_MESH_LAYERS)
+            model = build_model(cfg)
+            params = model.init(torch.Generator(device=dev).manual_seed(0),
+                                dev)
+            r = ref[dtype] = one_card_teacher(torch, model, params,
+                                              ref["tokens"])
+            r["layers"] = cfg.n_layers
+            if dtype == "float32":
+                logits, _ = model.logits(params, {"tokens": torch.as_tensor(
+                    ref["c_tokens"], device=dev)}, remat=False)
+                r["c_logits"] = logits[:, ::MESH_C_STRIDE].cpu().numpy()
+                del logits
+            del params
+            torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_mesh_cases(torch, ref, prompts=MESH_PROMPTS,
+                         new=MESH_NEW) -> tuple:
+    """Phase 7g's cases for the world phase 7e spawns, per arch of ``ref``
+    (:func:`recurrent_mesh_reference`): the model at full width cut as the
+    reference cut it, on MESH, in bf16 (the teacher case, phase 7b's
+    ``prompts`` served with ``new`` tokens each) and in float32 (the
+    teacher case, the logits row), then its reduced config in float32 at
+    RECURRENT_MESH_REDUCED_MESHES (check d).  Returns (cases, what
+    :func:`phase_lm_recurrent_mesh` holds them to)."""
+    from repro_torch.configs.base import get_config
+
+    cases, reduced = [], {}
+    for arch, one in ref.items():
+        rng = np.random.default_rng(0)        # phase 7b's prompts
+        by_len = {T: rng.integers(0, get_config(arch).vocab, T).astype(
+            np.int32) for T in LM_PROMPTS}
+        for dtype in RECURRENT_MESH_DTYPES:
+            case = {"arch": arch, "mesh": MESH, "seed": 0,
+                    "config": {"n_layers": one[dtype]["layers"],
+                               "compute_dtype": dtype},
+                    "teacher": {"tokens": one["tokens"],
+                                "steps": one[dtype]["steps"],
+                                "max_len": LM_MAX_LEN}}
+            if dtype == "float32":
+                case["logits"] = {"tokens": one["c_tokens"],
+                                  "stride": MESH_C_STRIDE}
+            else:                                  # the served path
+                case["serve"] = {"prompts": [by_len[T] for T in prompts],
+                                 "batch": LM_BATCH, "max_len": LM_MAX_LEN,
+                                 "new": new}
+            cases.append(case)
+        cases_of, reduced[arch] = _mesh_reduced_cases(
+            torch, arch, RECURRENT_MESH_REDUCED_MESHES)
+        cases += cases_of
+    return cases, {"ref": ref, "prompts": list(prompts), "new": new,
+                   "reduced": reduced}
+
+
+def phase_lm_recurrent_mesh(torch, ranks: list, ctx: dict,
+                            card: str) -> dict:
+    """Phase 7g: the recurrent families on MESH (channel parallel over
+    "model"), from the per-rank results of the world phase 7e shared
+    (:func:`recurrent_mesh_cases`).  Per arch, checks: a. every rank the
+    same tokens and logits; b. the teacher-forced prefill and MESH_B_STEPS
+    decode steps against one card's run of the same cut model
+    (:func:`recurrent_mesh_reference`): bf16 within MESH_LOGIT_RTOL and
+    float32 within RECURRENT_MESH_F32_RTOL of the largest logit; c.
+    ``Model.logits`` in float32 against one card's forward, within
+    RECURRENT_MESH_F32_RTOL; d. the reduced config in float32 on the
+    ranks at RECURRENT_MESH_REDUCED_MESHES against the port on the CPU
+    (LM_F32_TOL, :func:`_tied_tol`; the same tokens); e. B6 once an
+    attention layer and prefill on every rank (none for the ssm), no
+    graph kernel.  One ``lm mesh run`` line an arch (per rank of the
+    served bf16 case: walls, prefill and decode seconds, decode tok/s,
+    collectives a decode step, B6 launches, peak GB)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    out, i = {"launches": 0}, 0
+    for arch, ref in ctx["ref"].items():
+        by_dtype = {}
+        for d in RECURRENT_MESH_DTYPES:
+            by_dtype[d] = [r[i] for r in ranks]
+            i += 1
+        cfgs = {d: dataclasses.replace(get_config(arch),
+                                       n_layers=ref[d]["layers"])
+                for d in RECURRENT_MESH_DTYPES}
+        cfg = cfgs["bfloat16"]
+        served = by_dtype["bfloat16"]
+        # a. every rank the same tokens and logits
+        toks = [r["serve"]["tokens"] for r in served]
+        if any(x != toks[0] for x in toks[1:]):
+            raise AssertionError(f"{arch} mesh: the ranks served different "
+                                 f"tokens")
+        for rid in range(len(ctx["prompts"])):
+            if len(toks[0][rid]) != ctx["new"] or not all(
+                    0 <= x < cfg.vocab for x in toks[0][rid]):
+                raise AssertionError(f"{arch} mesh request {rid}: "
+                                     f"{toks[0][rid][:8]}")
+        for dtype, rs in by_dtype.items():
+            for r in rs[1:]:
+                for k in ("prefill", "decode"):
+                    if not np.array_equal(r["teacher"][k],
+                                          rs[0]["teacher"][k]):
+                        raise AssertionError(f"{arch} mesh {dtype}: the "
+                                             f"ranks' teacher {k} differ")
+                if "logits" in r and not np.array_equal(r["logits"],
+                                                        rs[0]["logits"]):
+                    raise AssertionError(f"{arch} mesh {dtype}: the ranks' "
+                                         f"logits differ")
+        # b and c against one card's run of the cut model
+        check_b = {}
+        for dtype, rs in by_dtype.items():
+            got, want = rs[0]["teacher"], ref[dtype]
+            rtol = (RECURRENT_MESH_F32_RTOL if dtype == "float32"
+                    else MESH_LOGIT_RTOL)
+            check_b[dtype] = {
+                "prefill": _logit_diff(got["prefill"], want["prefill"],
+                                       cfg.vocab, rtol),
+                "decode": _logit_diff(got["decode"], want["decode"],
+                                      cfg.vocab, rtol),
+                "greedy_equal": int((got["decode"][..., :cfg.vocab]
+                                     .argmax(-1)[:-1]
+                                     == want["steps"][1:]).sum()),
+                "greedy_of": int(want["steps"][1:].size), "tol_rel": rtol}
+        got32 = by_dtype["float32"][0]
+        check_c = {**_logit_diff(got32["logits"], ref["float32"]["c_logits"],
+                                 cfg.vocab, RECURRENT_MESH_F32_RTOL),
+                   "rows": int(got32["logits"].shape[1]), "dtype": "float32",
+                   "tol_rel": RECURRENT_MESH_F32_RTOL}
+        # d. the reduced config: the ranks against the port on the CPU
+        want_d, check_d = ctx["reduced"][arch], {}
+        rcfg = get_config(arch).reduced()
+        for m in want_d["meshes"]:
+            reds = [r[i] for r in ranks]
+            i += 1
+            rgot = [reds[0]["teacher"]["prefill"]] + list(
+                reds[0]["teacher"]["decode"])
+            tol = _tied_tol(rcfg, want_d["logits"][0])
+            for g, w in zip(rgot, want_d["logits"]):
+                np.testing.assert_allclose(g, w, **tol)
+            d = check_d[f"{m[0]}x{m[1]}"] = {
+                "max_abs_diff": max(float(np.abs(g - w).max())
+                                    for g, w in zip(rgot, want_d["logits"])),
+                "tol": tol,
+                "tokens_equal": all(r["serve"]["tokens"] == want_d["tokens"]
+                                    for r in reds)}
+            if not d["tokens_equal"]:
+                raise AssertionError(f"{arch} mesh check d: {check_d}")
+        # e. B6 once an attention layer and prefill on every rank (none for
+        # the ssm), no graph kernel
+        served_n = sum(_prefill_launches(T, cfg) for T in ctx["prompts"])
+        want_e = [(r["serve"]["launches"], served_n) for r in served] + [
+            (r["launches"], _prefill_launches(MESH_B_BATCH[1], cfg))
+            for r in served] + [
+            (r["launches"], sum(_prefill_launches(T, cfgs["float32"])
+                                for T in (MESH_B_BATCH[1],
+                                          RECURRENT_MESH_C_TOKENS)))
+            for r in by_dtype["float32"]]
+        for counts, want_n in want_e:
+            others = {k: c for k, c in counts.items()
+                      if k != "flash_attention" and c}
+            if counts["flash_attention"] != want_n or others:
+                raise AssertionError(f"{arch} mesh: a rank launched "
+                                     f"{counts}, want {want_n} flash and "
+                                     f"nothing else")
+        lines = [{"rank": j, "params_s": r["params_s"],
+                  "wall_s": r["serve"]["wall_s"],
+                  "prefill_s": sum(r["serve"]["prefill_s"]),
+                  "decode_s": r["serve"]["decode_s"],
+                  "decode_steps": r["serve"]["decode_steps"],
+                  "decode_tok_per_s": r["serve"]["decode_tok_per_s"],
+                  "collectives_per_decode_step":
+                      r["serve"]["collectives_per_decode_step"],
+                  "collectives": r["serve"]["collectives"],
+                  "b6_launches": r["serve"]["launches"]["flash_attention"],
+                  "peak_gb": (r["peak_mem_bytes"] or 0) / 1e9,
+                  "case_wall_s": r["wall_s"]} for j, r in enumerate(served)]
+        res = {"card": card, "arch": arch, "family": cfg.family,
+               "layers": cfg.n_layers,
+               "float32_layers": cfgs["float32"].n_layers,
+               "mesh": list(MESH), "backend": "gloo",
+               "channels_per_rank": _channels(cfg) // MESH[1],
+               "prompts": ctx["prompts"], "new": ctx["new"],
+               "tokens": sum(len(x) for x in toks[0].values()),
+               "check_b": check_b, "check_c": check_c, "check_d": check_d,
+               "float32_case_walls_s": [r["wall_s"]
+                                        for r in by_dtype["float32"]],
+               "float32_peak_gb": max((r["peak_mem_bytes"] or 0) / 1e9
+                                      for r in by_dtype["float32"]),
+               "ranks": lines}
+        log("lm mesh run: " + json.dumps(res))
+        bad = [f"b {d} {k}" for d, c in check_b.items()
+               for k in ("prefill", "decode") if not c[k]["ok"]]
+        if bad or not check_c["ok"]:
+            raise AssertionError(f"{arch} mesh: the mesh's logits are off "
+                                 f"the one card's beyond the tolerance "
+                                 f"({bad or 'c'})")
+        out[arch] = res
+        out["launches"] += sum(x["b6_launches"] for x in lines)
+    return out
+
+
+def _channels(cfg) -> int:
+    """A recurrent block's channels (``"inner"``): the ssm's d_inner, the
+    hybrid's lru_width."""
+    from repro_torch.models import rglru, ssm
+    return ssm.dims(cfg)[1] if cfg.family == "ssm" else rglru.lru_width(cfg)
+
+
+def _tied_tol(cfg, logits) -> dict:
+    """LM_F32_TOL, its absolute part scaled by the logits' range over the
+    dense configs' |max| ~3.5 when the embedding is tied (the hybrid): rows
+    of N(0, 1) with no 1/sqrt(d) scale make the logits ~10 times as large,
+    and their sums' rounding with them."""
+    if not cfg.tie_embeddings:
+        return LM_F32_TOL
+    scale = max(1.0, float(np.abs(np.asarray(logits)).max()) / 3.5)
+    return dict(LM_F32_TOL, atol=LM_F32_TOL["atol"] * scale)
+
+
 def lm_card_vs_cpu(torch, arch: str = LM_ARCH) -> dict:
     """Check c: the reduced config, float32 compute, served on the card and
     on the CPU from the same weights: the same tokens, and prefill logits
-    within the float32 tolerance.  With a tied embedding (the hybrid) the
-    tolerance's absolute part is scaled by the logits' range over the
-    dense configs' |max| ~3.5: rows of N(0, 1) with no 1/sqrt(d) scale
-    make the logits ~10 times as large, and their sums' rounding with
-    them.  The prompts are longer than the hybrid's reduced window of
+    within the float32 tolerance (:func:`_tied_tol`: scaled with a tied
+    embedding).  The prompts are longer than the hybrid's reduced window of
     16; a vlm's and an encdec's requests bring their extras
     (:func:`lm_extras`)."""
     import dataclasses
@@ -3597,10 +3928,7 @@ def lm_card_vs_cpu(torch, arch: str = LM_ARCH) -> dict:
         batch = lm_batch(torch, prompts[1], extras[1], dev)
         logits[dev] = model.prefill(p, batch, max_len=128)[0].cpu()
     diff = float((logits["cuda"] - logits["cpu"]).abs().max())
-    tol = LM_F32_TOL
-    if cfg.tie_embeddings:
-        scale = max(1.0, float(logits["cpu"].abs().max()) / 3.5)
-        tol = dict(LM_F32_TOL, atol=LM_F32_TOL["atol"] * scale)
+    tol = _tied_tol(cfg, logits["cpu"].numpy())
     res = {"arch": cfg.name + " reduced, float32", "tokens_equal":
            tokens["cuda"] == tokens["cpu"], "prefill_logit_max_diff": diff,
            "tol": tol}
@@ -4055,19 +4383,26 @@ def train_mesh_cases(torch) -> tuple:
     import shutil
 
     from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.convert import train_state_from_arrays
     from repro_torch.models.factory import build_model
-    from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.train_step import init_train_state
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.optimizer import AdamW, constant
+    from repro_torch.train.train_step import init_train_state, make_train_step
 
     argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_MESH_STEPS), "--batch",
             str(TRAIN_MESH_BATCH), "--seq", str(TRAIN_MESH_SEQ),
             "--microbatches", str(TRAIN_MESH_MICRO), "--lr", str(TRAIN_LR)]
     full = {"arch": LM_ARCH, "mesh": TRAIN_MESH, "argv": argv,
             "config": {"n_layers": TRAIN_MESH_LAYERS}}
-    def arrays(tree):
-        return None if tree is None else {
-            k: arrays(v) if isinstance(v, dict) else v.numpy()
-            for k, v in tree.items()}
+    def numpy_state(st):
+        def arrays(tree):
+            return None if tree is None else {
+                k: arrays(v) if isinstance(v, dict) else v.numpy().copy()
+                for k, v in tree.items()}
+        return {"params": arrays(st.params), "mu": arrays(st.opt.mu),
+                "nu": arrays(st.opt.nu), "count": st.opt.count.numpy(),
+                "step": st.step.numpy()}
 
     def seeded(arch):
         cfg = dataclasses.replace(get_config(arch).reduced(),
@@ -4075,9 +4410,7 @@ def train_mesh_cases(torch) -> tuple:
         st = init_train_state(build_model(cfg),
                               torch.Generator().manual_seed(1), AdamW(),
                               device="cpu")
-        return cfg, {"params": arrays(st.params), "mu": arrays(st.opt.mu),
-                     "nu": arrays(st.opt.nu), "count": st.opt.count.numpy(),
-                     "step": st.step.numpy()}
+        return cfg, numpy_state(st)
     rcfg, state = seeded(LM_ARCH)
     mcfg, mstate = seeded(MOE_ARCH)
     ckdir = os.path.join(ROOT, "build", "chip_smoke_mesh_ckpt")
@@ -4093,9 +4426,30 @@ def train_mesh_cases(torch) -> tuple:
     # "model", FSDP over "data" (phase 7f's training check)
     moe = {**reduced, "arch": MOE_ARCH, "state": mstate, "routing": True}
     del moe["ckpt_dir"], moe["reshard"]
-    return [full, reduced, moe], {"argv": argv, "rcfg": rcfg, "state": state,
-                                  "ckdir": ckdir, "mcfg": mcfg,
-                                  "mstate": mstate}
+    # the recurrent families: their RG-LRU and ssm blocks channel parallel
+    # over "model", FSDP over "data" (phase 7g's training check), one step
+    # at a time from the CPU's state (:func:`_train_mesh_stepwise`)
+    rec, rec_cases = {}, []
+    for arch in LM_RECURRENT:
+        cfg, s0 = seeded(arch)
+        cpu = train_state_from_arrays(**s0, device="cpu")
+        shape = ShapeConfig("t", "train", TRAIN_MESH_REDUCED_SEQ,
+                            TRAIN_MESH_BATCH)
+        step = make_train_step(build_model(cfg), AdamW(),
+                               constant(TRAIN_MESH_REDUCED_LR),
+                               microbatches=TRAIN_MESH_MICRO)
+        states, metrics = [s0], []
+        for s_ in range(TRAIN_MESH_STEPS):
+            cpu, m = step(cpu, batch_for_step(cfg, shape, s_, device="cpu"))
+            metrics.append({k: float(m[k]) for k in ("loss", "ce", "aux")})
+            states.append(numpy_state(cpu))
+        rec[arch] = {"cfg": cfg, "states": states, "metrics": metrics}
+        rec_cases += [{**moe, "arch": arch, "state": states[s_], "steps": 1,
+                       "first_step": s_, "routing": False}
+                      for s_ in range(TRAIN_MESH_STEPS)]
+    return [full, reduced, moe] + rec_cases, {
+        "argv": argv, "rcfg": rcfg, "state": state, "ckdir": ckdir,
+        "mcfg": mcfg, "mstate": mstate, "rec": rec}
 
 
 def _shard_specs(cfg, mesh_shape) -> dict:
@@ -4132,13 +4486,14 @@ class _RankAt:
 
 
 def _adamw_close(got: dict, want, specs, mesh_shape, rank, steps,
-                 lr) -> dict:
+                 lr, updates=None) -> dict:
     """A rank's reduced state (``{checkpoint path: numpy}``) against its
     blocks of the CPU's state ``want`` after ``steps`` steps at ``lr``:
     the moments within TRAIN_F32_TOL; the params within TRAIN_F32_TOL plus
     what AdamW makes of the moments' differences (8b's allowance, for any
     step: the update's first-order change, ``lr * (|dm| / (s + eps) + |m|
-    ds / (s + eps)^2)`` summed over the steps, ``s = sqrt(v)``, both
+    ds / (s + eps)^2)`` summed over the steps (the last ``updates`` of
+    them when the two states were equal before those), ``s = sqrt(v)``, both
     bias-corrected), at most TRAIN_AMPLIFIED_MAX elements beyond
     TRAIN_F32_TOL."""
     from repro_torch.models.sharding import shard_by_spec
@@ -4171,7 +4526,7 @@ def _adamw_close(got: dict, want, specs, mesh_shape, rank, steps,
         mh, s = m / bc1, np.sqrt(v / bc2)
         dm, ds = np.abs(gm / bc1 - mh), np.abs(np.sqrt(gv / bc2) - s)
         plain = tol["atol"] + tol["rtol"] * np.abs(p)
-        slack = steps * lr * (dm / (s + opt.eps)
+        slack = (updates or steps) * lr * (dm / (s + opt.eps)
                               + np.abs(mh) * ds / (s + opt.eps) ** 2)
         d = np.abs(gp - p)
         if not (d <= plain + slack).all():
@@ -4243,6 +4598,40 @@ def _train_mesh_moe(torch, moe: list, ctx: dict) -> dict:
             **max(res_f, key=lambda x: x["amplified"])}
 
 
+def _train_mesh_stepwise(torch, runs: list, rec: dict) -> dict:
+    """8e's check g for one recurrent config: each of its TRAIN_MESH_STEPS
+    float32 steps on TRAIN_MESH (the RG-LRU and ssm blocks channel parallel
+    over "model", FSDP over "data"), taken by the ranks from the CPU's
+    state before it (``runs[s]`` from ``rec["states"][s]``), against the
+    CPU's step: ``loss``, ``ce``, ``aux`` within TRAIN_F32_TOL, each rank's
+    state as :func:`_adamw_close` for one update, every rank the same
+    metric bits.  One step at a time: the hybrid's first gradient has
+    entries near AdamW's eps, where ``m / (sqrt(v) + eps)`` moves with
+    float32 rounding and the next step's moments no longer show it."""
+    from repro_torch.convert import train_state_from_arrays
+
+    cfg, steps = rec["cfg"], TRAIN_MESH_STEPS
+    mspecs = _shard_specs(cfg, TRAIN_MESH)
+    worst = []
+    for s_ in range(steps):
+        legs = [r[s_]["legs"][0] for r in runs]
+        if any(leg["bits"] != legs[0]["bits"] for leg in legs[1:]):
+            raise AssertionError(f"train 8e: the {cfg.name} ranks' metric "
+                                 f"bits differ")
+        want = rec["metrics"][s_]
+        np.testing.assert_allclose([legs[0][k][0] for k in want],
+                                   list(want.values()), **TRAIN_F32_TOL)
+        cpu = train_state_from_arrays(**rec["states"][s_ + 1], device="cpu")
+        worst += [_adamw_close(leg["state"], cpu, mspecs, TRAIN_MESH, i,
+                               s_ + 1, TRAIN_MESH_REDUCED_LR, updates=1)
+                  for i, leg in enumerate(legs)]
+    return {"arch": cfg.name + " reduced", "mesh": list(TRAIN_MESH),
+            "steps": steps, "loss": [r["legs"][0]["loss"][0]
+                                     for r in runs[0]],
+            "cpu_loss": [m["loss"] for m in rec["metrics"]],
+            **max(worst, key=lambda x: x["amplified"])}
+
+
 def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     """Phase 8e: training on a mesh, from the per-rank results of the
     world phase 7e shared (:func:`train_mesh_cases`).  Checks: a. every
@@ -4255,7 +4644,9 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     checkpoint resharded onto RESHARD_MESH and 2 more steps against 4 CPU
     steps; e. B6 twice per attention layer and microbatch on every rank
     (forward and remat), threefry TRAIN_DRAWS a step, nothing else; f.
-    the reduced moe config (:func:`_train_mesh_moe`).  One ``train mesh``
+    the reduced moe config (:func:`_train_mesh_moe`) and g. the
+    reduced recurrent configs (:func:`_train_mesh_stepwise`).  One ``train
+    mesh``
     line per rank: step wall, tokens/s, collectives a step, peak GB, B6
     launches."""
     import dataclasses
@@ -4269,6 +4660,7 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     from repro_torch.train.train_step import make_train_step
 
     full, red, moe = ([r[i] for r in ranks] for i in range(3))
+    rec_runs = [r[3:] for r in ranks]          # per rank, check g's cases
     steps = TRAIN_MESH_STEPS
     _check_train_mesh_launches(full)
     # a. every rank the same metric bits; replicas the same leaves
@@ -4337,6 +4729,10 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
                          **max(res, key=lambda x: x["amplified"])}
         np.testing.assert_allclose(loss, float(m["loss"]), **TRAIN_F32_TOL)
     checks["f"] = _train_mesh_moe(torch, moe, ctx)
+    checks["g"] = [_train_mesh_stepwise(
+        torch, [r[j * TRAIN_MESH_STEPS:(j + 1) * TRAIN_MESH_STEPS]
+                for r in rec_runs], ctx["rec"][arch])
+        for j, arch in enumerate(LM_RECURRENT)]
     import shutil
     shutil.rmtree(ctx["ckdir"], ignore_errors=True)
     tokens = TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
@@ -4357,8 +4753,11 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     res = {"arch": LM_ARCH, "layers": TRAIN_MESH_LAYERS, "check_a_replicas":
            replicas, "check_b": check_b, "check_c": checks["c"],
            "check_d": checks["d"], "check_f_moe": checks["f"],
+           "check_g_recurrent": checks["g"],
            "reduced_walls_s": [r["wall_s"] for r in red],
-           "moe_walls_s": [r["wall_s"] for r in moe]}
+           "moe_walls_s": [r["wall_s"] for r in moe],
+           "recurrent_walls_s": [[r["wall_s"] for r in runs]
+                                 for runs in rec_runs]}
     log("train 8e checks: " + json.dumps(res))
     return {"launches": sum(r["launches"]["flash_attention"] for r in full),
             "ranks": lines, **res}
@@ -4450,22 +4849,28 @@ def main() -> int:
     krows["flash_attention"] = timed("6 flash", phase_flash, torch)
     lm = timed("7 lm", phase_lm, torch, Counters())
     lm_rec = timed("7b lm recurrent", phase_lm_recurrent, torch, Counters())
+    rec_ref = lm_rec.pop("mesh_ref")
     lm_moe = timed("7c lm moe", phase_lm_moe, torch, Counters())
     lm_last = timed("7d lm vlm, encdec", phase_lm_vlm_encdec, torch,
                     Counters())
     train_cases, train_ctx = train_mesh_cases(torch)
     moe_cases, moe_ctx = moe_mesh_cases(torch, lm_moe.pop("mesh_ref"))
-    lm_mesh = timed("7e lm mesh (and 7f's and 8e's ranks)", phase_lm_mesh,
-                    torch, lm["mesh_ref"], card, train_cases, moe_cases)
+    rec_cases, rec_ctx = recurrent_mesh_cases(torch, rec_ref)
+    lm_mesh = timed("7e lm mesh (and 7f's, 7g's and 8e's ranks)",
+                    phase_lm_mesh, torch, lm["mesh_ref"], card, train_cases,
+                    moe_cases, rec_cases)
     moe_mesh = timed("7f moe mesh checks", phase_lm_moe_mesh, torch,
                      lm_mesh.pop("moe_ranks"), moe_ctx, card)
+    rec_mesh = timed("7g recurrent mesh checks", phase_lm_recurrent_mesh,
+                     torch, lm_mesh.pop("rec_ranks"), rec_ctx, card)
     train = timed("8 train", phase_train, torch, Counters())
     train_mesh = timed("8e train mesh", phase_train_mesh, torch,
                        lm_mesh.pop("train_ranks"), train_ctx, card)
     launches["flash_attention"] = lm["launches"] + sum(
         r["launches"] for r in lm_rec.values()) + lm_moe["launches"] + sum(
         r["launches"] for r in lm_last.values()) + train["launches"] + \
-        lm_mesh["launches"] + moe_mesh["launches"] + train_mesh["launches"]
+        lm_mesh["launches"] + moe_mesh["launches"] + \
+        rec_mesh["launches"] + train_mesh["launches"]
     launches["threefry"] = launches.get("threefry", 0) + \
         train["full"]["counts"]["threefry"]
 
@@ -4521,8 +4926,8 @@ def main() -> int:
         if name == "flash_attention":
             row["ms_is"] = ("card ms per launch at (Sq, Skv, q_offset) = "
                             "(4096, 4096, 0), bf16, CUDA graph")
-            row["launches_of"] = ("the LM paths' prefills (7e's and 7f's "
-                                  "served ones summed over their four "
+            row["launches_of"] = ("the LM paths' prefills (7e's, 7f's "
+                                  "and 7g's summed over their four "
                                   "ranks) and phase 8's "
                                   "training forwards and remat "
                                   "recomputes (8e's summed over its four "
@@ -4535,6 +4940,7 @@ def main() -> int:
                 **{a: r["launches"] for a, r in lm_last.items()},
                 MESH_KEY: lm_mesh["launches"],
                 MOE_MESH_KEY: moe_mesh["launches"],
+                RECURRENT_MESH_KEY: rec_mesh["launches"],
                 LM_ARCH + " train": train["launches"],
                 TRAIN_MESH_KEY: train_mesh["launches"]}
             # the training path's backward is the plain flash backward
@@ -4554,7 +4960,9 @@ def main() -> int:
             # prefills (7b), the moe's (7c) and the vlm's and encdec's (7d)
             by_arch = row["launches_by_arch"]
             for key, arch in FLASH_ROW_KEYS.items():
-                n = by_arch[arch]
+                # row 6c's shape runs on every rank of 7g's mesh too
+                n = by_arch[arch] + (by_arch[RECURRENT_MESH_KEY]
+                                     if arch == RG_ARCH else 0)
                 at = krows[name][key]
                 row[key] = {
                     "arch": arch, "timed_at": at["timed_at"], "launches": n,

@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """Run the smoke's LM-on-a-mesh phase alone on one card.
 
-    python3 scripts/lm_mesh.py [--prompts 512,1000,2048,8192] [--new 8]
+    python3 scripts/lm_mesh.py [--layers 32] [--prompts 512,1000,2048,8192] \\
+        [--new 8]
     python3 scripts/lm_mesh.py --arch qwen3-moe-30b-a3b [--layers 24] \\
         [--prompts ...] [--new 32]
+    python3 scripts/lm_mesh.py --arch recurrentgemma-2b|falcon-mamba-7b \\
+        [--layers 26] [--prompts ...] [--new 32]
 
 Builds the kernels, then for starcoder2-7b (the default) runs
 ``chip_smoke.phase_lm`` (phase 7: the one-card run that phase 7e's checks
 are held to) and ``chip_smoke.phase_lm_mesh`` (phase 7e: four gloo ranks
-sharing the card), with the served prompts and new tokens given (default:
-the smoke's ``MESH_PROMPTS`` and ``MESH_NEW``), and prints the ``lm mesh
-run`` line.  With ``--arch qwen3-moe-30b-a3b`` it runs phase 7f alone
+sharing the card, the model cut to ``--layers``, default the smoke's
+``MESH_LAYERS``, and held to one card's run of that cut), with the served
+prompts and new tokens given (default: the smoke's ``MESH_PROMPTS`` and
+``MESH_NEW``), and prints the ``lm mesh run`` line.  With ``--arch qwen3-moe-30b-a3b`` it runs phase 7f alone
 instead: the model at full width cut to ``--layers`` layers (default the
 smoke's ``MOE_MESH_LAYERS``) on one card (``chip_smoke.moe_mesh_reference``),
 then on four gloo ranks, expert parallel over "model"
 (``chip_smoke.moe_mesh_cases`` and ``phase_lm_moe_mesh``), serving the
-prompts given (default ``MOE_MESH_PROMPTS``, ``MOE_MESH_NEW``).
+prompts given (default ``MOE_MESH_PROMPTS``, ``MOE_MESH_NEW``).  With
+``--arch recurrentgemma-2b`` or ``falcon-mamba-7b`` it runs phase 7g for
+that model alone: cut to ``--layers`` (default the smoke's
+``RECURRENT_MESH_LAYERS``; the float32 checks stay at that cut) on one card
+(``chip_smoke.recurrent_mesh_reference``), then on four gloo ranks,
+channel parallel over "model" (``chip_smoke.recurrent_mesh_cases`` and
+``phase_lm_recurrent_mesh``), serving the prompts given (default
+``MESH_PROMPTS``, ``MESH_NEW``).
 ``scripts/gloo_collectives.py`` times gloo's collectives among four ranks
 on the card on its own.
 """
@@ -33,9 +44,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2-7b",
-                    choices=("starcoder2-7b", "qwen3-moe-30b-a3b"))
+                    choices=("starcoder2-7b", "qwen3-moe-30b-a3b",
+                             "recurrentgemma-2b", "falcon-mamba-7b"))
     ap.add_argument("--layers", type=int, default=None,
-                    help="qwen3-moe-30b-a3b's depth cut (of 48)")
+                    help="the depth cut of starcoder2-7b (of 32), "
+                         "qwen3-moe-30b-a3b (of 48), recurrentgemma-2b (of "
+                         "26) or falcon-mamba-7b (of 64)")
     ap.add_argument("--prompts", default=None,
                     help="comma-separated prompt lengths of phase 7's")
     ap.add_argument("--new", type=int, default=None)
@@ -53,6 +67,23 @@ def main(argv=None) -> int:
     cs.log(card)
     prompts = (tuple(int(x) for x in args.prompts.split(","))
                if args.prompts else None)
+    if args.arch in cs.LM_RECURRENT:
+        from repro_torch.launch import distributed as launcher
+        from repro_torch.launch.mesh import spawn
+
+        t = time.perf_counter()
+        ref = cs.recurrent_mesh_reference(
+            torch, args.layers or cs.RECURRENT_MESH_LAYERS, (args.arch,))
+        cs.log(f"phase 7g one-card reference: {time.perf_counter() - t:.1f} s")
+        cases, ctx = cs.recurrent_mesh_cases(torch, ref,
+                                             prompts or cs.MESH_PROMPTS,
+                                             args.new or cs.MESH_NEW)
+        t = time.perf_counter()
+        ranks = spawn(launcher.run_lm_cases, cs.MESH_WORLD, "gloo",
+                      args=(cases, None), timeout_s=600)
+        cs.log(f"phase 7g world: {time.perf_counter() - t:.1f} s")
+        cs.phase_lm_recurrent_mesh(torch, ranks, ctx, card)
+        return 0
     if args.arch == cs.MOE_ARCH:
         from repro_torch.launch import distributed as launcher
         from repro_torch.launch.mesh import spawn
@@ -69,6 +100,8 @@ def main(argv=None) -> int:
         cs.log(f"phase 7f world: {time.perf_counter() - t:.1f} s")
         cs.phase_lm_moe_mesh(torch, ranks, ctx, card)
         return 0
+    if args.layers:
+        cs.MESH_LAYERS = args.layers
     if prompts:
         cs.MESH_PROMPTS = prompts
     if args.new:

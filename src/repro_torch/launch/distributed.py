@@ -202,11 +202,22 @@ def _whole_rows(x: torch.Tensor, batch: int, mesh) -> np.ndarray:
     return x.float().cpu().numpy()
 
 
+def _state_arrays(state) -> dict:
+    """``{"kv/k": numpy, ..., "lru/h": numpy}``: the leaves of a
+    ``DecodeState`` that it has, as this rank holds them."""
+    return {f"{part}/{name}": leaf.float().cpu().numpy().copy()
+            for part in ("kv", "ssm", "lru")
+            if getattr(state, part) is not None
+            for name, leaf in zip(getattr(state, part)._fields,
+                                  getattr(state, part))}
+
+
 def _lm_teacher(model, params, t: dict, mesh, rules, dev) -> dict:
     """A prefill of the batch ``t["tokens"] [B, S]`` (and ``extras``) at
     ``max_len`` (``chunk``: the transformer's prefill chunk), then one
     decode step for each ``t["steps"]`` row ``[B]`` of tokens, fed as
-    given (teacher forcing).  Every row's logits."""
+    given (teacher forcing).  Every row's logits; with ``t["state"]`` also
+    the rank's decode state after the prefill (:func:`_state_arrays`)."""
     from repro_torch.models import transformer as tfm
 
     batch = _lm_batch(t["tokens"], t.get("extras"), dev)
@@ -219,6 +230,8 @@ def _lm_teacher(model, params, t: dict, mesh, rules, dev) -> dict:
         logits, state = model.prefill(params, batch, max_len=t["max_len"],
                                       rules=rules)
     out = {"prefill": _whole_rows(logits, B, mesh), "decode": []}
+    if t.get("state"):
+        out["state"] = _state_arrays(state)
     calls = []
     for row in t.get("steps", ()):
         tok = torch.as_tensor(np.asarray(row, np.int64)[:, None], device=dev)
@@ -504,7 +517,7 @@ def _train_legs(case: dict, cfg, model, dev, meshes: dict) -> dict:
         out["grads"] = _np_leaves(g)
         out["grad_metrics"] = {k: float(v) for k, v in m.items()}
         del g
-    step = 0
+    step = case.get("first_step", 0)
     legs = [(case["mesh"], case["steps"])] + list(case.get("reshard", ()))
     for i, (mshape, n) in enumerate(legs):
         if i:
@@ -607,7 +620,9 @@ def run_train_cases(rank: int, cases: list, device=None) -> list:
       metrics) and
       ``ckpt_dir`` with ``reshard`` (``[(mesh or None, steps), ...]``:
       after each leg the state is saved there and
-      ``launch/elastic.reshard_restore`` puts it on the next leg's mesh).
+      ``launch/elastic.reshard_restore`` puts it on the next leg's mesh),
+      ``first_step`` (the data step of the first batch, default 0: a
+      state carried after that many steps).
       Returns each leg's losses (and their ``ce`` and ``aux`` parts),
       grad norms, their float32 bits, collectives and seconds a step, and
       its final state's shards; or

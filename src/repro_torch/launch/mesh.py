@@ -8,7 +8,8 @@ devices, so partition ownership and query shards match the reference rank
 for rank.  The mesh holds one process group per axis (the ranks that
 differ only along it) and one over all its ranks, and carries the four
 collectives the distributed runtime uses: ``all_to_all`` over an axis
-(``dist.all_to_all_single``), max and sum all-reduces, and ``all_gather``.
+(``dist.all_to_all_single``; ``exchange`` its uneven form), max and sum
+all-reduces, and ``all_gather``.
 
 Building a mesh is collective: every rank of the world builds the same
 mesh, in the same order, because ``dist.new_group`` must be called by every
@@ -27,7 +28,8 @@ activation replicated over an axis keeps a complete, replicated gradient
 ``all_reduce_sum`` passes its gradient through (its output is the
 replicated sum of partial terms); :meth:`Mesh.sum_grad` is the identity
 forward and sums the gradient over its axis (a replicated input entering
-a computation split over that axis); ``all_gather`` hands each rank its
+a computation split over that axis); ``exchange`` sends each rank's
+gradient back the way its rows came; ``all_gather`` hands each rank its
 block of the gradient, summed over the axis first when ``grad="sum"``
 (the ranks along it computed with different data: the FSDP gather over
 ``"data"``, whose adjoint is a reduce-scatter).  A backward enters its
@@ -132,6 +134,26 @@ class Mesh:
         self._call(dist.all_to_all_single, out, x, group=self._groups[axis])
         return out
 
+    def exchange(self, x: torch.Tensor, axis: str, send: Sequence[int],
+                 recv: Sequence[int]) -> torch.Tensor:
+        """An uneven all-to-all over ``axis``: the rows of ``x`` (its dim 0)
+        cut in order into ``send[j]`` rows for the rank at coordinate
+        ``j``; returns the ``sum(recv)`` rows received, ``recv[j]`` of them
+        from coordinate ``j``, in coordinate order.  Its gradient is the
+        reverse exchange."""
+        if not self.distributed:
+            return x
+        return _Exchange.apply(x, self, axis, tuple(send), tuple(recv))
+
+    def _exchange(self, x: torch.Tensor, axis: str, send: tuple,
+                  recv: tuple) -> torch.Tensor:
+        x = x.detach().contiguous()
+        out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        self._call(dist.all_to_all_single, out, x,
+                   output_split_sizes=list(recv),
+                   input_split_sizes=list(send), group=self._groups[axis])
+        return out
+
     def _call(self, collective, *args, **kwargs) -> None:
         """Enter one collective, counted and timed."""
         self.calls += 1
@@ -222,6 +244,18 @@ class _SumGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh._all_reduce(g, dist.ReduceOp.SUM, ctx.axis), None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, send, recv):
+        ctx.mesh, ctx.axis, ctx.send, ctx.recv = mesh, axis, send, recv
+        return mesh._exchange(x, axis, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._exchange(g, ctx.axis, ctx.recv, ctx.send), None,
+                None, None, None)
 
 
 class _AllGather(torch.autograd.Function):

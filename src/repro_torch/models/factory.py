@@ -23,11 +23,11 @@ over a ``launch/mesh.Mesh``; ``launch/steps.rules_for`` gives the
 reference's) and a rank's params: ``shard_params`` (or
 ``convert.lm_params_from_arrays(..., rules=)``) cuts them from the whole
 ones by ``param_axes``.  ``decode_state_init`` gives the rank its shard of
-the state by ``state_logical_axes``: the sequence over ``"model"``, the
-batch over ``"data"``.  ``loss(params, batch, rules)`` trains on a mesh:
-the rank's rows, its part of the reference's global mean (see
-:meth:`Model.loss`).  The hybrid and ssm families raise a
-``NotImplementedError`` on a mesh of more than one rank.
+the state by ``state_logical_axes``: the KV cache's sequence over
+``"model"`` (the hybrid's ring stays whole), the recurrent states'
+channels over ``"model"``, the batch over ``"data"``.  ``loss(params,
+batch, rules)`` trains on a mesh: the rank's rows, its part of the
+reference's global mean (see :meth:`Model.loss`).
 """
 from __future__ import annotations
 
@@ -250,9 +250,7 @@ class Model:
         rank's shard of it (:func:`state_logical_axes`)."""
         dev = resolve_device(device)
         specs = self.decode_state_specs(batch, max_len)
-        if self.cfg.family != "encdec":
-            rules = tfm.check_shardable(self.cfg, rules)
-        if rules is not None:
+        if rules is not None and self.cfg.family not in ("hybrid", "ssm"):
             tfm.check_seq_shards(max_len, rules)
         axes = state_logical_axes(self, specs) if rules is not None else None
 
@@ -293,9 +291,10 @@ def batch_logical_axes(cfg: ArchConfig, shape: ShapeConfig) -> dict:
 
 def state_logical_axes(model: Model, specs):
     """Logical axes tree matching ``decode_state_specs``: the KV caches'
-    sequence over ``"seq_kv"`` (the hybrid's window cache stays local),
-    the batch over ``"batch"``, the recurrent states' channels over
-    ``"inner"``."""
+    sequence over ``"seq_kv"`` (the hybrid's window cache stays local:
+    ``"null"``, whole on every rank of the model axis), the batch over
+    ``"batch"``, the recurrent states' channels over ``"inner"`` (the
+    rank's channels on a mesh, as its blocks of the weights)."""
     cfg = model.cfg
     seq = "null" if cfg.family == "hybrid" else "seq_kv"
     kv_axes = KVCache(k=("layers", "batch", seq, "null", "null"),

@@ -48,7 +48,17 @@ their block of the gradient, unsummed.
 The decode step projects q, k and v the same way, all-gathers them over
 ``"model"`` in one call (every rank attends over its sequence shard of the
 cache with every head: ``attention.decode_attend_partitioned``), and runs
-the row-parallel output projection on the rank's heads.
+the row-parallel output projection on the rank's heads.  The hybrid's
+ring cache is not split on its sequence (the reference's ``"null"``), so
+its decode (:func:`decode_attention_ring`) attends the rank's heads over
+the whole ring every rank holds, with no gather of q.
+
+The recurrent blocks (``models/ssm.py``, ``models/rglru.py``) run channel
+parallel where the model axis splits their ``"inner"`` channels
+(:func:`inner_split`): column-parallel input projections, channel-local
+conv, gates and scan, a row-parallel output projection summed in float32
+(:func:`row_sum`); the Mamba block's ``in_proj`` reaches the rank's
+channels through :func:`xz_channels`.
 """
 from __future__ import annotations
 
@@ -98,7 +108,49 @@ def manual_mlp(lp, x, cfg, rules):
         lp = {k: gather_dims(t, axes[k], rules, full) for k, t in lp.items()}
         return L.apply_mlp(lp, x, cfg.act)
     y = L.apply_mlp(lp, rules.mesh.sum_grad(x, AXIS), cfg.act)
-    return rules.mesh.all_reduce_sum(y.float(), AXIS).to(x.dtype)
+    return row_sum(y, rules, x.dtype)
+
+
+def row_sum(y, rules, dtype):
+    """A row-parallel projection's partial products ``y`` added over the
+    model axis in float32 and rounded to ``dtype`` once."""
+    return rules.mesh.all_reduce_sum(y.float(), AXIS).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent blocks (``models/ssm.py``, ``models/rglru.py``)
+
+
+def inner_split(width: int, rules) -> bool:
+    """Whether a recurrent block of ``width`` channels (``"inner"``) runs
+    channel parallel: the model axis splits them.  Otherwise the spec guard
+    leaves the block's ``"inner"`` leaves whole and every rank computes the
+    whole block, with no collective."""
+    tp = tp_size(rules)
+    return tp > 1 and width % tp == 0
+
+
+def xz_channels(xz, rules):
+    """The Mamba block's input projection on a rank: ``xz [B, S, 2·c]`` (c
+    = din/tp), its product with the rank's block of ``in_proj``, which the
+    reference stores as one contiguous block of the concatenated ``[x |
+    z]`` columns (at tp = 4 ranks 0-1 hold columns of x, ranks 2-3 columns
+    of z) -> (x, z), each ``[B, S, c]``, of the rank's channels ``[i·c,
+    (i+1)·c)``: one ``exchange`` over the model axis.  Of the 2·tp blocks
+    of c columns, rank i holds blocks 2i and 2i + 1 and block b belongs to
+    the channels of rank b mod tp, so rank i receives block i (of x) from
+    rank i // 2 and block tp + i (of z) from rank (tp + i) // 2."""
+    tp, i = tp_size(rules), rules.mesh.coords[AXIS]
+    dest = [(2 * i + j) % tp for j in (0, 1)]
+    order = sorted((0, 1), key=dest.__getitem__)
+    send, recv = [0] * tp, [0] * tp
+    for j in (0, 1):
+        send[dest[j]] += 1
+    for src in (i // 2, (tp + i) // 2):
+        recv[src] += 1
+    blocks = xz.unflatten(-1, (2, -1)).movedim(-2, 0)    # [2, B, S, c]
+    got = rules.mesh.exchange(blocks[order], AXIS, send, recv)
+    return got[0], got[1]
 
 
 # ---------------------------------------------------------------------------
@@ -288,3 +340,29 @@ def decode_attention(lp, h, k_cache, v_cache, length, cfg, rules,
                                            length + 1, rules.mesh)
     return out_tp(p, o[:, None, lay.h0:lay.h0 + lay.h_loc], rules, lay,
                   h.dtype)
+
+
+def decode_attention_ring(lp, h, k_cache, v_cache, length, cfg, rules,
+                          window):
+    """One decode step of the hybrid's attention layer, whose ring cache of
+    ``window`` slots every rank of the model axis holds whole (``"null"``
+    on its sequence and heads, split over the batch only): q for the
+    rank's heads and k, v as :func:`project` gives them (every kv head on
+    every rank: :func:`all_heads`), the new keys and values written into
+    slot ``length % window`` of every rank's ring at RoPE position
+    ``length`` (the reference's slot and position, ROADMAP C4), the rank's
+    q heads attending the ring's first ``min(length + 1, window)`` slots
+    of the kv heads they read, then the row-parallel output projection.
+    h: [B,1,D] (normed); returns the attention output [B,1,D]
+    (pre-residual)."""
+    lay = attn_layout(cfg, rules)
+    p = attn_weights(lp, cfg, rules, lay)
+    q, k, v = project(p, h, length[:, None], cfg.rope_theta)
+    k, v = all_heads(k, rules, lay), all_heads(v, rules, lay)
+    attn_lib.cache_update_local(k_cache, v_cache, k, v, length % window)
+    heads = slice(lay.kv0, lay.kv0 + lay.kv_loc)
+    o = attn_lib.decode_attend_local(
+        q[:, 0], k_cache[:, :, heads], v_cache[:, :, heads],
+        torch.arange(window, device=h.device),
+        torch.clamp(length + 1, max=window))
+    return out_tp(p, o[:, None], rules, lay, h.dtype)

@@ -11,6 +11,15 @@ the "recurrent" layers of the 1:2 hybrid pattern,
 with per-channel (diagonal) gates, as the reference.  The full-sequence path
 runs the recurrence with ``ssm.linear_scan`` (the reference:
 ``jax.lax.associative_scan``); decode is one O(1) step.
+
+On a mesh (``rules`` and ``cfg``: the rank's blocks of the leaves, their
+FSDP split gathered by the caller) the block runs channel parallel over
+``"model"`` when the axis splits ``lru_width`` (``manual_tp.inner_split``):
+``in_x`` and ``in_gate`` column parallel (the block's input sums its
+gradient over the axis), the conv, the gates, ``lam`` and the scan on the
+rank's channels with no collective, and ``out`` row parallel, its partial
+products summed in float32 and rounded once.  The state is the rank's
+channels.  Otherwise every leaf is whole and the block runs whole.
 """
 from __future__ import annotations
 
@@ -21,7 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, HybridConfig
+from repro_torch.models import manual_tp as tp_lib
 from repro_torch.models.layers import _act, _normal
+from repro_torch.models.sharding import local_shape
 from repro_torch.models.ssm import _causal_conv, linear_scan
 
 _C = 8.0
@@ -76,65 +87,86 @@ def _gates(p, xc):
     return log_a, bx
 
 
-def _mix(p, x, state_conv):
+def _mix(p, x, state_conv, rules=None):
     """The two input projections and the conv: (xc, gate, conv state)."""
+    if rules is not None:
+        x = rules.mesh.sum_grad(x, tp_lib.AXIS)
     xw = torch.matmul(x, p["in_x"].to(x.dtype))
     gate = torch.matmul(x, p["in_gate"].to(x.dtype))
     xc, conv_state = _causal_conv(xw, p["conv_w"], p["conv_b"], state_conv)
     return xc, gate, conv_state
 
 
-def _out(p, h, gate, x):
+def _out(p, h, gate, x, rules=None):
     y = h * _act(gate.float(), "gelu")
-    return torch.matmul(y.to(x.dtype), p["out"].to(x.dtype))
+    out = torch.matmul(y.to(x.dtype), p["out"].to(x.dtype))
+    return out if rules is None else tp_lib.row_sum(out, rules, x.dtype)
+
+
+def _channel_rules(cfg, rules):
+    """The rules the block runs with: ``rules`` when it runs channel
+    parallel, else None (every leaf whole)."""
+    if rules is None or not tp_lib.inner_split(lru_width(cfg), rules):
+        return None
+    return rules
 
 
 SCAN_CHUNK = 1024
 
 
 def apply_rglru(p, x, state: Optional[LRUState] = None,
-                chunk: int = SCAN_CHUNK):
+                chunk: int = SCAN_CHUNK, *, cfg: Optional[ArchConfig] = None,
+                rules=None):
     """x: [B,S,D] -> (y [B,S,D], new LRUState).  Seeded chunks for a
     sequence longer than ``chunk`` whose length is a multiple of it, as in
-    ``ssm.apply_ssm``."""
+    ``ssm.apply_ssm``.  With ``rules`` (and the ``cfg`` that gives the
+    whole width): the rank's blocks and state (module docstring)."""
+    rules = _channel_rules(cfg, rules)
     S = x.shape[1]
     if chunk and S > chunk and S % chunk == 0:
         ys = []
         for i in range(S // chunk):
             y, state = _apply_rglru_core(p, x[:, i * chunk:(i + 1) * chunk],
-                                         state)
+                                         state, rules)
             ys.append(y)
         return torch.cat(ys, dim=1), state
-    return _apply_rglru_core(p, x, state)
+    return _apply_rglru_core(p, x, state, rules)
 
 
-def _apply_rglru_core(p, x, state: Optional[LRUState] = None):
+def _apply_rglru_core(p, x, state: Optional[LRUState] = None, rules=None):
     xc, gate, conv_state = _mix(p, x, state.conv if state is not None
-                                else None)
+                                else None, rules)
     log_a, bx = _gates(p, xc)
     h = linear_scan(torch.exp(log_a), bx,
                     state.h if state is not None else None)   # [B,S,W] f32
-    return _out(p, h, gate, x), LRUState(conv=conv_state, h=h[:, -1])
+    return _out(p, h, gate, x, rules), LRUState(conv=conv_state, h=h[:, -1])
 
 
-def decode_rglru(p, x, state: LRUState):
-    """One-token step.  x: [B,1,D]."""
-    xc, gate, conv_state = _mix(p, x, state.conv)
+def decode_rglru(p, x, state: LRUState, *, cfg: Optional[ArchConfig] = None,
+                 rules=None):
+    """One-token step.  x: [B,1,D] (``cfg`` and ``rules`` as for
+    :func:`apply_rglru`)."""
+    rules = _channel_rules(cfg, rules)
+    xc, gate, conv_state = _mix(p, x, state.conv, rules)
     log_a, bx = _gates(p, xc)
     h = state.h * torch.exp(log_a[:, 0]) + bx[:, 0]     # [B,W]
-    return _out(p, h[:, None], gate, x), LRUState(conv=conv_state, h=h)
+    return _out(p, h[:, None], gate, x, rules), LRUState(conv=conv_state, h=h)
 
 
-def lru_state_specs(cfg: ArchConfig, batch, dtype, n=None, conv_width=4):
-    """(shape, dtype) of each leaf of the state."""
+def lru_state_specs(cfg: ArchConfig, batch, dtype, n=None, conv_width=4,
+                    rules=None):
+    """(shape, dtype) of each leaf of the state; with ``rules`` the rank's
+    channels of it."""
     w = lru_width(cfg)
+    if rules is not None:
+        w = local_shape((w,), ("inner",), rules)[0]
     L = (n,) if n else ()
     return LRUState(conv=(L + (batch, conv_width - 1, w), dtype),
                     h=(L + (batch, w), torch.float32))
 
 
 def init_lru_state(cfg: ArchConfig, batch, dtype, n=None, device=None,
-                   conv_width=4) -> LRUState:
+                   conv_width=4, rules=None) -> LRUState:
     return LRUState(*(torch.zeros(shape, dtype=dt, device=device)
                       for shape, dt in lru_state_specs(cfg, batch, dtype, n,
-                                                       conv_width)))
+                                                       conv_width, rules)))

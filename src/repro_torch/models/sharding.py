@@ -281,8 +281,3 @@ def batch_rows(batch: int, rules: AxisRules) -> slice:
         return slice(0, batch)
     i, _ = _block(rules.mesh, entry)
     return slice(i * (batch // n), (i + 1) * (batch // n))
-
-
-def mesh_size(rules: Optional[AxisRules]) -> int:
-    """Ranks of the rules' mesh (1 without rules)."""
-    return 1 if rules is None else math.prod(rules._sizes.values())

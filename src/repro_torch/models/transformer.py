@@ -17,17 +17,20 @@ and attends with the prefix-LM mask (``prefix_len``: the image positions
 see each other both ways); its decode is the dense decode.  The encdec
 family is ``models/encdec.py``.
 
-On a mesh (``rules``, ``models/sharding.py``) the dense, moe and vlm
-families run each rank's shards of the parameters: ``forward``,
-``prefill`` and ``decode_step`` take ``rules`` (and ``decode_step`` the
-``mesh``), their layers go through ``models/manual_tp.py`` (tensor
-parallel over ``"model"``, the FSDP split of ``"embed"`` and
-``"expert_embed"`` gathered layer by layer; a moe layer's experts expert
-parallel over ``"model"``, ``models/moe.py``), the KV cache is sharded
-over ``"model"`` on its sequence axis and the batch over ``"data"`` when
-it divides.  A call takes the whole batch (the same on every rank) and
-returns the rank's rows.  The hybrid and ssm families raise on a mesh of
-more than one rank (:func:`check_shardable`).
+On a mesh (``rules``, ``models/sharding.py``) every family runs each
+rank's shards of the parameters: ``forward``, ``prefill`` and
+``decode_step`` take ``rules`` (and ``decode_step`` the ``mesh``), their
+layers go through ``models/manual_tp.py`` (tensor parallel over
+``"model"``, the FSDP split of ``"embed"`` and ``"expert_embed"`` gathered
+layer by layer; a moe layer's experts expert parallel over ``"model"``,
+``models/moe.py``; the ssm and RG-LRU blocks channel parallel over
+``"model"``, ``models/ssm.py`` and ``models/rglru.py``), and the batch is
+split over ``"data"`` when it divides.  The dense, moe and vlm KV cache
+is sharded over ``"model"`` on its sequence axis; the hybrid's ring cache
+stays whole on every rank of ``"model"`` (the reference's ``"null"``),
+and its recurrent states and the ssm's hold the rank's channels.  A call
+takes the whole batch (the same on every rank) and returns the rank's
+rows.
 
 ``forward`` (training) runs every layer once over the whole sequence,
 as prefill's whole branch does, and sums the moe layers' aux losses;
@@ -69,7 +72,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
-from repro_torch.models.sharding import batch_rows, gather_dims, mesh_size
+from repro_torch.models.sharding import batch_rows, gather_dims
 
 #: the families this module assembles (encdec is ``models/encdec.py``)
 _PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -79,27 +82,6 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in _PORTED:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not one of "
                          f"the decoder-only families {_PORTED}")
-
-
-#: the ROADMAP item that shards each family this module does not yet run
-#: on a mesh
-_UNSHARDED = {"hybrid": "ROADMAP A10d (the hybrid family's \"inner\" "
-                        "sharding; its ring cache stays local)",
-              "ssm": "ROADMAP A10d (the ssm family's \"inner\" sharding)"}
-
-
-def check_shardable(cfg: ArchConfig, rules):
-    """The rules a call of ``cfg`` runs with: ``rules`` for the dense, moe
-    and vlm families; None for the others on a one-rank mesh (nothing is
-    split).  On a mesh of more than one rank those raise, before anything
-    runs: none of them computes unsharded in silence."""
-    if rules is None or cfg.family not in _UNSHARDED:
-        return rules
-    if mesh_size(rules) == 1:
-        return None
-    raise NotImplementedError(
-        f"{cfg.name}: a mesh of {dict(rules._sizes)} needs "
-        f"{_UNSHARDED[cfg.family]}, which is not ported")
 
 
 class DecodeState(NamedTuple):
@@ -380,29 +362,32 @@ def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None,
     """One layer of ``kind``, full sequence (``attn`` and ``moe`` differ
     only in their MLP; ``prefix_len`` is the vlm's image prefix).  Returns
     (x, (k, v) or None, new recurrent state or None, moe aux or None).
-    With ``rules`` (the dense, moe and vlm families: the forward's manual
-    arm) the layer runs tensor parallel and returns no keys and values."""
+    With ``rules`` the layer runs on the rank's blocks (its FSDP split
+    gathered first): an attention layer tensor parallel, its keys and
+    values as ``manual_tp.project`` holds them; a recurrent one channel
+    parallel, its state the rank's channels."""
     if rules is not None:
-        lp = cast_layer_params(gather_fsdp(lp, layer_axes(cfg, kind), cfg,
-                                           rules), cfg.cdtype)
-        h = L.apply_norm(lp["ln1"], x, cfg.norm)
-        y, _, _ = tp_lib.manual_attention(lp["attn"], h, positions, cfg,
-                                          rules, prefix_len=prefix_len)
-        x, aux = _mlp_aux(lp, cfg, x + y, rules)
-        return x, None, None, aux
+        lp = gather_fsdp(lp, layer_axes(cfg, kind), cfg, rules)
     lp = cast_layer_params(lp, cfg.cdtype)
     if kind == "ssm":
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
-        y, st = ssm_lib.apply_ssm(lp["ssm"], h, cfg)
+        y, st = ssm_lib.apply_ssm(lp["ssm"], h, cfg, rules=rules)
         return x + y, None, st, None
     if kind == "rec":
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
-        y, st = rglru_lib.apply_rglru(lp["rec"], h)
-        x, aux = _mlp_aux(lp, cfg, x + y)
+        y, st = rglru_lib.apply_rglru(lp["rec"], h, cfg=cfg, rules=rules)
+        x, aux = _mlp_aux(lp, cfg, x + y, rules)
         return x, None, st, aux
-    x, kv = _apply_attn_layer(lp, cfg, x, positions, window=_window(cfg),
-                              prefix_len=prefix_len)
-    x, aux = _mlp_aux(lp, cfg, x)
+    if rules is not None:
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        y, k, v = tp_lib.manual_attention(lp["attn"], h, positions, cfg,
+                                          rules, window=_window(cfg),
+                                          prefix_len=prefix_len)
+        x, kv = x + y, (k, v)
+    else:
+        x, kv = _apply_attn_layer(lp, cfg, x, positions, window=_window(cfg),
+                                  prefix_len=prefix_len)
+    x, aux = _mlp_aux(lp, cfg, x, rules)
     return x, kv, None, aux
 
 
@@ -436,7 +421,6 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     aux losses are the global batch's (``moe.apply_moe``), the same on
     every rank."""
     check_family(cfg)
-    rules = check_shardable(cfg, rules)
     if rules is not None:
         tokens, prefix_embeds = _rows(tokens, prefix_embeds, rules)
     x = _embed_with_prefix(params, cfg, tokens, prefix_embeds, rules)
@@ -455,7 +439,7 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
             for name, kind in (("rec1", "rec"), ("rec2", "rec"),
                                ("attn", "attn")):
                 x, _, _, _ = _apply_layer_full(gp[name], cfg, kind, x,
-                                               positions)
+                                               positions, rules=rules)
             return x
         group = checkpointed(group, remat)
         for gp in unstack(params["groups"]):
@@ -493,22 +477,24 @@ def prefill(params, cfg: ArchConfig, tokens, *, max_len=None,
     (``_prefill_chunked``); any other, and every ssm and hybrid prompt, in
     one pass (``_prefill_whole``), as in the reference.  A moe layer's
     expert capacity follows each call's own length: a chunk's, not the
-    prompt's.  With ``rules``: :func:`_prefill_sharded`."""
+    prompt's.  With ``rules``: :func:`_prefill_sharded` for the dense,
+    moe and vlm families, the whole prefill on the rank's blocks for the
+    recurrent ones."""
     check_family(cfg)
-    rules = check_shardable(cfg, rules)
     S_tot = tokens.shape[1] + (prefix_embeds.shape[1]
                                if prefix_embeds is not None else 0)
     kw = dict(prefix_embeds=prefix_embeds, prefix_len=prefix_len)
     chunked = (cfg.family in CHUNKED_FAMILIES and S_tot > chunk
                and S_tot % chunk == 0 and (max_len or S_tot) >= S_tot)
-    if rules is not None:
+    if rules is not None and cfg.family in CHUNKED_FAMILIES:
         return _prefill_sharded(params, cfg, tokens, max_len=max_len or S_tot,
                                 step=chunk if chunked else S_tot,
                                 rules=rules, **kw)
     if chunked:
         return _prefill_chunked(params, cfg, tokens, max_len=max_len or S_tot,
                                 chunk=chunk, **kw)
-    return _prefill_whole(params, cfg, tokens, max_len=max_len, **kw)
+    return _prefill_whole(params, cfg, tokens, max_len=max_len, rules=rules,
+                          **kw)
 
 
 def final_logits(params, cfg, x_last, rules=None):
@@ -632,14 +618,19 @@ def _fill_cache(cache: KVCache, i: int, k, v, window) -> None:
 
 
 def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None,
-                   prefix_embeds=None, prefix_len=None):
+                   prefix_embeds=None, prefix_len=None, rules=None):
     """One pass over the prompt.  The attention layers' keys and values go
     into a zero cache of ``max_len`` positions (``min(max_len, window)``
     ring slots for the hybrid; a prompt longer than the cache keeps its
     last positions); the recurrent layers' final states into the stacked
     ``ssm`` / ``lru`` states.  ``length`` is S, clamped to the ring's size
-    for the hybrid (the reference's; ROADMAP C4)."""
-    x = _embed_with_prefix(params, cfg, tokens, prefix_embeds)
+    for the hybrid (the reference's; ROADMAP C4).  With ``rules`` (the
+    recurrent families on a mesh) the rank's rows, its layers on its
+    blocks, its states the rank's channels and the hybrid's ring every kv
+    head (``manual_tp.all_heads``)."""
+    if rules is not None:
+        tokens, prefix_embeds = _rows(tokens, prefix_embeds, rules)
+    x = _embed_with_prefix(params, cfg, tokens, prefix_embeds, rules)
     B, S, _ = x.shape
     dev = x.device
     max_len = max_len or S
@@ -649,29 +640,36 @@ def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None,
     cache = ssm_st = lru_st = None
     if cfg.family == "ssm":
         ssm_st = ssm_lib.init_ssm_state(cfg, B, cfg.cdtype, cfg.n_layers,
-                                        device=dev)
+                                        device=dev, rules=rules)
         for i in range(cfg.n_layers):
             x, _, st, _ = _apply_layer_full(_layer(params["stack"], i),
-                                            cfg, "ssm", x, positions)
+                                            cfg, "ssm", x, positions,
+                                            rules=rules)
             _put_state(ssm_st, i, st)
     elif cfg.family == "hybrid":
         ng, n_tail = cfg.n_layers // 3, cfg.n_layers % 3
         cache = KVCache.init(ng, B, cache_len, cfg.n_kv_heads, cfg.head_dim_,
                              cfg.cdtype, device=dev)
         lru_st = rglru_lib.init_lru_state(cfg, B, cfg.cdtype,
-                                          cfg.n_layers - ng, device=dev)
+                                          cfg.n_layers - ng, device=dev,
+                                          rules=rules)
         groups = params["groups"]
         for i in range(ng):
             for j, name in enumerate(("rec1", "rec2")):
                 x, _, st, _ = _apply_layer_full(_layer(groups[name], i),
-                                                cfg, "rec", x, positions)
+                                                cfg, "rec", x, positions,
+                                                rules=rules)
                 _put_state(lru_st, 2 * i + j, st)
             x, (k, v), _, _ = _apply_layer_full(_layer(groups["attn"], i),
-                                                cfg, "attn", x, positions)
+                                                cfg, "attn", x, positions,
+                                                rules=rules)
+            if rules is not None:
+                lay = tp_lib.attn_layout(cfg, rules)
+                k, v = (tp_lib.all_heads(t, rules, lay) for t in (k, v))
             _fill_cache(cache, i, k, v, window)
         for j in range(n_tail):
             x, _, st, _ = _apply_layer_full(_layer(params["tail"], j), cfg,
-                                            "rec", x, positions)
+                                            "rec", x, positions, rules=rules)
             _put_state(lru_st, 2 * ng + j, st)
     else:
         cache = KVCache.init(cfg.n_layers, B, max_len, cfg.n_kv_heads,
@@ -682,7 +680,7 @@ def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None,
                                                 cfg, kind, x, positions,
                                                 prefix_len)
             _fill_cache(cache, i, k, v, None)
-    last = final_logits(params, cfg, x[:, -1])
+    last = final_logits(params, cfg, x[:, -1], rules)
     if cache is not None:
         n = min(S, cache_len) if window else S
         cache = cache._replace(length=torch.full(
@@ -694,12 +692,18 @@ def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None,
 # decode (one token)
 
 
-def _decode_attn_layer(lp, cfg, x, k_cache, v_cache, length, window=None):
-    """x: [B,1,D].  Returns (x, k_cache, v_cache), the caches updated in
-    place.  With a window the cache is a ring: the new key goes into slot
-    ``length % window`` and the query attends the ``min(length + 1,
-    window)`` first slots, all unmasked by position, as the reference."""
+def _decode_attn_layer(lp, cfg, x, k_cache, v_cache, length, window=None,
+                       rules=None):
+    """x: [B,1,D].  Returns x; the caches are updated in place.  With a
+    window the cache is a ring: the new key goes into slot ``length %
+    window`` and the query attends the ``min(length + 1, window)`` first
+    slots, all unmasked by position, as the reference.  With ``rules``
+    (the hybrid's ring on a mesh): ``manual_tp.decode_attention_ring``."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
+    if rules is not None:
+        return x + tp_lib.decode_attention_ring(lp["attn"], h, k_cache,
+                                                v_cache, length, cfg, rules,
+                                                window)
     q, k, v = attn.qkv_proj(lp["attn"], h, length[:, None], cfg.rope_theta)
     if window:
         k_cache, v_cache = attn.cache_update_local(k_cache, v_cache, k, v,
@@ -714,15 +718,16 @@ def _decode_attn_layer(lp, cfg, x, k_cache, v_cache, length, window=None):
         o = attn.decode_attend_local(q[:, 0], k_cache, v_cache, kv_pos,
                                      length + 1)
     x = x + attn.out_proj(lp["attn"], o[:, None])
-    return x, k_cache, v_cache
+    return x
 
 
-def _decode_rec(lp, cfg, x, lru, i):
+def _decode_rec(lp, cfg, x, lru, i, rules=None):
     """One RG-LRU layer's step on lru slot ``i`` (updated in place)."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
-    y, st = rglru_lib.decode_rglru(lp["rec"], h, _state_at(lru, i))
+    y, st = rglru_lib.decode_rglru(lp["rec"], h, _state_at(lru, i), cfg=cfg,
+                                   rules=rules)
     _put_state(lru, i, st)
-    return _apply_mlp(lp, cfg, x + y)
+    return _apply_mlp(lp, cfg, x + y, rules)
 
 
 def decode_step(params, cfg: ArchConfig, tokens, state: DecodeState, *,
@@ -732,45 +737,53 @@ def decode_step(params, cfg: ArchConfig, tokens, state: DecodeState, *,
     The layers' caches and recurrent states are updated in place (views of
     the stacked state), so ``state`` is consumed; the new state shares its
     tensors, with a cache length one larger.  With ``rules`` (and its
-    ``mesh``), :func:`_decode_sharded`."""
+    ``mesh``) the rank's rows of ``tokens`` on the rank's blocks and state:
+    :func:`_decode_sharded` for the sequence-sharded cache of the dense,
+    moe and vlm families; the recurrent families' layers channel parallel
+    and the hybrid's ring through ``manual_tp.decode_attention_ring``."""
     check_family(cfg)
-    rules = check_shardable(cfg, sharded_rules(mesh, rules))
+    rules = sharded_rules(mesh, rules)
     if rules is not None:
-        return _decode_sharded(params, cfg, tokens, state, rules)
-    x = L.embed(params["embed"], tokens, cfg.cdtype)
+        if cfg.family in CHUNKED_FAMILIES:
+            return _decode_sharded(params, cfg, tokens, state, rules)
+        tokens = tokens[batch_rows(tokens.shape[0], rules)]
+    x = L.embed(params["embed"], tokens, cfg.cdtype, rules, cfg.vocab)
     if cfg.family == "ssm":
+        axes = layer_axes(cfg, "ssm")
         for i in range(cfg.n_layers):
-            lp = _layer(params["stack"], i)
+            lp = gather_fsdp(_layer(params["stack"], i), axes, cfg, rules)
             h = L.apply_norm(lp["ln1"], x, cfg.norm)
             y, st = ssm_lib.decode_ssm(lp["ssm"], h, cfg,
-                                       _state_at(state.ssm, i))
+                                       _state_at(state.ssm, i), rules)
             _put_state(state.ssm, i, st)
             x = x + y
-        return final_logits(params, cfg, x[:, 0]), state
+        return final_logits(params, cfg, x[:, 0], rules), state
     kc, vc, length = state.kv
     if cfg.family == "hybrid":
         window = cfg.hybrid.window
         check_cache_covers_window(cfg, kc.shape[2])
         ng = cfg.n_layers // 3
         groups = params["groups"]
+        rec_axes, attn_axes = layer_axes(cfg, "rec"), layer_axes(cfg, "attn")
+
+        def rec(x, stack, i, slot):
+            lp = gather_fsdp(_layer(stack, i), rec_axes, cfg, rules)
+            return _decode_rec(lp, cfg, x, state.lru, slot, rules)
         for i in range(ng):
-            x = _decode_rec(_layer(groups["rec1"], i), cfg, x, state.lru,
-                            2 * i)
-            x = _decode_rec(_layer(groups["rec2"], i), cfg, x, state.lru,
-                            2 * i + 1)
-            lp = _layer(groups["attn"], i)
-            x, _, _ = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length,
-                                         window)
-            x = _apply_mlp(lp, cfg, x)
+            x = rec(x, groups["rec1"], i, 2 * i)
+            x = rec(x, groups["rec2"], i, 2 * i + 1)
+            lp = gather_fsdp(_layer(groups["attn"], i), attn_axes, cfg, rules)
+            x = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length, window,
+                                   rules)
+            x = _apply_mlp(lp, cfg, x, rules)
         for j in range(cfg.n_layers % 3):
-            x = _decode_rec(_layer(params["tail"], j), cfg, x, state.lru,
-                            2 * ng + j)
+            x = rec(x, params["tail"], j, 2 * ng + j)
     else:
         for i in range(cfg.n_layers):
             lp = _layer(params["stack"], i)
-            x, _, _ = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length)
+            x = _decode_attn_layer(lp, cfg, x, kc[i], vc[i], length)
             x = _apply_mlp(lp, cfg, x)
-    logits = final_logits(params, cfg, x[:, 0])
+    logits = final_logits(params, cfg, x[:, 0], rules)
     return logits, state._replace(
         kv=KVCache(k=kc, v=vc, length=length + 1))
 

@@ -7,9 +7,11 @@ rules=)``) against the JAX package, on the CPU.
   (1, 4), (2, 2), (4, 1) and (16, 16); the param axes, the state and
   batch axes and ``effective_microbatches`` against the reference's; each
   rank's block of the weights against the reference's
-  ``NamedSharding.devices_indices_map``; hybrid and ssm refused on a
-  model axis of 4 (moe on a mesh: ``tests/test_torch_moe_mesh.py``); a
-  disagreement between ranks raises.
+  ``NamedSharding.devices_indices_map``; hybrid and ssm on rank 0 of a
+  model axis of 4 return its blocks (their values on a mesh:
+  ``tests/test_torch_recurrent_mesh.py``; moe:
+  ``tests/test_torch_moe_mesh.py``); a disagreement between ranks
+  raises.
 * One 4-rank gloo world of the port (``launch/mesh.spawn``, one thread a
   rank) and one reference process with four XLA host devices, side by
   side, run the same cases from the same numpy weights (the reference's
@@ -57,6 +59,7 @@ from repro_torch.convert import lm_params_from_arrays  # noqa: E402
 from repro_torch.launch import distributed as launcher  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import manual_tp  # noqa: E402
 from repro_torch.models import sharding as tsharding  # noqa: E402
 from repro_torch.models import factory as tfactory  # noqa: E402
@@ -212,27 +215,79 @@ class _RankOf:
             rank, shape))))
 
 
+class _LoneRank(_RankOf):
+    """Rank 0 of a ``(data, model)`` mesh with no world: its collectives
+    keep each rank's shapes (a sum returns its input, a gather repeats it,
+    an exchange returns what it sends), so a call returns rank 0's blocks
+    but not their values."""
+    calls = 0
+
+    def __init__(self, shape):
+        super().__init__(shape, 0)
+
+    def all_reduce_sum(self, x, axis=None):
+        return x
+
+    all_reduce_max = all_reduce_sum
+
+    def sum_grad(self, x, axis):
+        return x
+
+    def all_gather(self, x, axis, grad="slice"):
+        return torch.stack([x] * self.shape[axis])
+
+    def exchange(self, x, axis, send, recv):
+        return x
+
+
 @pytest.mark.parametrize(
     "family", ["hybrid", "ssm"])
 @pytest.mark.parametrize(
     "entry", ["prefill", "decode", "logits", "decode_state_init"])
 def test_unsharded_families_refuse_a_mesh(family, entry):
-    """hybrid and ssm on a model axis of 4 raise before anything runs (no
-    params are read), naming the ROADMAP item."""
+    """hybrid and ssm on a model axis of 4 run (the name is historical:
+    they refused a mesh until ROADMAP A10d): each entry on rank 0 of a (1,
+    4) mesh (:class:`_LoneRank`) returns rank 0's blocks, the ssm's and
+    RG-LRU's states a quarter of their channels (``"inner"``), the hybrid's
+    ring cache whole on its sequence and heads, the logits whole over the
+    vocab.  Their values on a mesh: ``tests/test_torch_recurrent_mesh.py``."""
     arch = {"hybrid": "recurrentgemma-2b", "ssm": "falcon-mamba-7b"}[family]
-    cfg = tget(arch).reduced()
+    cfg = dataclasses.replace(tget(arch).reduced(), compute_dtype="float32")
     model = tfactory.build_model(cfg)
-    rules = tsteps.rules_for(cfg, {"data": 1, "model": 4})
-    tok = torch.zeros((2, 4), dtype=torch.long)
-    calls = {
-        "prefill": lambda: model.prefill(None, {"tokens": tok},
-                                         max_len=16, rules=rules),
-        "decode": lambda: model.decode(None, tok[:, :1], None, rules=rules),
-        "logits": lambda: model.logits(None, {"tokens": tok}, rules=rules),
-        "decode_state_init": lambda: model.decode_state_init(
-            2, 16, device="cpu", rules=rules)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A10d"):
-        calls[entry]()
+    rules = tsteps.rules_for(cfg, _LoneRank((1, 4)))
+    params = model.shard_params(model.init(torch.Generator().manual_seed(0),
+                                           "cpu"), rules)
+    tok = torch.zeros((2, 20), dtype=torch.long)
+    state = model.decode_state_init(2, 16, device="cpu", rules=rules)
+    V = tlayers.pad_vocab(cfg.vocab)
+    with torch.inference_mode():
+        if entry == "prefill":
+            lg, state = model.prefill(params, {"tokens": tok}, max_len=16,
+                                      rules=rules)
+            assert lg.shape == (2, V)
+        elif entry == "decode":
+            lg, state = model.decode(params, tok[:, :1], state,
+                                     mesh=rules.mesh, rules=rules)
+            assert lg.shape == (2, V)
+        elif entry == "logits":
+            lg, _ = model.logits(params, {"tokens": tok}, rules=rules)
+            assert lg.shape == (2, 20, V)
+            return
+    specs = model.decode_state_specs(2, 16)
+    axes = tfactory.state_logical_axes(model, specs)
+    n = 0
+    for part in ("kv", "ssm", "lru"):
+        if getattr(specs, part) is None:
+            assert getattr(state, part) is None
+            continue
+        for leaf, (shape, _), ax in zip(getattr(state, part),
+                                        getattr(specs, part),
+                                        getattr(axes, part)):
+            want = tuple(d // 4 if a == "inner" else d
+                         for d, a in zip(shape, ax))
+            assert tuple(leaf.shape) == want, (part, ax)
+            n += "inner" in ax
+    assert n == 2
 
 
 def test_disagreeing_ranks_raise():
