@@ -337,10 +337,10 @@ FLASH_CASES = ((512, 512, 0, None), (3000, 3000, 0, None),
 LM_RECURRENT = ("recurrentgemma-2b", "falcon-mamba-7b")
 RG_ARCH = LM_RECURRENT[0]
 #: (Sq, Skv, q_offset, window) of recurrentgemma-2b's whole prefills
-#: (H=10, Hkv=1, hd=256, window 2048) in phase 6: two of 7b's, then 7g's
-#: on every rank of the mesh (its 10 heads do not split over a model axis
-#: of 4, so each rank runs them all): the teacher prefill of 256 tokens,
-#: the served prompts of 512 and 2048 and check c's row of 2048
+#: (H=10, Hkv=1, hd=256, window 2048) in phase 6: two of 7b's, then the
+#: whole prompts of 7g's (the teacher prefill of 256 tokens, the served
+#: prompts of 512 and 2048), which check f's "full" control runs on every
+#: rank (7g itself runs them "seq": RG_SEQ_CASES)
 RG_FLASH_CASES = ((4096, 4096, 0, 2048), (8192, 8192, 0, 2048),
                   (256, 256, 0, 2048), (512, 512, 0, 2048),
                   (2048, 2048, 0, 2048))
@@ -457,6 +457,21 @@ RECURRENT_MESH_C_TOKENS = 512
 #: check d: the reduced recurrent configs in float32 on the four ranks at
 #: these meshes against the port on the CPU
 RECURRENT_MESH_REDUCED_MESHES = ((1, 4), (2, 2))
+#: 7g's attention runs the reference's context-parallel "seq" policy (10
+#: heads do not split over a model axis of 4): rank i runs every head on
+#: its quarter of the query rows against every key, B6 at (S/4, S, i·S/4,
+#: window 2048) for the teacher prefill (S = 256), the served prompts (512
+#: and 2048) and check c's row (512); phase 6 holds each, and the uncut
+#: run's 8192-token prefill's last rank (``scripts/lm_mesh.py --layers
+#: 26``); row 6k is timed at the 2048-token prompt's last rank
+RG_SEQ_KEY = RG_ARCH + " seq4"
+RG_SEQ_CASES = tuple((S // MESH[1], S, i * S // MESH[1], 2048)
+                     for S in (256, 512, 2048) for i in range(MESH[1])) + (
+    (2048, 8192, 6144, 2048),)
+#: check f: check b's float32 teacher prefill under "seq" against the same
+#: ranks under ``rules_for(..., overrides=RECURRENT_MESH_FULL)`` (every
+#: attention block computed whole: "full"), within RECURRENT_MESH_F32_RTOL
+RECURRENT_MESH_FULL = {"seq": None}
 #: phase 8e: ``launch/train.run`` for starcoder2-7b at full width on a (2, 2)
 #: mesh of four gloo ranks sharing the card (``rules_for``: tensor parallel
 #: over "model", 18 / 2 heads of 128 a rank, TRAIN_MESH_KEY in phase 6;
@@ -485,6 +500,10 @@ TRAIN_MESH_NORM_RTOL = 0.05
 #: resharded onto RESHARD_MESH), against the port on the CPU
 TRAIN_MESH_REDUCED_SEQ, TRAIN_MESH_REDUCED_LR = 64, 1e-3
 RESHARD_MESH = (1, 4)
+#: check g's last case: the reduced hybrid with recurrentgemma-2b's 10 / 1
+#: heads (which a model axis of 4 does not split), one float32 step at
+#: MESH: its attention "seq", B6's gradient at each rank's q_offset
+RECURRENT_TRAIN_SEQ_HEADS = {"n_heads": 10, "n_kv_heads": 1}
 #: (Sq, Skv, q_offset, window, causal, kv_len, prefix_len) of phase 6 per
 #: model (the first four fields alone: causal, every key seen)
 FLASH_SHAPES = {
@@ -504,6 +523,8 @@ FLASH_SHAPES = {
                (4096, 4096, 0, None), (4096, 8192, 4096, None)),
     # one rank's share of starcoder2's heads in phase 8e's training forward
     TRAIN_MESH_KEY: ((TRAIN_MESH_SEQ, TRAIN_MESH_SEQ, 0, None),),
+    # one rank's query rows of recurrentgemma-2b's prefills in phase 7g
+    RG_SEQ_KEY: RG_SEQ_CASES,
     # one rank's share of qwen3-moe's heads in phase 7f: the teacher
     # prefill, the 512-token prompt, check c's row, and the 8192-token
     # prompt's two chunks
@@ -518,12 +539,14 @@ FLASH_TIMED = {LM_ARCH: (4096, 4096), RG_ARCH: (4096, 4096, 0, 2048),
                MOE_MESH_KEY: (4096, 4096),
                TRAIN_MESH_KEY: (TRAIN_MESH_SEQ, TRAIN_MESH_SEQ),
                VLM_ARCH: FLASH_SHAPES[VLM_ARCH][1],
-               ENCDEC_ARCH: FLASH_SHAPES[ENCDEC_ARCH][0]}
+               ENCDEC_ARCH: FLASH_SHAPES[ENCDEC_ARCH][0],
+               RG_SEQ_KEY: (512, 2048, 1536, 2048)}
 #: the flash row's sub-rows (kernel table rows 6c/6d, 6e, 6f, 6g, 6h, 6i,
-#: 6j)
+#: 6j, 6k)
 FLASH_ROW_KEYS = {"hd256": RG_ARCH, "h32": MOE_ARCH, "prefix": VLM_ARCH,
                   "hd64": ENCDEC_ARCH, "tp4": MESH_KEY,
-                  "train_tp2": TRAIN_MESH_KEY, "ep4": MOE_MESH_KEY}
+                  "train_tp2": TRAIN_MESH_KEY, "ep4": MOE_MESH_KEY,
+                  "seq4": RG_SEQ_KEY}
 #: check b's prompts (text tokens) per LM path: the kernel's prefill against
 #: the plain attention's; none for the ssm, which has no attention
 CHECK_B_TOKENS = {LM_ARCH: (512,), "recurrentgemma-2b": (512, 3000),
@@ -1015,6 +1038,39 @@ def phase_threefry(torch) -> dict:
                     f"counters, CUDA graph"}
     log("kernel threefry: " + json.dumps(row))
     return row
+
+
+def phase_contracts() -> list:
+    """Phase 3f: every kernel's static contract (``kernels/contract.py``)
+    against the built library: a contract's dynamic shared memory equals
+    the library's own count (``fg_*_smem`` through the package's
+    ``library_smem_bytes``; a kernel without dynamic shared memory has
+    none), and the contract passes (``analysis/kernel_passes.py``) find no
+    error.  One ``{"contracts": ...}`` line."""
+    import importlib
+
+    from repro_torch.analysis import kernel_passes
+    from repro_torch.kernels.contract import all_contracts
+
+    rows, bad = [], []
+    for c in all_contracts():
+        ops = importlib.import_module(c.module)
+        count = getattr(ops, "library_smem_bytes", None)
+        lib = count(c) if count is not None else None
+        rows.append({"kernel": c.kernel, "grid": list(c.grid),
+                     "threads": c.threads, "cluster": c.cluster,
+                     "smem_bytes": c.smem_bytes, "library_smem_bytes": lib,
+                     "wired": c.wired})
+        if (lib if lib is not None else 0) != c.smem_bytes:
+            bad.append(rows[-1])
+    errors = [f.render() for f in kernel_passes.run()
+              if f.severity == "error"]
+    log(json.dumps({"contracts": rows, "pass_errors": errors}))
+    if bad or errors:
+        raise AssertionError(f"contracts: the libraries' shared memory "
+                             f"differs from the contracts' {bad}, or the "
+                             f"passes found errors {errors}")
+    return rows
 
 
 def _clone_state(state):
@@ -2553,8 +2609,10 @@ def phase_flash(torch) -> dict:
     heads), paligemma-3b's (hd 256, 8 / 1 heads, causal with a 256-key
     prefix) and whisper-base's (hd 64, 8 / 8 heads: the encoder and the
     cross-attention non-causal over 1,536 padded frames of which 1,500 are
-    seen, the decoder causal); the plain version timed at each model's
-    timed shape (:data:`FLASH_TIMED`)."""
+    seen, the decoder causal) and one rank's query rows of
+    recurrentgemma-2b's "seq" prefills in 7g (:data:`RG_SEQ_CASES`); the
+    plain version timed at each model's timed shape (:data:`FLASH_TIMED`),
+    each shape's bound beside its time."""
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
@@ -2610,6 +2668,8 @@ def phase_flash(torch) -> dict:
                 size * (2 * sq * H * hd + 2 * skv * Hkv * hd))
 
     def heads_of(arch):
+        if arch == RG_SEQ_KEY:          # every head, on a rank's rows
+            arch = RG_ARCH
         if arch in (MESH_KEY, TRAIN_MESH_KEY, MOE_MESH_KEY):
             cfg = get_config(MOE_ARCH if arch == MOE_MESH_KEY else LM_ARCH)
             n = TRAIN_MESH[1] if arch == TRAIN_MESH_KEY else MESH[1]
@@ -2639,9 +2699,13 @@ def phase_flash(torch) -> dict:
                     q, k, v, **kw), iters=20)
                 lib = library_ms(q, k, v, case)
                 flops, nbytes = flops_bytes(heads, case, dtype)
+                peak = (PEAK_BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                        else PEAK_F32_OPS_PER_S)
                 shape = {"dtype": dname, "H": heads[0], "Hkv": heads[1],
                          "hd": heads[2], **case, "max_abs_err": err,
                          "ms": ms, "library_ms": lib,
+                         "bound_ms": 1e3 * max(flops / peak,
+                                               nbytes / PEAK_BYTES_PER_S),
                          "tflop_per_s": flops / ms / 1e9}
                 by_shape.append(shape)
                 log(f"kernel flash_attention {dname} hd={heads[2]} "
@@ -3688,14 +3752,15 @@ def recurrent_mesh_reference(torch, layers: int = RECURRENT_MESH_LAYERS,
 
 
 def recurrent_mesh_cases(torch, ref, prompts=MESH_PROMPTS,
-                         new=MESH_NEW) -> tuple:
+                         new=MESH_NEW, overrides=None) -> tuple:
     """Phase 7g's cases for the world phase 7e spawns, per arch of ``ref``
     (:func:`recurrent_mesh_reference`): the model at full width cut as the
     reference cut it, on MESH, in bf16 (the teacher case, phase 7b's
     ``prompts`` served with ``new`` tokens each) and in float32 (the
-    teacher case, the logits row), then its reduced config in float32 at
-    RECURRENT_MESH_REDUCED_MESHES (check d).  Returns (cases, what
-    :func:`phase_lm_recurrent_mesh` holds them to)."""
+    teacher case, the logits row), under ``rules_for(..., overrides)``,
+    then its reduced config in float32 at RECURRENT_MESH_REDUCED_MESHES
+    (check d).  Returns (cases, what :func:`phase_lm_recurrent_mesh` holds
+    them to)."""
     from repro_torch.configs.base import get_config
 
     cases, reduced = [], {}
@@ -3705,6 +3770,7 @@ def recurrent_mesh_cases(torch, ref, prompts=MESH_PROMPTS,
             np.int32) for T in LM_PROMPTS}
         for dtype in RECURRENT_MESH_DTYPES:
             case = {"arch": arch, "mesh": MESH, "seed": 0,
+                    "overrides": overrides or {},
                     "config": {"n_layers": one[dtype]["layers"],
                                "compute_dtype": dtype},
                     "teacher": {"tokens": one["tokens"],
@@ -3713,6 +3779,11 @@ def recurrent_mesh_cases(torch, ref, prompts=MESH_PROMPTS,
             if dtype == "float32":
                 case["logits"] = {"tokens": one["c_tokens"],
                                   "stride": MESH_C_STRIDE}
+                if get_config(arch).family == "hybrid" and not overrides:
+                    # check f
+                    case["control"] = {"tokens": one["tokens"],
+                                       "max_len": LM_MAX_LEN,
+                                       "overrides": RECURRENT_MESH_FULL}
             else:                                  # the served path
                 case["serve"] = {"prompts": [by_len[T] for T in prompts],
                                  "batch": LM_BATCH, "max_len": LM_MAX_LEN,
@@ -3739,9 +3810,15 @@ def phase_lm_recurrent_mesh(torch, ranks: list, ctx: dict,
     ranks at RECURRENT_MESH_REDUCED_MESHES against the port on the CPU
     (LM_F32_TOL, :func:`_tied_tol`; the same tokens); e. B6 once an
     attention layer and prefill on every rank (none for the ssm), no
-    graph kernel.  One ``lm mesh run`` line an arch (per rank of the
-    served bf16 case: walls, prefill and decode seconds, decode tok/s,
-    collectives a decode step, B6 launches, peak GB)."""
+    graph kernel; f. (the hybrid) every attention block of the prefills
+    and of check c's forward "seq", and check b's float32 teacher prefill
+    within RECURRENT_MESH_F32_RTOL of the largest logit of the same ranks'
+    prefill under RECURRENT_MESH_FULL, whose blocks are all "full".  One
+    ``lm mesh run`` line an arch (the attention blocks' layouts and the
+    prefills' collectives; per rank of the served bf16 case: walls,
+    prefill and decode seconds, each prompt's prefill layouts and
+    collectives, decode tok/s, collectives a decode step, B6 launches,
+    peak GB)."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -3778,6 +3855,10 @@ def phase_lm_recurrent_mesh(torch, ranks: list, ctx: dict,
                                                         rs[0]["logits"]):
                     raise AssertionError(f"{arch} mesh {dtype}: the ranks' "
                                          f"logits differ")
+                if "control" in r and not np.array_equal(
+                        r["control"]["prefill"], rs[0]["control"]["prefill"]):
+                    raise AssertionError(f"{arch} mesh {dtype}: the ranks' "
+                                         f"control prefills differ")
         # b and c against one card's run of the cut model
         check_b = {}
         for dtype, rs in by_dtype.items():
@@ -3825,7 +3906,9 @@ def phase_lm_recurrent_mesh(torch, ranks: list, ctx: dict,
             for r in served] + [
             (r["launches"], sum(_prefill_launches(T, cfgs["float32"])
                                 for T in (MESH_B_BATCH[1],
-                                          RECURRENT_MESH_C_TOKENS)))
+                                          RECURRENT_MESH_C_TOKENS))
+             + ("control" in r) * _prefill_launches(MESH_B_BATCH[1],
+                                                   cfgs["float32"]))
             for r in by_dtype["float32"]]
         for counts, want_n in want_e:
             others = {k: c for k, c in counts.items()
@@ -3834,9 +3917,37 @@ def phase_lm_recurrent_mesh(torch, ranks: list, ctx: dict,
                 raise AssertionError(f"{arch} mesh: a rank launched "
                                      f"{counts}, want {want_n} flash and "
                                      f"nothing else")
+        # f. the attention blocks' layouts; "seq" against "full"
+        r32 = by_dtype["float32"][0]
+        layouts = {f"teacher {d}": rs[0]["teacher"]["prefill_layouts"]
+                   for d, rs in by_dtype.items()}
+        layouts["check c"] = r32["logits_layouts"]
+        layouts["served"] = served[0]["serve"]["prefill_layouts"]
+        check_f = None
+        if "control" in r32:
+            layouts["control"] = r32["control"]["prefill_layouts"]
+            check_f = {**_logit_diff(r32["teacher"]["prefill"],
+                                     r32["control"]["prefill"], cfg.vocab,
+                                     RECURRENT_MESH_F32_RTOL),
+                       "dtype": "float32",
+                       "tol_rel": RECURRENT_MESH_F32_RTOL,
+                       "prefill_collectives": {
+                           "seq": r32["teacher"]["prefill_collectives"],
+                           "full": r32["control"]["prefill_collectives"]},
+                       "prefill_s": {"seq": r32["teacher"]["prefill_s"],
+                                     "full": r32["control"]["prefill_s"]}}
+            seq = [x for k, v in layouts.items() if k != "control"
+                   for p in ([v] if k != "served" else v) for x in p]
+            if set(seq) != {"seq"} or \
+                    set(layouts["control"]) != {"full"} or \
+                    not check_f["ok"]:
+                raise AssertionError(f"{arch} mesh check f: {layouts} "
+                                     f"{check_f}")
         lines = [{"rank": j, "params_s": r["params_s"],
                   "wall_s": r["serve"]["wall_s"],
                   "prefill_s": sum(r["serve"]["prefill_s"]),
+                  "prefill_layouts": r["serve"]["prefill_layouts"],
+                  "prefill_collectives": r["serve"]["prefill_collectives"],
                   "decode_s": r["serve"]["decode_s"],
                   "decode_steps": r["serve"]["decode_steps"],
                   "decode_tok_per_s": r["serve"]["decode_tok_per_s"],
@@ -3854,6 +3965,12 @@ def phase_lm_recurrent_mesh(torch, ranks: list, ctx: dict,
                "prompts": ctx["prompts"], "new": ctx["new"],
                "tokens": sum(len(x) for x in toks[0].values()),
                "check_b": check_b, "check_c": check_c, "check_d": check_d,
+               "check_f": check_f, "layouts": layouts,
+               "teacher_prefill_collectives": {
+                   d: rs[0]["teacher"]["prefill_collectives"]
+                   for d, rs in by_dtype.items()},
+               "teacher_prefill_s": {d: rs[0]["teacher"]["prefill_s"]
+                                     for d, rs in by_dtype.items()},
                "float32_case_walls_s": [r["wall_s"]
                                         for r in by_dtype["float32"]],
                "float32_peak_gb": max((r["peak_mem_bytes"] or 0) / 1e9
@@ -4404,9 +4521,9 @@ def train_mesh_cases(torch) -> tuple:
                 "nu": arrays(st.opt.nu), "count": st.opt.count.numpy(),
                 "step": st.step.numpy()}
 
-    def seeded(arch):
+    def seeded(arch, **fields):
         cfg = dataclasses.replace(get_config(arch).reduced(),
-                                  compute_dtype="float32")
+                                  compute_dtype="float32", **fields)
         st = init_train_state(build_model(cfg),
                               torch.Generator().manual_seed(1), AdamW(),
                               device="cpu")
@@ -4428,10 +4545,15 @@ def train_mesh_cases(torch) -> tuple:
     del moe["ckpt_dir"], moe["reshard"]
     # the recurrent families: their RG-LRU and ssm blocks channel parallel
     # over "model", FSDP over "data" (phase 7g's training check), one step
-    # at a time from the CPU's state (:func:`_train_mesh_stepwise`)
-    rec, rec_cases = {}, []
-    for arch in LM_RECURRENT:
-        cfg, s0 = seeded(arch)
+    # at a time from the CPU's state (:func:`_train_mesh_stepwise`); then
+    # the hybrid with 10 / 1 heads at MESH, whose attention runs "seq" (the
+    # card's one run of its backward: B6's gradient at q_offset > 0)
+    rec, rec_cases = [], []
+    for arch, fields, mesh, n_steps in (
+            [(arch, {}, TRAIN_MESH, TRAIN_MESH_STEPS)
+             for arch in LM_RECURRENT]
+            + [(RG_ARCH, RECURRENT_TRAIN_SEQ_HEADS, MESH, 1)]):
+        cfg, s0 = seeded(arch, **fields)
         cpu = train_state_from_arrays(**s0, device="cpu")
         shape = ShapeConfig("t", "train", TRAIN_MESH_REDUCED_SEQ,
                             TRAIN_MESH_BATCH)
@@ -4439,14 +4561,16 @@ def train_mesh_cases(torch) -> tuple:
                                constant(TRAIN_MESH_REDUCED_LR),
                                microbatches=TRAIN_MESH_MICRO)
         states, metrics = [s0], []
-        for s_ in range(TRAIN_MESH_STEPS):
+        for s_ in range(n_steps):
             cpu, m = step(cpu, batch_for_step(cfg, shape, s_, device="cpu"))
             metrics.append({k: float(m[k]) for k in ("loss", "ce", "aux")})
             states.append(numpy_state(cpu))
-        rec[arch] = {"cfg": cfg, "states": states, "metrics": metrics}
-        rec_cases += [{**moe, "arch": arch, "state": states[s_], "steps": 1,
-                       "first_step": s_, "routing": False}
-                      for s_ in range(TRAIN_MESH_STEPS)]
+        rec.append({"cfg": cfg, "states": states, "metrics": metrics,
+                    "mesh": mesh})
+        rec_cases += [{**moe, "arch": arch, "mesh": mesh, "state": states[s_],
+                       "config": {"compute_dtype": "float32", **fields},
+                       "steps": 1, "first_step": s_, "routing": False}
+                      for s_ in range(n_steps)]
     return [full, reduced, moe] + rec_cases, {
         "argv": argv, "rcfg": rcfg, "state": state, "ckdir": ckdir,
         "mcfg": mcfg, "mstate": mstate, "rec": rec}
@@ -4599,19 +4723,20 @@ def _train_mesh_moe(torch, moe: list, ctx: dict) -> dict:
 
 
 def _train_mesh_stepwise(torch, runs: list, rec: dict) -> dict:
-    """8e's check g for one recurrent config: each of its TRAIN_MESH_STEPS
-    float32 steps on TRAIN_MESH (the RG-LRU and ssm blocks channel parallel
-    over "model", FSDP over "data"), taken by the ranks from the CPU's
-    state before it (``runs[s]`` from ``rec["states"][s]``), against the
-    CPU's step: ``loss``, ``ce``, ``aux`` within TRAIN_F32_TOL, each rank's
-    state as :func:`_adamw_close` for one update, every rank the same
-    metric bits.  One step at a time: the hybrid's first gradient has
-    entries near AdamW's eps, where ``m / (sqrt(v) + eps)`` moves with
-    float32 rounding and the next step's moments no longer show it."""
+    """8e's check g for one recurrent config: each of its float32 steps on
+    ``rec["mesh"]`` (the RG-LRU and ssm blocks channel parallel over
+    "model", FSDP over "data"; at MESH, the 10-head hybrid's attention
+    "seq"), taken by the ranks from the CPU's state before it (``runs[s]``
+    from ``rec["states"][s]``), against the CPU's step: ``loss``, ``ce``,
+    ``aux`` within TRAIN_F32_TOL, each rank's state as
+    :func:`_adamw_close` for one update, every rank the same metric bits.
+    One step at a time: the hybrid's first gradient has entries near
+    AdamW's eps, where ``m / (sqrt(v) + eps)`` moves with float32 rounding
+    and the next step's moments no longer show it."""
     from repro_torch.convert import train_state_from_arrays
 
-    cfg, steps = rec["cfg"], TRAIN_MESH_STEPS
-    mspecs = _shard_specs(cfg, TRAIN_MESH)
+    cfg, steps, mesh = rec["cfg"], len(rec["metrics"]), rec["mesh"]
+    mspecs = _shard_specs(cfg, mesh)
     worst = []
     for s_ in range(steps):
         legs = [r[s_]["legs"][0] for r in runs]
@@ -4622,10 +4747,12 @@ def _train_mesh_stepwise(torch, runs: list, rec: dict) -> dict:
         np.testing.assert_allclose([legs[0][k][0] for k in want],
                                    list(want.values()), **TRAIN_F32_TOL)
         cpu = train_state_from_arrays(**rec["states"][s_ + 1], device="cpu")
-        worst += [_adamw_close(leg["state"], cpu, mspecs, TRAIN_MESH, i,
+        worst += [_adamw_close(leg["state"], cpu, mspecs, mesh, i,
                                s_ + 1, TRAIN_MESH_REDUCED_LR, updates=1)
                   for i, leg in enumerate(legs)]
-    return {"arch": cfg.name + " reduced", "mesh": list(TRAIN_MESH),
+    return {"arch": cfg.name + " reduced", "mesh": list(mesh),
+            "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "layouts": runs[0][0]["layouts"],
             "steps": steps, "loss": [r["legs"][0]["loss"][0]
                                      for r in runs[0]],
             "cpu_loss": [m["loss"] for m in rec["metrics"]],
@@ -4645,7 +4772,8 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     steps; e. B6 twice per attention layer and microbatch on every rank
     (forward and remat), threefry TRAIN_DRAWS a step, nothing else; f.
     the reduced moe config (:func:`_train_mesh_moe`) and g. the
-    reduced recurrent configs (:func:`_train_mesh_stepwise`).  One ``train
+    reduced recurrent configs (:func:`_train_mesh_stepwise`), and the
+    hybrid with 10 / 1 heads at MESH, its attention "seq".  One ``train
     mesh``
     line per rank: step wall, tokens/s, collectives a step, peak GB, B6
     launches."""
@@ -4729,10 +4857,16 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
                          **max(res, key=lambda x: x["amplified"])}
         np.testing.assert_allclose(loss, float(m["loss"]), **TRAIN_F32_TOL)
     checks["f"] = _train_mesh_moe(torch, moe, ctx)
-    checks["g"] = [_train_mesh_stepwise(
-        torch, [r[j * TRAIN_MESH_STEPS:(j + 1) * TRAIN_MESH_STEPS]
-                for r in rec_runs], ctx["rec"][arch])
-        for j, arch in enumerate(LM_RECURRENT)]
+    checks["g"], j = [], 0
+    for rec in ctx["rec"]:
+        n = len(rec["metrics"])
+        checks["g"].append(_train_mesh_stepwise(
+            torch, [r[j:j + n] for r in rec_runs], rec))
+        j += n
+    if set(checks["g"][-1]["layouts"]) != {"seq"}:
+        raise AssertionError(f"train 8e check g: the 10-head hybrid's "
+                             f"attention ran {checks['g'][-1]['layouts']}, "
+                             f"want seq")
     import shutil
     shutil.rmtree(ctx["ckdir"], ignore_errors=True)
     tokens = TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
@@ -4836,6 +4970,7 @@ def main() -> int:
     fused_rows = timed("3c fused kernel", phase_fused_kernel, torch)
     krows["fused_visit"] = {**fused_rows["sssp"], "push": fused_rows["ppr"]}
     threefry = timed("3e threefry", phase_threefry, torch)
+    timed("3f contracts", phase_contracts)
     timed("4 parity", phase_parity, Counters())
     launches, ctx = timed("5 path", phase_path, torch, Counters())
     timed("5c kinds, baselines, tune, apps", phase_kinds, torch, Counters(),
@@ -4960,9 +5095,10 @@ def main() -> int:
             # prefills (7b), the moe's (7c) and the vlm's and encdec's (7d)
             by_arch = row["launches_by_arch"]
             for key, arch in FLASH_ROW_KEYS.items():
-                # row 6c's shape runs on every rank of 7g's mesh too
-                n = by_arch[arch] + (by_arch[RECURRENT_MESH_KEY]
-                                     if arch == RG_ARCH else 0)
+                # row 6k's shapes are 7g's ranks' ("seq"; check f's
+                # control runs 6c's whole shape there)
+                n = by_arch[RECURRENT_MESH_KEY if arch == RG_SEQ_KEY
+                            else arch]
                 at = krows[name][key]
                 row[key] = {
                     "arch": arch, "timed_at": at["timed_at"], "launches": n,

@@ -6,7 +6,7 @@
     python3 scripts/lm_mesh.py --arch qwen3-moe-30b-a3b [--layers 24] \\
         [--prompts ...] [--new 32]
     python3 scripts/lm_mesh.py --arch recurrentgemma-2b|falcon-mamba-7b \\
-        [--layers 26] [--prompts ...] [--new 32]
+        [--layers 26] [--prompts ...] [--new 32] [--full-attention]
 
 Builds the kernels, then for starcoder2-7b (the default) runs
 ``chip_smoke.phase_lm`` (phase 7: the one-card run that phase 7e's checks
@@ -26,7 +26,11 @@ that model alone: cut to ``--layers`` (default the smoke's
 (``chip_smoke.recurrent_mesh_reference``), then on four gloo ranks,
 channel parallel over "model" (``chip_smoke.recurrent_mesh_cases`` and
 ``phase_lm_recurrent_mesh``), serving the prompts given (default
-``MESH_PROMPTS``, ``MESH_NEW``).
+``MESH_PROMPTS``, ``MESH_NEW``); its ``lm mesh run`` line gives each
+attention block's layout (``"seq"``: each rank every head on its quarter
+of the query rows) and each prompt's prefill collectives, and
+``--full-attention`` runs every attention block ``"full"`` instead (the
+A/B of the ``"seq"`` policy, in separate runs).
 ``scripts/gloo_collectives.py`` times gloo's collectives among four ranks
 on the card on its own.
 """
@@ -53,6 +57,11 @@ def main(argv=None) -> int:
     ap.add_argument("--prompts", default=None,
                     help="comma-separated prompt lengths of phase 7's")
     ap.add_argument("--new", type=int, default=None)
+    ap.add_argument("--full-attention", action="store_true",
+                    help="recurrentgemma-2b with every attention block "
+                         "computed whole on every rank (rules_for(..., "
+                         "overrides={'seq': None})), against the default "
+                         "\"seq\" policy")
     args = ap.parse_args(argv)
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import torch
@@ -75,9 +84,9 @@ def main(argv=None) -> int:
         ref = cs.recurrent_mesh_reference(
             torch, args.layers or cs.RECURRENT_MESH_LAYERS, (args.arch,))
         cs.log(f"phase 7g one-card reference: {time.perf_counter() - t:.1f} s")
-        cases, ctx = cs.recurrent_mesh_cases(torch, ref,
-                                             prompts or cs.MESH_PROMPTS,
-                                             args.new or cs.MESH_NEW)
+        cases, ctx = cs.recurrent_mesh_cases(
+            torch, ref, prompts or cs.MESH_PROMPTS, args.new or cs.MESH_NEW,
+            cs.RECURRENT_MESH_FULL if args.full_attention else None)
         t = time.perf_counter()
         ranks = spawn(launcher.run_lm_cases, cs.MESH_WORLD, "gloo",
                       args=(cases, None), timeout_s=600)

@@ -1211,6 +1211,28 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
+// Dynamic shared-memory bytes of one block of the float32 (dtype 0) or the
+// bf16 tensor-core (dtype 1) kernel at head dim hd, or -1 for a head dim
+// the library is not built for.
+extern "C" long long fg_flash_attention_smem(int dtype, int hd) {
+#define FG_SMEM(N)                                                         \
+  case N:                                                                  \
+    return dtype == 0 ? smem_floats<N>() * static_cast<long long>(         \
+                            sizeof(float))                                 \
+                      : static_cast<long long>(TcShape<N>::kSmem);
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (hd) {
+    FG_SMEM(16)
+    FG_SMEM(64)
+    FG_SMEM(128)
+    FG_SMEM(160)
+    FG_SMEM(256)
+    default:
+      return -1;
+  }
+#undef FG_SMEM
+}
+
 // dtype: 0 float32 (FP32-core kernel), 1 bfloat16 (tensor-core kernel).
 // Strides are in elements; each (heads, hd) row block must be contiguous,
 // and for bf16 every base and stride 16-byte aligned.  Returns a

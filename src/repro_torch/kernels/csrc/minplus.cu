@@ -247,17 +247,28 @@ list_contract_kernel(const float* __restrict__ x,
   }
 }
 
+// list entries a CTA stages: no more than the lists hold (a small graph's
+// CTAs stay small)
+int seg_cap(long long nnz) {
+  return static_cast<int>(
+      nnz < kSegCap ? (nnz + kCols - 1) / kCols * kCols : kSegCap);
+}
+
+// Dynamic shared memory of one CTA: kRows rows of x, then the staged
+// segment's rows (and weights, for min-plus).
+size_t smem_of(bool minplus, int B, long long nnz) {
+  return sizeof(float) * (static_cast<size_t>(kRows) * B +
+                          slot(seg_cap(nnz)) * (minplus ? 2 : 1));
+}
+
 template <bool kMinPlus>
 int launch(const void* x, const void* xrow, const void* idx,
            const void* col_ptr, const void* col_u, const void* col_w,
            void* out, int S, int Q, int B, long long X, long long nblk,
            long long nnz, void* stream) {
   if (S <= 0 || Q <= 0 || B <= 0) return 0;
-  // stage no more than the lists hold (a small graph's CTAs stay small)
-  const int cap = static_cast<int>(
-      nnz < kSegCap ? (nnz + kCols - 1) / kCols * kCols : kSegCap);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kRows) * B +
-                                       slot(cap) * (kMinPlus ? 2 : 1));
+  const int cap = seg_cap(nnz);
+  const size_t smem = smem_of(kMinPlus, B, nnz);
   const bool gather = xrow != nullptr;
   if (!gather && S > kMaxGridZ) return cudaErrorInvalidConfiguration;
   auto kernel = gather ? list_contract_kernel<kMinPlus, true>
@@ -291,6 +302,13 @@ int launch(const void* x, const void* xrow, const void* idx,
 }
 
 }  // namespace
+
+// Dynamic shared-memory bytes of one CTA of fg_minplus (minplus != 0) or
+// fg_masked_matmul at block size B over lists of nnz entries.
+extern "C" long long fg_minplus_smem(int minplus, int B, long long nnz) {
+  if (B <= 0 || nnz < 0) return -1;
+  return static_cast<long long>(smem_of(minplus != 0, B, nnz));
+}
 
 // xrow may be null (every s reads the one x [Q, B]); else x is [X, Q, B].
 extern "C" int fg_minplus(const void* x, const void* xrow, const void* idx,

@@ -107,6 +107,12 @@ ppr_push_kernel(const float* __restrict__ p, const float* __restrict__ r,
 
 }  // namespace
 
+// Dynamic shared-memory bytes of one CTA of fg_ppr_push at block size B.
+extern "C" long long fg_ppr_push_smem(int B) {
+  if (B <= 0) return -1;
+  return static_cast<long long>(smem_need(B));
+}
+
 extern "C" int fg_ppr_push(const void* p, const void* r, const void* acc,
                            const void* w, const void* deg, void* po,
                            void* ro, void* ao, int Q, int B, float alpha,

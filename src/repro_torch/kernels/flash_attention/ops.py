@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contract import H100_SMS, KernelContract, TileSpec
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_gqa_ref)
 
@@ -182,3 +183,69 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len):
                            f"error {rc}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# static contracts (kernels/contract.py)
+
+#: csrc/flash_attention.cu: the float32 kernel's kQT, kKC, kLD, kThreads;
+#: the tensor-core kernel's kTcRows, kTcThreads
+_QT, _KC, _LD, _THREADS = 64, 64, 68, 256
+_TC_ROWS, _TC_THREADS = 128, 384
+_SMEM_MAX = 232_448
+
+
+def fp32_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the float32 kernel (``smem_floats<HD>``,
+    ``csrc/flash_attention.cu``:136): the q tile and the k (then v) chunk
+    ``[HD][kLD]`` and the probabilities ``[kKC][kLD]``, in floats."""
+    return 4 * (2 * hd * _LD + _KC * _LD)
+
+
+def tc_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the bf16 tensor-core kernel
+    (``TcShape<HD>::kSmem``, ``csrc/flash_attention.cu``:345): the q tile
+    of 128 rows, two or three stages of K and V chunks (128 keys, 64 past
+    hd 160), the barriers and 1 KB of alignment slack."""
+    q = _TC_ROWS * hd * 2
+    kv = (64 if hd > 160 else 128) * hd * 2
+    stages = 3 if q + 3 * 2 * kv + 128 + 1024 <= _SMEM_MAX else 2
+    return q + 2 * stages * kv + 128 + 1024
+
+
+def _contract(hd: int, dtype: str, B: int, Sq: int, H: int,
+              model: str) -> KernelContract:
+    rows = _TC_ROWS if dtype == "bfloat16" else _QT
+    out = (TileSpec("out", (B, Sq, H, hd), (1, rows, 1, hd)),)
+    if dtype == "bfloat16":
+        tiles = Sq // rows * H * B
+        return KernelContract(
+            name="flash_attention", module=__name__,
+            kernel=f"flash_tc_kernel<{hd}>", grid=(tiles,),
+            threads=_TC_THREADS, smem_bytes=tc_smem_bytes(hd),
+            ctas=min(tiles, H100_SMS), out_tiles=out, wired=True,
+            note=model, args=(("dtype", 1), ("head_dim", hd)))
+    return KernelContract(
+        name="flash_attention", module=__name__,
+        kernel=f"flash_fp32_kernel<{hd}>", grid=(Sq // rows, H, B),
+        threads=_THREADS, smem_bytes=fp32_smem_bytes(hd), out_tiles=out,
+        wired=True, note=model, args=(("dtype", 0), ("head_dim", hd)))
+
+
+#: (head dim, B, Sq, H, the prefill it is): whisper-base's encoder,
+#: starcoder2-7b's 4096-token prefill, one rank's rows of
+#: recurrentgemma-2b's 2048-token prefill under "seq" at a model axis of 4
+_SHAPES = ((64, 1, 1536, 8, "whisper-base encoder"),
+           (128, 1, 4096, 36, "starcoder2-7b prefill"),
+           (256, 1, 512, 10, "recurrentgemma-2b seq rank"))
+CONTRACTS = tuple(_contract(hd, dtype, B, Sq, H, model)
+                  for hd, B, Sq, H, model in _SHAPES
+                  for dtype in ("bfloat16", "float32"))
+
+
+def library_smem_bytes(c: KernelContract) -> int:
+    """The built library's own count (``fg_flash_attention_smem``)."""
+    fn = _build.library("flash_attention").fg_flash_attention_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(c.arg("dtype"), c.arg("head_dim")))

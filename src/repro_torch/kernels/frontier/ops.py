@@ -13,6 +13,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contract import (GRAPH_B, GRAPH_Q, KernelContract,
+                                          TileSpec)
 from repro_torch.kernels.frontier.ref import frontier_ref
 
 #: kernel launches since the last :func:`reset_launches`
@@ -72,3 +74,18 @@ def frontier(buf: torch.Tensor, dist: torch.Tensor, *, delta: float,
                            f"{rc}")
     LAUNCHES["frontier"] += 1
     return d1, srcs, prio
+
+
+#: the static contract (kernels/contract.py): one warp a query row, 8 rows
+#: a CTA (kWarps in csrc/frontier.cu), no dynamic shared memory
+CONTRACTS = (KernelContract(
+    name="frontier", module=__name__, kernel="frontier_kernel",
+    grid=(GRAPH_Q // 8,), threads=256,
+    out_tiles=(TileSpec("d1", (GRAPH_Q, GRAPH_B), (8, GRAPH_B)),
+               TileSpec("srcs", (GRAPH_Q, GRAPH_B), (8, GRAPH_B)),
+               TileSpec("prio", (GRAPH_Q,), (8,))),
+    wired=False, block_size=GRAPH_B, num_queries=GRAPH_Q,
+    note="B3 runs on no path alone: its tile (fg::frontier_row) runs "
+         "inside the fused visit (B5, csrc/fused_visit.cu); the "
+         "standalone launch is held against its plain version in "
+         "chip_smoke.py phase 3"),)

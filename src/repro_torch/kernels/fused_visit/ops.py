@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels.contract import (GRAPH_B, GRAPH_Q, KernelContract,
+                                          TileSpec)
 from repro_torch.kernels.fused_visit.ref import (POLICIES, FusedSpec,
                                                  fused_step_ref, new_stats)
 
@@ -309,3 +311,36 @@ def make_fused_visit(dg, algebra, max_rounds: int, *,
     return FusedVisit(dg, FusedSpec(
         algebra=algebra, policy=policy, max_rounds=int(max_rounds),
         sparse=frontier_mode == "sparse", K=int(K)))
+
+
+# ---------------------------------------------------------------------------
+# static contracts (kernels/contract.py)
+
+#: partitions of the canonical graph: the side-192 grid at B = 128
+_PARTS = 192 * 192 // GRAPH_B
+
+
+def _contract(algebra: str) -> KernelContract:
+    Q, B, np_ = GRAPH_Q, GRAPH_B, 1 if algebra == "minplus" else 2
+    c = cluster_size(Q)
+    return KernelContract(
+        name="fused_visit", module=__name__,
+        kernel=f"fused_{'minplus' if np_ == 1 else 'push'}_kernel",
+        grid=(c,), threads=_WARPS * 32, cluster=c,
+        smem_bytes=smem_bytes(np_, Q, B),
+        out_tiles=tuple(TileSpec(n, (_PARTS, Q, B), (1, Q, B), update="rmw")
+                        for n in ("plane0", "plane1", "buf")[2 - np_:])
+        + (TileSpec("stats", (2 + 2 * Q + _PARTS + 64,),
+                    (2 + 2 * Q + _PARTS + 64,), update="accum"),),
+        wired=True, block_size=B, num_queries=Q, fused_model=True,
+        num_planes=np_, args=(("algebra", algebra), ("num_queries", Q),
+                              ("block_size", B), ("cluster", c)))
+
+
+CONTRACTS = (_contract("minplus"), _contract("push"))
+
+
+def library_smem_bytes(c: KernelContract) -> int:
+    """The built library's own count (``fg_fused_visit_smem``)."""
+    return kernel_smem_bytes(c.arg("algebra"), c.arg("num_queries"),
+                             c.arg("block_size"), c.arg("cluster"))

@@ -37,6 +37,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels.contract import (GRAPH_B, GRAPH_Q, KernelContract,
+                                          TileSpec)
 from repro_torch.kernels.minplus.ref import masked_matmul_ref, minplus_ref
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
@@ -191,3 +193,52 @@ def masked_matmul(x: torch.Tensor, blocks: Optional[torch.Tensor],
     """``out[s] = x @ isfinite(blocks[idx[s]])``, for finite ``x`` (read as
     ``x[xrow[s]]`` in the gathered form)."""
     return _run("masked_matmul", x, blocks, idx, lists, xrow)
+
+
+# ---------------------------------------------------------------------------
+# static contracts (kernels/contract.py)
+
+#: csrc/minplus.cu: kCols (output columns of a CTA), kRows (query rows of
+#: a CTA: kWarps x kWarpRows), kThreads, kSegCap
+_COLS, _ROWS, _THREADS, _SEG_CAP = 32, 8, 128, 4096
+
+
+def smem_bytes(minplus: bool, block_size: int, nnz: int) -> int:
+    """Dynamic shared memory of one list-contraction CTA, as
+    ``csrc/minplus.cu`` counts it (``seg_cap`` and ``smem_of``): ``kRows``
+    rows of x, then the staged segment's rows (and weights, for min-plus)
+    of at most ``kSegCap`` entries, one padding word per 128."""
+    cap = -(-nnz // _COLS) * _COLS if nnz < _SEG_CAP else _SEG_CAP
+    slots = cap + (cap >> 7)
+    return 4 * (_ROWS * block_size + slots * (2 if minplus else 1))
+
+
+def _contract(name: str, S: int, gathered: bool) -> KernelContract:
+    Q, B = GRAPH_Q, GRAPH_B
+    nnz = 1 << 20        # lists longer than a segment: the largest CTA
+    return KernelContract(
+        name="minplus", module=__name__,
+        kernel=(f"list_contract_kernel<{str(name == 'minplus').lower()}, "
+                f"{str(gathered).lower()}>"),
+        grid=(B // _COLS, Q // _ROWS, S), threads=_THREADS,
+        smem_bytes=smem_bytes(name == "minplus", B, nnz),
+        out_tiles=(TileSpec("out", (S, Q, B), (1, _ROWS, _COLS)),),
+        wired=True, block_size=B, num_queries=Q,
+        args=(("minplus", int(name == "minplus")), ("block_size", B),
+              ("nnz", nnz)))
+
+
+#: the visit's relax (one block) and a baselines round's gathered form
+#: (every block of the side-192 grid, S = 1,182)
+CONTRACTS = tuple(_contract(name, S, gathered)
+                  for name in ("minplus", "masked_matmul")
+                  for S, gathered in ((1, False), (1182, True)))
+
+
+def library_smem_bytes(c: KernelContract) -> int:
+    """The built library's own count of ``c``'s shared memory
+    (``fg_minplus_smem``)."""
+    fn = _build.library("minplus").fg_minplus_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
+    return int(fn(c.arg("minplus"), c.arg("block_size"), c.arg("nnz")))

@@ -13,6 +13,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contract import (GRAPH_B, GRAPH_Q, KernelContract,
+                                          TileSpec)
 from repro_torch.kernels.ppr_push.ref import push_ref
 
 #: kernel launches since the last :func:`reset_launches`
@@ -77,3 +79,42 @@ def ppr_push(p: torch.Tensor, r: torch.Tensor, acc: torch.Tensor,
                            f"{rc}")
     LAUNCHES["ppr_push"] += 1
     return po, ro, ao
+
+
+# ---------------------------------------------------------------------------
+# static contracts (kernels/contract.py)
+
+#: csrc/ppr_push.cu: kThreads, kRows (query rows of a CTA)
+_THREADS, _ROWS = 256, 16
+
+
+def smem_bytes(block_size: int) -> int:
+    """Dynamic shared memory of one push CTA, as ``smem_need`` in
+    ``csrc/ppr_push.cu`` counts it: four ``[kRows, ld]`` float planes
+    (p, r, acc, the pushed mass), three ``[ld]`` rows (degree, clamped
+    degree, threshold), the block's mask bits and the active flags."""
+    ld = -(-block_size // 4) * 4
+    bw = (ld + 31) // 32
+    return 4 * (4 * _ROWS * ld + 3 * ld) + 4 * block_size * bw + _ROWS * ld
+
+
+CONTRACTS = (KernelContract(
+    name="ppr_push", module=__name__, kernel="ppr_push_kernel",
+    grid=(GRAPH_Q // _ROWS,), threads=_THREADS,
+    smem_bytes=smem_bytes(GRAPH_B),
+    out_tiles=tuple(TileSpec(n, (GRAPH_Q, GRAPH_B), (_ROWS, GRAPH_B))
+                    for n in ("p", "r", "acc")),
+    wired=False, block_size=GRAPH_B, num_queries=GRAPH_Q,
+    args=(("block_size", GRAPH_B),),
+    note="B4 runs on no path alone: its round (fg::push_cell) runs "
+         "inside the fused visit (B5, csrc/fused_visit.cu); the "
+         "standalone launch is held against its plain version in "
+         "chip_smoke.py phase 3"),)
+
+
+def library_smem_bytes(c: KernelContract) -> int:
+    """The built library's own count (``fg_ppr_push_smem``)."""
+    fn = _build.library("ppr_push").fg_ppr_push_smem
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(c.arg("block_size")))

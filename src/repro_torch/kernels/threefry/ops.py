@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels.contract import H100_SMS, KernelContract, TileSpec
 from repro_torch.kernels.threefry.ref import draw_ref
 
 #: kernel launches since the last :func:`reset_launches`
@@ -108,3 +109,13 @@ def draw(key: torch.Tensor, n: int, *, folds: Sequence[torch.Tensor] = (),
         raise RuntimeError(f"threefry launch failed with CUDA error {rc}")
     count_launch(LAUNCHES, "threefry")
     return u if uniform else (o1, o2)
+
+
+#: the static contract (kernels/contract.py) at phase 3e's 2^20 counters:
+#: one element a thread, 256 threads a CTA, a grid-stride loop over at
+#: most 16 CTAs an SM (csrc/threefry.cu), no shared memory
+_N = 1 << 20
+CONTRACTS = (KernelContract(
+    name="threefry", module=__name__, kernel="threefry_kernel",
+    grid=(_N // 256,), threads=256, ctas=H100_SMS * 16,
+    out_tiles=(TileSpec("u", (_N,), (256,)),), wired=True),)

@@ -216,20 +216,30 @@ def _lm_teacher(model, params, t: dict, mesh, rules, dev) -> dict:
     """A prefill of the batch ``t["tokens"] [B, S]`` (and ``extras``) at
     ``max_len`` (``chunk``: the transformer's prefill chunk), then one
     decode step for each ``t["steps"]`` row ``[B]`` of tokens, fed as
-    given (teacher forcing).  Every row's logits; with ``t["state"]`` also
-    the rank's decode state after the prefill (:func:`_state_arrays`)."""
+    given (teacher forcing).  Every row's logits, the prefill's wall
+    seconds, collectives and each of its attention blocks' layout
+    (:class:`LayoutLog`); with ``t["state"]`` also the rank's decode state
+    after the prefill (:func:`_state_arrays`)."""
     from repro_torch.models import transformer as tfm
 
     batch = _lm_batch(t["tokens"], t.get("extras"), dev)
     B = batch["tokens"].shape[0]
-    if "chunk" in t:
-        logits, state = tfm.prefill(params, model.cfg, batch["tokens"],
-                                    max_len=t["max_len"], chunk=t["chunk"],
-                                    rules=rules)
-    else:
-        logits, state = model.prefill(params, batch, max_len=t["max_len"],
-                                      rules=rules)
-    out = {"prefill": _whole_rows(logits, B, mesh), "decode": []}
+    c0 = mesh.calls
+    _sync(dev)
+    t0 = time.perf_counter()
+    with LayoutLog() as layouts:
+        if "chunk" in t:
+            logits, state = tfm.prefill(params, model.cfg, batch["tokens"],
+                                        max_len=t["max_len"],
+                                        chunk=t["chunk"], rules=rules)
+        else:
+            logits, state = model.prefill(params, batch,
+                                          max_len=t["max_len"], rules=rules)
+    _sync(dev)
+    out = {"prefill_s": time.perf_counter() - t0,
+           "prefill": _whole_rows(logits, B, mesh), "decode": [],
+           "prefill_collectives": mesh.calls - c0,
+           "prefill_layouts": layouts.kinds}
     if t.get("state"):
         out["state"] = _state_arrays(state)
     calls = []
@@ -248,7 +258,8 @@ def _lm_teacher(model, params, t: dict, mesh, rules, dev) -> dict:
 def _lm_serve(model, params, s: dict, mesh, rules, dev) -> dict:
     """``ContinuousBatcher(mesh=, rules=)`` over ``s["prompts"]`` (and
     ``extras``, one per prompt) at ``batch`` and ``max_len``, ``new`` tokens
-    each: the tokens, and this rank's walls, prefill times, collectives a
+    each: the tokens, and this rank's walls, prefill times, each prefill's
+    collectives and attention layouts (:class:`LayoutLog`), collectives a
     decode step (the model's, without the batcher's gather and check of
     the tokens) and kernel launches."""
     from repro_torch.serve.engine import (ContinuousBatcher, Request,
@@ -256,14 +267,18 @@ def _lm_serve(model, params, s: dict, mesh, rules, dev) -> dict:
                                           make_prefill_step)
     prefill = make_prefill_step(model, max_len=s["max_len"], rules=rules)
     decode = make_decode_step(model, mesh=mesh, rules=rules)
-    prefill_s, decode_calls = [], []
+    prefill_s, prefill_calls, prefill_layouts, decode_calls = [], [], [], []
 
     def timed_prefill(p, batch):
         _sync(dev)
+        c0 = mesh.calls
         t0 = time.perf_counter()
-        out = prefill(p, batch)
+        with LayoutLog() as layouts:
+            out = prefill(p, batch)
         _sync(dev)
         prefill_s.append(time.perf_counter() - t0)
+        prefill_calls.append(mesh.calls - c0)
+        prefill_layouts.append(layouts.kinds)
         return out
 
     def counted_decode(p, tokens, state):
@@ -289,11 +304,49 @@ def _lm_serve(model, params, s: dict, mesh, rules, dev) -> dict:
     wall = time.perf_counter() - t
     decode_tokens = b.tokens_out - len(s["prompts"])
     return {"tokens": tokens, "wall_s": wall, "prefill_s": prefill_s,
+            "prefill_collectives": prefill_calls,
+            "prefill_layouts": prefill_layouts,
             "decode_s": wall - sum(prefill_s), "decode_steps": b.steps,
             "decode_tok_per_s": decode_tokens / (wall - sum(prefill_s)),
             "collectives_per_decode_step": (
                 sum(decode_calls) / max(len(decode_calls), 1)),
             "collectives": mesh.calls - calls0, "launches": _launches()}
+
+
+class LayoutLog:
+    """While active, records the layout (``manual_tp.AttnLayout.kv``:
+    ``"heads"``, ``"replicated"``, ``"full"`` or ``"seq"``) of every
+    attention block that ``manual_tp.manual_attention`` runs, in call
+    order (:attr:`kinds`); :meth:`counts` tallies them."""
+
+    def __enter__(self):
+        from repro_torch.models import manual_tp as tp
+        self.kinds, self._fns = [], (tp.manual_attention, tp.attn_layout)
+        attention, layout = self._fns
+        open_calls = []   # per manual_attention call: its layout recorded?
+
+        def spy_attention(*args, **kwargs):
+            open_calls.append(False)
+            try:
+                return attention(*args, **kwargs)
+            finally:
+                open_calls.pop()
+
+        def spy_layout(*args, **kwargs):
+            lay = layout(*args, **kwargs)
+            if open_calls and not open_calls[-1]:
+                open_calls[-1] = True
+                self.kinds.append(lay.kv)
+            return lay
+        tp.manual_attention, tp.attn_layout = spy_attention, spy_layout
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import manual_tp as tp
+        tp.manual_attention, tp.attn_layout = self._fns
+
+    def counts(self) -> dict:
+        return {k: self.kinds.count(k) for k in sorted(set(self.kinds))}
 
 
 class RouteLog:
@@ -375,8 +428,11 @@ def run_lm_cases(rank: int, cases: list, device=None) -> list:
     * any of ``teacher`` (:func:`_lm_teacher`), ``logits`` (``{"tokens",
       "extras"}``: ``Model.logits`` of that batch, with its own
       ``overrides`` on top of the case's, every ``stride``-th position's
-      row) and ``serve`` (:func:`_lm_serve`), run in that order on the
-      same params;
+      row; its attention blocks' layouts in ``logits_layouts``),
+      ``control`` (a teacher part with its own ``overrides`` on top of the
+      case's: the same prefill under other rules, e.g. ``{"seq": None}``)
+      and ``serve`` (:func:`_lm_serve`), run in that order on the same
+      params;
     * ``routing`` (a moe model): record the rank's routing over the parts
       (:class:`RouteLog`; ``"picks"``: its picks too).
 
@@ -426,10 +482,18 @@ def run_lm_cases(rank: int, cases: list, device=None) -> list:
                 batch = _lm_batch(lg["tokens"], lg.get("extras"), dev)
                 lrules = rules_for(cfg, mesh, {**case.get("overrides", {}),
                                                **lg.get("overrides", {})})
-                logits, _ = model.logits(params, batch, rules=lrules,
-                                         remat=False)
+                with LayoutLog() as layouts:
+                    logits, _ = model.logits(params, batch, rules=lrules,
+                                             remat=False)
                 res["logits"] = _whole_rows(
                     logits[:, ::lg.get("stride", 1)], len(lg["tokens"]), mesh)
+                res["logits_layouts"] = layouts.kinds
+            if "control" in case:
+                ctl = case["control"]
+                crules = rules_for(cfg, mesh, {**case.get("overrides", {}),
+                                               **ctl["overrides"]})
+                res["control"] = _lm_teacher(model, params, ctl, mesh,
+                                             crules, dev)
                 del logits
             res["launches"] = _launches()
             if "serve" in case:
@@ -629,9 +693,11 @@ def run_train_cases(rank: int, cases: list, device=None) -> list:
     * ``psum``: ``{"mesh", "axis", "x" [world, ...]}``, the rank's
       ``compressed_psum`` of its row (``out``).
 
-    Every case also returns ``wall_s``, the rank's kernel ``launches``
-    and its card's ``peak_mem_bytes``; with ``routing`` (a moe model), the
-    rank's ``RouteLog.summary()`` over the case."""
+    Every case also returns ``wall_s``, the rank's kernel ``launches``,
+    its card's ``peak_mem_bytes`` and ``layouts``, the attention blocks it
+    ran by layout (``LayoutLog.counts()``: forward, recompute and every
+    microbatch); with ``routing`` (a moe model), the rank's
+    ``RouteLog.summary()`` over the case."""
     import contextlib
 
     from repro_torch.core.engine import resolve_device
@@ -647,7 +713,7 @@ def run_train_cases(rank: int, cases: list, device=None) -> list:
         t = time.perf_counter()
         routes = RouteLog() if case.get("routing") else \
             contextlib.nullcontext()
-        with routes:
+        with routes, LayoutLog() as layouts:
             if "psum" in case:
                 res = _psum_case(case["psum"], dev)
             elif "argv" in case:
@@ -657,6 +723,7 @@ def run_train_cases(rank: int, cases: list, device=None) -> list:
                 res = _train_legs(case, cfg, build_model(cfg), dev, meshes)
         if case.get("routing"):
             res["routing"] = routes.summary()
+        res["layouts"] = layouts.counts()
         res["wall_s"] = time.perf_counter() - t
         res["launches"] = _launches()
         res["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)

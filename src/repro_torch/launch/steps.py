@@ -27,7 +27,9 @@ def rules_for(cfg: ArchConfig, mesh, overrides: dict = None) -> AxisRules:
     reference's measured crossover), so that the rules equal the
     reference's.  ``mesh`` is a ``launch/mesh.Mesh`` or a ``{axis: size}``
     mapping.  The port computes one partitioning with or without
-    ``manual_tp`` (``models/manual_tp``)."""
+    ``manual_tp`` (``models/manual_tp``), and runs the ``"seq"`` policy as
+    the reference shards the queries: on each rank's block of query rows
+    (``manual_tp.attn_layout``)."""
     tp = _axis_size(mesh, "model")
     r = default_rules(mesh, seq_shard_attn=cfg.n_heads % max(tp, 1) != 0)
     if cfg.d_model >= 8192:

@@ -28,7 +28,10 @@ updated in place) and the cross-attention keys and values of the encoder's
 memory, projected once at prefill.
 
 On a mesh (``rules``) every attention block and MLP runs tensor parallel
-(``models/manual_tp.py``), as in ``models/transformer.py``: the
+(``models/manual_tp.py``), as in ``models/transformer.py``; a
+self-attention block whose queries the reference shards on their
+sequence (``"seq"``: the encoder over its padded frames, the decoder's
+prefill) runs on the rank's query rows, the cross-attention never: the
 self-attention cache is sharded over ``"model"`` on its sequence axis
 (decode: ``decode_attend_partitioned``), the cross cache keeps every frame
 and every kv head on every rank (the reference's ``state_logical_axes``:
@@ -183,7 +186,8 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig, device,
 
 def _self_block(lp, cfg, x, causal, kv_len=None, rules=None):
     """Self-attention.  Returns (x, (k, v)): with ``rules`` tensor
-    parallel, the keys and values with the kv heads the rank holds
+    parallel or on the rank's query rows (``manual_tp.manual_attention``),
+    the keys and values with the kv heads the rank holds
     (``manual_tp.project``)."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
     if rules is not None:
@@ -349,7 +353,7 @@ def _prefill_sharded(params, cfg: ArchConfig, tokens, frames, C: int,
     dev = x.device
     x = x + sinusoidal(torch.arange(S, device=dev), cfg.d_model).to(
         x.dtype)[None]
-    lay = tp_lib.attn_layout(cfg, rules)
+    lay = tp_lib.attn_layout(cfg, rules, (B, S))
     self_kv, cross = ([], []), ([], [])
     for lp in _layers(params, cfg, "decoder", rules):
         x, (k, v) = _self_block(lp, cfg, x, causal=True, rules=rules)

@@ -26,12 +26,28 @@ and all-gathers the keys and values over it; it computes the same keys
 and values with one more collective a layer, so the port projects them
 whole there too.
 
-A block that is not eligible (``attn_eligible`` / ``mlp_eligible``: the
-heads or the MLP width do not split over the model axis, or the rank's q
-heads would straddle kv groups) is computed replicated from its whole
-weights, gathered over every axis that splits them: the reference's spec
-guard leaves such dims replicated, and its context-parallel ``"seq"``
-policy for heads that do not divide the axis is not ported (ROADMAP).
+Where the reference shards the queries of a whole-sequence step on their
+sequence over ``"model"`` (its context-parallel ``"seq"`` policy: the
+rules map ``"seq"`` to ``"model"`` where the heads do not divide the axis,
+and the q spec ``("batch", "seq", "act_heads", None)`` takes the axis when
+it divides the step's length), the layer runs the ``"seq"`` layout: every
+rank gathers the whole weights, projects the keys and values of the whole
+input with every kv head, and runs every head on its contiguous block of
+query rows ``[i·S/tp, (i+1)·S/tp)`` (B6 at ``q_offset + i·S/tp``); its
+rows of the output projection are all-gathered over ``"model"`` along the
+sequence, in the activation dtype (each row comes from one rank: no sum).
+
+    seq:   q_i   = rope(x[rows_i] @ wq)              (every head)
+           k, v  = x @ wk, x @ wv                    (every kv head)
+           y     = all_gather(attend(q_i, k, v) @ wo) (along the sequence)
+
+Any other block that is not eligible (``attn_eligible`` / ``mlp_eligible``:
+the heads or the MLP width do not split over the model axis, or the rank's
+q heads would straddle kv groups; or a length the axis does not divide) is
+computed replicated from its whole weights (``"full"``), gathered over
+every axis that splits them: the reference's spec guard leaves such dims
+replicated.  Decode (one token) and cross-attention (which the reference
+does not constrain) never take ``"seq"``.
 
 Under autograd (training, ``transformer.forward(rules=)``) every
 activation replicated over ``"model"`` keeps a complete, replicated
@@ -43,7 +59,13 @@ sums its gradient over the model axis (``Mesh.sum_grad`` in
 :func:`manual_mlp` and :func:`project`); a slice of whole keys sums its
 scattered gradient (:func:`group`); weights gathered over the model axis
 for a block every rank repeats (``"full"``, a non-eligible MLP) take
-their block of the gradient, unsummed.
+their block of the gradient, unsummed.  Under ``"seq"`` a rank's
+contribution to every term covers its query rows only, so every gradient
+is partial over ``"model"``: the block's input sums its gradient
+(``Mesh.sum_grad``), each gathered weight sums its gradient in float32
+before the gather's adjoint takes the rank's block, and the output's
+gather takes the rank's rows of the complete gradient of the replicated
+output (``all_gather(grad="slice")``).
 
 The decode step projects q, k and v the same way, all-gathers them over
 ``"model"`` in one call (every rank attends over its sequence shard of the
@@ -68,9 +90,12 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import gather_dims
+from repro_torch.models.sharding import gather_dims, spec_axes
 
 AXIS = "model"
+#: the logical axes of the queries ``[B, S, H, hd]`` of a whole-sequence
+#: step: the reference's constraint of q
+Q_AXES = ("batch", "seq", "act_heads", None)
 
 
 def tp_size(rules) -> int:
@@ -159,7 +184,7 @@ def xz_channels(xz, rules):
 
 class AttnLayout(NamedTuple):
     """How one rank holds an attention layer (module docstring)."""
-    kv: str      # "heads" | "replicated" | "full" (not eligible)
+    kv: str      # "heads" | "replicated" | "full" (not eligible) | "seq"
     tp: int      # model axis size
     idx: int     # this rank's model coordinate
     h0: int      # first q head of the rank
@@ -168,10 +193,30 @@ class AttnLayout(NamedTuple):
     kv_loc: int  # kv heads they read
 
 
-def attn_layout(cfg, rules) -> AttnLayout:
+def seq_sharded(cfg, rules, rows=None, manual: bool = False) -> bool:
+    """Whether the reference shards the queries of a step of ``rows = (B,
+    S)`` on their sequence over the model axis: its manual block first
+    (``rules["manual_tp"]`` with eligible heads, where ``manual``: its
+    training forward; its prefills return keys and values and skip it),
+    then ``AxisRules.spec(Q_AXES, q.shape)``.  ``rows`` None (a decode
+    step, a cross-attention) never is."""
+    if rows is None or tp_size(rules) <= 1:
+        return False
+    if manual and rules.rules.get("manual_tp") and attn_eligible(cfg, rules):
+        return False
+    spec = rules.spec(Q_AXES, (*rows, cfg.n_heads, cfg.head_dim_))
+    return AXIS in spec_axes(spec[1:2])
+
+
+def attn_layout(cfg, rules, rows=None, manual: bool = False) -> AttnLayout:
+    """The layout of an attention layer on this rank: ``"seq"`` where
+    :func:`seq_sharded` (``rows``, ``manual`` as there), else by the heads
+    (module docstring)."""
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     tp = tp_size(rules)
     idx = rules.mesh.coords.get(AXIS, 0)
+    if seq_sharded(cfg, rules, rows, manual):
+        return AttnLayout("seq", tp, idx, 0, H, 0, Hkv)
     if not attn_eligible(cfg, rules):
         return AttnLayout("full", tp, idx, 0, H, 0, Hkv)
     h_loc = H // tp
@@ -182,13 +227,27 @@ def attn_layout(cfg, rules) -> AttnLayout:
 
 def attn_weights(p: dict, cfg, rules, lay: AttnLayout) -> dict:
     """The rank's attention weights as :func:`project` reads them: whole
-    (gathered over the model axis) for ``"full"``, else as given."""
-    if lay.kv == "full":
-        full = {"embed": cfg.d_model, "heads": cfg.n_heads,
-                "kv_heads": cfg.n_kv_heads}
-        axes = attn_lib.attention_axes("bq" in p)
-        return {k: gather_dims(t, axes[k], rules, full) for k, t in p.items()}
+    (gathered over the model axis) for ``"full"`` and ``"seq"``, else as
+    given.  Under ``"seq"`` each whole weight sums its gradient over the
+    model axis (every rank's covers its query rows only)."""
+    if lay.kv not in ("full", "seq"):
+        return p
+    full = {"embed": cfg.d_model, "heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads}
+    axes = attn_lib.attention_axes("bq" in p)
+    p = {k: gather_dims(t, axes[k], rules, full) for k, t in p.items()}
+    if lay.kv == "seq":
+        p = {k: _sum_grad_f32(t, rules.mesh) for k, t in p.items()}
     return p
+
+
+def _sum_grad_f32(t, mesh):
+    """``t``; under autograd its gradient summed over the model axis in
+    float32 and rounded to ``t``'s dtype once."""
+    if t.dtype == torch.float32 or not (t.requires_grad
+                                        and torch.is_grad_enabled()):
+        return mesh.sum_grad(t, AXIS)
+    return mesh.sum_grad(t.float(), AXIS).to(t.dtype)
 
 
 def _bias(p, name, x):
@@ -197,6 +256,15 @@ def _bias(p, name, x):
 
 def _rope(x, positions, theta):
     return L.apply_rope(x, positions, theta) if theta else x
+
+
+def _q(p, x, positions, theta):
+    return _rope(_bias(p, "bq", attn_lib._proj(x, p["wq"])), positions, theta)
+
+
+def _kv(p, x, positions, theta):
+    k, v = attn_lib._proj(x, p["wk"]), attn_lib._proj(x, p["wv"])
+    return _rope(_bias(p, "bk", k), positions, theta), _bias(p, "bv", v)
 
 
 def project(p, x, positions, theta, x_kv=None, lay=None, mesh=None):
@@ -215,10 +283,7 @@ def project(p, x, positions, theta, x_kv=None, lay=None, mesh=None):
         x = mesh.sum_grad(x, AXIS)
         if lay.kv == "heads":
             x_kv = mesh.sum_grad(x_kv, AXIS) if own_kv else x
-    q = attn_lib._proj(x, p["wq"])
-    k, v = attn_lib._proj(x_kv, p["wk"]), attn_lib._proj(x_kv, p["wv"])
-    return (_rope(_bias(p, "bq", q), positions, theta),
-            _rope(_bias(p, "bk", k), positions, theta), _bias(p, "bv", v))
+    return (_q(p, x, positions, theta), *_kv(p, x_kv, positions, theta))
 
 
 def group(k, lay: AttnLayout, mesh=None):
@@ -244,34 +309,66 @@ def out_tp(p, o, rules, lay: AttnLayout, dtype):
     return rules.mesh.all_reduce_sum(y.float(), AXIS).to(dtype)
 
 
+def _into(buf, k, v, q_offset):
+    """This call's keys and values into ``buf``'s slots from ``q_offset``
+    on -> the buffer's first ``q_offset + S`` slots (no ``buf``: k, v)."""
+    if buf is None:
+        return k, v
+    end = q_offset + k.shape[1]
+    buf[0, :, q_offset:end] = k
+    buf[1, :, q_offset:end] = v
+    return buf[0, :, :end], buf[1, :, :end]
+
+
 def manual_attention(lp, x, positions, cfg, rules, *, theta=None,
                      q_offset=0, causal=True, window=None, kv_len=None,
-                     prefix_len=None, x_kv=None, buf=None):
+                     prefix_len=None, x_kv=None, buf=None, manual=False):
     """x: [B,S,D] (the normed input) -> (the attention output [B,S,D]
     (pre-residual), k, v): B6 on the rank's q heads against the kv heads
-    they read, then the row-parallel output projection.  ``k`` and ``v``
-    are this call's keys and values as :func:`project` holds them (of
-    ``x_kv``, default ``x``), for a cache.  ``buf`` ``[2, B, N, hk, hd]``
-    holds the keys and values of the positions before ``q_offset`` (a
+    they read, then the row-parallel output projection; under ``"seq"``
+    (:func:`attn_layout` of the step's ``(B, S)``, ``manual`` as there;
+    never with ``x_kv``) B6 on the rank's query rows with every head, then
+    the gather of the output's rows.  ``k`` and ``v`` are this call's keys
+    and values as :func:`project` holds them (of ``x_kv``, default ``x``;
+    every kv head under ``"seq"``), for a cache.  ``buf`` ``[2, B, N, hk,
+    hd]`` holds the keys and values of the positions before ``q_offset`` (a
     chunked prefill): this call's go into its slots from ``q_offset`` on
     and the queries attend to its first ``q_offset + S``.  RoPE at
     ``positions`` with ``theta`` (default ``cfg.rope_theta``; 0: none);
     the rest as ``attention.attend``."""
-    lay = attn_layout(cfg, rules)
+    rows = None if x_kv is not None else tuple(x.shape[:2])
+    lay = attn_layout(cfg, rules, rows, manual)
     p = attn_weights(lp, cfg, rules, lay)
     theta = cfg.rope_theta if theta is None else theta
+    masks = dict(causal=causal, window=window, kv_len=kv_len,
+                 prefix_len=prefix_len)
+    if lay.kv == "seq":
+        return _seq_attention(p, x, positions, theta, rules, lay, q_offset,
+                              buf, masks)
     q, k, v = project(p, x, positions, theta, x_kv, lay, rules.mesh)
-    ka, va = k, v
-    if buf is not None:
-        end = q_offset + k.shape[1]
-        buf[0, :, q_offset:end] = k
-        buf[1, :, q_offset:end] = v
-        ka, va = buf[0, :, :end], buf[1, :, :end]
+    ka, va = _into(buf, k, v, q_offset)
     o = attn_lib.attend(q, group(ka, lay, rules.mesh),
-                        group(va, lay, rules.mesh), q_offset,
-                        causal=causal, window=window, kv_len=kv_len,
-                        prefix_len=prefix_len)
+                        group(va, lay, rules.mesh), q_offset, **masks)
     return out_tp(p, o, rules, lay, x.dtype), k, v
+
+
+def _seq_attention(p, x, positions, theta, rules, lay: AttnLayout, q_offset,
+                   buf, masks):
+    """:func:`manual_attention` under ``"seq"`` (module docstring): the
+    rank's rows ``[r0, r0 + S/tp)`` of the queries, every head, against
+    the keys and values of the whole input; the rows of the output
+    all-gathered over the model axis."""
+    mesh = rules.mesh
+    x = mesh.sum_grad(x, AXIS)
+    s = x.shape[1] // lay.tp
+    r0 = lay.idx * s
+    q = _q(p, x[:, r0:r0 + s],
+           None if positions is None else positions[..., r0:r0 + s], theta)
+    k, v = _kv(p, x, positions, theta)
+    ka, va = _into(buf, k, v, q_offset)
+    o = attn_lib.attend(q, ka, va, q_offset + r0, **masks)
+    y = attn_lib.out_proj(p, o)
+    return torch.cat(list(mesh.all_gather(y, AXIS)), dim=1), k, v
 
 
 def seq_shard(k, rules, lay: AttnLayout, filled: int):

@@ -106,9 +106,10 @@ def _batch_axis(names: Sequence[str]):
 def default_rules(mesh, *, seq_shard_attn: bool = False) -> AxisRules:
     """TP over "model" + FSDP over "data" (``mesh`` as for
     :class:`AxisRules`).  ``seq_shard_attn`` sets the reference's
-    context-parallel ``"seq"`` policy, which the port does not run: a
-    block whose heads do not divide the model axis is computed replicated
-    there (``models/manual_tp.py``)."""
+    context-parallel ``"seq"`` policy: a block whose heads do not divide
+    the model axis runs each rank's block of query rows with every head
+    where the axis divides the step's length (``models/manual_tp.py``'s
+    ``"seq"`` layout)."""
     rules = {
         "embed": "data",
         "vocab": "model",

@@ -25,7 +25,12 @@ layers go through ``models/manual_tp.py`` (tensor parallel over
 layer by layer; a moe layer's experts expert parallel over ``"model"``,
 ``models/moe.py``; the ssm and RG-LRU blocks channel parallel over
 ``"model"``, ``models/ssm.py`` and ``models/rglru.py``), and the batch is
-split over ``"data"`` when it divides.  The dense, moe and vlm KV cache
+split over ``"data"`` when it divides.  An attention layer whose queries
+the reference shards on their sequence (its ``"seq"`` policy: heads that
+do not divide the model axis, a step length that does) runs each rank's
+block of query rows with every head and gathers the output's rows
+(``manual_tp``'s ``"seq"`` layout), in the whole and the chunked prefill
+and in ``forward``.  The dense, moe and vlm KV cache
 is sharded over ``"model"`` on its sequence axis; the hybrid's ring cache
 stays whole on every rank of ``"model"`` (the reference's ``"null"``),
 and its recurrent states and the ssm's hold the rank's channels.  A call
@@ -358,12 +363,14 @@ def _apply_mlp(lp, cfg, x, rules=None):
 
 
 def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None,
-                      rules=None):
+                      rules=None, manual=False):
     """One layer of ``kind``, full sequence (``attn`` and ``moe`` differ
     only in their MLP; ``prefix_len`` is the vlm's image prefix).  Returns
     (x, (k, v) or None, new recurrent state or None, moe aux or None).
     With ``rules`` the layer runs on the rank's blocks (its FSDP split
-    gathered first): an attention layer tensor parallel, its keys and
+    gathered first): an attention layer tensor parallel or on the rank's
+    query rows (``manual_tp.manual_attention``; ``manual``: the training
+    forward, where the reference's manual block comes first), its keys and
     values as ``manual_tp.project`` holds them; a recurrent one channel
     parallel, its state the rank's channels."""
     if rules is not None:
@@ -382,7 +389,8 @@ def _apply_layer_full(lp, cfg, kind, x, positions, prefix_len=None,
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
         y, k, v = tp_lib.manual_attention(lp["attn"], h, positions, cfg,
                                           rules, window=_window(cfg),
-                                          prefix_len=prefix_len)
+                                          prefix_len=prefix_len,
+                                          manual=manual)
         x, kv = x + y, (k, v)
     else:
         x, kv = _apply_attn_layer(lp, cfg, x, positions, window=_window(cfg),
@@ -430,7 +438,7 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     def layer(kind):
         def f(x, lp):
             x, _, _, a = _apply_layer_full(lp, cfg, kind, x, positions,
-                                           prefix_len, rules)
+                                           prefix_len, rules, manual=True)
             return x, a
         return checkpointed(f, remat)
 
@@ -439,7 +447,8 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
             for name, kind in (("rec1", "rec"), ("rec2", "rec"),
                                ("attn", "attn")):
                 x, _, _, _ = _apply_layer_full(gp[name], cfg, kind, x,
-                                               positions, rules=rules)
+                                               positions, rules=rules,
+                                               manual=True)
             return x
         group = checkpointed(group, remat)
         for gp in unstack(params["groups"]):
@@ -565,8 +574,10 @@ def _prefill_sharded(params, cfg: ArchConfig, tokens, *, max_len, step,
     """The prefill on a mesh: the rank's rows of the batch, ``step``
     positions at a time (a chunk, or the whole prompt in one), every layer
     tensor parallel (``manual_tp``): B6 on the rank's q heads against the
-    kv heads they read, whose keys and values (every position so far) it
-    keeps in a buffer of ``max(S, max_len)`` slots.  Then each layer's
+    kv heads they read (under ``"seq"``, chosen per step: on the rank's
+    rows of the step with every head against every kv head), whose keys
+    and values (every position so far) it keeps in a buffer of ``max(S,
+    max_len)`` slots.  Then each layer's
     buffer becomes the rank's sequence shard of the cache with every kv
     head (``manual_tp.seq_shard``), holding the last ``max_len`` positions
     as the unsharded prefill does."""
@@ -575,7 +586,7 @@ def _prefill_sharded(params, cfg: ArchConfig, tokens, *, max_len, step,
     x_all = _embed_with_prefix(params, cfg, tokens, prefix_embeds, rules)
     B, S_tot, _ = x_all.shape
     dev = x_all.device
-    lay = tp_lib.attn_layout(cfg, rules)
+    lay = tp_lib.attn_layout(cfg, rules, (B, step))
     hk = cfg.n_kv_heads // lay.tp if lay.kv == "heads" else cfg.n_kv_heads
     n_buf = max(S_tot, max_len)
     kbuf = torch.zeros((2, cfg.n_layers, B, n_buf, hk, cfg.head_dim_),
@@ -664,7 +675,7 @@ def _prefill_whole(params, cfg: ArchConfig, tokens, *, max_len=None,
                                                 cfg, "attn", x, positions,
                                                 rules=rules)
             if rules is not None:
-                lay = tp_lib.attn_layout(cfg, rules)
+                lay = tp_lib.attn_layout(cfg, rules, (B, S))
                 k, v = (tp_lib.all_heads(t, rules, lay) for t in (k, v))
             _fill_cache(cache, i, k, v, window)
         for j in range(n_tail):
