@@ -261,9 +261,11 @@ Phases, each of which fails the run on any error:
               CPU: loss, ce and aux, params and moments as c, every rank
               the same metric bits; g. the reduced recurrentgemma-2b and
               falcon-mamba-7b configs the same way (their RG-LRU and ssm
-              blocks channel parallel); one ``train mesh`` line a rank (step
-              wall, tokens/s, collectives a step and their seconds, peak
-              GB, B6 launches)
+              blocks channel parallel); h. check c's steps again with the
+              layer-boundary carry whole (``"act_seq"`` off), bit for bit
+              against c's, whose carries were the ranks' S / 2 rows; one
+              ``train mesh`` line a rank (step wall, tokens/s, collectives
+              a step and their seconds, peak GB, B6 launches, the carry)
   9. report   fg_threefry's line and the kernel table as JSON lines (each
               kernel launched at least once on the paths), then the
               result line
@@ -500,6 +502,10 @@ TRAIN_MESH_NORM_RTOL = 0.05
 #: resharded onto RESHARD_MESH), against the port on the CPU
 TRAIN_MESH_REDUCED_SEQ, TRAIN_MESH_REDUCED_LR = 64, 1e-3
 RESHARD_MESH = (1, 4)
+#: check h: check c's steps again with the layer-boundary carry whole
+#: (``rules_for``'s overrides; ``"act_seq"`` splits it over "model" on
+#: its sequence by default), bit for bit against check c's
+TRAIN_MESH_WHOLE_CARRY = {"act_seq": None}
 #: check g's last case: the reduced hybrid with recurrentgemma-2b's 10 / 1
 #: heads (which a model axis of 4 does not split), one float32 step at
 #: MESH: its attention "seq", B6's gradient at each rank's q_offset
@@ -4543,6 +4549,10 @@ def train_mesh_cases(torch) -> tuple:
     # "model", FSDP over "data" (phase 7f's training check)
     moe = {**reduced, "arch": MOE_ARCH, "state": mstate, "routing": True}
     del moe["ckpt_dir"], moe["reshard"]
+    # check h: check c's 2 steps again with the carry whole
+    whole = {k: v for k, v in reduced.items()
+             if k not in ("ckpt_dir", "reshard")}
+    whole["overrides"] = TRAIN_MESH_WHOLE_CARRY
     # the recurrent families: their RG-LRU and ssm blocks channel parallel
     # over "model", FSDP over "data" (phase 7g's training check), one step
     # at a time from the CPU's state (:func:`_train_mesh_stepwise`); then
@@ -4571,7 +4581,7 @@ def train_mesh_cases(torch) -> tuple:
                        "config": {"compute_dtype": "float32", **fields},
                        "steps": 1, "first_step": s_, "routing": False}
                       for s_ in range(n_steps)]
-    return [full, reduced, moe] + rec_cases, {
+    return [full, reduced, moe, whole] + rec_cases, {
         "argv": argv, "rcfg": rcfg, "state": state, "ckdir": ckdir,
         "mcfg": mcfg, "mstate": mstate, "rec": rec}
 
@@ -4759,6 +4769,42 @@ def _train_mesh_stepwise(torch, runs: list, rec: dict) -> dict:
             **max(worst, key=lambda x: x["amplified"])}
 
 
+def _train_mesh_whole_carry(red: list, whole: list, rcfg) -> dict:
+    """8e's check h: check c's 2 steps (the reduced config, 2 layers, its
+    layer-boundary carry the rank's S / tp sequence rows under
+    ``"act_seq"``) against the same steps on the same ranks under
+    ``rules_for(..., overrides=TRAIN_MESH_WHOLE_CARRY)``: loss and grad
+    norm bits, params and moments bit for bit on every rank; the layout
+    log shows each forward's carries as rows of S / tp with it, whole
+    without it.  Its seconds are the whole-carry case's wall plus the
+    comparison."""
+    t = time.perf_counter()
+    tp = TRAIN_MESH[1]
+    rows = TRAIN_MESH_BATCH // TRAIN_MESH_MICRO // TRAIN_MESH[0]
+    S, D = TRAIN_MESH_REDUCED_SEQ, rcfg.d_model
+    n = rcfg.n_layers * TRAIN_MESH_MICRO * TRAIN_MESH_STEPS
+    for i, (a, b) in enumerate(zip(red, whole)):
+        la, lb = a["legs"][0], b["legs"][0]
+        if la["bits"] != lb["bits"]:
+            raise AssertionError(f"train 8e check h rank {i}: loss or grad "
+                                 f"norm bits differ with the whole carry")
+        for path, x in la["state"].items():
+            if not np.array_equal(x, lb["state"][path]):
+                raise AssertionError(f"train 8e check h rank {i}: {path} "
+                                     f"differs with the whole carry")
+        # check c's leg comes first in the case's log (then d's reshard)
+        if a["carries"][:n] != [("rows", (rows, S // tp, D))] * n or \
+                b["carries"] != [("whole", (rows, S, D))] * n:
+            raise AssertionError(f"train 8e check h rank {i}: carries "
+                                 f"{a['carries'][:2]} / {b['carries'][:2]}")
+    return {"mesh": list(TRAIN_MESH), "layers": rcfg.n_layers,
+            "steps": TRAIN_MESH_STEPS, "carry": list(red[0]["carries"][1]),
+            "whole": list(whole[0]["carries"][1]),
+            "loss": red[0]["legs"][0]["loss"],
+            "bitwise": True, "seconds": max(r["wall_s"] for r in whole)
+            + time.perf_counter() - t}
+
+
 def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     """Phase 8e: training on a mesh, from the per-rank results of the
     world phase 7e shared (:func:`train_mesh_cases`).  Checks: a. every
@@ -4773,8 +4819,9 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     (forward and remat), threefry TRAIN_DRAWS a step, nothing else; f.
     the reduced moe config (:func:`_train_mesh_moe`) and g. the
     reduced recurrent configs (:func:`_train_mesh_stepwise`), and the
-    hybrid with 10 / 1 heads at MESH, its attention "seq".  One ``train
-    mesh``
+    hybrid with 10 / 1 heads at MESH, its attention "seq"; h. check c's
+    steps with the carry whole, bit for bit (:func:`_train_mesh_whole_carry`).
+    One ``train mesh``
     line per rank: step wall, tokens/s, collectives a step, peak GB, B6
     launches."""
     import dataclasses
@@ -4787,8 +4834,8 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     from repro_torch.train.optimizer import AdamW, constant
     from repro_torch.train.train_step import make_train_step
 
-    full, red, moe = ([r[i] for r in ranks] for i in range(3))
-    rec_runs = [r[3:] for r in ranks]          # per rank, check g's cases
+    full, red, moe, whole = ([r[i] for r in ranks] for i in range(4))
+    rec_runs = [r[4:] for r in ranks]          # per rank, check g's cases
     steps = TRAIN_MESH_STEPS
     _check_train_mesh_launches(full)
     # a. every rank the same metric bits; replicas the same leaves
@@ -4867,6 +4914,7 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
         raise AssertionError(f"train 8e check g: the 10-head hybrid's "
                              f"attention ran {checks['g'][-1]['layouts']}, "
                              f"want seq")
+    checks["h"] = _train_mesh_whole_carry(red, whole, rcfg)
     import shutil
     shutil.rmtree(ctx["ckdir"], ignore_errors=True)
     tokens = TRAIN_MESH_BATCH * TRAIN_MESH_SEQ
@@ -4878,7 +4926,9 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
                 "collectives_per_step": r["calls"],
                 "collective_s_per_step": r["collective_s"],
                 "peak_gb": (r["peak_mem_bytes"] or 0) / 1e9,
+                "peak_reserved_gb": (r["peak_reserved_bytes"] or 0) / 1e9,
                 "b6_launches": r["launches"]["flash_attention"],
+                "carry": r["carries"][0] if r["carries"] else None,
                 "loss": [h["loss"] for h in r["history"]],
                 "grad_norm": [h["grad_norm"] for h in r["history"]],
                 "case_wall_s": r["wall_s"]}
@@ -4887,7 +4937,7 @@ def phase_train_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
     res = {"arch": LM_ARCH, "layers": TRAIN_MESH_LAYERS, "check_a_replicas":
            replicas, "check_b": check_b, "check_c": checks["c"],
            "check_d": checks["d"], "check_f_moe": checks["f"],
-           "check_g_recurrent": checks["g"],
+           "check_g_recurrent": checks["g"], "check_h_act_seq": checks["h"],
            "reduced_walls_s": [r["wall_s"] for r in red],
            "moe_walls_s": [r["wall_s"] for r in moe],
            "recurrent_walls_s": [[r["wall_s"] for r in runs]

@@ -5,8 +5,9 @@ nothing of that package): Dijkstra (binary heap) for sssp, deque BFS (and
 its shortest-path counts for betweenness), Andersen-Chung-Lang push for
 ppr, union-find and min-label propagation for cc, and the hop-shifted
 Dijkstra with its decode for kreach; each also reports
-``edges_processed``.  The random-walk replay (:func:`random_walk`) draws
-through the port's threefry stream (``core/prng``) on the CPU.
+``edges_processed``; :func:`dfs_order` labels a DFS preorder.  The
+random-walk replay (:func:`random_walk`) draws through the port's
+threefry stream (``core/prng``) on the CPU.
 """
 from __future__ import annotations
 
@@ -247,6 +248,26 @@ def random_walk(bg, src: int, length: int, seed: int = 0) -> np.ndarray:
         pos = dest_part * B + local
         out.append(pos)
     return np.asarray(out, dtype=np.int64)
+
+
+def dfs_order(g: CSRGraph, src: int) -> np.ndarray:
+    """Preorder DFS labels (int32, -1 unreachable): an explicit stack
+    whose pushes run each vertex's edges last to first, so the first edge
+    is visited first.  Host-only reference."""
+    label = np.full(g.n, -1, dtype=np.int32)
+    stack = [src]
+    nxt = 0
+    while stack:
+        u = stack.pop()
+        if label[u] >= 0:
+            continue
+        label[u] = nxt
+        nxt += 1
+        for e in range(g.indptr[u + 1] - 1, g.indptr[u] - 1, -1):
+            v = int(g.indices[e])
+            if label[v] < 0:
+                stack.append(v)
+    return label
 
 
 def batch(fn, g: CSRGraph, sources) -> Dict[int, tuple]:

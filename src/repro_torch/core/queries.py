@@ -19,6 +19,7 @@ import numpy as np
 from repro_torch.core.engine import EngineResult, FPPEngine
 from repro_torch.core.graph import BlockGraph, CSRGraph
 from repro_torch.core.oracles import kreach_stride
+from repro_torch.core.partition import partition
 from repro_torch.core.randomwalk import WalkResult, run_random_walks
 from repro_torch.core.yielding import YieldConfig, default_delta
 
@@ -122,3 +123,12 @@ def run_rw(bg: BlockGraph, sources: np.ndarray, length: int = 32,
            seed: int = 0, device=None) -> WalkResult:
     return run_random_walks(bg, np.asarray(sources), length, seed=seed,
                             device=device)
+
+
+def prepare(g: CSRGraph, block_size: int, method: str = "bfs",
+            unit_weights: bool = False, weights: Optional[str] = None):
+    """One-stop: (block graph, perm).  ``weights`` picks the variant
+    (:func:`reweight`); ``unit_weights=True`` is the legacy spelling of
+    ``weights="unit"``."""
+    variant = weights or ("unit" if unit_weights else "natural")
+    return partition(reweight(g, variant), block_size, method=method)

@@ -317,10 +317,17 @@ class LayoutLog:
     """While active, records the layout (``manual_tp.AttnLayout.kv``:
     ``"heads"``, ``"replicated"``, ``"full"`` or ``"seq"``) of every
     attention block that ``manual_tp.manual_attention`` runs, in call
-    order (:attr:`kinds`); :meth:`counts` tallies them."""
+    order (:attr:`kinds`); :meth:`counts` tallies them.  It also records
+    the training forward's layer-boundary carries (:attr:`carries`,
+    ``transformer.CARRY_LOG``): one ``(layout, shape)`` a layer call,
+    ``"rows"`` (the rank's sequence rows under ``"act_seq"``) or
+    ``"whole"``, and the shape the layer's checkpoint received."""
 
     def __enter__(self):
         from repro_torch.models import manual_tp as tp
+        from repro_torch.models import transformer
+        self.carries, self._carry_log = [], transformer.CARRY_LOG
+        transformer.CARRY_LOG = self.carries
         self.kinds, self._fns = [], (tp.manual_attention, tp.attn_layout)
         attention, layout = self._fns
         open_calls = []   # per manual_attention call: its layout recorded?
@@ -343,7 +350,9 @@ class LayoutLog:
 
     def __exit__(self, *exc):
         from repro_torch.models import manual_tp as tp
+        from repro_torch.models import transformer
         tp.manual_attention, tp.attn_layout = self._fns
+        transformer.CARRY_LOG = self._carry_log
 
     def counts(self) -> dict:
         return {k: self.kinds.count(k) for k in sorted(set(self.kinds))}
@@ -565,8 +574,8 @@ def _train_legs(case: dict, cfg, model, dev, meshes: dict) -> dict:
         return meshes[key]
 
     mesh = mesh_of(case["mesh"])
-    rules = rules_for(cfg, mesh) if mesh is not None and mesh.size > 1 \
-        else None
+    rules = rules_for(cfg, mesh, case.get("overrides")) \
+        if mesh is not None and mesh.size > 1 else None
     state = train_state_from_arrays(**case["state"], device=dev, cfg=cfg,
                                     rules=rules)
     shape = ShapeConfig("t", "train", case["seq"], case["batch"])
@@ -627,10 +636,12 @@ def _train_launch(case: dict, dev) -> dict:
     :func:`run_train_cases`)."""
     import dataclasses
 
+    from repro_torch.launch import steps
     from repro_torch.launch import train as tlaunch
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh(*case["mesh"])
+    overrides = case.get("overrides")
     args = tlaunch.parse_args(case["argv"])
     cfg = dataclasses.replace(tlaunch.config_for(args),
                               **case.get("config", {}))
@@ -642,7 +653,15 @@ def _train_launch(case: dict, dev) -> dict:
             _sync(dev)
             marks.append((mesh.calls, mesh.seconds,
                           _launches()["flash_attention"]))
-    state, stats = tlaunch.run(args, cfg, mesh=mesh, log_every=1, log=log)
+    rules_for = steps.rules_for
+    if overrides:
+        # launch/train.run builds its rules with rules_for(cfg, mesh)
+        steps.rules_for = lambda c, m: rules_for(c, m, overrides)
+    try:
+        state, stats = tlaunch.run(args, cfg, mesh=mesh, log_every=1,
+                                   log=log)
+    finally:
+        steps.rules_for = rules_for
     calls, coll_s, b6 = ([b[i] - a[i] for a, b in zip(marks, marks[1:])]
                          for i in range(3))
     return {"history": stats.history, "step_s": stats.step_times,
@@ -667,8 +686,10 @@ def _psum_case(case: dict, dev) -> dict:
 def run_train_cases(rank: int, cases: list, device=None) -> list:
     """Run training ``cases`` on this rank of a world (every rank the same
     list: building a mesh is collective).  A case is a dict with ``arch``,
-    optional ``reduced`` and ``config`` (fields replaced after it) and
-    ``mesh`` ``(data, model)``, and either
+    optional ``reduced`` and ``config`` (fields replaced after it),
+    ``mesh`` ``(data, model)``, optional ``overrides`` (``rules_for``'s, on
+    the case's mesh: ``{"act_seq": None}`` keeps the carry whole), and
+    either
 
     * ``argv``: ``launch/train.py``'s arguments, run through
       ``launch/train.run(args, cfg, mesh=)`` (``cfg`` from its
@@ -694,9 +715,12 @@ def run_train_cases(rank: int, cases: list, device=None) -> list:
       ``compressed_psum`` of its row (``out``).
 
     Every case also returns ``wall_s``, the rank's kernel ``launches``,
-    its card's ``peak_mem_bytes`` and ``layouts``, the attention blocks it
-    ran by layout (``LayoutLog.counts()``: forward, recompute and every
-    microbatch); with ``routing`` (a moe model), the rank's
+    its card's ``peak_mem_bytes`` (allocated) and ``peak_reserved_bytes``
+    (held by the caching allocator: what ranks sharing a card add up),
+    ``layouts``, the attention blocks it ran by layout
+    (``LayoutLog.counts()``: forward, recompute and every microbatch), and
+    ``carries``, the layer-boundary carries of every forward
+    (``LayoutLog.carries``); with ``routing`` (a moe model), the rank's
     ``RouteLog.summary()`` over the case."""
     import contextlib
 
@@ -724,10 +748,13 @@ def run_train_cases(rank: int, cases: list, device=None) -> list:
         if case.get("routing"):
             res["routing"] = routes.summary()
         res["layouts"] = layouts.counts()
+        res["carries"] = layouts.carries
         res["wall_s"] = time.perf_counter() - t
         res["launches"] = _launches()
         res["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None)
+        res["peak_reserved_bytes"] = (torch.cuda.max_memory_reserved(dev)
+                                      if dev.type == "cuda" else None)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         out.append(res)

@@ -32,10 +32,12 @@ a computation split over that axis); ``exchange`` sends each rank's
 gradient back the way its rows came; ``all_gather`` hands each rank its
 block of the gradient, summed over the axis first when ``grad="sum"``
 (the ranks along it computed with different data: the FSDP gather over
-``"data"``, whose adjoint is a reduce-scatter).  A backward enters its
-collectives in autograd's order, which is the same on every rank of a
-mesh that built the same graph; a rank that waits for a collective the
-others never enter fails at ``spawn``'s timeout.
+``"data"``, whose adjoint is a reduce-scatter); :meth:`Mesh.take_block`
+cuts the rank's block of a replicated tensor and gathers the blocks'
+gradients (the training forward's sequence-split carry between layers).
+A backward enters its collectives in autograd's order, which is the same
+on every rank of a mesh that built the same graph; a rank that waits for
+a collective the others never enter fails at ``spawn``'s timeout.
 
 Not ported: ``compat_make_mesh`` and ``set_mesh``.  They paper over jax
 versions (the ``axis_types=`` keyword, ``jax.set_mesh`` against the
@@ -200,6 +202,21 @@ class Mesh:
             return x[None]
         return _AllGather.apply(x, self, axis, grad == "sum")
 
+    def take_block(self, x: torch.Tensor, axis: str,
+                   dim: int) -> torch.Tensor:
+        """This rank's block of ``x`` (replicated over ``axis``) along
+        ``dim``, the ``shape[axis]``-th part at its coordinate, as a tensor
+        of its own.  Its gradient is every rank's block of the output's
+        gradient gathered over ``axis`` in coordinate order: the adjoint of
+        ``all_gather(grad="slice")``, which it undoes."""
+        n = self.shape[axis]
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over the {n} ranks of {axis!r}")
+        if not self.distributed:
+            return x
+        return _TakeBlock.apply(x, self, axis, dim)
+
     def barrier(self) -> None:
         """Every rank of the mesh has reached this call."""
         if self.distributed:
@@ -270,6 +287,23 @@ class _AllGather(torch.autograd.Function):
         if ctx.summed:
             return mesh._reduce_scatter(g, axis), None, None, None
         return g[mesh.coords[axis]], None, None, None
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        size = x.shape[dim] // mesh.shape[axis]
+        return x.narrow(dim, mesh.coords[axis] * size, size).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the blocks joined along dim (a view of the gather where it can)
+        parts = ctx.mesh._gather(g, ctx.axis)
+        shape = list(g.shape)
+        shape[ctx.dim] *= parts.shape[0]
+        return parts.movedim(0, ctx.dim).reshape(shape), None, None, None
 
 
 def world_size() -> int:

@@ -39,8 +39,10 @@ rows.
 
 ``forward`` (training) runs every layer once over the whole sequence,
 as prefill's whole branch does, and sums the moe layers' aux losses;
-under ``remat`` each layer is recomputed in the backward.  It reads the
-stacked leaves through ``unstack`` (one ``unbind`` a leaf).
+under ``remat`` each layer is recomputed in the backward.  On a mesh its
+carry between layers is each rank's block of sequence rows where the
+reference's ``"act_seq"`` boundary splits it (:func:`carry_axis`).  It
+reads the stacked leaves through ``unstack`` (one ``unbind`` a leaf).
 
 Serving weights are stored as the reference uses them
 (``storage_dtype``): block matmul weights and biases in ``cfg.cdtype`` —
@@ -412,6 +414,35 @@ def checkpointed(fn, remat: bool):
         fn, *args, use_reentrant=False)
 
 
+#: while a list (``launch/distributed.LayoutLog`` sets it), the training
+#: forward appends one ``(layout, shape)`` pair per layer call (the
+#: hybrid's: per group and tail layer), in call order: ``"rows"`` or
+#: ``"whole"`` (:func:`carry_axis`) and the shape of the carry that call
+#: (its checkpoint) received, the embedding's output for the first
+CARRY_LOG: Optional[list] = None
+
+
+def carry_axis(rules, shape) -> Optional[str]:
+    """The mesh axis the training forward splits its layer-boundary carry
+    over, on the sequence: the reference's ``("batch", "act_seq", None)``
+    constraint (Megatron-SP) of the carry's global ``shape`` ``[B, S, D]``
+    where that axis has more than one rank; None (the carry stays whole)
+    without ``rules``, where the rules map ``"act_seq"`` to nothing or the
+    axis does not divide S."""
+    if rules is None:
+        return None
+    spec = rules.spec(("batch", "act_seq", None), tuple(shape))
+    axis = spec[1] if len(spec) > 1 else None
+    return axis if axis is not None and rules.mesh.shape[axis] > 1 else None
+
+
+def _gather_rows(x, mesh, axis):
+    """Every rank's sequence rows ``x [B, s, D]`` over ``axis``, joined in
+    coordinate order: ``[B, n·s, D]`` (a view of the gather at B = 1)."""
+    parts = mesh.all_gather(x, axis)
+    return parts.movedim(0, 1).reshape(x.shape[0], -1, x.shape[2])
+
+
 def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
             prefix_len=None, remat=True, rules=None):
     """The training forward.  tokens: [B,S] int; prefix_embeds: [B,P,D] or
@@ -427,21 +458,54 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
     params) each layer runs tensor parallel (the reference's manual arm)
     on the rank's rows of the batch, and the logits are those rows'; the
     aux losses are the global batch's (``moe.apply_moe``), the same on
-    every rank."""
+    every rank.
+
+    Where :func:`carry_axis` names an axis (the reference's ``"act_seq"``
+    boundary), the carry between layers is the rank's block of S / n
+    sequence rows over it: the embedding's output is cut to it
+    (``Mesh.take_block``), each layer gathers the rows at its input
+    (``Mesh.all_gather(grad="slice")``) and cuts its output, and the last
+    layer's rows are gathered once more for the logits.  Every block sums
+    its input's gradient over ``"model"``, so that gradient is whole and
+    the same on every rank, and the pair computes the bits of the whole
+    carry; only what the checkpoints keep shrinks, by n.  The gather runs
+    inside the checkpointed function and again in its recompute."""
     check_family(cfg)
+    whole_batch = tokens.shape[0]
     if rules is not None:
         tokens, prefix_embeds = _rows(tokens, prefix_embeds, rules)
     x = _embed_with_prefix(params, cfg, tokens, prefix_embeds, rules)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    axis = carry_axis(rules, (whole_batch,) + tuple(x.shape[1:]))
+    mesh = rules.mesh if axis is not None else None
+
+    def carried(fn):
+        """``fn(x, lp) -> (x, aux)`` on the whole carry, run on the
+        carry's layout and recomputed under ``remat``."""
+        if axis is None:
+            return checkpointed(fn, remat)
+
+        def f(x, lp):
+            x, a = fn(_gather_rows(x, mesh, axis), lp)
+            return mesh.take_block(x, axis, 1), a
+        return checkpointed(f, remat)
+
+    def call(f, x, lp):
+        if CARRY_LOG is not None:
+            CARRY_LOG.append(("whole" if axis is None else "rows",
+                              tuple(x.shape)))
+        return f(x, lp)
 
     def layer(kind):
         def f(x, lp):
             x, _, _, a = _apply_layer_full(lp, cfg, kind, x, positions,
                                            prefix_len, rules, manual=True)
             return x, a
-        return checkpointed(f, remat)
+        return carried(f)
 
+    if axis is not None:
+        x = mesh.take_block(x, axis, 1)
     if cfg.family == "hybrid":
         def group(x, gp):
             for name, kind in (("rec1", "rec"), ("rec2", "rec"),
@@ -449,18 +513,20 @@ def forward(params, cfg: ArchConfig, tokens, *, prefix_embeds=None,
                 x, _, _, _ = _apply_layer_full(gp[name], cfg, kind, x,
                                                positions, rules=rules,
                                                manual=True)
-            return x
-        group = checkpointed(group, remat)
+            return x, None
+        group = carried(group)
         for gp in unstack(params["groups"]):
-            x = group(x, gp)
+            x, _ = call(group, x, gp)
         for lp in unstack(params["tail"]) if "tail" in params else ():
-            x, _ = layer("rec")(x, lp)
+            x, _ = call(layer("rec"), x, lp)
     else:
         f = layer(layer_plan(cfg)[0])
         for lp in unstack(params["stack"]):
-            x, a = f(x, lp)
+            x, a = call(f, x, lp)
             if a is not None:
                 aux = aux + a
+    if axis is not None:
+        x = _gather_rows(x, mesh, axis)
     return final_logits(params, cfg, x, rules), aux
 
 

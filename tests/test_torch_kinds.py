@@ -175,7 +175,7 @@ def test_query_facades_equal_reference(kind):
     assert stride == joracles.kreach_stride(jg.n, float(jg.weights.max()))
     variant = queries.WEIGHT_VARIANTS.get(kind, "natural")
     jbg, jperm = jqueries.prepare(jg, 16, weights=variant)
-    bg, perm = partition(queries.reweight(g, variant), 16)
+    bg, perm = queries.prepare(g, 16, weights=variant)
     np.testing.assert_array_equal(perm, jperm)
     src = perm[np.array([0, 41, 99])]
     if kind == "kreach":

@@ -218,8 +218,8 @@ class _RankOf:
 class _LoneRank(_RankOf):
     """Rank 0 of a ``(data, model)`` mesh with no world: its collectives
     keep each rank's shapes (a sum returns its input, a gather repeats it,
-    an exchange returns what it sends), so a call returns rank 0's blocks
-    but not their values."""
+    an exchange returns what it sends, a block is rank 0's), so a call
+    returns rank 0's blocks but not their values."""
     calls = 0
 
     def __init__(self, shape):
@@ -238,6 +238,9 @@ class _LoneRank(_RankOf):
 
     def exchange(self, x, axis, send, recv):
         return x
+
+    def take_block(self, x, axis, dim):
+        return x.narrow(dim, 0, x.shape[dim] // self.shape[axis])
 
 
 @pytest.mark.parametrize(

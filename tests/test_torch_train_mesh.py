@@ -35,7 +35,15 @@
     ``PSUM_REL`` of the float sum;
   - ``launch/train.run(mesh=)`` at (2, 2) stopped after its step-2
     checkpoint and run again resumes bit for bit as the uninterrupted
-    run.
+    run;
+  - ``"act_seq"`` (the reference's layer-boundary carry split over
+    ``"model"`` on its sequence) against the same runs with it off
+    (``rules_for(..., overrides={"act_seq": None})``), gradients, metrics
+    and two steps bit for bit on every rank, for reduced starcoder2-7b and
+    paligemma-3b (its image prefix in the sequence), qwen3-moe and
+    recurrentgemma (a group and a tail layer) at (1, 4) and (2, 2), and
+    starcoder2 at a sequence of 18 (whole: 4 does not divide it), with
+    each forward's carries read from ``launch/distributed.LayoutLog``.
 """
 import dataclasses
 import functools
@@ -115,6 +123,21 @@ NU_TOL = dict(rtol=1e-5, atol=1e-9)
 PSUM_REL = 0.02
 PSUM_CASES = [((1, 4), "model"), ((2, 2), "data")]
 WORLD_TIMEOUT_S = 120
+#: ``"act_seq"`` (the layer-boundary carry split over ``"model"`` on its
+#: sequence) against the same run under ``rules_for(..., overrides=
+#: ACT_SEQ_OFF)``, bit for bit: the CASES paired with a run of their own
+#: with it off, and on/off pairs from the port's seeded state (reduced
+#: qwen3-moe and recurrentgemma, one group and a tail layer, at SEQ; the
+#: dense config at 18, which a model axis of 4 does not divide)
+ACT_SEQ_OFF = {"act_seq": None}
+ACT_SEQ_CASES = [("starcoder2", (1, 4)), ("starcoder2", (2, 2)),
+                 ("paligemma", (2, 2))]
+ACT_SEQ_CONFIGS = {"qwen3-moe": ("qwen3-moe-30b-a3b", SEQ),
+                   "recurrentgemma": ("recurrentgemma-2b", SEQ),
+                   "starcoder2-s18": ("starcoder2-7b", 18)}
+ACT_SEQ_PAIRS = [(k, m) for k in ("qwen3-moe", "recurrentgemma")
+                 for m in [(1, 4), (2, 2)]] + [("starcoder2-s18", (1, 4))]
+ACT_SEQ_ALL = ACT_SEQ_CASES + ACT_SEQ_PAIRS
 
 
 def _mname(m):
@@ -361,6 +384,37 @@ def _launch_cases(tmp):
             case(4, tmp / "run_b")]
 
 
+@functools.lru_cache(maxsize=None)
+def _seeded_state(arch):
+    """The port's seeded initial train state (generator 1) of a reduced
+    float32 config, as numpy."""
+    cfg = dataclasses.replace(tget(arch).reduced(), compute_dtype="float32")
+    st = tts.init_train_state(tbuild(cfg), torch.Generator().manual_seed(1),
+                              AdamW(), device="cpu")
+    arrays = lambda tree: {k: arrays(v) if isinstance(v, dict)  # noqa
+                           else v.numpy().copy() for k, v in tree.items()}
+    return {"params": arrays(st.params), "mu": arrays(st.opt.mu),
+            "nu": arrays(st.opt.nu), "count": st.opt.count.numpy(),
+            "step": st.step.numpy()}
+
+
+def _act_seq_cases():
+    """The ``"act_seq"`` cases, in :func:`_act_seq_index`'s order: an off
+    run of each of ACT_SEQ_CASES, then an on and an off run of each of
+    ACT_SEQ_PAIRS."""
+    cases = [_port_case(k, m, grads=True, overrides=ACT_SEQ_OFF)
+             for k, m in ACT_SEQ_CASES]
+    for key, mesh in ACT_SEQ_PAIRS:
+        arch, seq = ACT_SEQ_CONFIGS[key]
+        case = {"arch": arch, "reduced": True,
+                "config": {"compute_dtype": "float32"}, "mesh": mesh,
+                "state": _seeded_state(arch), "seq": seq, "batch": BATCH,
+                "microbatches": MICRO, "lr": LR, "steps": STEPS,
+                "grads": True}
+        cases += [case, {**case, "overrides": ACT_SEQ_OFF}]
+    return cases
+
+
 def _world_cases(ckpt_dir):
     cases = [_port_case(k, m, grads=True) for k, m in CASES]
     cases.append(_port_case(*COMPRESS, compression=True))
@@ -370,7 +424,7 @@ def _world_cases(ckpt_dir):
     x = _psum_inputs()
     cases += [{"psum": {"mesh": m, "axis": a, "x": x}} for m, a in
               PSUM_CASES]
-    return cases + _launch_cases(ckpt_dir.parent)
+    return cases + _launch_cases(ckpt_dir.parent) + _act_seq_cases()
 
 
 @pytest.fixture(scope="module")
@@ -637,3 +691,70 @@ def test_mesh_run_resumes_bitwise(runs):
         assert first["history"] == whole["history"][:2], rank
         assert resumed["digests"] == whole["digests"], rank
     assert all(r[idx]["bits"] == per_rank[0][idx]["bits"] for r in per_rank)
+
+
+def _act_seq_index(key, mesh):
+    """(index of the run with ``"act_seq"`` on, of the run with it off)
+    in the world's cases (:func:`_world_cases`)."""
+    base = len(CASES) + 2 + len(PSUM_CASES) + 3
+    if (key, mesh) in ACT_SEQ_CASES:
+        return _case_index(key, mesh), base + ACT_SEQ_CASES.index((key,
+                                                                  mesh))
+    on = base + len(ACT_SEQ_CASES) + 2 * ACT_SEQ_PAIRS.index((key, mesh))
+    return on, on + 1
+
+
+def _act_seq_seq(key):
+    if key in ACT_SEQ_CONFIGS:
+        return ACT_SEQ_CONFIGS[key][1]
+    return SEQ     # a vlm's image prefix is part of its SEQ positions
+
+
+@pytest.mark.parametrize("key,mesh", ACT_SEQ_ALL,
+                         ids=[f"{k}-{_mname(m)}" for k, m in ACT_SEQ_ALL])
+def test_act_seq_matches_the_whole_carry(runs, key, mesh):
+    """``"act_seq"`` on (``rules_for``'s default) against off
+    (``overrides=ACT_SEQ_OFF``), from one state, on every rank, bit for
+    bit: the first batch's gradient shards and metrics, each step's loss,
+    aux and grad norm, and the params and moments after two steps."""
+    _, per_rank, _ = runs
+    i_on, i_off = _act_seq_index(key, mesh)
+    for rank, res in enumerate(per_rank):
+        on, off = res[i_on], res[i_off]
+        assert on["grad_metrics"] == off["grad_metrics"], rank
+        assert sorted(on["grads"]) == sorted(off["grads"])
+        for path, g in on["grads"].items():
+            assert np.array_equal(g, off["grads"][path]), (rank, path)
+        a, b = on["legs"][0], off["legs"][0]
+        assert (a["bits"], a["aux"], a["ce"]) == (b["bits"], b["aux"],
+                                                  b["ce"]), rank
+        assert sorted(a["state"]) == sorted(b["state"])
+        for path, x in a["state"].items():
+            assert np.array_equal(x, b["state"][path]), (rank, path)
+
+
+@pytest.mark.parametrize("key,mesh", ACT_SEQ_ALL,
+                         ids=[f"{k}-{_mname(m)}" for k, m in ACT_SEQ_ALL])
+def test_act_seq_carries_the_ranks_rows(runs, key, mesh):
+    """The layout log of every forward (2 microbatches of gradients, 2
+    steps): with ``"act_seq"`` on each layer call (the hybrid's group and
+    tail layer) receives the rank's S / 4 or S / 2 sequence rows (the
+    vlm's S counts its image prefix), or the whole carry where the model
+    axis does not divide S (18 at 4); with it off every carry is whole."""
+    _, per_rank, _ = runs
+    arch = (ACT_SEQ_CONFIGS[key][0] if key in ACT_SEQ_CONFIGS
+            else CONFIGS[key][0])
+    cfg = tget(arch).reduced()
+    calls = (cfg.n_layers // 3 + cfg.n_layers % 3 if cfg.family == "hybrid"
+             else cfg.n_layers)
+    S, rows = _act_seq_seq(key), BATCH // MICRO // mesh[0]
+    tp = mesh[1]
+    split = S % tp == 0
+    forwards = MICRO * (1 + STEPS)
+    i_on, i_off = _act_seq_index(key, mesh)
+    for rank, res in enumerate(per_rank):
+        want_on = ([("rows", (rows, S // tp, cfg.d_model))] if split
+                   else [("whole", (rows, S, cfg.d_model))])
+        assert res[i_on]["carries"] == want_on * calls * forwards, rank
+        assert res[i_off]["carries"] == \
+            [("whole", (rows, S, cfg.d_model))] * calls * forwards, rank
