@@ -119,9 +119,13 @@ Phases, each of which fails the run on any error:
               (8 / 1) and 8e (18 / 2) at every shape those phases launch),
               each shape timed over a CUDA graph beside PyTorch's
               SDPA as a yardstick (causal, GQA; a window, a prefix or
-              padded keys as the equivalent boolean mask), the plain
-              version timed at each model's timed shape
-              (``FLASH_TIMED``)
+              padded keys as the equivalent boolean mask), each float32
+              shape's share of its bound and ratio to SDPA printed, the
+              plain version timed at each model's timed shape
+              (``FLASH_TIMED``); then the float32 kernel at the edges of
+              its key splits (``FLASH_F32_EDGES``: kv_len inside a split,
+              empty splits under a window, a prefix, a strided cache
+              prefix at q_offset > 0, no key, an unaligned base)
   7. lm       the LM serving path: ``build_model(starcoder2-7b)`` at full
               width and depth, ``Model.init`` from a seeded generator on the
               card, six prompts (512 to 8192 tokens) through
@@ -571,6 +575,26 @@ TRACE_SSM_TOKENS = (512, 3000)
 #: same products summed in another order (2e-6 on outputs below ~3)
 FLASH_TOL = {"bfloat16": dict(rtol=8e-3, atol=8e-3),
              "float32": dict(rtol=0.0, atol=2e-6)}
+#: phase 6's float32 edges of the key splits (the float32 kernel splits a
+#: q tile's 64-key chunks over a cluster, ``fp32_splits``): (name, B, H,
+#: Hkv, hd, Sq, Skv, masks, k/v view), each held against the plain version
+#: at ``FLASH_TOL["float32"]``: kv_len ending inside the last split's last
+#: chunk; a window whose lower edge leaves 3 chunks to 8 splits; causal with
+#: a 300-key prefix; a strided cache prefix (``[:, :Skv]`` of a longer
+#: cache, two batches) at q_offset 1024; no key seen; a base 4 bytes off a
+#: 16-byte boundary (the kernel's 4-byte copies)
+FLASH_F32_EDGES = (
+    ("kv_len_in_split", 1, 1, 1, 128, 64, 2048,
+     dict(causal=False, kv_len=1000), None),
+    ("window_empty_splits", 1, 1, 1, 256, 64, 2048,
+     dict(causal=True, window=100, q_offset=1984), None),
+    ("prefix_causal", 1, 8, 1, 256, 512, 512,
+     dict(causal=True, prefix_len=300), None),
+    ("cache_prefix_offset", 2, 9, 1, 128, 256, 1280,
+     dict(causal=True, q_offset=1024), "cache"),
+    ("no_key", 1, 8, 8, 64, 224, 1536, dict(causal=False, kv_len=0), None),
+    ("unaligned", 1, 4, 2, 128, 300, 300, dict(causal=True), "unaligned"),
+)
 #: H100 SXM bf16 tensor-core peak (data sheet, dense, 700 W): the least time
 #: for attention's products on this card
 PEAK_BF16_FLOPS_PER_S = 989e12
@@ -2607,6 +2631,61 @@ def _fkw(case) -> dict:
                                  "prefix_len")}
 
 
+def flash_heads(arch: str) -> tuple:
+    """(H, Hkv, hd) of one of phase 6's models (:data:`FLASH_SHAPES`): a
+    mesh key's are one rank's share of its model's heads."""
+    from repro_torch.configs.base import get_config
+    if arch == RG_SEQ_KEY:          # every head, on a rank's rows
+        arch = RG_ARCH
+    if arch in (MESH_KEY, TRAIN_MESH_KEY, MOE_MESH_KEY):
+        cfg = get_config(MOE_ARCH if arch == MOE_MESH_KEY else LM_ARCH)
+        n = TRAIN_MESH[1] if arch == TRAIN_MESH_KEY else MESH[1]
+        return cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim_
+    cfg = get_config(arch)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+
+
+def flash_f32_edges(torch, gen) -> dict:
+    """The float32 kernel at the edges of its key splits
+    (:data:`FLASH_F32_EDGES`) against the plain version: {name: {"splits",
+    "max_abs_err"}}.  Every case but the unaligned one runs at least two
+    splits."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_gqa_ref
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, B, H, Hkv, hd, Sq, Skv, kw, view in FLASH_F32_EDGES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        q = rnd(B, Sq, H, hd)
+        if view == "cache":
+            k, v = (rnd(B, Skv + 512, Hkv, hd)[:, :Skv] for _ in range(2))
+        elif view == "unaligned":
+            n = B * Skv * Hkv * hd
+            k, v = (rnd(n + 1)[1:].view(B, Skv, Hkv, hd) for _ in range(2))
+        else:
+            k, v = rnd(B, Skv, Hkv, hd), rnd(B, Skv, Hkv, hd)
+        splits = faops.fp32_splits(B, Sq, Skv, H, hd,
+                                   faops._sm_count(q.device))
+        if view != "unaligned" and splits < 2:
+            raise AssertionError(f"float32 edge {name}: {splits} split")
+        got = faops.flash_attention(q, k, v, **kw)
+        want = flash_attention_gqa_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FLASH_TOL["float32"])
+        if name == "no_key" and bool(got.abs().max() != 0):
+            raise AssertionError("float32 edge no_key: a row that sees no "
+                                 "key is not 0")
+        out[name] = {"splits": splits,
+                     "max_abs_err": float((got - want).abs().max())}
+        log(f"kernel flash_attention float32 edge {name}: {splits} splits, "
+            f"max |err| {out[name]['max_abs_err']:.3e} (tol "
+            f"{FLASH_TOL['float32']})")
+    return out
+
+
 def phase_flash(torch) -> dict:
     """Phase 6: the flash kernels against their plain version at the LM
     paths' shapes, each timed beside PyTorch's SDPA (the yardstick, never
@@ -2622,7 +2701,6 @@ def phase_flash(torch) -> dict:
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
-    from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.flash_attention.ref import (
         attention_mask, flash_attention_gqa_ref)
@@ -2673,19 +2751,9 @@ def phase_flash(torch) -> dict:
         return (4.0 * H * hd * pairs,
                 size * (2 * sq * H * hd + 2 * skv * Hkv * hd))
 
-    def heads_of(arch):
-        if arch == RG_SEQ_KEY:          # every head, on a rank's rows
-            arch = RG_ARCH
-        if arch in (MESH_KEY, TRAIN_MESH_KEY, MOE_MESH_KEY):
-            cfg = get_config(MOE_ARCH if arch == MOE_MESH_KEY else LM_ARCH)
-            n = TRAIN_MESH[1] if arch == TRAIN_MESH_KEY else MESH[1]
-            return cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim_
-        cfg = get_config(arch)
-        return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-
     rows = {}
     for arch, cases in FLASH_SHAPES.items():
-        heads = heads_of(arch)
+        heads = flash_heads(arch)
         errs, by_shape = {}, []
         for dname, dtype in (("bfloat16", torch.bfloat16),
                              ("float32", torch.float32)):
@@ -2707,17 +2775,19 @@ def phase_flash(torch) -> dict:
                 flops, nbytes = flops_bytes(heads, case, dtype)
                 peak = (PEAK_BF16_FLOPS_PER_S if dtype == torch.bfloat16
                         else PEAK_F32_OPS_PER_S)
+                bound = 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S)
                 shape = {"dtype": dname, "H": heads[0], "Hkv": heads[1],
                          "hd": heads[2], **case, "max_abs_err": err,
-                         "ms": ms, "library_ms": lib,
-                         "bound_ms": 1e3 * max(flops / peak,
-                                               nbytes / PEAK_BYTES_PER_S),
+                         "ms": ms, "library_ms": lib, "bound_ms": bound,
+                         "share_of_bound": bound / ms,
+                         "vs_library": ms / lib,
                          "tflop_per_s": flops / ms / 1e9}
                 by_shape.append(shape)
                 log(f"kernel flash_attention {dname} hd={heads[2]} "
                     + " ".join(f"{k}={v}" for k, v in case.items())
                     + f": max |err| {err:.3e} (tol {FLASH_TOL[dname]}), "
-                    f"{ms:.4f} ms, SDPA {lib:.4f} ms")
+                    f"{ms:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.3f}x), "
+                    f"{bound / ms:.1%} of its {bound:.4f} ms bound")
                 del q, k, v, got, want
                 torch.cuda.empty_cache()
 
@@ -2746,7 +2816,8 @@ def phase_flash(torch) -> dict:
             torch.cuda.empty_cache()
         rows[(arch, "ms_by_shape")] = by_shape
     row = {**rows[(LM_ARCH, "bfloat16")], "f32": rows[(LM_ARCH, "float32")],
-           "ms_by_shape": rows[(LM_ARCH, "ms_by_shape")]}
+           "ms_by_shape": rows[(LM_ARCH, "ms_by_shape")],
+           "f32_edges": flash_f32_edges(torch, gen)}
     for key, arch in FLASH_ROW_KEYS.items():
         row[key] = {"arch": arch, **rows[(arch, "bfloat16")],
                     "f32": rows[(arch, "float32")],
@@ -3710,7 +3781,9 @@ def phase_lm_moe_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
             or b16["greedy_equal"] < MOE_MESH_BF16_GREEDY * b16["greedy_of"]):
         raise AssertionError("moe mesh: the bf16 mesh's routing or greedy "
                              "tokens are off one card's")
-    return {"launches": sum(x["b6_launches"] for x in lines), **res}
+    return {"launches": sum(x["b6_launches"] for x in lines),
+            "f32_launches": sum(r["launches"]["flash_attention"]
+                                for r in by_dtype["float32"]), **res}
 
 
 def recurrent_mesh_reference(torch, layers: int = RECURRENT_MESH_LAYERS,
@@ -3829,7 +3902,7 @@ def phase_lm_recurrent_mesh(torch, ranks: list, ctx: dict,
 
     from repro_torch.configs.base import get_config
 
-    out, i = {"launches": 0}, 0
+    out, i = {"launches": 0, "f32_launches": 0}, 0
     for arch, ref in ctx["ref"].items():
         by_dtype = {}
         for d in RECURRENT_MESH_DTYPES:
@@ -3991,6 +4064,8 @@ def phase_lm_recurrent_mesh(torch, ranks: list, ctx: dict,
                                  f"({bad or 'c'})")
         out[arch] = res
         out["launches"] += sum(x["b6_launches"] for x in lines)
+        out["f32_launches"] += sum(r["launches"]["flash_attention"]
+                                   for r in by_dtype["float32"])
     return out
 
 
@@ -5032,6 +5107,8 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
     krows["flash_attention"] = timed("6 flash", phase_flash, torch)
+    from repro_torch.kernels.flash_attention import ops as faops
+    f32_from = faops.FP32_LAUNCHES["flash_fp32_kernel"]
     lm = timed("7 lm", phase_lm, torch, Counters())
     lm_rec = timed("7b lm recurrent", phase_lm_recurrent, torch, Counters())
     rec_ref = lm_rec.pop("mesh_ref")
@@ -5051,6 +5128,14 @@ def main() -> int:
     train = timed("8 train", phase_train, torch, Counters())
     train_mesh = timed("8e train mesh", phase_train_mesh, torch,
                        lm_mesh.pop("train_ranks"), train_ctx, card)
+    # float32 launches of phases 7-8: this process's (checks c, the
+    # one-card references of 7f and 7g, phase 8's float32 steps and
+    # checks) and 7f's and 7g's float32 ranks'
+    f32_launches = {
+        "phases 7-8, this process":
+            faops.FP32_LAUNCHES["flash_fp32_kernel"] - f32_from,
+        "7f float32 ranks": moe_mesh.pop("f32_launches"),
+        "7g float32 ranks": rec_mesh.pop("f32_launches")}
     launches["flash_attention"] = lm["launches"] + sum(
         r["launches"] for r in lm_rec.values()) + lm_moe["launches"] + sum(
         r["launches"] for r in lm_last.values()) + train["launches"] + \
@@ -5134,9 +5219,11 @@ def main() -> int:
             row["train"] = {k: train["grad"][k] for k in (
                 "fwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "sdpa_fwd_bwd_ms")}
             row["timed_at"] = krows[name]["timed_at"]
-            # the FP32-core kernel (float32 inputs): not on the main path,
-            # which is bf16; check c drives it in the reduced config
-            row["f32"] = {"kernel": "flash_fp32_kernel", "launches": 0,
+            # the FP32-core kernel (float32 inputs): not on the served
+            # paths, which are bf16; the float32 gates drive it
+            row["f32"] = {"kernel": "flash_fp32_kernel",
+                          "launches": sum(f32_launches.values()),
+                          "launches_by_phase": f32_launches,
                           **{k: krows[name]["f32"][k] for k in keys}}
             # recurrentgemma-2b's shape (hd 256, MQA, window 2048),
             # qwen3-moe-30b-a3b's (32 / 4 heads of 128), paligemma-3b's
@@ -5154,7 +5241,7 @@ def main() -> int:
                     "arch": arch, "timed_at": at["timed_at"], "launches": n,
                     **{k: at[k] for k in keys},
                     "ms_by_shape": at["ms_by_shape"],
-                    "f32": {"launches": 0,
+                    "f32": {"launches_of": "the f32 row's count",
                             **{k: at["f32"][k] for k in keys}}}
         table.append(row)
     # fg_threefry is no port of a Pallas kernel (the reference leaves

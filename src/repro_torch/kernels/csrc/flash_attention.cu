@@ -31,8 +31,9 @@
 // bit-unchanged (r = 1 exactly, p = 0), so skipping is exact.  q tiles are
 // issued heaviest first (causal work grows with the tile index), so the
 // last wave is light.  One launch per call,
-// all of GQA in it; no split over the keys and no atomics, so a call's
-// bits do not depend on scheduling or on the strides of k and v.
+// all of GQA in it, and no atomics (the float32 kernel's key splits merge
+// in a fixed order), so a call's bits do not depend on scheduling or on
+// the strides of k and v.
 //
 // Bound, at the serving path's shapes (starcoder2-7b prefill: H = 36,
 // Hkv = 4, hd = 128, S = 4096, bf16): causal attention needs
@@ -95,12 +96,60 @@
 // plus the output's own rounding.  The build keeps -fmad=false; fused
 // multiply-adds are the explicit fmaf calls.
 //
-// flash_fp32_kernel (float32): 256 threads per (64-row q tile, head,
-// batch); q held transposed and pre-scaled by 1/sqrt(hd) like flash.py's
-// kernel, K and V streamed through shared memory 64 rows at a time, each
-// thread 4 query rows by 4 keys of the score tile, explicit fmaf, expf,
-// masked scores at -1e9.  It agrees with the plain PyTorch version to the
-// order of the sums.
+// flash_fp32_kernel (float32), shaped for the FP32 cores: no tensor-core
+// instruction touches float32 data (wgmma would round it to TF32).  Bound:
+// 2 hd FMAs per (query, key) pair the mask passes, at the FP32 cores' 67
+// TFLOP/s (starcoder2-7b's 4096-token causal prefill, 36 heads of 128:
+// >= 2.3 ms), far above its bytes.  So the design keeps the FMA pipes fed,
+// with few instructions beside the FMAs and enough warps to hide latency:
+//   - A block holds a 64-row q tile and walks 64-key chunks.  At hd 128,
+//     128 threads (8 row groups x 16 lanes), 8 query rows a thread, two
+//     blocks an SM; at the other head dims 256 threads (16 x 16), 4 rows a
+//     thread, two blocks an SM up to hd 64 and one above.  A thread holds
+//     its R rows by 4 keys of a chunk's scores and the same rows by 4 *
+//     ceil(hd / 64) head-dim columns of the output: per 16-byte shared
+//     load 10.7 (R = 8) or 8 FMAs in S = Q K^T, 16 or 12.8 in P V.  Row i
+//     of a thread is ty + NRG i (NRG row groups), its keys 4 tx .. 4 tx +
+//     3, its columns 4 (tx + 16 g) ..; an accumulator's next fmaf is R x 4
+//     fmafs on.
+//   - q (pre-scaled by 1/sqrt(hd), as flash.py's kernel does) and K stay
+//     row-major in shared memory, each row's 16-byte units XOR-swizzled
+//     (q by row & 7: a warp's two row groups read adjacent rows; K by
+//     (row >> 2) & 7: a row group's lanes read rows 4 apart), so those
+//     reads hit distinct banks with no padding; one xor a step of four
+//     units.  V is row-major and read along its rows.  P goes through
+//     shared memory as [key][row], each thread's rows in 16-byte units
+//     swizzled by (key >> 2) & 7; a warp's rows are its own.
+//   - K and V chunks arrive by 16-byte cp.async (4-byte where a base or a
+//     stride is not 16-byte aligned; the strided views of a cache prefix
+//     are read in place), zero-filled past Skv.  Two stages of each where
+//     they fit (hd 16, 64, 160): chunk j + 1 lands under chunk j's
+//     products, one barrier a chunk.  One of each at hd 128 (two blocks of
+//     114,688 B an SM) and hd 256 (64 + 3 x 64 KB): V j lands under S j,
+//     K j + 1 under P V j, two barriers a chunk.  A chunk that every row
+//     of the tile sees whole skips the mask; p is selected, not branched
+//     around.
+//   - The grid walks (q tile, head) pairs heaviest q tile first across all
+//     heads, so a causal grid's last wave holds the lightest tiles.  The
+//     keys are split to fill the card: the host picks `splits` (1, 2, 4 or
+//     8; kernels/flash_attention/ops.fp32_splits) from the shapes so that
+//     the grid holds about two blocks for each one the SMs hold at once;
+//     the splits of one pair are the CTAs of one thread-block cluster.
+//     Each runs the online softmax over its fixed share of the tile's
+//     chunks, then the cluster merges (m, l, acc) through distributed
+//     shared memory, always in cluster-rank order, each CTA writing 64 /
+//     splits rows.  One launch, no atomics, no second pass.
+//   - Numerics: explicit fmaf (the build keeps -fmad=false), accurate expf,
+//     masked scores held at -1e9 with p = 0.  The sums run in a fixed
+//     order: q . k over d in order, a row's p over a lane's 4 keys and then
+//     its 16 lanes (xor butterfly), p v over the keys in order, splits in
+//     rank order.  A split that sees no key keeps m = -1e9, l = 0, acc
+//     = 0 and weighs 0 in the merge; a row that sees no key writes 0.  It
+//     agrees with the plain PyTorch version to the order of the sums
+//     (ref.flash_attention_split_ref models the splits).
+//     What is left on the table at hd 128 (about 60 % of the bound, PERF.md
+//     section 6): a thread's tile is as large as its registers allow, so an
+//     SM runs 8 warps, and a third of their issue slots go unused.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,11 +161,63 @@ namespace {
 // ---------------------------------------------------------------------------
 // float32: the FP32-core kernel
 
-constexpr int kQT = 64;           // query rows per block
+constexpr int kQT = 64;           // query rows a block
 constexpr int kKC = 64;           // key/value rows per chunk
-constexpr int kLD = kQT + 4;      // leading dim of the transposed tiles
-constexpr int kThreads = 256;     // 16 x 16 threads
+constexpr int kThreads = 256;     // threads a block: 16 row groups x 16 lanes
+constexpr int kThreadsWide = 128; // at hd 128: 8 row groups of 8 rows
+constexpr int kMaxSplits = 8;     // key splits: the portable cluster size
 constexpr float kNeg = -1e9f;
+
+// The float32 kernel's tiles at head dim HD.  Shared memory, in floats:
+// the q tile [QT][HD] | NS stages of K [kKC][HD] | NS stages of V
+// [kKC][HD] | P [kKC][QT].  114,688 B at hd 128 (two blocks an SM),
+// 212,992 B at hd 256.
+template <int HD>
+struct F32Shape {
+  static constexpr int T = HD == 128 ? kThreadsWide : kThreads;
+  static constexpr int NRG = T / 16;                // row groups
+  static constexpr int QT = kQT;
+  static constexpr int R = QT / NRG;                // query rows a thread
+  static constexpr int C = kKC / 16;                // keys a thread
+  static constexpr int NG = (HD + 63) / 64;         // column blocks a thread
+  static constexpr int V4 = HD / 4;                 // 16-byte units a row
+  static constexpr int SW = (V4 < 8 ? V4 : 8) - 1;  // swizzle mask
+  // K and V stages: two where two blocks (one at hd 160) fit an SM with
+  // them, else one
+  static constexpr int NS = HD == 128 || HD == 256 ? 1 : 2;
+  static constexpr int PLD = QT;                    // P's leading dim
+  static constexpr int kK = QT * HD;                // offsets, in floats
+  static constexpr int kV = kK + NS * kKC * HD;
+  static constexpr int kP = kV + NS * kKC * HD;
+  static constexpr int kSmem = (kP + kKC * PLD) * 4;
+  // blocks an SM: two up to hd 128, where their shared memory fits, else
+  // one
+  static constexpr int MB = HD <= 128 ? 2 : 1;
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(kSmem <= 232448 && MB * (kSmem + 1024) <= 233472,
+                "shared memory: a block's, and an SM's for MB blocks");
+  static_assert(NRG % 8 == 0 && R % 4 == 0, "the swizzle and P's runs");
+  // the merge's partial acc [QT][HD] fits in the K and V stages, its m, l,
+  // weights and denominators in P
+  static_assert(QT * HD <= kP - kK && 4 * QT <= kKC * PLD, "merge buffers");
+};
+
+// the float offset of 16-byte unit c4 of row `row` in the swizzled q tile
+// (a warp's two row groups read adjacent rows) and K chunk (a row group's
+// 16 lanes read 4 adjacent rows each)
+template <int HD>
+__device__ __forceinline__ int swz(int row, int c4) {
+  return row * HD + ((c4 ^ (row & F32Shape<HD>::SW)) << 2);
+}
+
+template <int HD>
+__device__ __forceinline__ int swz_k(int row, int c4) {
+  return row * HD + ((c4 ^ ((row >> 2) & F32Shape<HD>::SW)) << 2);
+}
+
+__device__ __forceinline__ float lane4(const float4& x, int e) {
+  return e == 0 ? x.x : (e == 1 ? x.y : (e == 2 ? x.z : x.w));
+}
 
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
@@ -132,52 +233,192 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <int HD>
-constexpr int smem_floats() {
-  // q tile [HD][kLD]; k chunk [HD][kLD], reused for the v chunk
-  // [kKC][HD]; probabilities [kKC][kLD]
-  return 2 * HD * kLD + kKC * kLD;
+// cp.async of 16 or 4 bytes; the z forms with `full` false zero-fill the
+// destination (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
-// blocks per SM the shared memory allows: two, one at hd 256 (156,672 B)
-template <int HD>
-constexpr int fp32_blocks_per_sm() {
-  return 2 * (smem_floats<HD>() * 4 + 1024) <= 233472 ? 2 : 1;
+
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src,
+                                            bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
 }
+
+__device__ __forceinline__ void cp_async4z(float* dst, const float* src,
+                                           bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives and waits; shared-memory
+// writes before it are visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (in this CTA's shared memory) in CTA `rank`'s.
+__device__ __forceinline__ const float* map_rank(const float* p,
+                                                 unsigned rank) {
+  uint64_t r;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(r)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(r);
+}
+
+// Keys c0 .. c0 + kKC - 1 of one head of x (row stride ss) into dst:
+// swizzled rows (K, swz_k) or plain rows (V), zero past Skv.  Asynchronous: the
+// caller commits the group and waits for it.
+template <int HD, bool SWZ>
+__device__ __forceinline__ void load_chunk(float* dst, const float* x,
+                                           long long ss, int c0, int Skv,
+                                           bool vec, int tid) {
+  using Sh = F32Shape<HD>;
+  if (vec && Sh::T % Sh::V4 == 0) {
+    // a thread copies one 16-byte unit of rows r0, r0 + RP, ...: one
+    // pointer step a copy, and no test while the chunk ends before Skv
+    constexpr int RP = Sh::T % Sh::V4 == 0 ? Sh::T / Sh::V4 : 1;
+    const int r0 = tid / Sh::V4, c4 = tid - r0 * Sh::V4;
+    const float* src = x + (c0 + r0) * ss + 4 * c4;
+    const long long step = RP * ss;
+    if (c0 + kKC <= Skv) {
+#pragma unroll
+      for (int it = 0; it < kKC / RP; ++it, src += step) {
+        const int r = r0 + it * RP;
+        cp_async16(dst + (SWZ ? swz_k<HD>(r, c4) : r * HD + 4 * c4), src);
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < kKC / RP; ++it, src += step) {
+        const int r = r0 + it * RP;
+        const bool in = c0 + r < Skv;
+        cp_async16z(dst + (SWZ ? swz_k<HD>(r, c4) : r * HD + 4 * c4),
+                    in ? src : x, in);
+      }
+    }
+  } else if (vec) {
+#pragma unroll
+    for (int it = 0; it < kKC * Sh::V4 / Sh::T; ++it) {
+      const int e = tid + it * Sh::T;
+      const int r = e / Sh::V4, c4 = e - r * Sh::V4;
+      const bool in = c0 + r < Skv;
+      cp_async16z(dst + (SWZ ? swz_k<HD>(r, c4) : r * HD + 4 * c4),
+                  x + (in ? c0 + r : c0) * ss + 4 * c4, in);
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < kKC * HD / Sh::T; ++it) {
+      const int e = tid + it * Sh::T;
+      const int r = e / HD, c = e - r * HD;
+      const bool in = c0 + r < Skv;
+      cp_async4z(dst + (SWZ ? swz_k<HD>(r, c >> 2) + (c & 3) : r * HD + c),
+                 x + (in ? c0 + r : c0) * ss + c, in);
+    }
+  }
+}
+
+// The online-softmax update of a thread's R rows over one chunk's scores
+// s (masked in place when MASK), into p; a chunk every (query, key) pair of
+// which the mask passes runs with MASK false.
+template <int R, int C, int NA, int NRG, bool MASK>
+__device__ __forceinline__ void softmax_chunk(
+    float (&s)[R][C], float (&p)[R][C], float (&m)[R], float (&l)[R],
+    float (&acc)[R][NA], int qp0, int kp0, int kv_len, int causal,
+    int window, int prefix_len) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qp = qp0 + NRG * i;
+    bool ok[C];
+    float mj = kNeg;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int kp = kp0 + j;
+      ok[j] = !MASK ||
+              (kp < kv_len &&
+               (kp < prefix_len || ((!causal || kp <= qp) &&
+                                    (window <= 0 || kp > qp - window))));
+      if (!ok[j]) s[i][j] = kNeg;
+      mj = fmaxf(mj, s[i][j]);
+    }
+    mj = row_max16(mj);
+    const float mn = fmaxf(m[i], mj);
+    const float r = expf(__fsub_rn(m[i], mn));
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      // a masked score is -1e9: its exp is 0 unless the whole row is
+      // masked so far (mn = -1e9), hence the select
+      const float e = expf(__fsub_rn(s[i][j], mn));
+      p[i][j] = ok[j] ? e : 0.f;
+      rs = __fadd_rn(rs, p[i][j]);
+    }
+    rs = row_sum16(rs);
+    l[i] = __fadd_rn(__fmul_rn(l[i], r), rs);
+#pragma unroll
+    for (int c = 0; c < NA; ++c) acc[i][c] = __fmul_rn(acc[i][c], r);
+    m[i] = mn;
+  }
+}
+
 template <int HD>
-__global__ void __launch_bounds__(kThreads, fp32_blocks_per_sm<HD>())
+__global__ void __launch_bounds__(F32Shape<HD>::T, F32Shape<HD>::MB)
 flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   int Sq, int Skv, int H, int group, long long q_bs,
                   long long q_ss, long long kv_bs, long long kv_ss,
                   int q_offset, int kv_len, int causal, int window,
-                  int prefix_len, float scale) {
-  static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
-  constexpr int NG = (HD / 4 + 15) / 16;   // float4 column groups / thread
-  constexpr int kLoads = kKC * HD / kThreads;
+                  int prefix_len, float scale, int splits, int vec) {
+  using Sh = F32Shape<HD>;
+  constexpr int R = Sh::R, QT = Sh::QT, C = Sh::C, NG = Sh::NG;
+  constexpr int V4 = Sh::V4, NS = Sh::NS, PLD = Sh::PLD, T = Sh::T;
+  constexpr int NRG = Sh::NRG;
   extern __shared__ float4 smem4[];
-  float* const qT = reinterpret_cast<float*>(smem4);
-  float* const kv = qT + HD * kLD;
-  float* const pT = kv + HD * kLD;
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const ks = qs + Sh::kK;
+  float* const vs = qs + Sh::kV;
+  float* const ps = qs + Sh::kP;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQT;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // blockIdx.x walks (q tile, head) pairs heaviest tile first across all
+  // heads, `splits` CTAs (one cluster) a pair; blockIdx.y is the batch
+  const int rank = splits > 1 ? static_cast<int>(cluster_ctarank()) : 0;
+  const int pair = static_cast<int>(blockIdx.x) / splits;
+  const int n_tiles = gridDim.x / splits / H;
+  const int q0 = (n_tiles - 1 - pair / H) * QT;
+  const int h = pair % H, b = blockIdx.y;
   const float* const qb = q + b * q_bs + static_cast<long long>(h) * HD;
   const long long kvh = static_cast<long long>(h / group) * HD;
   const float* const kb = k + b * kv_bs + kvh;
   const float* const vb = v + b * kv_bs + kvh;
+  const bool kvec = vec & 1, qvec = vec & 2;
 
-#pragma unroll 8
-  for (int it = 0; it < kLoads; ++it) {
-    const int i = tid + it * kThreads;
-    const int r = i / HD, d = i - r * HD;
-    float x = 0.f;
-    if (q0 + r < Sq) x = __fmul_rn(qb[(q0 + r) * q_ss + d], scale);
-    qT[d * kLD + r] = x;
-  }
-
-  // the chunks this tile needs: a causal tile also walks the prefix
-  const int q_last = min(q0 + kQT, Sq) - 1;
+  // the chunks this tile needs (a causal tile also walks the prefix), and
+  // this split's fixed share of them
+  const int q_last = min(q0 + QT, Sq) - 1;
   const int kv_hi = min(kv_len, Skv);
   int kv_end = kv_hi;
   if (causal)
@@ -185,129 +426,261 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int c_begin = 0;
   if (window > 0 && prefix_len <= 0)
     c_begin = max(0, q_offset + q0 - window + 1) / kKC * kKC;
+  const int n_chunks = kv_end > c_begin ? (kv_end - c_begin + kKC - 1) / kKC
+                                        : 0;
+  const int first = n_chunks * rank / splits;
+  const int n_my = n_chunks * (rank + 1) / splits - first;
+  const int lo = c_begin + first * kKC;
 
-  float m[4], l[4], acc[4][NG * 4];
+  if (n_my > 0) {
+    load_chunk<HD, true>(ks, kb, kv_ss, lo, Skv, kvec, tid);
+    if (NS == 2) load_chunk<HD, false>(vs, vb, kv_ss, lo, Skv, kvec, tid);
+    cp_async_commit();
+  }
+  // the q tile, pre-scaled, zero past Sq
+  if (qvec) {
+#pragma unroll 4
+    for (int it = 0; it < QT * V4 / T; ++it) {
+      const int e = tid + it * T;
+      const int r = e / V4, c4 = e - r * V4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < Sq) {
+        x = *reinterpret_cast<const float4*>(qb + (q0 + r) * q_ss + 4 * c4);
+        x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                        __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+      }
+      *reinterpret_cast<float4*>(qs + swz<HD>(r, c4)) = x;
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < QT * HD / T; ++it) {
+      const int e = tid + it * T;
+      const int r = e / HD, c = e - r * HD;
+      qs[swz<HD>(r, c >> 2) + (c & 3)] =
+          q0 + r < Sq ? __fmul_rn(qb[(q0 + r) * q_ss + c], scale) : 0.f;
+    }
+  }
+
+  float m[R], l[R], acc[R][NG * 4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < NG * 4; ++c) acc[i][c] = 0.f;
   }
+  const int sq = ty & Sh::SW, sk = tx & Sh::SW;
 
-  for (int c0 = c_begin; c0 < kv_end; c0 += kKC) {
-    __syncthreads();   // the q tile is written; the last chunk is consumed
-#pragma unroll 8
-    for (int it = 0; it < kLoads; ++it) {
-      const int i = tid + it * kThreads;
-      const int r = i / HD, d = i - r * HD;
-      const int j = c0 + r;
-      kv[d * kLD + r] = j < Skv ? kb[j * kv_ss + d] : 0.f;
-    }
-    __syncthreads();
-
-    // scores of rows ty*4 + i against keys c0 + tx*4 + j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qT + d * kLD + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(kv + d * kLD + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-    // masks and the online-softmax update of each row
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q_offset + q0 + ty * 4 + i;
-      bool ok[4];
-      float mj = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = c0 + tx * 4 + j;
-        ok[j] = kp < kv_len &&
-                (kp < prefix_len || ((!causal || kp <= qp) &&
-                                     (window <= 0 || kp > qp - window)));
-        if (!ok[j]) s[i][j] = kNeg;
-        mj = fmaxf(mj, s[i][j]);
+  for (int it = 0; it < n_my; ++it) {
+    const int c0 = lo + it * kKC;
+    const int slot = NS == 2 ? (it & 1) : 0;
+    const float* const kc = ks + slot * kKC * HD;
+    const float* const vc = vs + slot * kKC * HD;
+    cp_async_wait_all();
+    __syncthreads();   // chunk it landed; every warp is done with it - 1
+    if (NS == 2) {
+      if (it + 1 < n_my) {
+        load_chunk<HD, true>(ks + (slot ^ 1) * kKC * HD, kb, kv_ss,
+                             c0 + kKC, Skv, kvec, tid);
+        load_chunk<HD, false>(vs + (slot ^ 1) * kKC * HD, vb, kv_ss,
+                              c0 + kKC, Skv, kvec, tid);
+        cp_async_commit();
       }
-      mj = row_max16(mj);
-      const float mn = fmaxf(m[i], mj);
-      const float r = expf(__fsub_rn(m[i], mn));
-      float rs = 0.f;
+    } else {
+      load_chunk<HD, false>(vs, vb, kv_ss, c0, Skv, kvec, tid);
+      cp_async_commit();
+    }
+
+    // scores of rows ty + NRG i against keys c0 + 4 tx + j
+    float s[R][C];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = ok[j] ? expf(__fsub_rn(s[i][j], mn)) : 0.f;
-        rs = __fadd_rn(rs, p[i][j]);
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) s[i][j] = 0.f;
+    // d4 = 4 m + u: the swizzled unit d4 ^ sq is 4 (m ^ (sq >> 2)) + (u ^
+    // (sq & 3)), one xor a step of m and offsets fixed for each u
+    const float* const qt = qs + ty * HD;
+    const float* const kt = kc + 4 * tx * HD;
+#pragma unroll(HD > 160 ? 2 : 1)
+    for (int m4 = 0; m4 < V4 / 4; ++m4) {
+      const float* const qm = qt + ((m4 ^ (sq >> 2)) << 4);
+      const float* const km = kt + ((m4 ^ (sk >> 2)) << 4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 a[R], w[C];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qm + NRG * i * HD +
+                                                  ((u ^ (sq & 3)) << 2));
+#pragma unroll
+        for (int j = 0; j < C; ++j)
+          w[j] = *reinterpret_cast<const float4*>(km + j * HD +
+                                                  ((u ^ (sk & 3)) << 2));
+        // component by component: an accumulator's next fmaf is R * C on
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < C; ++j)
+              s[i][j] = fmaf(lane4(a[i], e), lane4(w[j], e), s[i][j]);
       }
-      rs = row_sum16(rs);
-      l[i] = __fadd_rn(__fmul_rn(l[i], r), rs);
-#pragma unroll
-      for (int c = 0; c < NG * 4; ++c) acc[i][c] = __fmul_rn(acc[i][c], r);
-      m[i] = mn;
     }
-    __syncthreads();   // every warp is done with the k chunk
 
+    // masks and the online-softmax update of each row: a chunk that every
+    // row of the tile sees whole (rows past Sq included) skips the mask
+    float p[R][C];
+    const bool whole =
+        c0 + kKC <= kv_len &&
+        (c0 + kKC <= prefix_len ||
+         ((!causal || c0 + kKC - 1 <= q_offset + q0) &&
+          (window <= 0 || c0 > q_offset + q0 + QT - 1 - window)));
+    if (whole)
+      softmax_chunk<R, C, NG * 4, NRG, false>(s, p, m, l, acc, 0, 0, 0, 0,
+                                              0, 0);
+    else
+      softmax_chunk<R, C, NG * 4, NRG, true>(s, p, m, l, acc,
+                                             q_offset + q0 + ty, c0 + 4 * tx,
+                                             kv_len, causal, window,
+                                             prefix_len);
+    // P [key][row]: a thread's rows 4 hh .. 4 hh + 3 in 16-byte unit
+    // NRG hh + ty, xor-swizzled by (key >> 2) & 7 (the 8 lanes that store
+    // keys 4 tx + j hit distinct banks)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pT + (tx * 4 + j) * kLD + ty * 4) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-#pragma unroll 8
-    for (int it = 0; it < kLoads; ++it) {
-      const int i = tid + it * kThreads;
-      const int r = i / HD, d = i - r * HD;
-      const int j = c0 + r;
-      kv[r * HD + d] = j < Skv ? vb[j * kv_ss + d] : 0.f;
+    for (int j = 0; j < C; ++j)
+#pragma unroll
+      for (int hh = 0; hh < R / 4; ++hh)
+        *reinterpret_cast<float4*>(ps + (4 * tx + j) * PLD +
+                                   4 * ((NRG * hh + ty) ^ (tx & 7))) =
+            make_float4(p[4 * hh][j], p[4 * hh + 1][j], p[4 * hh + 2][j],
+                        p[4 * hh + 3][j]);
+    if (NS == 1) {
+      cp_async_wait_all();   // V landed under S
+      __syncthreads();       // ... for every warp, and all are done with K
+      if (it + 1 < n_my) {
+        load_chunk<HD, true>(ks, kb, kv_ss, c0 + kKC, Skv, kvec, tid);
+        cp_async_commit();
+      }
+    } else {
+      __syncwarp();   // a warp's P rows are its own (its two ty)
     }
-    __syncthreads();
 
-    // acc += P V over the chunk's keys
-#pragma unroll 4
-    for (int c = 0; c < kKC; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(pT + c * kLD + ty * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+    // acc += P V over the chunk's keys; key c's swizzle (c >> 2) & 7 is
+    // sw | (k >> 2) for c = 8 c8 + k
+#pragma unroll 1
+    for (int c8 = 0; c8 < kKC / 8; ++c8) {
+      const int sw = (2 * c8) & 7;
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const int col = (tx + 16 * g) * 4;
-        if (col < HD) {
-          const float4 w = *reinterpret_cast<const float4*>(kv + c * HD + col);
-          const float wv[4] = {w.x, w.y, w.z, w.w};
+      for (int k = 0; k < 8; ++k) {
+        const int c = 8 * c8 + k;
+        float4 a[R / 4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int hh = 0; hh < R / 4; ++hh)
+          a[hh] = *reinterpret_cast<const float4*>(
+              ps + c * PLD + 4 * ((NRG * hh + ty) ^ (sw | (k >> 2))));
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj)
-              acc[i][g * 4 + jj] = fmaf(av[i], wv[jj], acc[i][g * 4 + jj]);
+        for (int g = 0; g < NG; ++g) {
+          const int col = (tx + 16 * g) * 4;
+          if (col < HD) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(vc + c * HD + col);
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              const float pi = lane4(a[i / 4], i % 4);
+              acc[i][4 * g] = fmaf(pi, w.x, acc[i][4 * g]);
+              acc[i][4 * g + 1] = fmaf(pi, w.y, acc[i][4 * g + 1]);
+              acc[i][4 * g + 2] = fmaf(pi, w.z, acc[i][4 * g + 2]);
+              acc[i][4 * g + 3] = fmaf(pi, w.w, acc[i][4 * g + 3]);
+            }
+          }
         }
       }
     }
   }
 
+  if (splits == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* const o =
-        out + ((static_cast<long long>(b) * Sq + row) * H + h) * HD;
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty + NRG * i;
+      if (row >= Sq) continue;
+      const float den = fmaxf(l[i], 1e-30f);
+      float* const o =
+          out + ((static_cast<long long>(b) * Sq + row) * H + h) * HD;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const int col = (tx + 16 * g) * 4;
+        if (col < HD)
+          *reinterpret_cast<float4*>(o + col) = make_float4(
+              __fdiv_rn(acc[i][4 * g], den), __fdiv_rn(acc[i][4 * g + 1], den),
+              __fdiv_rn(acc[i][4 * g + 2], den),
+              __fdiv_rn(acc[i][4 * g + 3], den));
+      }
+    }
+    return;
+  }
+
+  // The merge: each CTA's (m, l, acc) into its shared memory; CTA `rank`
+  // then writes rows rank * QT / splits .. of the tile, weighing split t's
+  // partial by exp(m_t - M) in rank order.
+  __syncthreads();   // every warp is done with the chunk buffers
+  float* const pacc = ks;             // [QT][HD]
+  float* const pm = ps;               // [QT]
+  float* const pl = pm + QT;          // [QT]
+  float* const wt = pl + QT;          // [QT / splits][splits]
+  float* const den = wt + QT;         // [QT / splits]
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int rl = ty + NRG * i;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int col = (tx + 16 * g) * 4;
-      if (col < HD) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          o[col + jj] = __fdiv_rn(acc[i][g * 4 + jj], den);
-      }
+      if (col < HD)
+        *reinterpret_cast<float4*>(pacc + rl * HD + col) =
+            make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                        acc[i][4 * g + 3]);
+    }
+    if (tx == 0) {
+      pm[rl] = m[i];
+      pl[rl] = l[i];
     }
   }
+  cluster_sync_all();
+  const int nr = QT / splits, r0 = rank * nr;
+  if (tid < nr) {
+    float mx = kNeg;
+    for (int t = 0; t < splits; ++t)
+      mx = fmaxf(mx, map_rank(pm, t)[r0 + tid]);
+    float lsum = 0.f;
+    for (int t = 0; t < splits; ++t) {
+      const float w = expf(__fsub_rn(map_rank(pm, t)[r0 + tid], mx));
+      wt[tid * splits + t] = w;
+      lsum = __fadd_rn(lsum, __fmul_rn(map_rank(pl, t)[r0 + tid], w));
+    }
+    den[tid] = fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = tid; e < nr * V4; e += T) {
+    const int r = e / V4, c4 = e - r * V4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = 0; t < splits; ++t) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          map_rank(pacc, t) + (r0 + r) * HD + 4 * c4);
+      const float w = wt[r * splits + t];
+      o = make_float4(__fadd_rn(o.x, __fmul_rn(x.x, w)),
+                      __fadd_rn(o.y, __fmul_rn(x.y, w)),
+                      __fadd_rn(o.z, __fmul_rn(x.z, w)),
+                      __fadd_rn(o.w, __fmul_rn(x.w, w)));
+    }
+    const int row = q0 + r0 + r;
+    if (row < Sq) {
+      const float d = den[r];
+      *reinterpret_cast<float4*>(
+          out + ((static_cast<long long>(b) * Sq + row) * H + h) * HD +
+          4 * c4) = make_float4(__fdiv_rn(o.x, d), __fdiv_rn(o.y, d),
+                                __fdiv_rn(o.z, d), __fdiv_rn(o.w, d));
+    }
+  }
+  cluster_sync_all();   // no CTA leaves while another reads its partial
 }
 
 // ---------------------------------------------------------------------------
@@ -1086,22 +1459,52 @@ int allow_smem(K kernel, int bytes, bool (&configured)[64]) {
   return 0;
 }
 
+// One float32 launch: the grid (q tiles x H x splits, B), heaviest q tiles
+// first, the `splits` CTAs of a (q tile, head) one cluster.
 template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
                 int B, int Sq, int Skv, int H, int Hkv, long long q_bs,
                 long long q_ss, long long kv_bs, long long kv_ss,
                 int q_offset, int kv_len, int causal, int window,
-                int prefix_len, float scale, cudaStream_t stream) {
-  constexpr int kSmem = smem_floats<HD>() * static_cast<int>(sizeof(float));
+                int prefix_len, float scale, int splits,
+                cudaStream_t stream) {
+  using Sh = F32Shape<HD>;
+  if (splits < 1 || splits > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool configured[64] = {};
-  const int rc = allow_smem(flash_fp32_kernel<HD>, kSmem, configured);
+  const int rc = allow_smem(flash_fp32_kernel<HD>, Sh::kSmem, configured);
   if (rc) return rc;
-  const dim3 grid((Sq + kQT - 1) / kQT, H, B);
-  flash_fp32_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
-      H / Hkv, q_bs, q_ss, kv_bs, kv_ss, q_offset, kv_len, causal, window,
-      prefix_len, scale);
+  // 16-byte copies where every base and stride allows them (bit 0: k and
+  // v, bit 1: q); a batch stride is read only when B > 1
+  const long long kvb = B > 1 ? kv_bs : 0, qbs = B > 1 ? q_bs : 0;
+  const int vec =
+      ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
+                   16 == 0 &&
+               (kvb | kv_ss) % 4 == 0
+           ? 1
+           : 0) |
+      (reinterpret_cast<uintptr_t>(q) % 16 == 0 && (qbs | q_ss) % 4 == 0
+           ? 2
+           : 0);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Sq + Sh::QT - 1) / Sh::QT * H * splits, B, 1);
+  cfg.blockDim = dim3(Sh::T, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(Sh::kSmem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, flash_fp32_kernel<HD>, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Sq, Skv, H, H / Hkv, q_bs, q_ss, kv_bs,
+      kv_ss, q_offset, kv_len, causal, window, prefix_len, scale, splits,
+      vec);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1217,8 +1620,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" long long fg_flash_attention_smem(int dtype, int hd) {
 #define FG_SMEM(N)                                                         \
   case N:                                                                  \
-    return dtype == 0 ? smem_floats<N>() * static_cast<long long>(         \
-                            sizeof(float))                                 \
+    return dtype == 0 ? static_cast<long long>(F32Shape<N>::kSmem)         \
                       : static_cast<long long>(TcShape<N>::kSmem);
   if (dtype != 0 && dtype != 1) return -1;
   switch (hd) {
@@ -1235,7 +1637,8 @@ extern "C" long long fg_flash_attention_smem(int dtype, int hd) {
 
 // dtype: 0 float32 (FP32-core kernel), 1 bfloat16 (tensor-core kernel).
 // Strides are in elements; each (heads, hd) row block must be contiguous,
-// and for bf16 every base and stride 16-byte aligned.  Returns a
+// and for bf16 every base and stride 16-byte aligned.  `splits` (float32
+// only, 1..8) is the key split, the CTAs of one cluster.  Returns a
 // cudaError_t (0 on success).
 extern "C" int fg_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, int dtype, int B,
@@ -1244,34 +1647,34 @@ extern "C" int fg_flash_attention(const void* q, const void* k,
                                   long long kv_bs, long long kv_ss,
                                   int q_offset, int kv_len, int causal,
                                   int window, int prefix_len, float scale,
-                                  void* stream) {
+                                  int splits, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FG_HD(N, LAUNCH)                                                   \
+#define FG_HD(N, LAUNCH, ...)                                              \
   case N:                                                                  \
     return LAUNCH<N>(q, k, v, out, B, Sq, Skv, H, Hkv, q_bs, q_ss, kv_bs,  \
                      kv_ss, q_offset, kv_len, causal, window, prefix_len,  \
-                     scale, s);
+                     scale, __VA_ARGS__ s);
   if (dtype == 0) {
     switch (hd) {
-      FG_HD(16, launch_fp32)
-      FG_HD(64, launch_fp32)
-      FG_HD(128, launch_fp32)
-      FG_HD(160, launch_fp32)
-      FG_HD(256, launch_fp32)
+      FG_HD(16, launch_fp32, splits,)
+      FG_HD(64, launch_fp32, splits,)
+      FG_HD(128, launch_fp32, splits,)
+      FG_HD(160, launch_fp32, splits,)
+      FG_HD(256, launch_fp32, splits,)
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   if (dtype == 1) {
     switch (hd) {
-      FG_HD(16, launch_tc)
-      FG_HD(64, launch_tc)
-      FG_HD(128, launch_tc)
-      FG_HD(160, launch_tc)
-      FG_HD(256, launch_tc)
+      FG_HD(16, launch_tc, )
+      FG_HD(64, launch_tc, )
+      FG_HD(128, launch_tc, )
+      FG_HD(160, launch_tc, )
+      FG_HD(256, launch_tc, )
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -13,9 +13,11 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/flash_attention.cu``) on the current stream and adds one to its
 count in :data:`LAUNCHES`: bf16 inputs run on the tensor cores (bf16
 products, f32 sums, p rounded to bf16 for p.v), float32 inputs on the FP32
-cores.  On a CPU tensor it runs the plain version in ``ref`` and counts
-nothing.  There is no fallback from one to the other: a build or launch
-failure raises.
+cores, their keys split over a cluster of :func:`fp32_splits` CTAs where
+the q tiles alone would leave SMs idle (float32 launches are also counted
+in :data:`FP32_LAUNCHES`).  On a CPU tensor it runs the plain version in
+``ref`` and counts nothing.  There is no fallback from one to the other: a
+build or launch failure raises.
 
 Gradients.  When an input requires a gradient, a CUDA call goes through
 :class:`FlashAttentionFn`: its forward is the same launch (counted the
@@ -38,6 +40,9 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"flash_attention": 0}
+#: float32 launches (``flash_fp32_kernel``) since the process started, of
+#: the launches :data:`LAUNCHES` counts; never reset
+FP32_LAUNCHES = {"flash_fp32_kernel": 0}
 
 #: head dims the kernels are instantiated for (``csrc/flash_attention.cu``):
 #: the reduced configs (16), the windowed case (64), starcoder2-7b,
@@ -48,6 +53,8 @@ HEAD_DIMS = (16, 64, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None
+#: SM count per CUDA device index (:func:`_sm_count`)
+_SMS: dict = {}
 
 
 def reset_launches() -> None:
@@ -60,7 +67,7 @@ def _kernel():
         fn = _build.library("flash_attention").fg_flash_attention
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, ll, i, i,
-                       i, i, i, ctypes.c_float, p]
+                       i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -145,6 +152,15 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def _sm_count(device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len):
     """One launch of the kernel on checked CUDA tensors (counted)."""
     B, Sq, H, hd = q.shape
@@ -171,35 +187,70 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len):
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    splits = (fp32_splits(B, Sq, Skv, H, hd, _sm_count(q.device))
+              if q.dtype == torch.float32 else 1)
     rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, hd, q_bs, q_ss,
                    *kv_strides, int(q_offset), kv_len, int(bool(causal)),
                    0 if window is None else int(window),
                    0 if prefix_len is None else max(0, int(prefix_len)),
-                   1.0 / (hd ** 0.5),
+                   1.0 / (hd ** 0.5), splits,
                    torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {rc}")
     LAUNCHES["flash_attention"] += 1
+    if q.dtype == torch.float32:
+        FP32_LAUNCHES["flash_fp32_kernel"] += 1
     return out
 
 
 # ---------------------------------------------------------------------------
 # static contracts (kernels/contract.py)
 
-#: csrc/flash_attention.cu: the float32 kernel's kQT, kKC, kLD, kThreads;
-#: the tensor-core kernel's kTcRows, kTcThreads
-_QT, _KC, _LD, _THREADS = 64, 64, 68, 256
+#: csrc/flash_attention.cu: the float32 kernel's kQT, kKC, kThreads,
+#: kThreadsWide (at hd 128), kMaxSplits; the tensor-core kernel's kTcRows,
+#: kTcThreads
+_QT, _KC, _THREADS, _THREADS_WIDE, _MAX_SPLITS = 64, 64, 256, 128, 8
 _TC_ROWS, _TC_THREADS = 128, 384
 _SMEM_MAX = 232_448
 
 
+def fp32_threads(hd: int) -> int:
+    """Threads of one float32 block (``F32Shape<HD>::T``)."""
+    return _THREADS_WIDE if hd == 128 else _THREADS
+
+
 def fp32_smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of the float32 kernel (``smem_floats<HD>``,
-    ``csrc/flash_attention.cu``:136): the q tile and the k (then v) chunk
-    ``[HD][kLD]`` and the probabilities ``[kKC][kLD]``, in floats."""
-    return 4 * (2 * hd * _LD + _KC * _LD)
+    """Dynamic shared memory of the float32 kernel (``F32Shape<HD>::kSmem``,
+    ``csrc/flash_attention.cu``): the q tile ``[kQT][hd]``, two stages (one
+    at hd 128 and 256) of K and of V ``[kKC][hd]`` and P ``[kKC][kQT]``, in
+    floats."""
+    stages = 1 if hd in (128, 256) else 2
+    return 4 * (_QT * hd + 2 * stages * _KC * hd + _KC * _QT)
+
+
+def fp32_blocks_per_sm(hd: int) -> int:
+    """Float32 blocks an SM holds (``F32Shape<HD>::MB``): two up to hd 128,
+    one above."""
+    return 2 if hd <= 128 else 1
+
+
+def fp32_splits(B: int, Sq: int, Skv: int, H: int, hd: int,
+                sms: int = H100_SMS) -> int:
+    """Key splits of a float32 launch, the CTAs of one cluster: doubled
+    from 1 while the grid holds fewer than two blocks for each block the
+    SMs hold at once and each split keeps at least two of ``Skv``'s 64-key
+    chunks, up to the portable cluster of 8.  The second wave also shortens
+    a causal grid's tail: its heaviest q tile is split too."""
+    tiles = -(-Sq // _QT) * H * B
+    slots = sms * fp32_blocks_per_sm(hd)
+    chunks = -(-Skv // _KC)
+    splits = 1
+    while (splits < _MAX_SPLITS and tiles * splits < 2 * slots
+           and chunks >= 4 * splits):
+        splits *= 2
+    return splits
 
 
 def tc_smem_bytes(hd: int) -> int:
@@ -213,33 +264,37 @@ def tc_smem_bytes(hd: int) -> int:
     return q + 2 * stages * kv + 128 + 1024
 
 
-def _contract(hd: int, dtype: str, B: int, Sq: int, H: int,
+def _contract(hd: int, dtype: str, B: int, Sq: int, Skv: int, H: int,
               model: str) -> KernelContract:
-    rows = _TC_ROWS if dtype == "bfloat16" else _QT
-    out = (TileSpec("out", (B, Sq, H, hd), (1, rows, 1, hd)),)
     if dtype == "bfloat16":
-        tiles = Sq // rows * H * B
+        out = (TileSpec("out", (B, Sq, H, hd), (1, _TC_ROWS, 1, hd)),)
+        tiles = Sq // _TC_ROWS * H * B
         return KernelContract(
             name="flash_attention", module=__name__,
             kernel=f"flash_tc_kernel<{hd}>", grid=(tiles,),
             threads=_TC_THREADS, smem_bytes=tc_smem_bytes(hd),
             ctas=min(tiles, H100_SMS), out_tiles=out, wired=True,
             note=model, args=(("dtype", 1), ("head_dim", hd)))
+    # a cluster of `splits` CTAs a q tile, each writing _QT / splits rows
+    splits = fp32_splits(B, Sq, Skv, H, hd)
+    out = (TileSpec("out", (B, Sq, H, hd), (1, _QT // splits, 1, hd)),)
     return KernelContract(
         name="flash_attention", module=__name__,
-        kernel=f"flash_fp32_kernel<{hd}>", grid=(Sq // rows, H, B),
-        threads=_THREADS, smem_bytes=fp32_smem_bytes(hd), out_tiles=out,
-        wired=True, note=model, args=(("dtype", 0), ("head_dim", hd)))
+        kernel=f"flash_fp32_kernel<{hd}>", grid=(Sq // _QT * H * splits, B),
+        threads=fp32_threads(hd), cluster=splits,
+        smem_bytes=fp32_smem_bytes(hd),
+        out_tiles=out, wired=True, note=model,
+        args=(("dtype", 0), ("head_dim", hd)))
 
 
-#: (head dim, B, Sq, H, the prefill it is): whisper-base's encoder,
+#: (head dim, B, Sq, Skv, H, the prefill it is): whisper-base's encoder,
 #: starcoder2-7b's 4096-token prefill, one rank's rows of
 #: recurrentgemma-2b's 2048-token prefill under "seq" at a model axis of 4
-_SHAPES = ((64, 1, 1536, 8, "whisper-base encoder"),
-           (128, 1, 4096, 36, "starcoder2-7b prefill"),
-           (256, 1, 512, 10, "recurrentgemma-2b seq rank"))
-CONTRACTS = tuple(_contract(hd, dtype, B, Sq, H, model)
-                  for hd, B, Sq, H, model in _SHAPES
+_SHAPES = ((64, 1, 1536, 1536, 8, "whisper-base encoder"),
+           (128, 1, 4096, 4096, 36, "starcoder2-7b prefill"),
+           (256, 1, 512, 2048, 10, "recurrentgemma-2b seq rank"))
+CONTRACTS = tuple(_contract(hd, dtype, B, Sq, Skv, H, model)
+                  for hd, B, Sq, Skv, H, model in _SHAPES
                   for dtype in ("bfloat16", "float32"))
 
 

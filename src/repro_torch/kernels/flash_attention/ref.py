@@ -75,6 +75,74 @@ def flash_attention_gqa_ref(q, k, v, **kw):
     return out.reshape(B, H, Sq, hd).transpose(1, 2).contiguous()
 
 
+def flash_attention_split_ref(q, k, v, *, rows, chunk, splits, causal=True,
+                              window=None, q_offset=0, kv_len=None,
+                              prefix_len=None):
+    """The float32 kernel's arithmetic, block by block (tests only): q
+    ``[B, Sq, H, hd]``, k, v ``[B, Skv, Hkv, hd]`` -> ``[B, Sq, H, hd]``.
+
+    For each tile of ``rows`` queries, the kernel's chunk range (causal
+    tiles end at their last query or past the prefix, windowed tiles
+    without a prefix start at the window's lower edge rounded down to a
+    chunk) is cut into ``splits`` fixed shares of whole ``chunk``-key
+    chunks.  Each share runs the online softmax from ``(m, l, acc) = (-1e9,
+    0, 0)``; a share that sees no key keeps that neutral partial.  The
+    shares then merge in order: ``M = max m_t``, ``w_t = exp(m_t - M)``,
+    ``out = sum w_t acc_t / max(sum w_t l_t, 1e-30)``."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+
+    def heads(x, rep):          # [B, S, H / rep, hd] -> [B * H, S, hd]
+        x = x.float().repeat_interleave(rep, dim=2) if rep > 1 else x.float()
+        return x.transpose(1, 2).reshape(B * H, -1, hd)
+    qf = heads(q, 1) * (1.0 / (hd ** 0.5))
+    kf, vf = heads(k, g), heads(v, g)
+    kv_hi = Skv if kv_len is None else max(0, min(int(kv_len), Skv))
+    pre = prefix_len or 0
+    out = torch.empty((B * H, Sq, hd), dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, rows):
+        q1 = min(q0 + rows, Sq)
+        mask = attention_mask(q1 - q0, Skv, causal=causal, window=window,
+                              q_offset=q_offset + q0, kv_len=kv_hi,
+                              prefix_len=prefix_len, device=q.device)
+        kv_end = kv_hi
+        if causal:
+            kv_end = max(min(kv_hi, q_offset + q1), min(pre, kv_hi))
+        c_begin = 0
+        if window is not None and pre <= 0:
+            c_begin = max(0, q_offset + q0 - window + 1) // chunk * chunk
+        n = -(-(kv_end - c_begin) // chunk) if kv_end > c_begin else 0
+        parts = []
+        for t in range(splits):
+            m = torch.full((B * H, q1 - q0), NEG, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((B * H, q1 - q0, hd), device=q.device)
+            for c in range(n * t // splits, n * (t + 1) // splits):
+                c0 = c_begin + c * chunk
+                c1 = min(c0 + chunk, Skv)
+                ok = mask[None, :, c0:c1]
+                s = torch.where(ok, torch.matmul(qf[:, q0:q1],
+                                                 kf[:, c0:c1].transpose(1, 2)),
+                                NEG)
+                mn = torch.maximum(m, torch.amax(s, dim=-1))
+                r = torch.exp(m - mn)
+                p = torch.where(ok, torch.exp(s - mn[..., None]), 0.0)
+                l = l * r + torch.sum(p, -1)
+                acc = acc * r[..., None] + torch.matmul(p, vf[:, c0:c1])
+                m = mn
+            parts.append((m, l, acc))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        L = torch.zeros_like(M)
+        O = torch.zeros_like(parts[0][2])
+        for m, l, acc in parts:
+            w = torch.exp(m - M)
+            L = L + l * w
+            O = O + acc * w[..., None]
+        out[:, q0:q1] = O / torch.clamp(L, min=1e-30)[..., None]
+    return out.reshape(B, H, Sq, hd).transpose(1, 2).to(q.dtype)
+
+
 #: query rows of one block of :func:`flash_attention_bwd_ref`
 BWD_BLOCK = 512
 

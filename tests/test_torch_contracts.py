@@ -124,17 +124,51 @@ def test_mirrors_read_the_sources_constants():
                                                   pp["kRows"])
     fa = _constants("flash_attention.cu")
     assert (flash_ops._QT, flash_ops._KC, flash_ops._THREADS,
+            flash_ops._THREADS_WIDE, flash_ops._MAX_SPLITS,
             flash_ops._TC_ROWS, flash_ops._TC_THREADS) == (
-        fa["kQT"], fa["kKC"], fa["kThreads"], fa["kTcRows"],
-        fa["kTcThreads"])
-    assert flash_ops._LD == fa["kQT"] + 4
-    # csrc/flash_attention.cu: "two, one at hd 256 (156,672 B)"; the
-    # tensor-core kernel's hd 256 ring: "64 + 4 x 32 KB"
-    assert flash_ops.fp32_smem_bytes(256) == 156_672
+        fa["kQT"], fa["kKC"], fa["kThreads"], fa["kThreadsWide"],
+        fa["kMaxSplits"], fa["kTcRows"], fa["kTcThreads"])
+    # csrc/flash_attention.cu, F32Shape: "114,688 B at hd 128 (two blocks
+    # an SM), 212,992 B at hd 256"; the tensor-core kernel's hd 256 ring:
+    # "64 + 4 x 32 KB"
+    assert flash_ops.fp32_smem_bytes(128) == 114_688
+    assert flash_ops.fp32_smem_bytes(256) == 212_992
     assert flash_ops.tc_smem_bytes(256) == (64 + 4 * 32) * 1024 + 128 + 1024
     # three stages where they fit beside the q tile (hd <= 128), else two
     assert flash_ops.tc_smem_bytes(128) == (32 + 6 * 32) * 1024 + 1152
     assert minplus_ops.smem_bytes(True, 128, 10) == 4 * (8 * 128 + 32 * 2)
+
+
+#: (B, Sq, Skv, H, hd) of every float32 launch phase 6 times (PERF.md's
+#: rows 6b, 6d-6k): starcoder2-7b, recurrentgemma-2b, qwen3-moe-30b-a3b,
+#: paligemma-3b, whisper-base's encoder, one rank's share under tp4 (6h),
+#: train tp2 (6i), ep4 (6j) and "seq" (6k)
+_F32_TIMED = ((1, 4096, 4096, 36, 128), (1, 4096, 4096, 10, 256),
+              (1, 4096, 4096, 32, 128), (1, 4096, 4096, 8, 256),
+              (1, 1536, 1536, 8, 64), (1, 2048, 2048, 9, 128),
+              (1, 1024, 1024, 18, 128), (1, 4096, 4096, 8, 128),
+              (1, 512, 2048, 10, 256))
+
+
+@pytest.mark.parametrize("shape", sorted(
+    {(B, Sq, Skv, H, hd) for hd, B, Sq, Skv, H, _ in flash_ops._SHAPES}
+    | set(_F32_TIMED)), ids=str)
+def test_float32_launch_shape_fills_the_card(shape):
+    """The host's choice for a float32 launch (``fp32_splits``) at every
+    float32 contract's shape and phase 6's timed ones: a grid of at least
+    one block for each block the SMs hold at once, a cluster of at most 8
+    whose splits each keep two or more 64-key chunks and divide the q
+    tile's rows, shared memory within one block's 232,448 B (and the SM's
+    for the blocks it holds)."""
+    B, Sq, Skv, H, hd = shape
+    rows, splits = flash_ops._QT, flash_ops.fp32_splits(B, Sq, Skv, H, hd)
+    ctas = -(-Sq // rows) * splits * H * B
+    assert ctas >= contract.H100_SMS * flash_ops.fp32_blocks_per_sm(hd)
+    assert 1 <= splits <= 8 and -(-Skv // flash_ops._KC) >= 2 * splits
+    assert rows % splits == 0
+    assert flash_ops.fp32_smem_bytes(hd) <= 232_448
+    assert flash_ops.fp32_blocks_per_sm(hd) * (
+        flash_ops.fp32_smem_bytes(hd) + 1024) <= 233_472
 
 
 def _copy_tree(tmp_path):

@@ -28,7 +28,8 @@ from repro.kernels.flash_attention.flash import \
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_mask, flash_attention_gqa_ref, flash_attention_ref)
+    attention_mask, flash_attention_gqa_ref, flash_attention_ref,
+    flash_attention_split_ref)
 from repro_torch.models import attention as tattn  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -178,6 +179,53 @@ def test_fully_masked_rows_are_zero():
     _, (q, k, v) = _qkv(2, 1, 4, 8, 2, 2, 16, "float32")
     out = ops.flash_attention(q, k, v, kv_len=0)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# the float32 kernel's key splits (csrc/flash_attention.cu,
+# flash_fp32_kernel): each split's (m, l, acc) over its share of a q tile's
+# chunks and their merge in cluster-rank order, modelled in plain torch
+# (ref.flash_attention_split_ref) at 16-row tiles of 8-key chunks
+
+#: (Sq, Skv, H, Hkv, splits, masks): causal; a window whose lower edge
+#: leaves fewer chunks than splits (empty splits; rows that see none of a
+#: split's keys); a prefix; a kv_len that ends inside a split's last chunk;
+#: queries at an offset; a row that sees no key
+SPLIT_CASES = {
+    "causal": (48, 48, 4, 2, 2, dict(causal=True)),
+    "window_empties_splits": (16, 64, 4, 1, 8,
+                              dict(causal=True, window=5, q_offset=48)),
+    "prefix": (32, 32, 4, 4, 4, dict(causal=True, prefix_len=12)),
+    "kv_len_inside_split": (24, 64, 4, 2, 2,
+                            dict(causal=False, kv_len=37)),
+    "q_offset": (16, 40, 4, 2, 4, dict(causal=True, q_offset=24)),
+    "no_key": (16, 24, 2, 2, 4, dict(causal=False, kv_len=0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_merge_arithmetic_matches_jax_attend(case):
+    """The splits' fixed-order merge against the JAX reference's attention
+    at the float32 tolerance; a row that sees no key is 0."""
+    Sq, Skv, H, Hkv, splits, kw = SPLIT_CASES[case]
+    (jq, jk, jv), (q, k, v) = _qkv(Sq + Skv + splits, 2, Sq, Skv, H, Hkv,
+                                   16, "float32")
+    off, kv_len = kw.get("q_offset", 0), kw.get("kv_len")
+    kv_mask = (None if kv_len is None else jnp.broadcast_to(
+        jnp.arange(Skv)[None] < kv_len, (2, Skv)))
+    want = jattn.attend(jq, jk, jv, off + jnp.arange(Sq), jnp.arange(Skv),
+                        causal=kw["causal"], window=kw.get("window"),
+                        chunk=8, kv_mask=kv_mask,
+                        prefix_len=kw.get("prefix_len"))
+    got = flash_attention_split_ref(q, k, v, rows=16, chunk=8,
+                                    splits=splits, **kw)
+    _close(got, want, "float32")
+    if case == "no_key":
+        assert torch.equal(got, torch.zeros_like(got))
+    # the same merge with one split is the plain version's arithmetic
+    one = flash_attention_split_ref(q, k, v, rows=16, chunk=8, splits=1,
+                                    **kw)
+    torch.testing.assert_close(got, one, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
