@@ -270,7 +270,18 @@ Phases, each of which fails the run on any error:
               against c's, whose carries were the ranks' S / 2 rows; one
               ``train mesh`` line a rank (step wall, tokens/s, collectives
               a step and their seconds, peak GB, B6 launches, the carry)
-  9. report   fg_threefry's line and the kernel table as JSON lines (each
+  9. dry run   ``launch/dryrun.dry_step`` (one step on meta tensors, in
+              this process) of three cuts just run on the card: 8d's
+              training step (its B6 launches a step times TRAIN_STEPS
+              equal to those 8d counted) and one decode step of each rank
+              of 7e's and 7f's served models on MESH (its collectives
+              equal to the ``Mesh.calls`` a decode step that rank
+              counted); the predicted peak beside ``max_memory_allocated``
+              (8d: over its steps; 7e, 7f: over a rank's first decode
+              step, its peak counters reset before it) and the roofline's
+              bound beside the measured step, printed (``dry run vs
+              card``)
+  10. report  fg_threefry's line and the kernel table as JSON lines (each
               kernel launched at least once on the paths), then the
               result line
 
@@ -3426,6 +3437,7 @@ def phase_lm_mesh(torch, ref, card, train_cases=(), moe_cases=(),
               "collectives": r["serve"]["collectives"],
               "b6_launches": r["serve"]["launches"]["flash_attention"],
               "peak_mem_bytes": r["peak_mem_bytes"],
+              "decode_step_peak_bytes": r["serve"]["decode_step_peak_bytes"],
               "case_wall_s": r["wall_s"]} for i, r in enumerate(fulls)]
     res = {"card": card, "arch": LM_ARCH, "layers": cfg.n_layers,
            "mesh": list(MESH), "backend": "gloo", "world_s": world_s,
@@ -3754,6 +3766,7 @@ def phase_lm_moe_mesh(torch, ranks: list, ctx: dict, card: str) -> dict:
               "collectives": r["serve"]["collectives"],
               "b6_launches": r["serve"]["launches"]["flash_attention"],
               "peak_gb": (r["peak_mem_bytes"] or 0) / 1e9,
+              "decode_step_peak_bytes": r["serve"]["decode_step_peak_bytes"],
               "dropped_share": r["routing"]["dropped_share"],
               "case_wall_s": r["wall_s"]} for i, r in enumerate(served)]
     res = {"card": card, "arch": MOE_ARCH, "layers": cfg.n_layers,
@@ -5042,6 +5055,102 @@ class Counters:
         return {k: v for m in self.mods for k, v in m.LAUNCHES.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dry run against the card
+
+
+def _dry_roofline(rec, mesh_shape) -> dict:
+    from repro_torch.launch import roofline
+    shape, names = mesh_shape
+    t = roofline.terms(rec["flops"], rec["bytes"],
+                       rec["collectives"]["by_axis"], shape, names)
+    return {**{k + "_s": v for k, v in t.items()},
+            "bound_s": max(t.values()), "dominant": max(t, key=t.get)}
+
+
+def phase_dryrun(torch, train: dict, lm_mesh: dict, moe_mesh: dict,
+                 card: str) -> dict:
+    """Phase 9 (module docstring): 8d's B6 launches a step times
+    TRAIN_STEPS equal to the launches 8d counted, and every rank's
+    collectives of one decode step of 7e's and 7f's models equal to the
+    ``Mesh.calls`` a decode step that rank counted in the world; the
+    predicted peak beside the measured one with their ratio (7e, 7f: the
+    peak allocated over one decode step on the rank), the
+    roofline's bound (the card's published rates, ``launch/roofline.py``)
+    beside the measured step wall."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import DryMesh
+
+    t0 = time.perf_counter()
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    out = {"card": card, "total_memory": hbm}
+    full = train["full"]
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=full["n_layers"],
+                              microbatches=TRAIN_MICRO)
+    rec = dryrun.dry_step(cfg, ShapeConfig("8d", "train", TRAIN_SEQ,
+                                           TRAIN_BATCH))
+    b6 = rec["launches"].get("flash_attention", 0)
+    if b6 * TRAIN_STEPS != full["launches"] or \
+            b6 != full["flash_launches_per_step"]:
+        raise AssertionError(f"dry run 8d: {b6} B6 launches a step, the "
+                             f"card {full['launches']} over {TRAIN_STEPS} "
+                             f"steps")
+    step = full["step_s"][1:] or full["step_s"]
+    measured = full["max_memory_allocated"]
+    out["8d"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                 "b6_launches_a_step": b6,
+                 "b6_launches_counted": full["launches"],
+                 "steps": TRAIN_STEPS, "flops": rec["flops"],
+                 "bytes": rec["bytes"], "ops": rec["ops"],
+                 "peak_bytes": rec["peak_bytes"],
+                 "max_memory_allocated": measured,
+                 "peak_ratio": rec["peak_bytes"] / measured,
+                 **_dry_roofline(rec, ((1,), ("model",))),
+                 "step_s_mean": float(np.mean(step)),
+                 "dry_s": rec["seconds"]}
+    out["8d"]["bound_over_step"] = (out["8d"]["bound_s"]
+                                    / out["8d"]["step_s_mean"])
+    for key, arch, res in (("7e", LM_ARCH, lm_mesh),
+                           ("7f", MOE_ARCH, moe_mesh)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=res["layers"])
+        shape = ShapeConfig(key, "decode", LM_MAX_LEN, LM_BATCH)
+        rows = []
+        for r in res["ranks"]:
+            mesh = DryMesh(MESH, rank=r["rank"])
+            rec = dryrun.dry_step(cfg, shape, mesh)
+            calls = rec["collectives"]["calls"]
+            if calls != r["collectives_per_decode_step"]:
+                raise AssertionError(
+                    f"dry run {key} rank {r['rank']}: {calls} collectives "
+                    f"a decode step, the world counted "
+                    f"{r['collectives_per_decode_step']}")
+            measured = r["decode_step_peak_bytes"]
+            wall = r["decode_s"] / max(r["decode_steps"], 1)
+            roof = _dry_roofline(rec, (MESH, ("data", "model")))
+            rows.append({"rank": r["rank"], "collectives": calls,
+                         "collectives_counted":
+                             r["collectives_per_decode_step"],
+                         "collective_bytes": rec["collectives"]["bytes"],
+                         "by_kind": rec["collectives"]["by_kind"],
+                         "peak_bytes": rec["peak_bytes"],
+                         "decode_step_max_memory_allocated": measured,
+                         "peak_ratio": rec["peak_bytes"] / measured,
+                         **roof, "decode_step_s": wall,
+                         "bound_over_step": roof["bound_s"] / wall,
+                         "dry_s": rec["seconds"]})
+        out[key] = {"arch": arch, "layers": cfg.n_layers,
+                    "mesh": list(MESH), "batch": LM_BATCH,
+                    "max_len": LM_MAX_LEN, "ranks": rows}
+    out["seconds"] = time.perf_counter() - t0
+    log("dry run vs card: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5074,7 +5183,8 @@ def main() -> int:
         text=True).stdout.strip().splitlines()[0]
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)} total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory}")
 
     phase_s = {"build": round(time.perf_counter() - t_start, 1)}
 
@@ -5128,6 +5238,7 @@ def main() -> int:
     train = timed("8 train", phase_train, torch, Counters())
     train_mesh = timed("8e train mesh", phase_train_mesh, torch,
                        lm_mesh.pop("train_ranks"), train_ctx, card)
+    timed("9 dry run", phase_dryrun, torch, train, lm_mesh, moe_mesh, card)
     # float32 launches of phases 7-8: this process's (checks c, the
     # one-card references of 7f and 7g, phase 8's float32 steps and
     # checks) and 7f's and 7g's float32 ranks'

@@ -123,6 +123,22 @@ class ArchConfig:
             total += enc + self.n_layers * att  # cross attention
         return total
 
+    def active_params(self) -> int:
+        """MoE: params touched per token (for MODEL_FLOPS = 6*N_active*D,
+        ``launch/roofline.model_flops``); every other family: all of
+        them."""
+        if self.family != "moe":
+            return self.num_params()
+        d = self.d_model
+        hd = self.head_dim_
+        m = self.moe
+        att = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        ff = (3 if self.gated_mlp else 2) * d * m.expert_d_ff
+        per = att + d * m.num_experts + m.top_k * ff + 2 * d
+        n = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return n + self.n_layers * per
+
     def reduced(self) -> "ArchConfig":
         """Same family, tiny dims — the CPU test configuration."""
         kw = dict(

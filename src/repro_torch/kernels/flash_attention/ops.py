@@ -19,6 +19,15 @@ in :data:`FP32_LAUNCHES`).  On a CPU tensor it runs the plain version in
 ``ref`` and counts nothing.  There is no fallback from one to the other: a
 build or launch failure raises.
 
+The launch is the custom op ``torch.ops.repro_torch.flash_attention``
+(:func:`flash_attention_op`): its real implementation is the launch, its
+fake implementation (``register_fake``) gives the output's shape and dtype
+and never builds or loads the library, so a step runs on fake CUDA tensors
+or on meta tensors, which the wrapper routes as CUDA ones (no data: the
+dry run, ``launch/dryrun.py``), and ``FlopCounterMode`` counts it by
+:func:`flash_flops`: 4 · H · hd a (query, key) pair the masks leave, per
+batch row, not the padded tiles.
+
 Gradients.  When an input requires a gradient, a CUDA call goes through
 :class:`FlashAttentionFn`: its forward is the same launch (counted the
 same way), and it saves q, k, v and the output; its backward is the plain
@@ -31,6 +40,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -118,17 +128,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset, kv_len=kv_len,
                                        prefix_len=prefix_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"flash_attention: tensors on {q.device} but the "
-                         f"current device is cuda:"
-                         f"{torch.cuda.current_device()}")
+    masks = (bool(causal), None if window is None else int(window),
+             int(q_offset), None if kv_len is None else int(kv_len),
+             None if prefix_len is None else int(prefix_len))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
-                                      kv_len, prefix_len)
+        return FlashAttentionFn.apply(q, k, v, *masks)
+    return flash_attention_op(q, k, v, *masks)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int], q_offset: int,
+                       kv_len: Optional[int],
+                       prefix_len: Optional[int]) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors on the current
+    device (:func:`_launch`, counted)."""
     return _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window, q_offset, kv_len,
+                          prefix_len):
+    return q.new_empty(q.shape)
+
+
+def attention_pairs(sq: int, skv: int, *, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0,
+                    kv_len: Optional[int] = None,
+                    prefix_len: Optional[int] = None) -> int:
+    """The (query, key) pairs of one head and batch row that
+    ``ref.attention_mask`` keeps: query ``i`` at ``q_offset + i`` sees the
+    keys ``[lo, hi)`` (``hi = q_pos + 1`` when causal, ``lo = q_pos -
+    window + 1`` with a window) and every key below ``prefix_len``, all
+    below ``kv_len``.  Host arithmetic (numpy): it runs inside a fake
+    tensor mode too."""
+    kv = skv if kv_len is None else max(0, min(int(kv_len), skv))
+    pre = 0 if prefix_len is None else max(0, min(int(prefix_len), kv))
+    q_pos = np.arange(sq, dtype=np.int64) + int(q_offset)
+    hi = np.minimum(q_pos + 1, kv) if causal else np.full_like(q_pos, kv)
+    lo = (np.maximum(q_pos - int(window) + 1, 0) if window is not None
+          else np.zeros_like(q_pos))
+    band = np.maximum(hi - np.maximum(lo, pre), 0)
+    return int(pre * sq + int(band.sum()))
+
+
+def flash_flops(q_shape, k_shape, causal=True, window=None, q_offset=0,
+                kv_len=None, prefix_len=None) -> int:
+    """FLOPs of one call: ``4 · B · H · hd`` a kept (query, key) pair
+    (:func:`attention_pairs`), two for ``q · k`` and two for ``p · v``."""
+    B, Sq, H, hd = q_shape
+    return 4 * B * H * hd * attention_pairs(
+        Sq, k_shape[1], causal=causal, window=window, q_offset=q_offset,
+        kv_len=kv_len, prefix_len=prefix_len)
+
+
+def _register_flop_formula() -> None:
+    from torch.utils import flop_counter
+
+    target = torch.ops.repro_torch.flash_attention
+    if target in flop_counter.flop_registry:
+        return
+
+    @flop_counter.register_flop_formula(target)
+    def _flops(q_shape, k_shape, v_shape, causal, window, q_offset, kv_len,
+               prefix_len, *args, out_shape=None, **kwargs) -> int:
+        return flash_flops(q_shape, k_shape, causal, window, q_offset,
+                           kv_len, prefix_len)
+
+
+_register_flop_formula()
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -138,7 +209,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_len, prefix_len):
-        out = _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len)
+        out = flash_attention_op(q, k, v, causal, window, q_offset, kv_len,
+                                 prefix_len)
         ctx.save_for_backward(q, k, v, out)
         ctx.masks = dict(causal=causal, window=window, q_offset=q_offset,
                          kv_len=kv_len, prefix_len=prefix_len)
@@ -162,7 +234,12 @@ def _sm_count(device) -> int:
 
 
 def _launch(q, k, v, causal, window, q_offset, kv_len, prefix_len):
-    """One launch of the kernel on checked CUDA tensors (counted)."""
+    """One launch of the kernel on checked CUDA tensors on the current
+    device (counted)."""
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"flash_attention: tensors on {q.device} but the "
+                         f"current device is cuda:"
+                         f"{torch.cuda.current_device()}")
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:

@@ -21,7 +21,9 @@ the LM on a mesh: a model's prefill, decode, forward and
 ``ContinuousBatcher`` on a rank's shards of its params.
 :func:`run_train_cases` is the one of training on a mesh: train steps on
 a rank's shards of a state, checkpoints and reshards, or
-``launch/train.run`` itself.
+``launch/train.run`` itself.  :func:`run_count_cases` takes one real step
+of ``launch/steps.build_setup`` a case and returns what the rank counted,
+which ``launch/dryrun.py``'s ``DryMesh`` must count the same.
 """
 from __future__ import annotations
 
@@ -261,7 +263,10 @@ def _lm_serve(model, params, s: dict, mesh, rules, dev) -> dict:
     each: the tokens, and this rank's walls, prefill times, each prefill's
     collectives and attention layouts (:class:`LayoutLog`), collectives a
     decode step (the model's, without the batcher's gather and check of
-    the tokens) and kernel launches."""
+    the tokens), kernel launches and, on the card, the peak allocated
+    over the first decode step alone (``decode_step_peak_bytes``: its
+    peak counters are reset before it; ``peak_before_decode_bytes`` keeps
+    the case's peak up to then)."""
     from repro_torch.serve.engine import (ContinuousBatcher, Request,
                                           make_decode_step,
                                           make_prefill_step)
@@ -281,9 +286,17 @@ def _lm_serve(model, params, s: dict, mesh, rules, dev) -> dict:
         prefill_layouts.append(layouts.kinds)
         return out
 
+    peaks = []      # the card's peak before the first decode step, in it
+
     def counted_decode(p, tokens, state):
         c0 = mesh.calls
+        first = dev.type == "cuda" and not peaks
+        if first:
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
         out = decode(p, tokens, state)
+        if first:
+            peaks.append(torch.cuda.max_memory_allocated(dev))
         decode_calls.append(mesh.calls - c0)
         return out
 
@@ -310,7 +323,9 @@ def _lm_serve(model, params, s: dict, mesh, rules, dev) -> dict:
             "decode_tok_per_s": decode_tokens / (wall - sum(prefill_s)),
             "collectives_per_decode_step": (
                 sum(decode_calls) / max(len(decode_calls), 1)),
-            "collectives": mesh.calls - calls0, "launches": _launches()}
+            "collectives": mesh.calls - calls0, "launches": _launches(),
+            "peak_before_decode_bytes": peaks[0] if peaks else None,
+            "decode_step_peak_bytes": peaks[1] if peaks else None}
 
 
 class LayoutLog:
@@ -511,8 +526,10 @@ def run_lm_cases(rank: int, cases: list, device=None) -> list:
         if case.get("routing"):
             res["routing"] = routes.summary(case["routing"] == "picks")
         res["wall_s"] = time.perf_counter() - t
-        res["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
-                                 if dev.type == "cuda" else None)
+        res["peak_mem_bytes"] = (max(
+            torch.cuda.max_memory_allocated(dev),
+            res.get("serve", {}).get("peak_before_decode_bytes") or 0)
+            if dev.type == "cuda" else None)
         del params
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -681,6 +698,51 @@ def _psum_case(case: dict, dev) -> dict:
     mesh = make_host_mesh(*case["mesh"])
     x = torch.as_tensor(np.asarray(case["x"])[mesh.rank], device=dev)
     return {"out": compressed_psum(x, mesh, case["axis"]).cpu().numpy()}
+
+
+def run_count_cases(rank: int, cases: list, device="cpu") -> list:
+    """One real step a case on this rank of a world (every rank the same
+    list): ``launch/steps.build_setup`` for the case's ``arch`` (reduced,
+    ``config`` fields replaced), a ``ShapeConfig`` of ``shape = (kind,
+    seq_len, global_batch)`` and the ``mesh`` ``(data, model)``, its float
+    inputs drawn (seeded 0, ``0.02 * normal``), run under
+    ``FlopCounterMode``.  Returns per case the rank's coordinates, the
+    mesh's ``collectives()`` over the step, the FLOPs by op and the output
+    leaves' shapes."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_setup
+
+    dev = torch.device(device)
+    out = []
+    for case in cases:
+        cfg = dataclasses.replace(cfg_base.get_config(case["arch"]).reduced(),
+                                  **case.get("config", {}))
+        kind, seq, batch = case["shape"]
+        shape = ShapeConfig(f"{kind}_{seq}x{batch}", kind, seq, batch)
+        mesh = make_host_mesh(*case["mesh"])
+        run, inputs = build_setup(cfg, shape, mesh, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for t in tree_leaves(inputs):
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                t.copy_(0.02 * torch.randn(t.shape, generator=gen,
+                                           device=dev))
+        mesh.reset_counts()
+        with FlopCounterMode(display=False) as fc:
+            res = run()
+        flops = {str(k): int(v) for k, v in
+                 fc.get_flop_counts()["Global"].items()}
+        out.append({"coords": dict(mesh.coords),
+                    "collectives": mesh.collectives(), "flops": flops,
+                    "out_shapes": [tuple(t.shape) for t in tree_leaves(res)
+                                   if isinstance(t, torch.Tensor)]})
+    return out
 
 
 def run_train_cases(rank: int, cases: list, device=None) -> list:

@@ -21,6 +21,11 @@ computing the whole answer).
 With no process group initialised, a mesh has one rank (``Mesh((1,
 1))``, which ``fpp/backends.default_mesh`` gives) and its collectives
 return their input; that is the only place where one rank differs.
+A :class:`DryMesh` is one rank of a mesh of any shape with no world at
+all: its collectives return outputs of the right shape, uncomputed, and
+are counted as a real mesh's (the dry run, ``launch/dryrun.py``;
+``make_production_mesh(dry_rank=)``).  Every mesh counts its collectives
+by kind and axis with their operands' bytes (:attr:`Mesh.traffic`).
 
 Under autograd the collectives carry their adjoints, chosen so that every
 activation replicated over an axis keeps a complete, replicated gradient
@@ -76,32 +81,25 @@ class Mesh:
     ``calls`` counts the collectives this rank has entered on it and
     ``seconds`` adds up the host's time inside them (a collective of CUDA
     tensors first waits for the card's work queued before it).
+    ``traffic`` counts them by ``(kind, axis)`` (``all_gather``,
+    ``all_reduce``, ``reduce_scatter``, ``all_to_all``, ``exchange`` or
+    ``barrier``; axis None for the whole mesh) as ``[calls, bytes]``,
+    the bytes the operand's (the reference's ``hlo.collective_stats``
+    counts operand bytes too); :meth:`collectives` sums it up.
     """
 
     def __init__(self, shape: Sequence[int],
                  axis_names: Sequence[str] = HOST_AXES):
-        shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
-        if len(shape) != len(axis_names) or min(shape) < 1:
-            raise ValueError(f"mesh shape {shape} does not fit axes "
-                             f"{axis_names}")
-        size = math.prod(shape)
-        self.axis_names = axis_names
-        self.shape = dict(zip(axis_names, shape))
-        self.size = size
         self.distributed = dist.is_available() and dist.is_initialized()
         world = dist.get_world_size() if self.distributed else 1
         rank = dist.get_rank() if self.distributed else 0
+        self._place(shape, axis_names, rank)
+        shape, size = tuple(self.shape.values()), self.size
         if world % size:
             raise ValueError(f"a mesh of {size} ranks {shape} does not tile "
                              f"a world of {world}")
-        self.rank = rank
         base = rank - rank % size
         grid = np.arange(size).reshape(shape)      # mesh-local ranks
-        self.coords = dict(zip(axis_names, (int(c) for c in np.unravel_index(
-            rank % size, shape))))
-        self._groups: dict = {}
-        self.calls = 0
-        self.seconds = 0.0
         if not self.distributed:
             return
         # every rank creates every group, in one order (dist.new_group);
@@ -115,7 +113,27 @@ class Mesh:
                     ranks = [b + r for r in line]
                     g = dist.new_group(ranks)
                     if rank in ranks:
-                        self._groups[axis_names[ax]] = g
+                        self._groups[self.axis_names[ax]] = g
+
+    def _place(self, shape: Sequence[int], axis_names: Sequence[str],
+               rank: int) -> None:
+        """The layout fields: names, sizes, ``rank`` and its coordinates
+        (row-major over the mesh-local rank ``rank % size``), no groups
+        and zero counts."""
+        shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or min(shape) < 1:
+            raise ValueError(f"mesh shape {shape} does not fit axes "
+                             f"{axis_names}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.size = math.prod(shape)
+        self.rank = rank
+        self.coords = dict(zip(axis_names, (int(c) for c in np.unravel_index(
+            rank % self.size, shape))))
+        self._groups: dict = {}
+        self.calls = 0
+        self.seconds = 0.0
+        self.traffic: dict = {}
 
     def index(self, axes: Sequence[str]) -> int:
         """This rank's row-major index over ``axes`` (its shard number)."""
@@ -133,7 +151,7 @@ class Mesh:
             return x
         x = x.contiguous()
         out = torch.empty_like(x)
-        self._call(dist.all_to_all_single, out, x, group=self._groups[axis])
+        self._call("all_to_all", axis, x, dist.all_to_all_single, out, x)
         return out
 
     def exchange(self, x: torch.Tensor, axis: str, send: Sequence[int],
@@ -151,23 +169,52 @@ class Mesh:
                   recv: tuple) -> torch.Tensor:
         x = x.detach().contiguous()
         out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
-        self._call(dist.all_to_all_single, out, x,
+        self._call("exchange", axis, x, dist.all_to_all_single, out, x,
                    output_split_sizes=list(recv),
-                   input_split_sizes=list(send), group=self._groups[axis])
+                   input_split_sizes=list(send))
         return out
 
-    def _call(self, collective, *args, **kwargs) -> None:
-        """Enter one collective, counted and timed."""
-        self.calls += 1
+    def _call(self, kind: str, axis, x: Optional[torch.Tensor], collective,
+              *args, **kwargs) -> None:
+        """Enter one collective of ``kind`` over ``axis`` (None: the whole
+        mesh) on the operand ``x``, counted (:meth:`_count`) and timed."""
+        self._count(kind, axis, x)
         t = time.perf_counter()
-        collective(*args, **kwargs)
+        collective(*args, group=self._groups[axis], **kwargs)
         self.seconds += time.perf_counter() - t
+
+    def _count(self, kind: str, axis, x: Optional[torch.Tensor]) -> None:
+        self.calls += 1
+        row = self.traffic.setdefault((kind, axis), [0, 0])
+        row[0] += 1
+        row[1] += 0 if x is None else x.numel() * x.element_size()
+
+    def collectives(self) -> dict:
+        """``{"calls", "bytes", "by_kind": {kind: {"calls", "bytes"}},
+        "by_axis": {axis: ...}, "by_kind_axis": {"kind@axis": ...}}`` of
+        :attr:`traffic` (the whole mesh's axis is named ``"all"``)."""
+        out = {"calls": 0, "bytes": 0, "by_kind": {}, "by_axis": {},
+               "by_kind_axis": {}}
+        for (kind, axis), (n, b) in sorted(self.traffic.items(),
+                                           key=lambda kv: str(kv[0])):
+            out["calls"] += n
+            out["bytes"] += b
+            for key, name in (("by_kind", kind), ("by_axis", axis or "all"),
+                              ("by_kind_axis", f"{kind}@{axis or 'all'}")):
+                row = out[key].setdefault(name, {"calls": 0, "bytes": 0})
+                row["calls"] += n
+                row["bytes"] += b
+        return out
+
+    def reset_counts(self) -> None:
+        """Zero :attr:`calls`, :attr:`seconds` and :attr:`traffic`."""
+        self.calls, self.seconds, self.traffic = 0, 0.0, {}
 
     def _all_reduce(self, x: torch.Tensor, op, axis) -> torch.Tensor:
         if not self.distributed:
             return x
         x = x.detach().clone()
-        self._call(dist.all_reduce, x, op=op, group=self._groups[axis])
+        self._call("all_reduce", axis, x, dist.all_reduce, x, op=op)
         return x
 
     def all_reduce_max(self, x: torch.Tensor,
@@ -220,26 +267,50 @@ class Mesh:
     def barrier(self) -> None:
         """Every rank of the mesh has reached this call."""
         if self.distributed:
-            self._call(dist.barrier, group=self._groups[None])
+            self._call("barrier", None, None, dist.barrier)
 
     def _gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         x = x.detach().contiguous()
         n = self.shape[axis]
         out = x.new_empty(n * x.numel())
-        self._call(dist.all_gather_into_tensor, out, x.view(-1),
-                   group=self._groups[axis])
+        self._call("all_gather", axis, x, dist.all_gather_into_tensor, out,
+                   x.view(-1))
         return out.view((n,) + tuple(x.shape))
 
     def _reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x [shape[axis], ...]`` summed over ``axis``; this rank's row."""
         x = x.detach().contiguous()
         out = x.new_empty(x[0].numel())
-        self._call(dist.reduce_scatter_tensor, out, x.view(-1),
-                   group=self._groups[axis])
+        self._call("reduce_scatter", axis, x, dist.reduce_scatter_tensor, out,
+                   x.view(-1))
         return out.view(x.shape[1:])
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
+
+
+class DryMesh(Mesh):
+    """One rank of a mesh of any shape, with no process group: the rank at
+    mesh-local ``rank`` (row-major coordinates, as :class:`Mesh` lays
+    them).  Its collectives return outputs of the right shape, dtype and
+    device, uninitialised (a dry run computes on fake tensors, whose values
+    nobody reads), and are counted in :attr:`calls` and :attr:`traffic`
+    as a real mesh counts them; ``seconds`` stays 0.  The autograd
+    adjoints go through the same primitives, so a backward's collectives
+    are counted too (``launch/dryrun.py``)."""
+
+    def __init__(self, shape: Sequence[int],
+                 axis_names: Sequence[str] = HOST_AXES, *, rank: int = 0):
+        self._place(shape, axis_names, rank)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not in a mesh of {self.size}")
+        self.distributed = True
+
+    def _call(self, kind: str, axis, x, collective, *args, **kwargs) -> None:
+        self._count(kind, axis, x)
+
+    def __repr__(self) -> str:
+        return f"DryMesh({self.shape}, rank={self.rank})"
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -319,12 +390,16 @@ def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
     return Mesh((data, model))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         dry_rank: Optional[int] = None) -> Mesh:
     """``(16, 16)`` over ``("data", "model")``, or ``(2, 16, 16)`` over
-    ``("pod", "data", "model")``: needs an initialised world of exactly
-    that many ranks."""
+    ``("pod", "data", "model")``: over an initialised world of exactly that
+    many ranks, or with ``dry_rank`` that rank of it as a :class:`DryMesh`,
+    with no world."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else HOST_AXES
+    if dry_rank is not None:
+        return DryMesh(shape, axes, rank=dry_rank)
     want, have = math.prod(shape), world_size()
     if have != want:
         raise ValueError(f"the production mesh {shape} needs a world of "

@@ -32,6 +32,7 @@ reference's global mean (see :meth:`Model.loss`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -160,20 +161,22 @@ class Model:
         return loss, {"loss": ce_all + self.aux_weight * aux, "ce": ce_all,
                       "aux": aux}
 
-    def param_shapes(self) -> dict:
-        """The whole params' shapes (``init`` on the meta device: nothing
-        is drawn), a tree congruent with :meth:`param_axes`."""
-        meta = torch.device("meta")
-        if self.cfg.family == "encdec":
-            p = encdec_lib.init_encdec(None, self.cfg, meta, True)
-        else:
-            tfm.check_family(self.cfg)
-            p = tfm.init_params(None, self.cfg, meta, train=True)
+    def param_specs(self, train: bool = False) -> dict:
+        """The whole params as ``(shape, dtype)`` leaves, in the storage
+        dtypes of ``init`` (``train``: the reference's), a tree congruent
+        with :meth:`param_axes` (``init`` on the meta device: nothing is
+        drawn; kept per config, a fresh tree each call)."""
+        def copy(t):
+            return {k: copy(v) for k, v in t.items()} \
+                if isinstance(t, dict) else t
+        return copy(_param_specs(self.cfg, train))
 
+    def param_shapes(self) -> dict:
+        """The whole params' shapes (:meth:`param_specs`' shapes)."""
         def shapes(t):
             return ({k: shapes(v) for k, v in t.items()}
-                    if isinstance(t, dict) else tuple(t.shape))
-        return shapes(p)
+                    if isinstance(t, dict) else t[0])
+        return shapes(self.param_specs(train=True))
 
     # -- serve --------------------------------------------------------------
     def prefill(self, params, batch, *, max_len=None, rules=None):
@@ -243,32 +246,62 @@ class Model:
                          length=((batch,), torch.int32))
         return DecodeState(kv=kv, ssm=ssm, lru=lru)
 
+    def decode_state_local_specs(self, batch: int, max_len: int, *,
+                                 rules=None):
+        """:meth:`decode_state_specs` with ``rules`` cut to the rank's
+        shard of each leaf (:func:`state_logical_axes`)."""
+        specs = self.decode_state_specs(batch, max_len)
+        if rules is None:
+            return specs
+        if self.cfg.family not in ("hybrid", "ssm"):
+            tfm.check_seq_shards(max_len, rules)
+        axes = state_logical_axes(self, specs)
+
+        def local(spec, ax):
+            if spec is None:
+                return None
+            if isinstance(spec[1], torch.dtype):     # a (shape, dtype) leaf
+                return local_shape(spec[0], ax, rules), spec[1]
+            return type(spec)(*(local(s, a) for s, a in zip(spec, ax)))
+        return local(specs, axes)
+
     def decode_state_init(self, batch: int, max_len: int, *, filled=0,
                           device=None, rules=None):
         """Concrete zero state on ``device`` (the card unless asked for the
         CPU), every sequence's cache length ``filled``; with ``rules`` the
-        rank's shard of it (:func:`state_logical_axes`)."""
-        dev = resolve_device(device)
-        specs = self.decode_state_specs(batch, max_len)
-        if rules is not None and self.cfg.family not in ("hybrid", "ssm"):
-            tfm.check_seq_shards(max_len, rules)
-        axes = state_logical_axes(self, specs) if rules is not None else None
-
-        def zeros(spec, ax):
-            if spec is None:
-                return None
-            if isinstance(spec[1], torch.dtype):     # a (shape, dtype) leaf
-                shape = spec[0] if ax is None else local_shape(
-                    spec[0], ax, rules)
-                return torch.zeros(shape, dtype=spec[1], device=dev)
-            return type(spec)(*(zeros(s, None if ax is None else a)
-                                for s, a in zip(spec, ax if ax is not None
-                                                else [None] * len(spec))))
-        st = zeros(specs, axes)
+        rank's shard of it (:meth:`decode_state_local_specs`)."""
+        st = state_zeros(self.decode_state_local_specs(batch, max_len,
+                                                       rules=rules),
+                         resolve_device(device))
         kv = st.self_kv if self.cfg.family == "encdec" else st.kv
         if kv is not None:
             kv.length.fill_(filled)
         return st
+
+
+def state_zeros(spec, device):
+    """Zero tensors on ``device`` for a tree of ``(shape, dtype)`` leaves in
+    NamedTuples (None leaves stay None)."""
+    if spec is None:
+        return None
+    if isinstance(spec[1], torch.dtype):
+        return torch.zeros(spec[0], dtype=spec[1], device=device)
+    return type(spec)(*(state_zeros(s, device) for s in spec))
+
+
+@functools.lru_cache(maxsize=64)
+def _param_specs(cfg: ArchConfig, train: bool) -> dict:
+    meta = torch.device("meta")
+    if cfg.family == "encdec":
+        p = encdec_lib.init_encdec(None, cfg, meta, train)
+    else:
+        tfm.check_family(cfg)
+        p = tfm.init_params(None, cfg, meta, train=train)
+
+    def specs(t):
+        return ({k: specs(v) for k, v in t.items()}
+                if isinstance(t, dict) else (tuple(t.shape), t.dtype))
+    return specs(p)
 
 
 def build_model(cfg: ArchConfig) -> Model:

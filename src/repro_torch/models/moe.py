@@ -211,6 +211,17 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig, act: str = "silu",
     return y, aux
 
 
+def pick_counts(gate_idx: torch.Tensor, E: int) -> torch.Tensor:
+    """How many entries of ``gate_idx`` pick each of the ``E`` experts,
+    int64 ``[E]``: ``torch.bincount(gate_idx.reshape(-1), minlength=E)``'s
+    integers, as a sum of ones into a tensor of static shape (bincount's
+    shape depends on the data, which a step on fake tensors cannot
+    trace)."""
+    idx = gate_idx.reshape(-1).long()
+    return torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def _apply_sharded(p, x, cfg: MoEConfig, act, rules, want_aux):
     """:func:`apply_moe` on a mesh (module docstring)."""
     B, S, _ = x.shape
@@ -240,9 +251,8 @@ def _apply_sharded(p, x, cfg: MoEConfig, act, rules, want_aux):
         return y, None
     # the aux loss of the global batch: its statistics summed over the
     # batch axes (the sum's gradient passes through: each rank's rows)
-    stats = torch.cat([
-        torch.bincount(gate_idx.reshape(-1), minlength=E).float(),
-        probs.sum((0, 1)), probs.new_full((1,), B * S)])
+    stats = torch.cat([pick_counts(gate_idx, E).float(),
+                       probs.sum((0, 1)), probs.new_full((1,), B * S)])
     for ax in batch_axes(rules):
         if mesh.shape[ax] > 1:
             stats = mesh.all_reduce_sum(stats, ax)
