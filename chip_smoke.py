@@ -281,7 +281,18 @@ Phases, each of which fails the run on any error:
               step, its peak counters reset before it) and the roofline's
               bound beside the measured step, printed (``dry run vs
               card``)
-  10. report  fg_threefry's line and the kernel table as JSON lines (each
+  10. fppcheck ``dispatch.hygiene`` and ``ops.budgets``
+              (``repro_torch.analysis``) over the 35 graph programs of
+              ``analysis/programs.py`` on the card (the canonical
+              grid2d(16, 16), Q=8, K=8), through the real B1, B2, B5 and
+              threefry launches (each launched, its count reset before):
+              every program's host reads equal to what it reports (a fused
+              chunk's one), no float64, int32 counters, state in place,
+              every row within its committed ``@cuda`` ceiling; any error
+              finding fails the run.  One ``fppcheck`` line: programs,
+              findings by severity, each program's host reads, launches and
+              ops
+  11. report  fg_threefry's line and the kernel table as JSON lines (each
               kernel launched at least once on the paths), then the
               result line
 
@@ -5151,6 +5162,43 @@ def phase_dryrun(torch, train: dict, lm_mesh: dict, moe_mesh: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the fppcheck families on the card
+
+
+def phase_fppcheck(torch, counters) -> dict:
+    """Phase 10 (module docstring): the dispatch and ops passes over the
+    card's 35 programs; an error finding fails the run."""
+    from repro_torch.analysis import PassContext, run_passes
+    from repro_torch.analysis.programs import evaluate
+
+    t0 = time.perf_counter()
+    ctx = PassContext(root=ROOT, device="cuda")
+    counters.reset()
+    report = run_passes(["dispatch.hygiene", "ops.budgets"], ctx)
+    launched = counters.read()
+    if not report.ok:
+        raise AssertionError("fppcheck on the card:\n" + "\n".join(
+            f.render() for f in report.errors))
+    idle = [k for k in ("minplus", "masked_matmul", "fused_visit",
+                        "threefry") if not launched[k]]
+    if idle:
+        raise AssertionError(f"fppcheck: kernels the programs launched no "
+                             f"time: {idle}")
+    rows = {e.key: [e.row["host_reads"],
+                    sum(v for k, v in e.row.items()
+                        if k.startswith("launch_")), e.row["ops_total"]]
+            for e in evaluate(ctx)}
+    out = {"programs": len(rows),
+           "findings": {s: report.count(s) for s in
+                        ("error", "warning", "allowlisted", "info")},
+           "launches": {k: v for k, v in launched.items() if v},
+           "host_reads_launches_ops": rows,
+           "seconds": round(time.perf_counter() - t0, 2)}
+    log("fppcheck " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5239,6 +5287,7 @@ def main() -> int:
     train_mesh = timed("8e train mesh", phase_train_mesh, torch,
                        lm_mesh.pop("train_ranks"), train_ctx, card)
     timed("9 dry run", phase_dryrun, torch, train, lm_mesh, moe_mesh, card)
+    timed("10 fppcheck", phase_fppcheck, torch, Counters())
     # float32 launches of phases 7-8: this process's (checks c, the
     # one-card references of 7f and 7g, phase 8's float32 steps and
     # checks) and 7f's and 7g's float32 ranks'

@@ -103,7 +103,8 @@ def _graph(bg: BlockGraph, num_queries: int, device):
 def make_minplus_round(dg: DeviceGraph, idx: torch.Tensor,
                        blk_src: torch.Tensor, blk_dst: torch.Tensor):
     """The synchronous Bellman-Ford round: (dist, frontier) -> (dist',
-    improved, eq), eq the frontier rows' edges per query (int64): one
+    improved, eq), eq the frontier rows' edges per query (int32, as the
+    reference's; the run keeps an int64 total): one
     gathered min-plus launch over every block, then a min into each
     block's destination partition."""
     def round_fn(dist, frontier):
@@ -115,7 +116,7 @@ def make_minplus_round(dg: DeviceGraph, idx: torch.Tensor,
         improved = cand < dist
         dist = torch.minimum(dist, cand)
         eq = torch.where(frontier, dg.deg[:, None, :], 0).sum(
-            dim=(0, 2), dtype=torch.int64)
+            dim=(0, 2), dtype=torch.int32)
         return dist, improved, eq
 
     return round_fn
@@ -147,6 +148,8 @@ def global_minplus(bg: BlockGraph, sources: np.ndarray,
     traffic = _Traffic(bg)
     rounds = 0
     while rounds < max_rounds:
+        # fppcheck: allow-host-read: the round's [P, Q] activity plane,
+        # the traffic model's input and the exit test in one read
         part_active = frontier.any(dim=2).cpu().numpy()    # [P, Q]
         if not part_active.any():
             break
@@ -162,8 +165,8 @@ def global_minplus(bg: BlockGraph, sources: np.ndarray,
 def make_push_round(dg: DeviceGraph, idx: torch.Tensor,
                     blk_src: torch.Tensor, blk_dst: torch.Tensor, *,
                     alpha: float):
-    """The synchronous Jacobi push round: (p, r, active) -> (p', r', eq):
-    one gathered masked-matmul launch over every block, then a sum into
+    """The synchronous Jacobi push round: (p, r, active) -> (p', r', eq),
+    eq int32 as the minplus round's: one gathered masked-matmul launch over every block, then a sum into
     each block's destination partition.  :func:`push_active` gives
     ``active``."""
     degc = torch.clamp(dg.deg, min=1).to(torch.float32)     # [P, B]
@@ -177,7 +180,7 @@ def make_push_round(dg: DeviceGraph, idx: torch.Tensor,
         spread = torch.zeros_like(r).index_add_(0, blk_dst, out)
         r = r * (1.0 - af) + spread
         eq = torch.where(active, dg.deg[:, None, :], 0).sum(
-            dim=(0, 2), dtype=torch.int64)
+            dim=(0, 2), dtype=torch.int32)
         return p, r, eq
 
     return round_fn
@@ -205,6 +208,8 @@ def global_push(bg: BlockGraph, sources: np.ndarray, alpha: float = 0.15,
     rounds = 0
     while rounds < max_rounds:
         active = push_active(dg, r, eps)
+        # fppcheck: allow-host-read: the round's [P, Q] activity plane,
+        # the traffic model's input and the exit test in one read
         part_active = active.any(dim=2).cpu().numpy()      # [P, Q]
         if not part_active.any():
             break

@@ -33,7 +33,7 @@ the AOT lowering handles of the reference's dry run and static checks
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -179,15 +179,25 @@ def _gather(mesh, x: torch.Tensor, axes: Sequence[str],
     return x
 
 
-def _run_program(algebra: VisitAlgebra, bg: BlockGraph, sources: np.ndarray,
-                 mesh, yc: YieldConfig, max_rounds: int,
-                 max_supersteps: int, query_axes, part_axis: str,
-                 num_queries: Optional[int] = None,
-                 init_ops: Optional[np.ndarray] = None, device=None):
-    """The shared loop: stage this rank's slab and query shard, run
-    supersteps until no rank holds a pending op, gather the whole result.
-    Returns (planes [nplanes, P_pad, Q, B], buf [P_pad, Q, B], edges [Q]
-    float64, supersteps, device_syncs) on the host."""
+@dataclasses.dataclass
+class RankState:
+    """One rank's staged shard and loop state on its device: its slab, its
+    planes (each ``[pl, Qs, B]``) and buffer (``[pl, Qs, B]``), and its
+    edge counts as an exact ``(hi, lo)`` int32 pair a query lane."""
+    slab: Slab
+    planes: Tuple[torch.Tensor, ...]
+    buf: torch.Tensor
+    ehi: torch.Tensor         # [Qs] i32
+    elo: torch.Tensor         # [Qs] i32 (< 2**EDGE_SHIFT)
+
+
+def stage_rank(algebra: VisitAlgebra, bg: BlockGraph, sources: np.ndarray,
+               mesh, yc: YieldConfig, query_axes, part_axis: str,
+               num_queries: Optional[int] = None,
+               init_ops: Optional[np.ndarray] = None,
+               device=None) -> RankState:
+    """Stage this rank's slab and query shard (every rank of ``mesh``
+    calls it with the same arguments)."""
     dev = resolve_device(device)
     query_axes = tuple(query_axes)
     ndev = int(mesh.shape[part_axis])
@@ -211,31 +221,60 @@ def _run_program(algebra: VisitAlgebra, bg: BlockGraph, sources: np.ndarray,
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a[rows, lanes])).to(dev)
 
-    slab = sg.stage(m, dev)
-    planes = tuple(put(x) for x in planes0)
-    buf = put(buf0[:p_pad])
-    ehi = torch.zeros(Qs, dtype=torch.int32, device=dev)
-    elo = torch.zeros(Qs, dtype=torch.int32, device=dev)
+    return RankState(slab=sg.stage(m, dev),
+                     planes=tuple(put(x) for x in planes0),
+                     buf=put(buf0[:p_pad]),
+                     ehi=torch.zeros(Qs, dtype=torch.int32, device=dev),
+                     elo=torch.zeros(Qs, dtype=torch.int32, device=dev))
+
+
+def superstep_and_test(st: RankState, *, algebra: VisitAlgebra,
+                       max_rounds: int, mesh, part_axis: str):
+    """One superstep (``visit.superstep``) and the loop's stop test, a max
+    all-reduce of "this rank holds a pending op" over the mesh.  Updates
+    ``st`` in place and returns ``(eq int32 [Qs], more, syncs)``: the
+    superstep's edges, whether any rank still holds a pending op, and the
+    reads back to the host (the superstep's and the stop test's)."""
+    eq, _, s = _visit.superstep(st.slab, st.planes, st.buf, algebra=algebra,
+                                max_rounds=max_rounds, mesh=mesh,
+                                part_axis=part_axis)
+    st.elo += eq
+    spill = st.elo >> EDGE_SHIFT
+    st.ehi += spill
+    st.elo -= spill << EDGE_SHIFT
+    local = algebra.pending(st.buf, st.planes, st.slab.deg).any().to(
+        torch.int32).view(1)
+    more = bool(mesh.all_reduce_max(local).item())
+    return eq, more, s + 1
+
+
+def _run_program(algebra: VisitAlgebra, bg: BlockGraph, sources: np.ndarray,
+                 mesh, yc: YieldConfig, max_rounds: int,
+                 max_supersteps: int, query_axes, part_axis: str,
+                 num_queries: Optional[int] = None,
+                 init_ops: Optional[np.ndarray] = None, device=None):
+    """The shared loop: stage this rank's slab and query shard, run
+    supersteps until no rank holds a pending op, gather the whole result.
+    Returns (planes [nplanes, P_pad, Q, B], buf [P_pad, Q, B], edges [Q]
+    float64, supersteps, device_syncs) on the host."""
+    query_axes = tuple(query_axes)
+    st = stage_rank(algebra, bg, sources, mesh, yc, query_axes, part_axis,
+                    num_queries=num_queries, init_ops=init_ops,
+                    device=device)
     steps = syncs = 0
     while steps < max_supersteps:
-        eq, _, s = _visit.superstep(slab, planes, buf, algebra=algebra,
-                                    max_rounds=max_rounds, mesh=mesh,
-                                    part_axis=part_axis)
-        elo += eq
-        spill = elo >> EDGE_SHIFT
-        ehi += spill
-        elo -= spill << EDGE_SHIFT
+        _, more, s = superstep_and_test(st, algebra=algebra,
+                                        max_rounds=max_rounds, mesh=mesh,
+                                        part_axis=part_axis)
         steps += 1
-        local = algebra.pending(buf, planes, slab.deg).any().to(
-            torch.int32).view(1)
-        syncs += s + 1
-        if not int(mesh.all_reduce_max(local).item()):
+        syncs += s
+        if not more:
             break
     # each rank counted the edges of the partitions it owns: a query's
     # total is the sum over the partition axis
-    ehi = mesh.all_reduce_sum(ehi, part_axis)
-    elo = mesh.all_reduce_sum(elo, part_axis)
-    state = torch.stack(planes + (buf,))               # [nplanes+1, pl, Qs, B]
+    ehi = mesh.all_reduce_sum(st.ehi, part_axis)
+    elo = mesh.all_reduce_sum(st.elo, part_axis)
+    state = torch.stack(st.planes + (st.buf,))       # [nplanes+1, pl, Qs, B]
     state = torch.cat(list(mesh.all_gather(state, part_axis)), dim=1)
     state = _gather(mesh, state, query_axes, dim=2).cpu().numpy()
     counts = _gather(mesh, torch.stack([ehi, elo]), query_axes, dim=1)
@@ -319,6 +358,24 @@ def run_distributed_ppr(bg: BlockGraph, sources: np.ndarray, mesh,
                              device_syncs=syncs)
 
 
+def stage_walkers(bg: BlockGraph, sources: np.ndarray, mesh, length: int,
+                  seed: int, walk_axes, device=None):
+    """``(step, (pos, steps, part, src, thash, occ))``: this rank's share
+    of the walkers (padded to the axes' size with clones of walker 0) on
+    its device, and the stepper that advances them one tape entry."""
+    nshard = int(np.prod([mesh.shape[a] for a in walk_axes]))
+    srcs = np.asarray(sources)
+    Q = srcs.size
+    Qp = -(-max(Q, 1) // nshard) * nshard
+    padded = np.concatenate([srcs, np.full(Qp - Q, srcs[0] if Q else 0,
+                                           dtype=srcs.dtype)])
+    Ws = Qp // nshard
+    i = mesh.index(walk_axes)
+    wg = WalkGraph.build(bg, device)
+    return (make_walk_stepper(wg, length, seed),
+            init_walk_state(wg, padded[i * Ws:(i + 1) * Ws]))
+
+
 def run_distributed_walks(bg: BlockGraph, sources: np.ndarray, mesh,
                           length: int, seed: int = 0, walk_axes=None,
                           device=None) -> WalkResult:
@@ -330,18 +387,9 @@ def run_distributed_walks(bg: BlockGraph, sources: np.ndarray, mesh,
     final gather.  The walks are those of every other rw runtime (the tape
     contract of ``core/randomwalk.py``)."""
     walk_axes = tuple(walk_axes or mesh.axis_names)
-    nshard = int(np.prod([mesh.shape[a] for a in walk_axes]))
-    srcs = np.asarray(sources)
-    Q = srcs.size
-    Qp = -(-max(Q, 1) // nshard) * nshard
-    padded = np.concatenate([srcs, np.full(Qp - Q, srcs[0] if Q else 0,
-                                           dtype=srcs.dtype)])
-    Ws = Qp // nshard
-    i = mesh.index(walk_axes)
-    wg = WalkGraph.build(bg, device)
-    step = make_walk_stepper(wg, length, seed)
-    pos, steps, part, src, thash, occ = init_walk_state(
-        wg, padded[i * Ws:(i + 1) * Ws])
+    step, (pos, steps, part, src, thash, occ) = stage_walkers(
+        bg, sources, mesh, length, seed, walk_axes, device)
+    Q = np.asarray(sources).size
     for _ in range(length):
         pos, steps, part, thash = step(pos, steps, part, src, thash, occ,
                                        steps < length)

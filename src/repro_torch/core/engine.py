@@ -308,13 +308,13 @@ class FPPEngine:
             if v == 0:
                 break
             key = ms.key
-            edges += _visit.harvest_edges(ms.eq_hi.cpu().numpy(),
-                                          ms.eq_lo.cpu().numpy())
-            counts += ms.visit_counts.cpu().numpy().astype(np.int64)
+            hi, lo, cnt, ring = _visit.harvest_chunk(ms)
+            edges += _visit.harvest_edges(hi, lo)
+            counts += cnt.astype(np.int64)
             visits += v
             rounds += ms.rounds
             if record_order:
-                order.extend(ms.order[:v].tolist())
+                order.extend(map(int, ring[:v]))
             if v < limit:
                 # the loop exits below the limit only when no partition
                 # holds a pending op: the run is complete
@@ -336,6 +336,8 @@ class FPPEngine:
         order: list = []
         edges = np.zeros(self.num_queries, dtype=np.float64)
         while visits < max_visits:
+            # fppcheck: allow-host-read: the host loop is the megastep's
+            # oracle, one host scheduling decision (and read) a visit
             p = self.scheduler.select(state.prio[:P].cpu().numpy(),
                                       state.stamp[:P].cpu().numpy(),
                                       state.ops_count[:P].cpu().numpy())
@@ -343,6 +345,7 @@ class FPPEngine:
                 break
             pt = torch.tensor([p], dtype=torch.int64, device=self.device)
             state, (r, eq, s) = self._visit(state, pt, visits)
+            # fppcheck: allow-host-read: the oracle's edges, a visit's
             edges += eq.cpu().numpy().astype(np.float64)
             visits += 1
             rounds += r

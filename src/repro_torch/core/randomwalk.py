@@ -132,9 +132,10 @@ def stepper_from_arrays(wptr: torch.Tensor, wdst: torch.Tensor,
     ``step(pos, steps, part, src, thash, occ, mask) -> (pos', steps',
     part', thash')`` advances every walker in ``mask`` by one tape entry
     (walkers on sinks park with ``steps = length``) and adds each move to
-    ``occ [Q, P*B]`` in place.  All other arrays are int64 ``[Q]``;
-    ``src`` is the walker's tape id (its source vertex, reordered ids) and
-    ``thash`` holds uint32 values.
+    ``occ [Q, P*B]`` in place.  ``steps`` is int32 ``[Q]``, the other
+    arrays int64 ``[Q]``; ``src`` is the walker's tape id (its source
+    vertex, reordered ids) and ``thash`` holds uint32 values (int64 masked
+    to 32 bits: torch's uint32 arithmetic is partial).
     """
     B = int(block_size)
     last = max(int(wdst.shape[0]) - 1, 0)
@@ -185,6 +186,8 @@ def make_walk_visit(wg: WalkGraph, length: int, seed: int,
         while rounds < max_rounds:
             here = (part == p) & (steps < length)
             syncs += 1
+            # fppcheck: allow-host-read: the round loop's exit test
+            # (counted in syncs)
             if not bool(here.any()):
                 break
             pos, steps, part, thash = step(pos, steps, part, src, thash,
@@ -197,14 +200,15 @@ def make_walk_visit(wg: WalkGraph, length: int, seed: int,
 
 def init_walk_state(wg: WalkGraph, sources: np.ndarray):
     """(pos, steps, part, src, thash, occ) on ``wg.device``; occupancy
-    starts with the source position counted once per lane."""
+    starts with the source position counted once per lane.  ``steps`` is
+    the int32 step counter (the reference's); the others are int64."""
     srcs = np.asarray(sources, dtype=np.int64)
     Q, dev = srcs.size, wg.device
     occ = torch.zeros((Q, wg.num_parts * wg.block_size), dtype=torch.float32,
                       device=dev)
     s = torch.from_numpy(srcs).to(dev)
     occ[torch.arange(Q, device=dev), s] = 1.0
-    return (s.clone(), torch.zeros(Q, dtype=torch.int64, device=dev),
+    return (s.clone(), torch.zeros(Q, dtype=torch.int32, device=dev),
             s // wg.block_size, s.clone(), s.clone(), occ)
 
 
@@ -231,6 +235,8 @@ def run_random_walks(bg: BlockGraph, sources: np.ndarray, length: int,
     pos, steps, part, src, thash, occ = init_walk_state(wg, sources)
     visits = rounds = syncs = 0
     while True:
+        # fppcheck: allow-host-read: the host picks the next partition
+        # from every walker's partition and steps, one read a visit
         part_np, steps_np = torch.stack([part, steps]).cpu().numpy()
         syncs += 1
         live = steps_np < length

@@ -452,10 +452,10 @@ class StreamingExecutor(_Lanes):
         if v == 0:
             return 0
         self._key = ms.key
-        self._edges += _visit.harvest_edges(ms.eq_hi.cpu().numpy(),
-                                            ms.eq_lo.cpu().numpy())
-        counts = ms.visit_counts.cpu().numpy().astype(np.int64)
-        self.modeled_bytes += float(counts @ self.engine._visit_bytes)
+        hi, lo, counts, _ = _visit.harvest_chunk(ms)
+        self._edges += _visit.harvest_edges(hi, lo)
+        self.modeled_bytes += float(counts.astype(np.int64)
+                                    @ self.engine._visit_bytes)
         self.visits += v
         return v
 
@@ -523,7 +523,7 @@ class WalkExecutor(_Lanes):
         self._visit_bytes = float((1 + bg.nbr_blk.shape[1]) * B * B * 4)
         Q, dev = self.capacity, self.wg.device
         self._pos = torch.zeros(Q, dtype=torch.int64, device=dev)
-        self._steps = torch.full((Q,), self.length, dtype=torch.int64,
+        self._steps = torch.full((Q,), self.length, dtype=torch.int32,
                                  device=dev)                # parked
         self._part = torch.zeros(Q, dtype=torch.int64, device=dev)
         self._src = torch.zeros(Q, dtype=torch.int64, device=dev)
@@ -569,6 +569,8 @@ class WalkExecutor(_Lanes):
                     break
                 self._admit()
                 self.host_syncs += 1
+                # fppcheck: allow-host-read: the visit choice reads the
+                # walkers' partitions and steps, one read a visit
                 part, steps = torch.stack([self._part,
                                            self._steps]).cpu().numpy()
                 live = (self.slot_qid >= 0) & (steps < self.length)

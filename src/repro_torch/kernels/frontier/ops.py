@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_site
 from repro_torch.kernels.contract import (GRAPH_B, GRAPH_Q, KernelContract,
                                           TileSpec)
 from repro_torch.kernels.frontier.ref import frontier_ref
@@ -52,6 +52,7 @@ def _check(buf: torch.Tensor, dist: torch.Tensor):
         raise ValueError("buf and dist must be contiguous")
 
 
+@launch_site("frontier")
 def frontier(buf: torch.Tensor, dist: torch.Tensor, *, delta: float,
              strict: bool = False):
     """buf, dist: [Q, B] -> ``(d1 [Q, B], srcs [Q, B], prio_rows [Q])``."""

@@ -28,7 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, launch_site
 from repro_torch.kernels.contract import (GRAPH_B, GRAPH_Q, KernelContract,
                                           TileSpec)
 from repro_torch.kernels.fused_visit.ref import (POLICIES, FusedSpec,
@@ -260,6 +260,7 @@ class FusedVisit:
                 f"CUDA error {rc}")
         count_launch(LAUNCHES, "fused_visit")
 
+    @launch_site("fused_visit")
     def chunk(self, state, counter: int, launches: int,
               stats: torch.Tensor | None = None,
               key: torch.Tensor | None = None) -> torch.Tensor:

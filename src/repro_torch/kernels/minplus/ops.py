@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, launch_site
 from repro_torch.kernels.contract import (GRAPH_B, GRAPH_Q, KernelContract,
                                           TileSpec)
 from repro_torch.kernels.minplus.ref import masked_matmul_ref, minplus_ref
@@ -179,6 +179,7 @@ def _run(name: str, x, blocks, idx, lists, xrow=None) -> torch.Tensor:
     return out
 
 
+@launch_site("minplus")
 def minplus(x: torch.Tensor, blocks: Optional[torch.Tensor],
             idx: torch.Tensor, lists,
             xrow: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -187,6 +188,7 @@ def minplus(x: torch.Tensor, blocks: Optional[torch.Tensor],
     return _run("minplus", x, blocks, idx, lists, xrow)
 
 
+@launch_site("masked_matmul")
 def masked_matmul(x: torch.Tensor, blocks: Optional[torch.Tensor],
                   idx: torch.Tensor, lists,
                   xrow: Optional[torch.Tensor] = None) -> torch.Tensor:

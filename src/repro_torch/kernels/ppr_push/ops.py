@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_site
 from repro_torch.kernels.contract import (GRAPH_B, GRAPH_Q, KernelContract,
                                           TileSpec)
 from repro_torch.kernels.ppr_push.ref import push_ref
@@ -56,6 +56,7 @@ def _check(p, r, acc, w, deg):
         raise ValueError("p, r, acc and w must be contiguous")
 
 
+@launch_site("ppr_push")
 def ppr_push(p: torch.Tensor, r: torch.Tensor, acc: torch.Tensor,
              w: torch.Tensor, deg: torch.Tensor, *, alpha: float,
              eps: float):

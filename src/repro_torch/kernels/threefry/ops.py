@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, launch_site
 from repro_torch.kernels.contract import H100_SMS, KernelContract, TileSpec
 from repro_torch.kernels.threefry.ref import draw_ref
 
@@ -66,6 +66,7 @@ def _words(t: Optional[torch.Tensor], n: int, dev, what: str):
     return t.to(torch.int64).contiguous()
 
 
+@launch_site("threefry")
 def draw(key: torch.Tensor, n: int, *, folds: Sequence[torch.Tensor] = (),
          x1: Optional[torch.Tensor] = None,
          x2: Optional[torch.Tensor] = None, iota: bool = True,
